@@ -1,0 +1,451 @@
+"""Fused-kernel evaluator for the single-element Chebyshev ANNP, harmonic
+angular path.
+
+Counterpart of `PallasAnnp` (meng_zhang_tpu/ops/pallas_annp.py:912) on its
+harmonic path:
+  * tables `cheb_legendre`, `harm_tables`, `harm_layout` (:229-296), in
+    numpy (the JAX module imports jax);
+  * `pair_dx_planes` (:577) without the x8 packing and TILE padding;
+  * `compact_short` with the rev-free semantics of `_compact_block_norev`
+    (:698): rows keep the entries within rc + short_delta, ascending by
+    partner id, padded with n;
+  * `g_harm_plain` / `force_harm_plain`: plain PyTorch versions of the two
+    TPU kernels `_g_kernel_harm` (:299) and `_force_kernel_harm` (:352).
+    Their CUDA kernels live in csrc/annp_harm.cu and are launched through
+    ops/kernels.py;
+  * `FusedAnnp._mlp_eat_dedg_harm` (:1044), the MLP and its hand VJP;
+  * delivery: F_i = -sum_s Fj[i, s] + sum of Fj over the entries whose
+    partner is i, as one `index_add_` (the JAX package routes the same sums
+    with a sort, `_assemble` :638, because the TPU has no fast scatter);
+  * `energy_forces_short` (:1571) and `energy_forces` (:1648).
+
+Harmonic formulation: the Chebyshev angular descriptors
+G_n = 1/2 sum_{j!=k} T_n((cos+1)/2) fc_j fc_k are rewritten, through the
+spherical-harmonic addition theorem, as G_n = 1/2 (sum_l c_nl S_l - F2) with
+S_l = sum_m A_lm^2, A_lm = sum_j fc_j Y_lm(u_j) and F2 = sum_j fc_j^2. The
+per-pair work is the real-harmonic ladder up to L = ntsf - 1.
+"""
+from __future__ import annotations
+
+import math
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from meng_zhang_tpu.io.potential import ActivationStyle
+
+from ..models.mlp import _FE_A, _FE_B, _FE_C
+from . import kernels
+
+NSF_PAD = 128    # g_raw / dedg_rad row width
+AB_PAD = 384     # A / B row width: 361 harmonics for L = 18; B col 361 is 2q
+
+
+# ---------------------------------------------------------------- tables
+def cheb_legendre(ntsf):
+    """c[n, l] with sum_{j,k} T_n((cos_jk+1)/2) fc_j fc_k = sum_l c_nl S_l
+    (Gauss-Legendre, exact: the integrand is a polynomial of degree
+    <= 2(ntsf-1) < 128)."""
+    nodes, wts = np.polynomial.legendre.leggauss(64)
+    xs = 0.5 * (nodes + 1.0)
+    t = np.zeros((ntsf, 64))
+    t[0] = 1.0
+    if ntsf > 1:
+        t[1] = xs
+    for n in range(2, ntsf):
+        t[n] = 2.0 * xs * t[n - 1] - t[n - 2]
+    p = np.zeros((ntsf, 64))
+    p[0] = 1.0
+    if ntsf > 1:
+        p[1] = nodes
+    for l in range(2, ntsf):
+        p[l] = ((2 * l - 1) * nodes * p[l - 1] - (l - 1) * p[l - 2]) / l
+    return 2.0 * np.pi * np.einsum("ni,li,i->nl", t, p, wts)
+
+
+def harm_tables(lmax):
+    """Normalized real-harmonic recurrence coefficients (h0, d1, e1, e2).
+
+    Y_lm^c = H_lm(z) c_m(x, y), Y_lm^s = H_lm(z) s_m(x, y) with
+    c_m + i s_m = (x + i y)^m form an orthonormal real basis; the ladder
+    H_mm = h0[m], H_{m+1,m} = d1[m] z H_mm,
+    H_lm = e1[l,m] z H_{l-1,m} - e2[l,m] H_{l-2,m} keeps every value O(1)."""
+    alpha = {}
+    for l in range(lmax + 1):
+        for m in range(l + 1):
+            nlm = math.sqrt((2 * l + 1) / (4 * math.pi)
+                            * math.factorial(l - m) / math.factorial(l + m))
+            alpha[(l, m)] = (math.sqrt(2.0) if m > 0 else 1.0) * nlm
+    dfact = 1.0
+    h0 = []
+    for m in range(lmax + 1):
+        if m > 0:
+            dfact *= (2 * m - 1)
+        h0.append(alpha[(m, m)] * dfact)
+    d1 = [(2 * m + 1) * alpha[(m + 1, m)] / alpha[(m, m)]
+          for m in range(lmax)]
+    e1, e2 = {}, {}
+    for m in range(lmax + 1):
+        for l in range(m + 2, lmax + 1):
+            e1[(l, m)] = ((2 * l - 1) / (l - m)) * alpha[(l, m)] \
+                / alpha[(l - 1, m)]
+            e2[(l, m)] = ((l + m - 1) / (l - m)) * alpha[(l, m)] \
+                / alpha[(l - 2, m)]
+    return h0, d1, e1, e2
+
+
+def harm_layout(lmax):
+    """l of each A/B column: m-major, l ascending, cosine then sine."""
+    l_of_col = []
+    for m in range(lmax + 1):
+        for l in range(m, lmax + 1):
+            l_of_col.append(l)
+            if m > 0:
+                l_of_col.append(l)
+    return l_of_col
+
+
+def ladder_table(lmax):
+    """The ladder coefficients as one flat float64 array for the CUDA
+    kernels: [h0 (L+1) | d1 (L+1, last 0) | e1 (L+1)^2 | e2 (L+1)^2], with
+    e1/e2 at index l*(L+1) + m (0 where the recurrence does not use them)."""
+    h0, d1, e1, e2 = harm_tables(lmax)
+    nl = lmax + 1
+    t = np.zeros(2 * nl + 2 * nl * nl)
+    t[:nl] = h0
+    t[nl:nl + lmax] = d1
+    for (l, m), v in e1.items():
+        t[2 * nl + l * nl + m] = v
+    for (l, m), v in e2.items():
+        t[2 * nl + nl * nl + l * nl + m] = v
+    return t
+
+
+# ------------------------------------------------------- pair geometry
+def pair_geometry(dxx, dxy, dxz, rc):
+    """Per-pair scalars on [P, K] planes; masked lanes get r = 1 before 1/r
+    so filler lanes give exactly zero."""
+    rsq = dxx * dxx + dxy * dxy + dxz * dxz
+    mask = (rsq < rc * rc) & (rsq > 1.0e-12)
+    zero = torch.zeros_like(rsq)
+    r = torch.sqrt(torch.where(mask, rsq, torch.ones_like(rsq)))
+    fc = torch.where(mask, 0.5 * (torch.cos(math.pi / rc * r) + 1.0), zero)
+    dfc = torch.where(mask, -0.5 * math.pi / rc
+                      * torch.sin(math.pi / rc * r), zero)
+    inv_r = 1.0 / r
+    m = mask.to(r.dtype)
+    return r, fc, dfc, inv_r, m, dxx * inv_r * m, dxy * inv_r * m, \
+        dxz * inv_r * m
+
+
+def pair_dx_planes(x, box, sidx, pbc, row0=0):
+    """dx = x_i - x_j as three [P, K] planes for the neighbor rows sidx
+    [P, K] of atoms row0 .. row0 + P - 1. Filler lanes (sidx == n) get
+    2*box + 10 on every axis; the periodic wrap applies per axis."""
+    n = x.shape[0]
+    p = sidx.shape[0]
+    valid = sidx < n
+    xp = torch.cat([x, x.new_zeros(1, 3)])
+    out = []
+    for d in range(3):
+        dd = x[row0:row0 + p, d][:, None] - xp[sidx, d]
+        if pbc[d]:
+            dd = dd - box[d] * torch.round(dd / box[d])
+        out.append(torch.where(valid, dd, 2.0 * box[d] + 10.0))
+    return out
+
+
+class ShortList(NamedTuple):
+    """Refresh-static short-neighbor list (see compact_short)."""
+    sidx: torch.Tensor       # [N, Ks] int64 ascending partner ids, n filler
+    ref_x: torch.Tensor      # [N, 3] positions at compaction
+    overflow: torch.Tensor   # bool: some row had > Ks entries within rc_s
+
+
+def compact_short(x, box, nbr_idx, rc_s, ks, pbc, row_chunk=16384):
+    """Compact each skin-list row to its entries within rc_s, ascending by
+    partner id, padded with n to Ks columns (rev-free, `_compact_block_norev`
+    semantics). The list stays valid while no atom moves more than
+    (rc_s - rc)/2 since this call."""
+    n = x.shape[0]
+    parts = []
+    overflow = torch.zeros((), dtype=torch.bool, device=x.device)
+    for i0 in range(0, n, row_chunk):
+        idx_c = nbr_idx[i0:i0 + row_chunk]
+        dx, dy, dz = pair_dx_planes(x, box, idx_c, pbc, row0=i0)
+        rsq = dx * dx + dy * dy + dz * dz
+        # filler lanes lie at 2*box + 10 per axis, beyond any rc_s
+        mask = (rsq < rc_s * rc_s) & (rsq > 1.0e-12)
+        overflow = overflow | (mask.sum(dim=1) > ks).any()
+        key = torch.where(mask, idx_c, torch.full_like(idx_c, n))
+        key = torch.sort(key, dim=1).values[:, :ks]
+        if key.shape[1] < ks:
+            key = torch.cat([key, torch.full((key.shape[0], ks - key.shape[1]),
+                                             n, dtype=key.dtype,
+                                             device=key.device)], dim=1)
+        parts.append(key)
+    return ShortList(torch.cat(parts), x, overflow)
+
+
+# ------------------------------------------- plain versions of the kernels
+def g_harm_plain(dxx, dxy, dxz, npsf, ntsf, rc):
+    """Plain PyTorch `_g_kernel_harm`: (g_raw [P, 128], A [P, 384]).
+
+    g_raw cols [0, npsf) radial G_m = sum_j T_m(2r/rc - 1) fc_j, cols
+    [npsf, npsf+ntsf) S_l, col npsf+ntsf F2, rest 0; A holds A_lm in
+    harm_layout order, rest 0."""
+    lmax = ntsf - 1
+    h0, d1, e1, e2 = harm_tables(lmax)
+    r, fc, dfc, inv_r, m, ux, uy, uz = pair_geometry(dxx, dxy, dxz, rc)
+    xch = 2.0 * r / rc - 1.0
+    tp, tc = m, xch * m
+    cols = [(tp * fc).sum(1), (tc * fc).sum(1)]
+    for _ in range(2, npsf):
+        tp, tc = tc, 2.0 * xch * tc - tp
+        cols.append((tc * fc).sum(1))
+    a_cols = []
+    s_l = [None] * (lmax + 1)
+    cm, sm = m, torch.zeros_like(m)
+    for mm in range(lmax + 1):
+        if mm > 0:
+            cm, sm = ux * cm - uy * sm, ux * sm + uy * cm
+        h1 = h2 = None
+        for ll in range(mm, lmax + 1):
+            if ll == mm:
+                h = h0[mm] * m
+            elif ll == mm + 1:
+                h = d1[mm] * uz * h1
+            else:
+                h = e1[(ll, mm)] * uz * h1 - e2[(ll, mm)] * h2
+            w = fc * h
+            ac = (w * cm).sum(1)
+            a_cols.append(ac)
+            ss = ac * ac
+            if mm > 0:
+                as_ = (w * sm).sum(1)
+                a_cols.append(as_)
+                ss = ss + as_ * as_
+            s_l[ll] = ss if s_l[ll] is None else s_l[ll] + ss
+            h2, h1 = h1, h
+    cols.extend(s_l)
+    cols.append((fc * fc).sum(1))
+    g = torch.stack(cols, 1)
+    a = torch.stack(a_cols, 1)
+    return (torch.nn.functional.pad(g, (0, NSF_PAD - g.shape[1])),
+            torch.nn.functional.pad(a, (0, AB_PAD - a.shape[1])))
+
+
+def force_harm_plain(dxx, dxy, dxz, dedg_rad, b, npsf, ntsf, rc):
+    """Plain PyTorch `_force_kernel_harm`: per-pair Fj = -dE_i/dx_j as three
+    [P, K] planes. dedg_rad [P, 128] holds the radial dE/dG columns, b
+    [P, 384] the B_lm coefficients in harm_layout order with 2q after them."""
+    lmax = ntsf - 1
+    h0, d1, e1, e2 = harm_tables(lmax)
+    r, fc, dfc, inv_r, m, ux, uy, uz = pair_geometry(dxx, dxy, dxz, rc)
+
+    def wn(n):
+        return dedg_rad[:, n:n + 1]
+
+    xch = 2.0 * r / rc - 1.0
+    tp, tc = m, xch * m
+    dp, dc = torch.zeros_like(r), m
+    coeff = wn(0) * (tp * dfc)
+    coeff = coeff + wn(1) * (dc * (2.0 / rc) * fc + tc * dfc)
+    for n in range(2, npsf):
+        tp, tc, dp, dc = tc, 2.0 * xch * tc - tp, dc, \
+            2.0 * tc + 2.0 * xch * dc - dp
+        coeff = coeff + wn(n) * (dc * (2.0 / rc) * fc + tc * dfc)
+
+    zero = torch.zeros_like(r)
+    sy, gx, gy, gz = zero, zero, zero, zero
+    cm, sm = m, zero
+    cm1 = sm1 = None
+    col = 0
+    for mm in range(lmax + 1):
+        if mm > 0:
+            cm1, sm1 = cm, sm
+            cm, sm = ux * cm - uy * sm, ux * sm + uy * cm
+        h1 = h2 = hd1 = hd2 = None
+        for ll in range(mm, lmax + 1):
+            if ll == mm:
+                h = h0[mm] * m
+                hd = zero
+            elif ll == mm + 1:
+                h = d1[mm] * uz * h1
+                hd = d1[mm] * h1
+            else:
+                h = e1[(ll, mm)] * uz * h1 - e2[(ll, mm)] * h2
+                hd = e1[(ll, mm)] * (h1 + uz * hd1) - e2[(ll, mm)] * hd2
+            bc = b[:, col:col + 1]
+            col += 1
+            if mm > 0:
+                bs = b[:, col:col + 1]
+                col += 1
+                wc = bc * cm + bs * sm
+                gx = gx + (mm * h) * (bc * cm1 + bs * sm1)
+                gy = gy + (mm * h) * (bs * cm1 - bc * sm1)
+            else:
+                wc = bc * cm
+            sy = sy + h * wc
+            gz = gz + hd * wc
+            h2, h1 = h1, h
+            hd2, hd1 = hd1, hd
+    q2 = b[:, col:col + 1]
+    udotg = ux * gx + uy * gy + uz * gz
+    pref = dfc * (sy + q2 * fc) + fc * inv_r * (-udotg)
+    fcr = fc * inv_r
+    return ((coeff + pref) * ux + fcr * gx, (coeff + pref) * uy + fcr * gy,
+            (coeff + pref) * uz + fcr * gz)
+
+
+# ------------------------------------------------------------ evaluator
+def _act_and_grad(z, flag: int, style: str):
+    if flag == 0:
+        return z, torch.ones_like(z)
+    if flag == 1:
+        t = torch.tanh(z)
+        return t, 1.0 - t * t
+    if flag == 2:
+        s = 1.0 / (1.0 + torch.exp(z))
+        return s, s * (1.0 - s)
+    if style == ActivationStyle.FE:
+        t = torch.tanh(_FE_B * z)
+        if flag == 3:
+            return _FE_A * t, _FE_A * _FE_B * (1.0 - t * t)
+        return _FE_A * t + _FE_C * z, _FE_A * _FE_B * (1.0 - t * t) + _FE_C
+    t = torch.tanh(z)
+    return t, 1.0 - t * t
+
+
+class FusedAnnp:
+    """Per-step evaluator: gather -> g_harm -> MLP + VJP -> force_harm ->
+    index_add delivery.
+
+    k_short: short-list width Ks (128 on the benchmark path: bcc-Fe has at
+    most ~112 partners within 6.9 A). short_delta: the inner skin of the
+    refresh-static short list. plain=True runs the plain PyTorch versions of
+    the two kernels on any device (the f64 reference on the card); with
+    plain=False the kernel wrappers run, which launch the CUDA kernels for
+    CUDA tensors and take the plain versions only for CPU tensors.
+
+    Built for a CUDA device, it turns TF32 off for matmuls and cuDNN
+    (process-wide flags): the angular descriptors come out of S_l @ cmat
+    and then lose a mean up to ~70x their spread in the normalisation, so
+    TF32's 10-bit mantissa would reach the network inputs at the percent
+    level.
+    """
+
+    def __init__(self, cfg, params, k_short=128, short_delta=0.3,
+                 plain=False):
+        if params["w"][0].shape[0] != 1:
+            raise NotImplementedError("multi-element networks are not ported")
+        if len(params["w"]) != 3:
+            raise NotImplementedError("the fused path assumes two hidden "
+                                      "layers, as every shipped potential")
+        self.cfg = cfg
+        self.k_short = k_short
+        self.short_delta = short_delta
+        self.plain = plain
+        self.pbc = tuple(cfg.pbc)
+        self.npsf, self.ntsf = cfg.npsf, cfg.ntsf
+        dt = params["sf_scale"].dtype
+        dev = params["sf_scale"].device
+        if dev.type == "cuda":
+            torch.backends.cuda.matmul.allow_tf32 = False
+            torch.backends.cudnn.allow_tf32 = False
+        self.cmat = torch.as_tensor(cheb_legendre(cfg.ntsf), dtype=dt,
+                                    device=dev)
+        layout = harm_layout(cfg.ntsf - 1)
+        self.n_harm = len(layout)
+        assert self.n_harm <= AB_PAD - 1
+        self.l_of_col = torch.as_tensor(layout, device=dev)
+        self.scale, self.shift = params["sf_scale"], params["sf_shift"]
+        (self.w1, self.w2, self.w3) = (w[0] for w in params["w"])
+        (self.b1, self.b2, self.b3) = (b[0] for b in params["b"])
+
+    def compact_short(self, x, box, nbr_idx):
+        return compact_short(x, box, nbr_idx, self.cfg.cut + self.short_delta,
+                             self.k_short, self.pbc)
+
+    def _mlp_eat_dedg(self, g):
+        """MLP forward and hand VJP on normalized descriptors [P, nsf].
+        eat is the shift-free per-atom energy e_scale * nn(G)."""
+        c = self.cfg
+        fl = c.flagact
+        h1, d1 = _act_and_grad(g @ self.w1.T + self.b1, fl[0], c.act_style)
+        h2, d2 = _act_and_grad(h1 @ self.w2.T + self.b2, fl[1], c.act_style)
+        out, d3 = _act_and_grad(h2 @ self.w3.T + self.b3, fl[2], c.act_style)
+        eat = c.e_scale * out[:, 0]
+        v = d3 * self.w3
+        v = (v * d2) @ self.w2
+        v = (v * d1) @ self.w1
+        return eat, v * self.scale * c.e_scale
+
+    def _mlp_eat_dedg_harm(self, g_raw, a):
+        """S_l power sums -> angular G, MLP + VJP, then the force kernel's
+        per-atom coefficients: dedg_rad [P, 128] and b [P, 384] (B_lm, then
+        2q in column n_harm)."""
+        npsf, ntsf = self.npsf, self.ntsf
+        s_l = g_raw[:, npsf:npsf + ntsf]
+        f2 = g_raw[:, npsf + ntsf:npsf + ntsf + 1]
+        g_ang = 0.5 * (s_l @ self.cmat.T - f2)
+        g_all = torch.cat([g_raw[:, :npsf], g_ang], dim=1)
+        eat, dedg = self._mlp_eat_dedg((g_all - self.shift) * self.scale)
+        dedg_ang = dedg[:, npsf:]
+        bco = dedg_ang @ self.cmat
+        b = a[:, :self.n_harm] * bco[:, self.l_of_col]
+        q2 = -dedg_ang.sum(dim=1, keepdim=True)
+        b = torch.cat([b, q2, b.new_zeros(b.shape[0],
+                                          AB_PAD - self.n_harm - 1)], dim=1)
+        dedg_rad = torch.nn.functional.pad(dedg[:, :npsf],
+                                           (0, NSF_PAD - npsf))
+        return eat, dedg_rad, b
+
+    def _eval_fj(self, dxx, dxy, dxz):
+        c = self.cfg
+        g_fn = g_harm_plain if self.plain else kernels.g_harm
+        f_fn = force_harm_plain if self.plain else kernels.force_harm
+        g_raw, a = g_fn(dxx, dxy, dxz, c.npsf, c.ntsf, c.cut)
+        eat, dedg_rad, b = self._mlp_eat_dedg_harm(g_raw, a)
+        return eat, f_fn(dxx, dxy, dxz, dedg_rad, b, c.npsf, c.ntsf, c.cut)
+
+    def _evaluate(self, x, box, sidx, bad, shift):
+        n = x.shape[0]
+        dd = pair_dx_planes(x, box, sidx, self.pbc)
+        eat, fj = self._eval_fj(*dd)
+        # delivery: own row -sum_s Fj, partners +Fj through one index_add_.
+        # Filler lanes (sidx == n) carry Fj exactly 0 and add it to their
+        # own row: sent to one shared dump row instead, their ~2e6 atomic
+        # adds per step serialise on one address
+        fjs = torch.stack(fj, dim=-1)                          # [P, K, 3]
+        mask = sidx < n
+        rows = torch.arange(sidx.shape[0], device=x.device)[:, None]
+        forces = -fjs.sum(dim=1)
+        forces.index_add_(0, torch.where(mask, sidx, rows).reshape(-1),
+                          fjs.reshape(-1, 3))
+        # W_ab = -sum dx_a Fj_b: filler lanes and lanes beyond rc carry
+        # Fj = 0 exactly, so the sum needs no mask
+        w = torch.stack([torch.stack([-(da * fb).sum() for fb in fj])
+                         for da in dd])
+        w = 0.5 * (w + w.T)
+        e = eat.sum()
+        if shift:
+            e = e + n * self.cfg.e_shift
+        nan = torch.full((), float("nan"), dtype=x.dtype, device=x.device)
+        return (torch.where(bad, nan, e), torch.where(bad, nan, forces), w)
+
+    def energy_forces_short(self, x, box, sl: ShortList, shift=False):
+        """(E, F [N, 3], W [3, 3]) against a refresh-static ShortList.
+
+        E is shift-free unless shift=True (readers add n * e_shift in f64);
+        W_ab = -sum dx_a Fj_b over real lanes, symmetrized. Short-list
+        overflow NaN-poisons E and F."""
+        return self._evaluate(x, box, sl.sidx, sl.overflow, shift)
+
+    def energy_forces(self, x, box, nbr_idx, shift=False):
+        """Full evaluation from a skin list: compact to Ks at rc, then the
+        same per-step evaluation. Overflow of Ks NaN-poisons E and F."""
+        sl = compact_short(x, box, nbr_idx, self.cfg.cut, self.k_short,
+                           self.pbc)
+        return self._evaluate(x, box, sl.sidx, sl.overflow, shift)
