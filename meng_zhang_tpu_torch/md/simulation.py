@@ -8,7 +8,9 @@ Python loop of steps. A step keeps every flag (`stale`, `unsafe`,
 `overflow`) on the device and reads nothing back to the host; `run` reads
 one bool per block and rebuilds the skin list there when a step flagged it
 stale, as the JAX `run` does. The model's short list is refreshed on a fixed
-cadence of `short_every` steps inside the block.
+cadence of `short_every` steps inside the block. With a `force_fn_light`,
+outside NPT every step of a block but the last skips the virial, as the
+JAX `run_device` does (:445-478).
 """
 from __future__ import annotations
 
@@ -112,8 +114,11 @@ class Simulator:
     force_fn(x, box, nbrs) -> (pe, forces, virial [3, 3]); with short_build
     (x, box, nbrs) -> short list (a NamedTuple with .ref_x), force_fn is
     called as force_fn(x, box, nbrs, short) and the short list is rebuilt
-    every cfg.short_every steps. masses [N] fix the dtype and device of the
-    run's constants."""
+    every cfg.short_every steps. force_fn_light has force_fn's signature
+    and may return a zero virial cheaply; outside NPT it serves every step
+    whose virial nobody reads, all but the last of each thermo block (the
+    block-end thermo row reads the virial; NPT's barostat reads it every
+    step). masses [N] fix the dtype and device of the run's constants."""
 
     def __init__(self, force_fn: Callable, masses, cfg: MDConfig,
                  short_build: Optional[Callable] = None,
@@ -123,8 +128,6 @@ class Simulator:
         if short_build_colored is not None or cfg.short_host_refresh:
             raise NotImplementedError("the colored short list and its host "
                                       "refresh are not ported")
-        if force_fn_light is not None:
-            raise NotImplementedError("force_fn_light is not ported")
         if image_shifts is not None:
             raise NotImplementedError("thin-box image mode is not ported")
         if cfg.nbr_method not in ("cell", "n2"):
@@ -135,6 +138,7 @@ class Simulator:
             raise ValueError("short_build needs short_every > 0 dividing "
                              "thermo_every and short_skin > 0")
         self.force_fn = force_fn
+        self.force_fn_light = force_fn_light
         self.masses = masses
         self.cfg = cfg
         self.short_build = short_build
@@ -167,15 +171,19 @@ class Simulator:
                                     c.cell_capacity, pbc=c.pbc)
 
     # ---------- single step ----------
-    def _eval_force(self, x, box, nbrs, short=None):
+    def _eval_force(self, x, box, nbrs, short=None, light=False):
+        fn = self.force_fn_light if (light and self.force_fn_light
+                                     is not None) else self.force_fn
         if self.short_build is not None:
-            return self.force_fn(x, box, nbrs, short)
-        return self.force_fn(x, box, nbrs)
+            return fn(x, box, nbrs, short)
+        return fn(x, box, nbrs)
 
     def _refresh_short(self, s: MDState) -> MDState:
         return s._replace(short=self.short_build(s.x, s.box, s.nbrs))
 
-    def step(self, s: MDState) -> MDState:
+    def step(self, s: MDState, light: bool = False) -> MDState:
+        """One velocity-Verlet step; light=True evaluates forces with
+        force_fn_light (no virial)."""
         c = self.cfg
         dt = c.dt
         m = self.masses
@@ -206,7 +214,7 @@ class Simulator:
         if self.short_build is not None:
             msq_s = max_displacement_sq(s.short.ref_x, x, box, c.pbc)
             unsafe = unsafe | (msq_s > (0.5 * c.short_skin) ** 2)
-        pe, f, w = self._eval_force(x, box, nbrs, s.short)
+        pe, f, w = self._eval_force(x, box, nbrs, s.short, light)
         v = I.vv_kick(v, f, m, 0.5 * dt)
 
         s = MDState(x=x, v=v, f=f, box=box, pe=pe, virial=w, nbrs=nbrs,
@@ -322,17 +330,17 @@ class Simulator:
     # ---------- run loop ----------
     def run_block(self, s: MDState):
         """thermo_every steps, refreshing the short list every short_every
-        steps; returns (state, Thermo of the block's last step)."""
+        steps; returns (state, Thermo of the block's last step). With a
+        light force variant outside NPT, all steps but the block's last
+        skip the virial."""
         every = self.cfg.thermo_every
-        if self.short_build is None:
-            for _ in range(every):
-                s = self.step(s)
-        else:
-            se = self.cfg.short_every
-            for _ in range(every // se):
+        light = (self.force_fn_light is not None
+                 and self.cfg.ensemble != "npt")
+        se = every if self.short_build is None else self.cfg.short_every
+        for i in range(every):
+            if self.short_build is not None and i % se == 0:
                 s = self._refresh_short(s)
-                for _ in range(se):
-                    s = self.step(s)
+            s = self.step(s, light=light and i < every - 1)
         return s, self.thermo(s)
 
     def rebuild(self, s: MDState) -> MDState:

@@ -1,14 +1,17 @@
-"""Chebyshev symmetry-function descriptors (the plain-math oracle).
+"""Chebyshev and Behler-Parrinello symmetry-function descriptors (the
+plain-math oracles).
 
 Counterpart of meng_zhang_tpu/models/descriptors.py: `cutoff_cos`,
-`chebyshev_t`, `chebyshev_g` (:44). Derivatives come from torch autograd,
-as they come from jax.grad there.
+`chebyshev_t`, `chebyshev_g` (:44) and `behler_g` (:82). Derivatives come
+from torch autograd, as they come from jax.grad there.
 """
 from __future__ import annotations
 
 import math
 
 import torch
+
+from meng_zhang_tpu.units import CFLENGTH
 
 
 def cutoff_cos(r, rc):
@@ -60,4 +63,59 @@ def chebyshev_g(dx, mask, npsf: int, ntsf: int, rc):
         t_prev, t_cur = t_cur, 2.0 * xa * t_cur - t_prev
         sums.append((wjk * t_cur).sum(dim=(-1, -2)))
     g_ang = 0.5 * torch.stack(sums, dim=-1)
+    return torch.cat([g_rad, g_ang], dim=-1)
+
+
+def behler_g(dx, mask, coerad, coeang):
+    """Raw Behler-Parrinello descriptor vector(s) (ni variant).
+
+    Lengths enter in Bohr (r_m = r * CFLENGTH). Radial G2, ignoring the
+    parsed-but-unused rs column:
+        G[m] = sum_j exp(-eta_m r_m^2) fc(r_m, Rc_m)          for r_m < Rc_m
+    Angular G4 with the j-k leg:
+        G[npsf+n] = sum_{j<k} 2^(1-zeta)(1+lambda cos t)^zeta
+                    * exp(-eta (rij^2+rik^2+rjk^2)) fc fc fc
+        for all three legs < Rc; terms with (1+lambda cos t) <= 0 skipped.
+
+    dx [..., K, 3] in Angstrom, mask [..., K]; coerad [npsf, 3]
+    (eta, rs, Rc) and coeang [ntsf, 4] (eta, lambda, zeta, Rc) in atomic
+    units, of dx's dtype and device; returns [..., npsf + ntsf]. The
+    leading axes batch atoms (the JAX function is vmapped over them).
+    """
+    rsq = (dx * dx).sum(dim=-1)
+    one = torch.ones_like(rsq)
+    r = torch.where(mask, torch.sqrt(torch.where(mask, rsq, one)), one)
+    rm = r * CFLENGTH                                          # Bohr
+    zero = torch.zeros((), dtype=dx.dtype, device=dx.device)
+    # radial
+    eta_r, rc_r = coerad[:, 0], coerad[:, 2]
+    in_r = mask[..., None] & (rm[..., None] < rc_r)            # [..., K, m]
+    fc_r = cutoff_cos(rm[..., None], rc_r)
+    g_rad = torch.where(in_r, torch.exp(-eta_r * rm[..., None] ** 2) * fc_r,
+                        zero).sum(dim=-2)
+
+    # angular (masked unit vectors zeroed, see chebyshev_g)
+    u = torch.where(mask[..., None], dx / r[..., None], zero)
+    cosjk = torch.matmul(u, u.transpose(-1, -2))               # [..., K, K]
+    k = mask.shape[-1]
+    pair_m = mask[..., :, None] & mask[..., None, :]
+    pair_m = pair_m & ~torch.eye(k, dtype=torch.bool, device=dx.device)
+    # r_jk from the displacement difference: x_j - x_k = dx_k - dx_j
+    djk = dx[..., None, :, :] - dx[..., :, None, :]
+    rjk = torch.sqrt(torch.where(pair_m, (djk * djk).sum(dim=-1),
+                                 torch.ones_like(cosjk)))
+    rjk_m = torch.where(pair_m, rjk * CFLENGTH, torch.ones_like(rjk))
+    eta_a, lam_a, zet_a = coeang[:, 0], coeang[:, 1], coeang[:, 2]
+    rc_a = coeang[0, 3]
+    legs = pair_m & (rm[..., :, None] < rc_a) & (rm[..., None, :] < rc_a) \
+        & (rjk_m < rc_a)
+    r2sum = rm[..., :, None] ** 2 + rm[..., None, :] ** 2 + rjk_m ** 2
+    fcfcfc = (cutoff_cos(rm[..., :, None], rc_a)
+              * cutoff_cos(rm[..., None, :], rc_a) * cutoff_cos(rjk_m, rc_a))
+    flag = 1.0 + lam_a * cosjk[..., None]                   # [..., K, K, n]
+    ok = legs[..., None] & (flag > 0.0)
+    term = (2.0 ** (1.0 - zet_a)
+            * torch.where(ok, flag, torch.ones_like(flag)) ** zet_a
+            * torch.exp(-eta_a * r2sum[..., None]) * fcfcfc[..., None])
+    g_ang = 0.5 * torch.where(ok, term, zero).sum(dim=(-3, -2))
     return torch.cat([g_rad, g_ang], dim=-1)

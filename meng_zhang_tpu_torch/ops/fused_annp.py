@@ -19,6 +19,10 @@ harmonic path:
     with a sort, `_assemble` :638, because the TPU has no fast scatter);
   * `energy_forces_short` (:1571) and `energy_forces` (:1648).
 
+`single_network`, `mlp_eat_dedg` and `evaluate_pairs` (gather, delivery,
+virial, poisoning) are shared with the BP evaluator (ops/fused_ni.py), as
+`PairTableOps` (:623) is shared with `PallasNi` in the JAX package.
+
 Harmonic formulation: the Chebyshev angular descriptors
 G_n = 1/2 sum_{j!=k} T_n((cos+1)/2) fc_j fc_k are rewritten, through the
 spherical-harmonic addition theorem, as G_n = 1/2 (sum_l c_nl S_l - F2) with
@@ -318,6 +322,70 @@ def _act_and_grad(z, flag: int, style: str):
     return t, 1.0 - t * t
 
 
+def single_network(params):
+    """((w1, w2, w3), (b1, b2, b3)) of a one-element, two-hidden-layer
+    params dict, the network shape the fused evaluators take."""
+    if params["w"][0].shape[0] != 1:
+        raise NotImplementedError("multi-element networks are not ported")
+    if len(params["w"]) != 3:
+        raise NotImplementedError("the fused path assumes two hidden "
+                                  "layers, as every shipped potential")
+    return (tuple(w[0] for w in params["w"]),
+            tuple(b[0] for b in params["b"]))
+
+
+def mlp_eat_dedg(cfg, net, g, scale):
+    """MLP forward and hand VJP on normalized descriptors g [P, nsf]:
+    (eat [P], dE/dG_raw [P, nsf]). eat is the shift-free per-atom energy
+    e_scale * nn(g); the gradient is taken with respect to the raw
+    descriptors, g = (G_raw - shift) * scale, and carries e_scale.
+    Counterpart of `_mlp_eat_dedg` (meng_zhang_tpu/ops/pallas_annp.py:1017,
+    ops/pallas_ni.py:339)."""
+    (w1, w2, w3), (b1, b2, b3) = net
+    fl, style = cfg.flagact, cfg.act_style
+    h1, d1 = _act_and_grad(g @ w1.T + b1, fl[0], style)
+    h2, d2 = _act_and_grad(h1 @ w2.T + b2, fl[1], style)
+    out, d3 = _act_and_grad(h2 @ w3.T + b3, fl[2], style)
+    eat = cfg.e_scale * out[:, 0]
+    v = d3 * w3
+    v = (v * d2) @ w2
+    v = (v * d1) @ w1
+    return eat, v * scale * cfg.e_scale
+
+
+def evaluate_pairs(eval_fj, x, box, sidx, bad, pbc, e_shift, shift,
+                   want_virial=True):
+    """One evaluation against the short rows sidx [P, K]: gather the dx
+    planes, eval_fj(dxx, dxy, dxz) -> (eat [P], (fjx, fjy, fjz) [P, K])
+    with Fj = -dE_i/dx_j per pair, then deliver. Returns (E, F [N, 3]) and,
+    with want_virial, W [3, 3]; `bad` NaN-poisons E and F."""
+    n = x.shape[0]
+    dd = pair_dx_planes(x, box, sidx, pbc)
+    eat, fj = eval_fj(*dd)
+    # delivery: own row -sum_s Fj, partners +Fj through one index_add_.
+    # Filler lanes (sidx == n) carry Fj exactly 0 and add it to their
+    # own row: sent to one shared dump row instead, their ~2e6 atomic
+    # adds per step serialise on one address
+    fjs = torch.stack(fj, dim=-1)                          # [P, K, 3]
+    mask = sidx < n
+    rows = torch.arange(sidx.shape[0], device=x.device)[:, None]
+    forces = -fjs.sum(dim=1)
+    forces.index_add_(0, torch.where(mask, sidx, rows).reshape(-1),
+                      fjs.reshape(-1, 3))
+    e = eat.sum()
+    if shift:
+        e = e + n * e_shift
+    nan = torch.full((), float("nan"), dtype=x.dtype, device=x.device)
+    out = (torch.where(bad, nan, e), torch.where(bad, nan, forces))
+    if want_virial:
+        # W_ab = -sum dx_a Fj_b: filler lanes and lanes beyond rc carry
+        # Fj = 0 exactly, so the sum needs no mask
+        w = torch.stack([torch.stack([-(da * fb).sum() for fb in fj])
+                         for da in dd])
+        out = out + (0.5 * (w + w.T),)
+    return out
+
+
 class FusedAnnp:
     """Per-step evaluator: gather -> g_harm -> MLP + VJP -> force_harm ->
     index_add delivery.
@@ -338,11 +406,6 @@ class FusedAnnp:
 
     def __init__(self, cfg, params, k_short=128, short_delta=0.3,
                  plain=False):
-        if params["w"][0].shape[0] != 1:
-            raise NotImplementedError("multi-element networks are not ported")
-        if len(params["w"]) != 3:
-            raise NotImplementedError("the fused path assumes two hidden "
-                                      "layers, as every shipped potential")
         self.cfg = cfg
         self.k_short = k_short
         self.short_delta = short_delta
@@ -361,26 +424,11 @@ class FusedAnnp:
         assert self.n_harm <= AB_PAD - 1
         self.l_of_col = torch.as_tensor(layout, device=dev)
         self.scale, self.shift = params["sf_scale"], params["sf_shift"]
-        (self.w1, self.w2, self.w3) = (w[0] for w in params["w"])
-        (self.b1, self.b2, self.b3) = (b[0] for b in params["b"])
+        self.net = single_network(params)
 
     def compact_short(self, x, box, nbr_idx):
         return compact_short(x, box, nbr_idx, self.cfg.cut + self.short_delta,
                              self.k_short, self.pbc)
-
-    def _mlp_eat_dedg(self, g):
-        """MLP forward and hand VJP on normalized descriptors [P, nsf].
-        eat is the shift-free per-atom energy e_scale * nn(G)."""
-        c = self.cfg
-        fl = c.flagact
-        h1, d1 = _act_and_grad(g @ self.w1.T + self.b1, fl[0], c.act_style)
-        h2, d2 = _act_and_grad(h1 @ self.w2.T + self.b2, fl[1], c.act_style)
-        out, d3 = _act_and_grad(h2 @ self.w3.T + self.b3, fl[2], c.act_style)
-        eat = c.e_scale * out[:, 0]
-        v = d3 * self.w3
-        v = (v * d2) @ self.w2
-        v = (v * d1) @ self.w1
-        return eat, v * self.scale * c.e_scale
 
     def _mlp_eat_dedg_harm(self, g_raw, a):
         """S_l power sums -> angular G, MLP + VJP, then the force kernel's
@@ -391,7 +439,9 @@ class FusedAnnp:
         f2 = g_raw[:, npsf + ntsf:npsf + ntsf + 1]
         g_ang = 0.5 * (s_l @ self.cmat.T - f2)
         g_all = torch.cat([g_raw[:, :npsf], g_ang], dim=1)
-        eat, dedg = self._mlp_eat_dedg((g_all - self.shift) * self.scale)
+        eat, dedg = mlp_eat_dedg(self.cfg, self.net,
+                                 (g_all - self.shift) * self.scale,
+                                 self.scale)
         dedg_ang = dedg[:, npsf:]
         bco = dedg_ang @ self.cmat
         b = a[:, :self.n_harm] * bco[:, self.l_of_col]
@@ -410,42 +460,19 @@ class FusedAnnp:
         eat, dedg_rad, b = self._mlp_eat_dedg_harm(g_raw, a)
         return eat, f_fn(dxx, dxy, dxz, dedg_rad, b, c.npsf, c.ntsf, c.cut)
 
-    def _evaluate(self, x, box, sidx, bad, shift):
-        n = x.shape[0]
-        dd = pair_dx_planes(x, box, sidx, self.pbc)
-        eat, fj = self._eval_fj(*dd)
-        # delivery: own row -sum_s Fj, partners +Fj through one index_add_.
-        # Filler lanes (sidx == n) carry Fj exactly 0 and add it to their
-        # own row: sent to one shared dump row instead, their ~2e6 atomic
-        # adds per step serialise on one address
-        fjs = torch.stack(fj, dim=-1)                          # [P, K, 3]
-        mask = sidx < n
-        rows = torch.arange(sidx.shape[0], device=x.device)[:, None]
-        forces = -fjs.sum(dim=1)
-        forces.index_add_(0, torch.where(mask, sidx, rows).reshape(-1),
-                          fjs.reshape(-1, 3))
-        # W_ab = -sum dx_a Fj_b: filler lanes and lanes beyond rc carry
-        # Fj = 0 exactly, so the sum needs no mask
-        w = torch.stack([torch.stack([-(da * fb).sum() for fb in fj])
-                         for da in dd])
-        w = 0.5 * (w + w.T)
-        e = eat.sum()
-        if shift:
-            e = e + n * self.cfg.e_shift
-        nan = torch.full((), float("nan"), dtype=x.dtype, device=x.device)
-        return (torch.where(bad, nan, e), torch.where(bad, nan, forces), w)
-
     def energy_forces_short(self, x, box, sl: ShortList, shift=False):
         """(E, F [N, 3], W [3, 3]) against a refresh-static ShortList.
 
         E is shift-free unless shift=True (readers add n * e_shift in f64);
         W_ab = -sum dx_a Fj_b over real lanes, symmetrized. Short-list
         overflow NaN-poisons E and F."""
-        return self._evaluate(x, box, sl.sidx, sl.overflow, shift)
+        return evaluate_pairs(self._eval_fj, x, box, sl.sidx, sl.overflow,
+                              self.pbc, self.cfg.e_shift, shift)
 
     def energy_forces(self, x, box, nbr_idx, shift=False):
         """Full evaluation from a skin list: compact to Ks at rc, then the
         same per-step evaluation. Overflow of Ks NaN-poisons E and F."""
         sl = compact_short(x, box, nbr_idx, self.cfg.cut, self.k_short,
                            self.pbc)
-        return self._evaluate(x, box, sl.sidx, sl.overflow, shift)
+        return evaluate_pairs(self._eval_fj, x, box, sl.sidx, sl.overflow,
+                              self.pbc, self.cfg.e_shift, shift)

@@ -1,0 +1,290 @@
+"""Fused-kernel evaluator for the single-element Behler-Parrinello ANNP (ni).
+
+Counterpart of meng_zhang_tpu/ops/pallas_ni.py:
+  * `ni_table`, the kernels' static configuration (`_ni_cfg_key`, :57);
+  * `ni_g_plain` / `ni_force_plain`: plain PyTorch versions of the two TPU
+    kernels `_ni_g_kernel` (:126) and `_ni_force_kernel` (:170). Their CUDA
+    kernels live in csrc/ni_bp.cu and are launched through ops/kernels.py;
+  * `FusedNi`, the counterpart of `PallasNi` (:298): refresh-static short
+    list at the descriptor cutoff + short_delta, gather, G2/G4 descriptors,
+    the min-max-normalised MLP and its hand VJP, per-pair forces, and the
+    `index_add_` delivery shared with ops/fused_annp.py.
+
+Layout: the TPU kernels run transposed [Ks, 128] blocks (the ni rows hold
+only ~20 partners, so the fe layout would waste 3/4 of each TPU vector
+register). The port keeps the [P, Ks] planes of the fe path: g and dedg
+are [P, 32] (NSF_SUB, nsf = 27), Fj three [P, Ks] planes.
+
+Units: descriptor math runs in Bohr (r_Bohr = r_A * CFLENGTH); dE/dG
+carries e_scale = NI_HARTREE_EV, so dE/dG * dG/dr_Bohr * CFLENGTH is a force
+in eV/A.
+"""
+from __future__ import annotations
+
+import math
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from meng_zhang_tpu.units import CFLENGTH
+
+from . import fused_annp as fa
+from . import kernels
+
+NSF_SUB = 32      # g / dedg row width (nsf = 27 in the shipped potential)
+
+
+class NiTable(NamedTuple):
+    """Static kernel configuration: radial ((eta, rc), ...) per radial
+    function; rc_a, the one angular cutoff; angular ((eta, ((lam, zeta,
+    col), ...)), ...) grouped by eta, col the descriptor column npsf + n of
+    coeang row n (all in Bohr units)."""
+    rad: tuple
+    rc_a: float
+    ang: tuple
+
+
+def ni_table(coerad, coeang) -> NiTable:
+    """The kernels' table from the coefficient tables (arrays or tensors).
+
+    Grouping by eta shares exp(-eta * r2sum) across the functions of each
+    eta (2 lambda x 4 zeta in the shipped table); groups come in order of
+    first appearance, functions in row order, and columns follow the row
+    order whatever the grouping."""
+    coerad = np.asarray(torch.as_tensor(coerad).cpu(), np.float64)
+    coeang = np.asarray(torch.as_tensor(coeang).cpu(), np.float64)
+    rad = tuple((float(e), float(rc)) for e, _, rc in coerad)
+    rc_a = float(coeang[0, 3])
+    if not np.all(coeang[:, 3] == coeang[0, 3]):
+        raise ValueError("per-function angular cutoffs are not supported in "
+                         "the fused ni kernels")
+    groups = {}
+    for n, (eta, lam, zeta, _rc) in enumerate(coeang):
+        groups.setdefault(float(eta), []).append(
+            (float(lam), float(zeta), len(rad) + n))
+    ang = tuple((eta, tuple(fns)) for eta, fns in groups.items())
+    return NiTable(rad, rc_a, ang)
+
+
+def _pow_zeta(f1, zeta):
+    """(f1^zeta, zeta * f1^(zeta-1)) by repeated squaring when zeta is a
+    power of two (every zeta of the shipped table), by pow otherwise; the
+    products run in the TPU kernel's order (`_pow_zeta`, :79)."""
+    zi = int(zeta)
+    if zeta == zi and zi > 0 and (zi & (zi - 1)) == 0:
+        p, fzm = f1, None
+        for _ in range(zi.bit_length() - 1):
+            fzm = p if fzm is None else fzm * p
+            p = p * p
+        return p, zeta * (torch.ones_like(f1) if fzm is None else fzm)
+    return f1 ** zeta, zeta * f1 ** (zeta - 1.0)
+
+
+def _ni_geometry(dxx, dxy, dxz, rc_a):
+    """Per-pair scalars on [P, K] planes (`_ni_geometry`, :105). Masked
+    lanes get a Bohr radius a = rc_a + 1 so exp and sqrt stay finite;
+    filler lanes (dx = 2 box + 10) are masked by in_a."""
+    rsq = dxx * dxx + dxy * dxy + dxz * dxz
+    valid = rsq > 1.0e-12
+    r = torch.sqrt(torch.where(valid, rsq, torch.ones_like(rsq)))
+    inv_r = 1.0 / r
+    m = valid.to(dxx.dtype)
+    ux, uy, uz = dxx * inv_r * m, dxy * inv_r * m, dxz * inv_r * m
+    rm_true = r * CFLENGTH
+    in_a = valid & (rm_true < rc_a)
+    a = torch.where(in_a, rm_true, torch.full_like(rm_true, rc_a + 1.0))
+    zero = torch.zeros_like(r)
+    fc_a = torch.where(in_a, 0.5 * (torch.cos(math.pi / rc_a * a) + 1.0),
+                       zero)
+    dfc_a = torch.where(in_a, -0.5 * math.pi / rc_a
+                        * torch.sin(math.pi / rc_a * a), zero)
+    return r, inv_r, ux, uy, uz, rm_true, in_a, a, fc_a, dfc_a
+
+
+def _radial_in(r, rm_true, rc_r):
+    in_r = (rm_true < rc_r) & (r > 1.0e-6)
+    return in_r, torch.where(in_r, rm_true, torch.full_like(rm_true, rc_r))
+
+
+def _pair_legs(ux, uy, uz, a, in_a, q, rc_a):
+    """The (p, q) pair terms of the q loop for every lane p at once."""
+    uq = (ux[:, q:q + 1], uy[:, q:q + 1], uz[:, q:q + 1])
+    aq = a[:, q:q + 1]
+    cos = ux * uq[0] + uy * uq[1] + uz * uq[2]
+    rjk2 = a * a + aq * aq - 2.0 * a * aq * cos
+    lane = torch.arange(a.shape[1], device=a.device)
+    legs = in_a & in_a[:, q:q + 1] & (rjk2 < rc_a * rc_a) & (lane != q)
+    rjk = torch.sqrt(torch.where(legs, rjk2.clamp_min(1.0e-12),
+                                 torch.ones_like(rjk2)))
+    r2sum = a * a + aq * aq + torch.where(legs, rjk2, torch.zeros_like(rjk2))
+    return uq, aq, cos, legs, rjk, r2sum
+
+
+def ni_g_plain(dxx, dxy, dxz, table: NiTable):
+    """Plain PyTorch `_ni_g_kernel`: raw descriptors g [P, 32] from the
+    [P, K] dx planes. Cols [0, npsf) radial G2 = sum exp(-eta r^2) fc,
+    cols npsf + n angular G4 = 1/2 sum_{p != q} 2^(1-zeta)
+    (1 + lambda cos)^zeta exp(-eta r2sum) fc fc fc, rest 0 (Bohr)."""
+    rad, rc_a, ang = table
+    r, inv_r, ux, uy, uz, rm_true, in_a, a, fc_a, dfc_a = _ni_geometry(
+        dxx, dxy, dxz, rc_a)
+    zero = torch.zeros_like(r)
+    cols = [zero[:, 0]] * NSF_SUB
+    for mi, (eta, rc_r) in enumerate(rad):
+        in_r, rr = _radial_in(r, rm_true, rc_r)
+        fc_r = torch.where(in_r, 0.5 * (torch.cos(math.pi / rc_r * rr)
+                                        + 1.0), zero)
+        cols[mi] = (torch.exp(-eta * rr * rr) * fc_r).sum(dim=1)
+    acc = {col: zero for _, fns in ang for _, _, col in fns}
+    for q in range(dxx.shape[1]):
+        _, _, cos, legs, rjk, r2sum = _pair_legs(ux, uy, uz, a, in_a, q, rc_a)
+        fc_jk = 0.5 * (torch.cos(math.pi / rc_a * rjk) + 1.0)
+        fc3 = torch.where(legs, fc_a * fc_a[:, q:q + 1] * fc_jk, zero)
+        for eta, fns in ang:
+            t_eta = torch.exp(-eta * r2sum) * fc3
+            for lam, zeta, col in fns:
+                fz, _ = _pow_zeta(1.0 + lam * cos, zeta)
+                acc[col] = acc[col] + (2.0 ** (1.0 - zeta)) * fz * t_eta
+    for col, v in acc.items():
+        cols[col] = 0.5 * v.sum(dim=1)
+    return torch.stack(cols, dim=1)
+
+
+def ni_force_plain(dxx, dxy, dxz, dedg, table: NiTable):
+    """Plain PyTorch `_ni_force_kernel`: per-pair Fj = -dE_i/dx_j as three
+    [P, K] planes, from dedg [P, 32] = dE/dG already multiplied by
+    sf_scale * e_scale. Radial: Fj += CFL w dg u; angular: the u_p
+    coefficient (acc1) and the u_q-projected vector (acc2) accumulate over
+    the q loop, Fj -= acc1 u + acc2; no reductions."""
+    rad, rc_a, ang = table
+    r, inv_r, ux, uy, uz, rm_true, in_a, a, fc_a, dfc_a = _ni_geometry(
+        dxx, dxy, dxz, rc_a)
+    zero = torch.zeros_like(r)
+    coeff = zero
+    for mi, (eta, rc_r) in enumerate(rad):
+        in_r, rr = _radial_in(r, rm_true, rc_r)
+        fc_r = 0.5 * (torch.cos(math.pi / rc_r * rr) + 1.0)
+        dfc_r = -0.5 * math.pi / rc_r * torch.sin(math.pi / rc_r * rr)
+        e_r = torch.exp(-eta * rr * rr)
+        dg = torch.where(in_r, e_r * (dfc_r - 2.0 * eta * rr * fc_r), zero)
+        coeff = coeff + dedg[:, mi:mi + 1] * dg
+    # dG2/dx_j = dg * CFL * (-u_j);  Fj = -w dG => + CFL w dg u
+    coeff = coeff * CFLENGTH
+
+    acc1 = acc2x = acc2y = acc2z = zero
+    for q in range(dxx.shape[1]):
+        uq, aq, cos, legs, rjk, r2sum = _pair_legs(ux, uy, uz, a, in_a, q,
+                                                   rc_a)
+        fcq = fc_a[:, q:q + 1]
+        ang_jk = math.pi / rc_a * rjk
+        fc_jk = 0.5 * (torch.cos(ang_jk) + 1.0)
+        dfc_jk = -0.5 * math.pi / rc_a * torch.sin(ang_jk)
+        lm = legs.to(dxx.dtype)
+        fc3 = fc_a * fcq * fc_jk * lm
+        p_a = p_e = p_cs = zero    # sum_eta e S_A, eta e S_A, e S_C
+        for eta, fns in ang:
+            e_eta = torch.exp(-eta * r2sum)
+            s_a = s_c = zero
+            for lam, zeta, col in fns:
+                wv = dedg[:, col:col + 1] * (2.0 ** (1.0 - zeta))
+                fz, dfz = _pow_zeta(1.0 + lam * cos, zeta)
+                s_a = s_a + wv * fz
+                s_c = s_c + (wv * lam) * dfz
+            t_a = e_eta * s_a
+            p_a = p_a + t_a
+            p_e = p_e + eta * t_a
+            p_cs = p_cs + e_eta * s_c
+        # partials of h in the independent variables c, a_p, rjk
+        p_c = fc3 * p_cs
+        p_ap = -2.0 * a * p_e * fc3 + dfc_a * fcq * fc_jk * lm * p_a
+        p_jk = -2.0 * rjk * p_e * fc3 + fc_a * fcq * dfc_jk * lm * p_a
+        inv_rjk = torch.where(legs, 1.0 / rjk, zero)
+        # d(sum w G)/dx_p = C1 u_p + C2 u_q, from dc/dx_p = (c u_p - u_q)/r_p,
+        # da_p/dx_p = -CFL u_p, drjk/dx_p = CFL (a_q u_q - a_p u_p)/rjk
+        c1 = (p_c * cos * inv_r - CFLENGTH * p_ap
+              - CFLENGTH * p_jk * a * inv_rjk)
+        c2 = -p_c * inv_r + CFLENGTH * p_jk * aq * inv_rjk
+        acc1 = acc1 + c1
+        acc2x = acc2x + c2 * uq[0]
+        acc2y = acc2y + c2 * uq[1]
+        acc2z = acc2z + c2 * uq[2]
+    # Fj = -(d sum w G / dx_j): radial +coeff u (sign folded above),
+    # angular -(acc1 u + acc2)
+    return ((coeff - acc1) * ux - acc2x, (coeff - acc1) * uy - acc2y,
+            (coeff - acc1) * uz - acc2z)
+
+
+class FusedNi:
+    """Per-step BP evaluator: gather -> ni_g -> min-max MLP + VJP ->
+    ni_force -> index_add delivery.
+
+    k_short: short-list width Ks (32 on the ni path: fcc has 18 partners
+    within rc + 0.2 = 4.10 A). short_delta: the inner skin of the
+    refresh-static short list. plain=True runs the plain PyTorch versions
+    of the two kernels on any device (the f64 reference on the card); with
+    plain=False the kernel wrappers run, which launch the CUDA kernels for
+    CUDA tensors and take the plain versions only for CPU tensors.
+
+    Built for a CUDA device, it turns TF32 off for matmuls and cuDNN
+    (process-wide flags), as FusedAnnp does: min-max normalisation divides
+    some G4 columns by spans near 1e-6, so the network inputs must keep
+    full f32.
+    """
+
+    def __init__(self, cfg, params, k_short=32, short_delta=0.3,
+                 plain=False):
+        self.cfg = cfg
+        self.net = fa.single_network(params)
+        self.k_short = k_short
+        self.short_delta = short_delta
+        self.plain = plain
+        self.pbc = tuple(cfg.pbc)
+        self.table = ni_table(params["coerad"], params["coeang"])
+        self.rc = max(max(rc for _, rc in self.table.rad),
+                      self.table.rc_a) / CFLENGTH            # Angstrom
+        self.nsf = cfg.npsf + cfg.ntsf
+        if self.nsf > NSF_SUB:
+            raise ValueError(f"{self.nsf} descriptors exceed the kernels' "
+                             f"{NSF_SUB} columns")
+        if params["sf_scale"].device.type == "cuda":
+            torch.backends.cuda.matmul.allow_tf32 = False
+            torch.backends.cudnn.allow_tf32 = False
+        self.scale, self.shift = params["sf_scale"], params["sf_shift"]
+
+    @property
+    def short_rc(self):
+        return self.rc
+
+    def compact_short(self, x, box, nbr_idx):
+        return fa.compact_short(x, box, nbr_idx,
+                                self.short_rc + self.short_delta,
+                                self.k_short, self.pbc)
+
+    def _eval_fj(self, dxx, dxy, dxz):
+        g_fn = ni_g_plain if self.plain else kernels.ni_g
+        f_fn = ni_force_plain if self.plain else kernels.ni_force
+        g = g_fn(dxx, dxy, dxz, self.table)
+        # ni normalisation (G - min) * 1/(max - min)
+        eat, dedg = fa.mlp_eat_dedg(
+            self.cfg, self.net, (g[:, :self.nsf] - self.shift) * self.scale,
+            self.scale)
+        dedg = torch.nn.functional.pad(dedg, (0, NSF_SUB - self.nsf))
+        return eat, f_fn(dxx, dxy, dxz, dedg, self.table)
+
+    def energy_forces_short(self, x, box, sl: fa.ShortList, want_virial=True,
+                            shift=False):
+        """(E, F [N, 3]) and, with want_virial, W [3, 3] against a
+        refresh-static ShortList. E is shift-free unless shift=True; the
+        light MD step passes want_virial=False and skips W. Short-list
+        overflow NaN-poisons E and F."""
+        return fa.evaluate_pairs(self._eval_fj, x, box, sl.sidx, sl.overflow,
+                                 self.pbc, self.cfg.e_shift, shift,
+                                 want_virial)
+
+    def energy_forces(self, x, box, nbr_idx, want_virial=True, shift=False):
+        """Full evaluation from a skin list: compact to Ks at the
+        descriptor cutoff + short_delta, then the per-step evaluation."""
+        return self.energy_forces_short(x, box,
+                                        self.compact_short(x, box, nbr_idx),
+                                        want_virial, shift)

@@ -2,19 +2,23 @@
 
 `csrc/annp_harm.cu` holds `g_harm` (replaces the TPU kernel
 `_g_kernel_harm`, meng_zhang_tpu/ops/pallas_annp.py:299) and `force_harm`
-(replaces `_force_kernel_harm`, :352). The source is compiled at first use
-by `nvcc` for `sm_90a` into a plain-C shared library under
-`meng_zhang_tpu_torch/_build/<hash of source and flags>/`, and bound with
+(replaces `_force_kernel_harm`, :352); `csrc/ni_bp.cu` holds `ni_g`
+(replaces `_ni_g_kernel`, meng_zhang_tpu/ops/pallas_ni.py:126) and
+`ni_force` (replaces `_ni_force_kernel`, :170). Every `.cu` under `csrc/`
+is compiled at first use by `nvcc` for `sm_90a` into its own plain-C
+shared library under `meng_zhang_tpu_torch/_build/<hash of the sources and
+flags>/` (one nvcc per source, all started together), and bound with
 ctypes; kernels run on PyTorch's current stream.
 
-Each wrapper takes the kernel's plain PyTorch version (ops/fused_annp.py)
-only when its inputs lie on the CPU. For CUDA tensors it launches the kernel
-or raises; it counts its launches in `launches`.
+Each wrapper takes the kernel's plain PyTorch version (ops/fused_annp.py,
+ops/fused_ni.py) only when its inputs lie on the CPU. For CUDA tensors it
+launches the kernel or raises; it counts its launches in `launches`.
 """
 from __future__ import annotations
 
 import ctypes
 import functools
+import glob
 import hashlib
 import os
 import shutil
@@ -23,15 +27,15 @@ import time
 
 import torch
 
-from . import fused_annp
+from . import fused_annp, fused_ni
 
-_SRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc",
-                    "annp_harm.cu")
+_CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
 _BUILD_ROOT = os.path.join(
     os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "_build")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
-MAX_K = 256          # one thread per lane, at most 8 warps per row block
+MAX_K = 256          # harmonic kernels: one thread per lane, <= 8 warps
+NI_MAX_K = 32        # ni kernels: one warp per row, one lane per slot
 
 
 def _nvcc():
@@ -46,57 +50,83 @@ def _nvcc():
 
 
 def build():
-    """Compile the kernels if this source and flag set has not been built
-    yet; returns (library path, build seconds, compiler log). The library
-    is written to a temporary name and renamed, so concurrent builds
-    never load a partial file."""
-    with open(_SRC, "rb") as f:
-        src = f.read()
-    key = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    out_dir = os.path.join(_BUILD_ROOT, key)
-    lib = os.path.join(out_dir, "libannp_harm.so")
+    """Compile every csrc/*.cu into lib<stem>.so unless this set of sources
+    and flags has been built already; returns ({stem: library path}, build
+    seconds, compiler log). The nvcc processes run in parallel; each library
+    is written to a temporary name and renamed, so concurrent builds never
+    load a partial file."""
+    srcs = sorted(glob.glob(os.path.join(_CSRC, "*.cu")))
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in srcs:
+        with open(src, "rb") as f:
+            h.update(os.path.basename(src).encode() + b"\0" + f.read())
+    out_dir = os.path.join(_BUILD_ROOT, h.hexdigest()[:16])
+    stems = [os.path.splitext(os.path.basename(s))[0] for s in srcs]
+    libs = {stem: os.path.join(out_dir, f"lib{stem}.so") for stem in stems}
     log_path = os.path.join(out_dir, "build.log")
-    if os.path.exists(lib):
+    if all(os.path.exists(p) for p in libs.values()):
         with open(log_path) as f:
-            return lib, 0.0, f.read()
+            return libs, 0.0, f.read()
     os.makedirs(out_dir, exist_ok=True)
-    tmp = f"{lib}.{os.getpid()}.tmp"
+    nvcc = _nvcc()
     t0 = time.monotonic()
-    res = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, _SRC],
-                         capture_output=True, text=True)
+    jobs = []
+    for src, (stem, lib) in zip(srcs, libs.items()):
+        tmp = f"{lib}.{os.getpid()}.tmp"
+        jobs.append((stem, lib, tmp, subprocess.Popen(
+            [nvcc, *NVCC_FLAGS, "-o", tmp, src], stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True)))
+    logs, failed = [], []
+    for stem, lib, tmp, proc in jobs:
+        out = proc.communicate()[0]
+        logs.append(f"== {stem}.cu\n{out}")
+        if proc.returncode != 0:
+            failed.append(f"{stem}.cu ({proc.returncode})")
     secs = time.monotonic() - t0
-    log = res.stdout + res.stderr
-    if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({res.returncode}):\n{log}")
+    log = "".join(logs)
+    if failed:
+        raise RuntimeError(f"nvcc failed: {', '.join(failed)}\n{log}")
     with open(log_path, "w") as f:
         f.write(log)
-    os.replace(tmp, lib)
-    return lib, secs, log
+    for _, lib, tmp, _ in jobs:
+        os.replace(tmp, lib)
+    return libs, secs, log
 
 
 @functools.cache
-def _lib():
-    lib = ctypes.CDLL(build()[0])
+def _libs():
     vp, ll, ci, cd = (ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
                       ctypes.c_double)
+    paths = build()[0]
+    harm, ni = ctypes.CDLL(paths["annp_harm"]), ctypes.CDLL(paths["ni_bp"])
     for suffix in ("f32", "f64"):
-        g = getattr(lib, f"annp_g_harm_{suffix}")
+        g = getattr(harm, f"annp_g_harm_{suffix}")
         g.argtypes = [vp] * 6 + [ll, ci, ci, ci, cd, vp]
         g.restype = ci
-        fn = getattr(lib, f"annp_force_harm_{suffix}")
+        fn = getattr(harm, f"annp_force_harm_{suffix}")
         fn.argtypes = [vp] * 9 + [ll, ci, ci, ci, cd, vp]
         fn.restype = ci
-    return lib
+        g = getattr(ni, f"ni_g_{suffix}")
+        g.argtypes = [vp] * 4 + [ll, ci, vp, vp]
+        g.restype = ci
+        fn = getattr(ni, f"ni_force_{suffix}")
+        fn.argtypes = [vp] * 7 + [ll, ci, vp, vp]
+        fn.restype = ci
+        size = getattr(ni, f"ni_cfg_size_{suffix}")
+        size.restype = ci
+        if size() != ctypes.sizeof(_NI_CFG[suffix]):
+            raise RuntimeError("ni_bp.cu's NiCfg layout differs from the "
+                               "ctypes mirror in ops/kernels.py")
+    return harm, ni
 
 
 _SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
 
 
-def _check(planes, npsf, ntsf):
+def _check_planes(planes, max_k):
     dev = planes[0].device
     if dev.type != "cuda":
-        raise ValueError(f"harmonic kernels take CUDA or CPU tensors, got "
-                         f"{dev}")
+        raise ValueError(f"the kernels take CUDA or CPU tensors, got {dev}")
     p, k = planes[0].shape
     for t in planes:
         if t.device != dev or t.dtype != planes[0].dtype \
@@ -105,8 +135,13 @@ def _check(planes, npsf, ntsf):
                              "one dtype on one device")
     if planes[0].dtype not in _SUFFIX:
         raise ValueError(f"unsupported dtype {planes[0].dtype}")
-    if not 1 <= k <= MAX_K:
-        raise ValueError(f"K = {k} outside [1, {MAX_K}]")
+    if not 1 <= k <= max_k:
+        raise ValueError(f"K = {k} outside [1, {max_k}]")
+    return p, k
+
+
+def _check(planes, npsf, ntsf):
+    p, k = _check_planes(planes, MAX_K)
     if npsf < 2 or ntsf < 1 or ntsf * ntsf > fused_annp.AB_PAD - 1 \
             or npsf + ntsf + 1 > fused_annp.NSF_PAD:
         raise ValueError(f"npsf {npsf}, ntsf {ntsf} outside the kernels' "
@@ -157,7 +192,7 @@ class GHarm(_HarmKernel):
                         device=dxx.device)
         a = torch.empty((p, fused_annp.AB_PAD), dtype=dxx.dtype,
                         device=dxx.device)
-        fn = getattr(_lib(), f"annp_g_harm_{_SUFFIX[dxx.dtype]}")
+        fn = getattr(_libs()[0], f"annp_g_harm_{_SUFFIX[dxx.dtype]}")
         with torch.cuda.device(dxx.device):
             stream = torch.cuda.current_stream().cuda_stream
             rc_ = fn(dxx.data_ptr(), dxy.data_ptr(), dxz.data_ptr(),
@@ -183,7 +218,7 @@ class ForceHarm(_HarmKernel):
         _check_row(dedg_rad, planes, fused_annp.NSF_PAD, "dedg_rad")
         _check_row(b, planes, fused_annp.AB_PAD, "b")
         out = [torch.empty_like(dxx) for _ in range(3)]
-        fn = getattr(_lib(), f"annp_force_harm_{_SUFFIX[dxx.dtype]}")
+        fn = getattr(_libs()[0], f"annp_force_harm_{_SUFFIX[dxx.dtype]}")
         with torch.cuda.device(dxx.device):
             stream = torch.cuda.current_stream().cuda_stream
             rc_ = fn(dxx.data_ptr(), dxy.data_ptr(), dxz.data_ptr(),
@@ -196,10 +231,114 @@ class ForceHarm(_HarmKernel):
         return tuple(out)
 
 
+# ---------------------------------------------------------------- ni
+_NI_MAX_RAD, _NI_MAX_ANG = 8, 32
+
+
+def _ni_cfg_type(real):
+    """ctypes mirror of NiCfg<T> (csrc/ni_bp.cu)."""
+    ci, cd = ctypes.c_int, ctypes.c_double
+    return type(f"NiCfg_{real.__name__}", (ctypes.Structure,), {"_fields_": [
+        ("nrad", ci), ("nang", ci), ("rc_a", cd),
+        ("rad_eta", cd * _NI_MAX_RAD), ("rad_rc", cd * _NI_MAX_RAD),
+        ("eta", real * _NI_MAX_ANG), ("lam", real * _NI_MAX_ANG),
+        ("zeta", real * _NI_MAX_ANG), ("coef", real * _NI_MAX_ANG),
+        ("col", ci * _NI_MAX_ANG), ("zlog2", ci * _NI_MAX_ANG),
+        ("first", ci * _NI_MAX_ANG)]})
+
+
+_NI_CFG = {"f32": _ni_cfg_type(ctypes.c_float),
+           "f64": _ni_cfg_type(ctypes.c_double)}
+
+
+@functools.cache
+def _ni_cfg(table, suffix):
+    """The kernels' NiCfg for a fused_ni.NiTable (functions group-major)."""
+    fns = [(eta, gi == 0, lam, zeta, col) for eta, group in table.ang
+           for gi, (lam, zeta, col) in enumerate(group)]
+    if len(table.rad) > _NI_MAX_RAD or len(fns) > _NI_MAX_ANG:
+        raise ValueError(f"{len(table.rad)} radial / {len(fns)} angular "
+                         f"functions exceed the kernels' {_NI_MAX_RAD} / "
+                         f"{_NI_MAX_ANG}")
+    if sorted(c for *_, c in fns) != list(range(
+            len(table.rad), len(table.rad) + len(fns))):
+        raise ValueError("angular columns must follow the radial ones")
+    c = _NI_CFG[suffix]()
+    c.nrad, c.nang, c.rc_a = len(table.rad), len(fns), table.rc_a
+    for i, (eta, rc) in enumerate(table.rad):
+        c.rad_eta[i], c.rad_rc[i] = eta, rc
+    for f, (eta, first, lam, zeta, col) in enumerate(fns):
+        zi = int(zeta)
+        pow2 = zeta == zi and zi > 0 and (zi & (zi - 1)) == 0
+        c.eta[f], c.lam[f], c.zeta[f] = eta, lam, zeta
+        c.coef[f] = 2.0 ** (1.0 - zeta)
+        c.col[f], c.first[f] = col, int(first)
+        c.zlog2[f] = zi.bit_length() - 1 if pow2 else -1
+    return c
+
+
+def _check_ni(planes):
+    p, k = _check_planes(planes, NI_MAX_K)
+    return p, k, _SUFFIX[planes[0].dtype]
+
+
+class NiG:
+    """ni_g(dxx, dxy, dxz, table) -> raw BP descriptors g [P, 32]; see
+    fused_ni.ni_g_plain."""
+
+    def __init__(self):
+        self.launches = 0
+
+    def __call__(self, dxx, dxy, dxz, table):
+        if dxx.device.type == "cpu":
+            return fused_ni.ni_g_plain(dxx, dxy, dxz, table)
+        p, k, suffix = _check_ni((dxx, dxy, dxz))
+        cfg = _ni_cfg(table, suffix)
+        g = torch.empty((p, fused_ni.NSF_SUB), dtype=dxx.dtype,
+                        device=dxx.device)
+        fn = getattr(_libs()[1], f"ni_g_{suffix}")
+        with torch.cuda.device(dxx.device):
+            stream = torch.cuda.current_stream().cuda_stream
+            rc_ = fn(dxx.data_ptr(), dxy.data_ptr(), dxz.data_ptr(),
+                     g.data_ptr(), p, k, ctypes.addressof(cfg), stream)
+        _raise_on(rc_, "ni_g")
+        self.launches += 1
+        return g
+
+
+class NiForce:
+    """ni_force(dxx, dxy, dxz, dedg, table) -> per-pair Fj = -dE_i/dx_j as
+    three [P, K] planes, dedg [P, 32] carrying sf_scale * e_scale; see
+    fused_ni.ni_force_plain."""
+
+    def __init__(self):
+        self.launches = 0
+
+    def __call__(self, dxx, dxy, dxz, dedg, table):
+        if dxx.device.type == "cpu":
+            return fused_ni.ni_force_plain(dxx, dxy, dxz, dedg, table)
+        planes = (dxx, dxy, dxz)
+        p, k, suffix = _check_ni(planes)
+        _check_row(dedg, planes, fused_ni.NSF_SUB, "dedg")
+        cfg = _ni_cfg(table, suffix)
+        out = [torch.empty_like(dxx) for _ in range(3)]
+        fn = getattr(_libs()[1], f"ni_force_{suffix}")
+        with torch.cuda.device(dxx.device):
+            stream = torch.cuda.current_stream().cuda_stream
+            rc_ = fn(dxx.data_ptr(), dxy.data_ptr(), dxz.data_ptr(),
+                     dedg.data_ptr(), *(o.data_ptr() for o in out), p, k,
+                     ctypes.addressof(cfg), stream)
+        _raise_on(rc_, "ni_force")
+        self.launches += 1
+        return tuple(out)
+
+
 g_harm = GHarm()
 force_harm = ForceHarm()
+ni_g = NiG()
+ni_force = NiForce()
 
 
 def reset_launch_counts():
-    g_harm.launches = 0
-    force_harm.launches = 0
+    for kernel in (g_harm, force_harm, ni_g, ni_force):
+        kernel.launches = 0

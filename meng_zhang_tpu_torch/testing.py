@@ -1,21 +1,36 @@
-"""Synthetic fe Chebyshev-ANNP potentials of the shipped shape (numpy only).
+"""Synthetic ANNP potentials of the shipped shapes (numpy only).
 
-The shipped `fe_annp_potential_2.ann` is not part of the repository, so the
-port's tests and `chip_smoke.py` run on a potential with the same shape --
-npsf 9 + ntsf 19 = 28 descriptors, two hidden layers of 10 nodes, rc 6.5 A,
-activation flags (4, 4, 0), FE activation style, Gaussian normalisation --
-and random weights drawn from a seed. Kernel cost does not depend on the
-weight values, and both packages evaluate the same numbers from it.
+The shipped `fe_annp_potential_2.ann` and `ni_annp_potential_2.ann` are not
+part of the repository, so the port's tests and `chip_smoke.py` run on
+potentials with the same shapes and random weights drawn from a seed:
+
+  * fe (Chebyshev): npsf 9 + ntsf 19 = 28 descriptors, two hidden layers of
+    10 nodes, rc 6.5 A, activation flags (4, 4, 0), FE activation style,
+    Gaussian normalisation;
+  * ni (Behler-Parrinello): npsf 3 + ntsf 24 = 27 descriptors, two hidden
+    layers of 24 nodes, Rc 7.3699319 Bohr, min-max normalisation, NI
+    activation style (the shape tests/test_potential_io.py pins).
+
+Kernel cost does not depend on the weight values, and both packages
+evaluate the same numbers from them.
 """
 from __future__ import annotations
 
 import numpy as np
 
-from meng_zhang_tpu.geometry.lattice import bcc
-from meng_zhang_tpu.io.potential import (ACT_LINEAR, ACT_TTANH,
+from meng_zhang_tpu.geometry.lattice import bcc, fcc
+from meng_zhang_tpu.io.potential import (ACT_LINEAR, ACT_TANH, ACT_TTANH,
                                          ActivationStyle, AnnpPotential,
-                                         NetworkParams, SYM_CHEBYSHEV)
-from meng_zhang_tpu.units import MASS_FE
+                                         NetworkParams, SYM_BEHLER,
+                                         SYM_CHEBYSHEV)
+from meng_zhang_tpu.units import CFLENGTH, MASS_FE, MASS_NI
+
+RC_NI_BOHR = 7.3699319        # the shipped ni coefficient tables' Rc
+NI_ETAS = (0.01, 0.02, 0.05)  # the shipped radial etas
+# angular rows (eta, lambda, zeta): 3 eta groups x lambda -1, +1 x zeta
+# 1, 2, 4, 16, ending with (0.05, 1, 16) as the shipped table does
+NI_ANGULAR = tuple((eta, lam, zeta) for eta in NI_ETAS for lam in (-1.0, 1.0)
+                   for zeta in (1.0, 2.0, 4.0, 16.0))
 
 
 def _chebyshev_g_np(x, box, npsf, ntsf, rc, rows=None):
@@ -58,6 +73,33 @@ def thermal_bcc(cells, seed=0, disp=0.08):
                                                   size=x.shape), box
 
 
+def _paired_wells(rng, g0n, nnod, v_scale):
+    """Random weights (w1, w2, w3), (b1, b2, b3) of a two-hidden-layer
+    network whose energy has a stable minimum at the normalised
+    descriptors g0n [nsf] of the perfect lattice (a fully random network
+    leaves the crystal mechanically unstable: it melts within a few hundred
+    steps). First-layer units come in pairs z = +-v.(g - g0) + c, c < 0;
+    f(z+) + f(z-) is then an even well in v.g, of width about 1/(2|v|) in
+    normalised units (|v| ~ v_scale) and bounded depth, so that atoms near
+    a free surface, far outside every well, gain little energy by crowding
+    their neighbours. Second-layer units weigh both units of a pair alike
+    with weights >= 0 and the output weights are positive, so each well
+    survives the monotone activations."""
+    if nnod % 2:
+        raise ValueError("nnod must be even (first-layer units in pairs)")
+    nsf = len(g0n)
+    npair = nnod // 2
+    v = v_scale * rng.normal(size=(npair, nsf)) / np.sqrt(nsf)
+    c = -rng.uniform(0.5, 1.5, npair)
+    w1 = np.empty((nnod, nsf))
+    w1[0::2], w1[1::2] = v, -v
+    b1 = np.empty(nnod)
+    b1[0::2], b1[1::2] = c - v @ g0n, c + v @ g0n
+    w2 = np.repeat(rng.uniform(0.0, 0.5, (nnod, npair)), 2, axis=1)
+    w3 = np.abs(rng.normal(size=(1, nnod))) / np.sqrt(nnod)
+    return (w1, w2, w3), (b1, 0.1 * rng.normal(size=nnod), np.zeros(1))
+
+
 def synthetic_fe_potential(seed=0, npsf=9, ntsf=19, nnod=10, cut=6.5,
                            e_scale=0.1) -> AnnpPotential:
     """A Chebyshev ANNP of the shipped fe shape with seeded random weights.
@@ -68,7 +110,7 @@ def synthetic_fe_potential(seed=0, npsf=9, ntsf=19, nnod=10, cut=6.5,
     the normalised network inputs are O(1) in bulk.
 
     The weights are random but arranged so that the perfect lattice is a
-    stable minimum (see the comment below); e_scale sets its stiffness.
+    stable minimum (`_paired_wells`); e_scale sets its stiffness.
     A weaker potential melts: at RMS forces near 0.05 eV/A the 300 K
     lattice drifts by 0.4 A in 200 steps and its rows within rc + 0.4 A
     outgrow the short list's 128 slots. The default e_scale = 0.1 was
@@ -91,32 +133,10 @@ def synthetic_fe_potential(seed=0, npsf=9, ntsf=19, nnod=10, cut=6.5,
     g = _chebyshev_g_np(x, box, npsf, ntsf, cut)
     norm_row1 = g.mean(0)
     norm_row0 = (g * g).mean(0)
-    # Random weights arranged so that the perfect lattice is a stable
-    # minimum (a fully random network leaves bcc mechanically unstable: the
-    # crystal melts within a few hundred steps). First-layer units come in
-    # pairs z = +-v.(g - g0) + c, c < 0, centred on the perfect lattice's
-    # normalised descriptors g0; f(z+) + f(z-) is then an even well in v.g,
-    # of width about 1/(2|v|) in normalised units and bounded depth, so
-    # that atoms near a free surface, far outside every well, gain little
-    # energy by crowding their neighbours. Second-layer units weigh both
-    # units of a pair alike with weights >= 0 and the output weights are
-    # positive, so each well survives the monotone activations.
-    if nnod % 2:
-        raise ValueError("nnod must be even (first-layer units in pairs)")
-    npair = nnod // 2
     scale = 1.0 / np.sqrt(norm_row0 - norm_row1 ** 2)
     g0n = (_chebyshev_g_np(*bcc(5), npsf, ntsf, cut, rows=[0])[0]
            - norm_row1) * scale
-    v = 2.0 * rng.normal(size=(npair, nsf)) / np.sqrt(nsf)
-    c = -rng.uniform(0.5, 1.5, npair)
-    w1 = np.empty((nnod, nsf))
-    w1[0::2], w1[1::2] = v, -v
-    b1 = np.empty(nnod)
-    b1[0::2], b1[1::2] = c - v @ g0n, c + v @ g0n
-    w2 = np.repeat(rng.uniform(0.0, 0.5, (nnod, npair)), 2, axis=1)
-    w3 = np.abs(rng.normal(size=(1, nnod))) / np.sqrt(nnod)
-    weights = (w1, w2, w3)
-    biases = (b1, 0.1 * rng.normal(size=nnod), np.zeros(1))
+    weights, biases = _paired_wells(rng, g0n, nnod, 2.0)
     net = NetworkParams(weights=weights, biases=biases,
                         flagact=(ACT_TTANH, ACT_TTANH, ACT_LINEAR),
                         act_style=ActivationStyle.FE)
@@ -126,3 +146,148 @@ def synthetic_fe_potential(seed=0, npsf=9, ntsf=19, nnod=10, cut=6.5,
         flagsym=SYM_CHEBYSHEV, norm_row0=norm_row0, norm_row1=norm_row1,
         norm_style="gaussian", e_scale=float(e_scale), e_shift=-4479.8,
         e_atom=0.0, networks=(net,), sym_coerad=None, sym_coeang=None)
+
+
+def _behler_g_np(x, box, coerad, coeang, rows=None):
+    """Raw Behler-Parrinello descriptors [len(rows), npsf + ntsf] of a fully
+    periodic box (the definition of models/descriptors.behler_g, in numpy:
+    lengths in Bohr, the j-k leg from the displacement difference, terms
+    with 1 + lambda cos <= 0 skipped); rows defaults to every atom."""
+    rows = range(len(x)) if rows is None else rows
+    npsf = len(coerad)
+    rc_a = coeang[0, 3]
+    rc = max(coerad[:, 2].max(), rc_a) / CFLENGTH
+
+    def fc(rb, rcb):
+        return 0.5 * (np.cos(np.pi / rcb * rb) + 1.0)
+
+    out = np.zeros((len(rows), npsf + len(coeang)))
+    for o, i in enumerate(rows):
+        dx = x[i] - x
+        dx -= box * np.round(dx / box)
+        r = np.sqrt((dx * dx).sum(1))
+        keep = (r < rc) & (r > 1.0e-6)
+        dx, r = dx[keep], r[keep]
+        rm = r * CFLENGTH
+        for m, (eta, _, rc_r) in enumerate(coerad):
+            out[o, m] = np.where(rm < rc_r, np.exp(-eta * rm * rm)
+                                 * fc(rm, rc_r), 0.0).sum()
+        u = dx / r[:, None]
+        cos = u @ u.T
+        djk = dx[None, :, :] - dx[:, None, :]
+        rjk = np.sqrt((djk * djk).sum(-1)) * CFLENGTH
+        legs = (rm[:, None] < rc_a) & (rm[None, :] < rc_a) & (rjk < rc_a)
+        np.fill_diagonal(legs, False)
+        r2sum = rm[:, None] ** 2 + rm[None, :] ** 2 + rjk ** 2
+        fc3 = fc(rm, rc_a)[:, None] * fc(rm, rc_a)[None, :] * fc(rjk, rc_a)
+        for n, (eta, lam, zeta, _) in enumerate(coeang):
+            flag = 1.0 + lam * cos
+            ok = legs & (flag > 0.0)
+            term = (2.0 ** (1.0 - zeta) * np.where(ok, flag, 1.0) ** zeta
+                    * np.exp(-eta * r2sum) * fc3)
+            out[o, npsf + n] = 0.5 * np.where(ok, term, 0.0).sum()
+    return out
+
+
+def _radial_derivs(coerad, r, h=1.0e-3):
+    """First and second r-derivatives of each radial basis function
+    exp(-eta r^2) fc(r) at r (Bohr), by central differences."""
+    def basis(x):
+        return np.array([np.exp(-eta * x * x)
+                         * 0.5 * (np.cos(np.pi / rc * x) + 1.0)
+                         for eta, _, rc in coerad])
+    b = [basis(r - h), basis(r), basis(r + h)]
+    return (b[2] - b[0]) / (2.0 * h), (b[2] - 2.0 * b[1] + b[0]) / (h * h)
+
+
+def thermal_fcc(cells, seed=0, disp=0.08, a=3.52):
+    """fcc block of `cells` (int or 3-tuple) unit cells, lattice constant
+    `a` (fcc-Ni 3.52 A), with Gaussian displacements of `disp` A per
+    component drawn from `seed`; returns numpy (x [N, 3], box [3])."""
+    x, box = fcc(cells, a)
+    return x + np.random.default_rng(seed).normal(scale=disp,
+                                                  size=x.shape), box
+
+
+def synthetic_ni_potential(seed=0, npsf=3, nnod=24, rc_bohr=RC_NI_BOHR,
+                           ang=NI_ANGULAR, w_out=2.0) -> AnnpPotential:
+    """A Behler-Parrinello ANNP of the shipped ni shape with seeded random
+    weights.
+
+    Coefficient tables: radial rows (eta, 0, Rc) for the first npsf of the
+    shipped etas (0.01, 0.02, 0.05); angular rows (eta, lambda, zeta, Rc)
+    from `ang` (ntsf = len(ang)). No test pins the shipped angular etas, so
+    the default table reuses the radial three: 3 eta groups x lambda -1, +1
+    x zeta 1, 2, 4, 16 = 24 rows, ending with (0.05, 1, 16, 7.3699319) as
+    the shipped file does. rc_bohr is every row's Rc (7.3699319 Bohr =
+    3.90 A); the header cutoff stays the shipped 6.5 A.
+
+    Normalisation is min-max, (G - min) / (max - min), with min and max
+    taken over the descriptors of a 4x4x4 fcc box (a = 3.52 A) with
+    Gaussian displacements of 0.2 A per component, each widened by 5 % of
+    its span. A 0.1 A box would give the (1 - cos)^16 columns spans near
+    1e-6, and their normalised values would then reach ~10 at 0.15 A.
+    Activations: tanh hidden layers, linear output, NI style.
+
+    The weights are random but arranged so that the perfect fcc lattice is
+    a stable minimum. nnod/2 - 1 pairs of first-layer units form wells
+    (`_paired_wells`, width about 1/16 in normalised units); w_out scales
+    the output layer and with it the energy (in Hartree; the model
+    multiplies it by NI_HARTREE_EV). The wells see each atom's descriptors
+    only to first order in shell sums, which shear leaves unchanged: alone
+    they leave the transverse modes quartic and the lattice drifts (0.33 A
+    RMS in 100 steps at 400 K). So the last pair becomes one cohesion unit,
+    linear near the lattice, whose input is sum_m c_m (G_m - G0_m) over
+    the radial descriptors: a pair potential phi(r) = sum_m c_m
+    exp(-eta_m r^2) fc(r) with phi' = 0 and phi'' = 1 per Bohr^2 at the
+    first shell (2.49 A) and phi'' = 0 at the second (3.52 A), where a
+    negative curvature would soften <100> modes. Nearest-neighbour springs
+    make fcc rigid: on a 108-atom box every Hessian eigenvalue but the
+    three translations is >= 0.5 eV/A^2 (f64 plain path).
+
+    On a periodic 864-atom box (6^3 cells) NVT at 1200 K from 600 K (dt
+    1 fs, tau_t 0.1 ps, f32, the port's plain path on the CPU) the
+    temperature dips to ~200 K and recovers to ~375 K in 100 steps, the
+    RMS displacement levels off at 0.12 A, at most 22 partners lie within
+    rc + 0.2 = 4.10 A (Ks = 32; fcc has 18, its third shell of 24 sits at
+    4.31 A), and the thermal pressure is ~330 kbar. On the 256,000-atom
+    scene of `scripts/model_bench.py --model ni` on an NVIDIA H100 (f32,
+    the CUDA kernels, chip_smoke.py) the temperature reads 560 K after 5
+    steps, 187 K at step 40 and 348 K at step 100, the widest short row
+    holds 25 of 32 partners, and the pressure stays within 278-359 kbar.
+    A weaker or plainly random potential melts the crystal and the thermal
+    rows outgrow Ks. The network is stiff: forces reach hundreds of eV/A
+    on a box displaced by 0.08 A per component.
+    """
+    rng = np.random.default_rng(seed)
+    coerad = np.array([(eta, 0.0, rc_bohr) for eta in NI_ETAS[:npsf]])
+    coeang = np.array([(eta, lam, zeta, rc_bohr) for eta, lam, zeta in ang])
+    x, box = thermal_fcc(4, seed=12345, disp=0.2)
+    g = _behler_g_np(x, box, coerad, coeang)
+    lo, hi = g.min(0), g.max(0)
+    pad = 0.05 * (hi - lo)
+    norm_row0, norm_row1 = lo - pad, hi + pad
+    g0 = _behler_g_np(*fcc(4, 3.52), coerad, coeang, rows=[0])[0]
+    g0n = (g0 - norm_row0) / (norm_row1 - norm_row0)
+    (w1, w2, w3), (b1, b2, b3) = _paired_wells(rng, g0n, nnod, 8.0)
+    # cohesion unit: c solves phi'(r1) = 0, phi''(r1) = 1, phi''(r2) = 0
+    # (as many conditions as radial functions)
+    (s1, c1), (_, c2) = (_radial_derivs(coerad, r * CFLENGTH)
+                         for r in (3.52 / np.sqrt(2.0), 3.52))
+    c = np.linalg.solve(np.stack([s1, c1, c2])[:npsf],
+                        np.array([0.0, 1.0, 0.0])[:npsf])
+    a = c * (norm_row1 - norm_row0)[:npsf]
+    w1[-2:] = 0.0
+    w1[-2, :npsf] = a
+    b1[-2:] = 0.0
+    b1[-2] = -a @ g0n[:npsf]
+    w2[:, -2:] = (0.5, 0.0)
+    net = NetworkParams(weights=(w1, w2, w_out * w3), biases=(b1, b2, b3),
+                        flagact=(ACT_TANH, ACT_TANH, ACT_LINEAR),
+                        act_style=ActivationStyle.NI)
+    return AnnpPotential(
+        elements=("Ni",), masses=np.asarray([MASS_NI]), ntl=4, nhl=2,
+        nnod=nnod, nsf=npsf + len(coeang), npsf=npsf, ntsf=len(coeang),
+        cut=6.5, flagsym=SYM_BEHLER, norm_row0=norm_row0,
+        norm_row1=norm_row1, norm_style="minmax", e_scale=1.0, e_shift=0.0,
+        e_atom=0.0, networks=(net,), sym_coerad=coerad, sym_coeang=coeang)

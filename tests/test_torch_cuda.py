@@ -9,16 +9,25 @@ need not have; this file imports no JAX.)
 Tolerance (f64): the kernels run the plain versions' recurrences in the same
 order per lane, but reduce lanes in another order, so each output agrees to
 a few hundred ulps of its largest value: max |diff| <= 1e-12 of max |value|.
+In f32 the ni kernels' longest per-lane sums run over ~30 (p, q) terms and
+the G4 columns then sum 32 lanes: 1e-4 of max |value| leaves a wide margin
+over the ~1e-6 that f32 rounding of those sums gives.
 """
+import numpy as np
 import pytest
 import torch
 
+from meng_zhang_tpu.units import CFLENGTH
 from meng_zhang_tpu_torch.ops import fused_annp as fa
+from meng_zhang_tpu_torch.ops import fused_ni as fn
 from meng_zhang_tpu_torch.ops import kernels
+from meng_zhang_tpu_torch.testing import synthetic_ni_potential
 from torch_port_util import cuda_device  # noqa: F401  (fixture)
-from torch_port_util import kernel_coeffs, rel_max, short_planes, t64
+from torch_port_util import (kernel_coeffs, ni_short_planes,
+                             reduced_ni_potential, rel_max, short_planes, t64)
 
 RTOL = 1e-12
+NI_RTOL = {torch.float64: 1e-12, torch.float32: 1e-4}
 
 
 @pytest.mark.cuda
@@ -56,3 +65,56 @@ def test_wrappers_refuse_bad_inputs(cuda_device):
     with pytest.raises(ValueError):                 # b of the wrong width
         kernels.force_harm(*planes, planes[0][:, :1].repeat(1, 128),
                            planes[0][:, :1].repeat(1, 100), 4, 5, 4.0)
+
+
+def _ni_case(width):
+    """(planes [P, Ks] numpy, filler mask, potential) on a perturbed fcc box
+    with a vacancy: reduced width at Ks 16, the shipped width at Ks 32."""
+    pot = reduced_ni_potential() if width == "reduced" \
+        else synthetic_ni_potential(0)
+    ks = 16 if width == "reduced" else 32
+    rc_s = float(pot.sym_coeang[0, 3]) / CFLENGTH + 0.2
+    planes, filler = ni_short_planes(rc_s, ks, n_cells=4, seed=2)
+    return planes, filler, pot
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("width", ["reduced", "full"])
+def test_ni_kernels_match_plain(cuda_device, width, dtype):
+    planes, filler, pot = _ni_case(width)
+    table = fn.ni_table(pot.sym_coerad, pot.sym_coeang)
+    p = planes[0].shape[0]
+    dedg = np.zeros((p, fn.NSF_SUB))
+    dedg[:, :pot.nsf] = np.random.default_rng(1).normal(size=(p, pot.nsf))
+    tp = [torch.as_tensor(a, dtype=dtype, device=cuda_device)
+          for a in planes]
+    td = torch.as_tensor(dedg, dtype=dtype, device=cuda_device)
+    before = (kernels.ni_g.launches, kernels.ni_force.launches)
+    g = kernels.ni_g(*tp, table)
+    assert rel_max(g.cpu(), fn.ni_g_plain(*tp, table).cpu()) <= NI_RTOL[dtype]
+    assert torch.all(g[:, pot.nsf:] == 0)
+    fj = kernels.ni_force(*tp, td, table)
+    for u, v in zip(fj, fn.ni_force_plain(*tp, td, table)):
+        assert rel_max(u.cpu(), v.cpu()) <= NI_RTOL[dtype]
+        # filler lanes give exact zeros
+        assert torch.all(u.cpu()[torch.as_tensor(filler)] == 0)
+        assert torch.isfinite(u).all()
+    assert (kernels.ni_g.launches, kernels.ni_force.launches) == \
+        (before[0] + 1, before[1] + 1)
+
+
+@pytest.mark.cuda
+def test_ni_wrappers_refuse_bad_inputs(cuda_device):
+    pot = reduced_ni_potential()
+    table = fn.ni_table(pot.sym_coerad, pot.sym_coeang)
+    wide = [torch.zeros(8, 40, device=cuda_device) for _ in range(3)]
+    with pytest.raises(ValueError):                 # K above one warp
+        kernels.ni_g(*wide, table)
+    with pytest.raises(ValueError):
+        kernels.ni_force(*wide, torch.zeros(8, fn.NSF_SUB,
+                                            device=cuda_device), table)
+    planes = [torch.zeros(8, 16, device=cuda_device) for _ in range(3)]
+    with pytest.raises(ValueError):                 # dedg of the wrong width
+        kernels.ni_force(*planes, torch.zeros(8, 27, device=cuda_device),
+                         table)

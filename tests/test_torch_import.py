@@ -13,7 +13,7 @@ import torch
 import meng_zhang_tpu_torch
 from meng_zhang_tpu_torch.md import integrate, simulation
 from meng_zhang_tpu_torch.models import annp, descriptors, mlp
-from meng_zhang_tpu_torch.ops import fused_annp, kernels
+from meng_zhang_tpu_torch.ops import fused_annp, fused_ni, kernels
 from meng_zhang_tpu_torch.system import cell, neighbors
 from meng_zhang_tpu_torch.testing import synthetic_fe_potential
 pot = synthetic_fe_potential(0, npsf=4, ntsf=5, nnod=6, cut=4.0)
@@ -23,6 +23,12 @@ box = torch.full((3,), 9.0, dtype=torch.float64)
 nbrs = neighbors.build_neighbors_n2(x, box, 4.0, 16)
 ev = fused_annp.FusedAnnp(cfg, params, k_short=16)
 e, f, w = ev.energy_forces(x, box, nbrs.idx)
+assert torch.isfinite(f).all() and f.shape == (16, 3)
+from meng_zhang_tpu_torch.testing import synthetic_ni_potential
+cfg, params = annp.make_annp(synthetic_ni_potential(0, npsf=2, nnod=6),
+                             torch.float64)
+e, f, w = fused_ni.FusedNi(cfg, params, k_short=16).energy_forces(
+    x, box, nbrs.idx)
 assert torch.isfinite(f).all() and f.shape == (16, 3)
 bad = sorted(m for m in sys.modules if m == "jax" or m.startswith("jax."))
 assert not bad, bad

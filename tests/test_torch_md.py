@@ -183,7 +183,7 @@ def test_rebuild_and_flags():
     assert not bool(st.stale) and st.short.ref_x is st.x
     with pytest.raises(NotImplementedError):
         S.Simulator(sim.force_fn, sim.masses, mc, short_build=sim.short_build,
-                    force_fn_light=sim.force_fn)
+                    image_shifts=torch.zeros(1, 3, dtype=torch.float64))
     with pytest.raises(NotImplementedError):
         S.Simulator(sim.force_fn, sim.masses,
                     S.MDConfig(dt=0.001, cutoff=CUT, short_host_refresh=True))

@@ -10,7 +10,8 @@ import torch
 
 from meng_zhang_tpu_torch.ops import fused_annp as fa
 from meng_zhang_tpu_torch.system.neighbors import build_neighbors_n2
-from meng_zhang_tpu_torch.testing import synthetic_fe_potential
+from meng_zhang_tpu_torch.testing import (synthetic_fe_potential,
+                                          synthetic_ni_potential, thermal_fcc)
 from meng_zhang_tpu_torch.testing import thermal_bcc as perturbed_bcc
 
 # tier-1 runs six xdist workers on eight cores
@@ -38,10 +39,12 @@ def full_potential(seed=0):
 
 
 def params_numpy(params):
-    return {"w": tuple(np.asarray(w) for w in params["w"]),
-            "b": tuple(np.asarray(b) for b in params["b"]),
-            "sf_scale": np.asarray(params["sf_scale"]),
-            "sf_shift": np.asarray(params["sf_shift"])}
+    out = {"w": tuple(np.asarray(w) for w in params["w"]),
+           "b": tuple(np.asarray(b) for b in params["b"])}
+    for key in ("sf_scale", "sf_shift", "coerad", "coeang"):
+        if key in params:
+            out[key] = np.asarray(params[key])
+    return out
 
 
 def t64(a):
@@ -83,3 +86,32 @@ def kernel_coeffs(p, npsf, ntsf, seed=1):
     b = np.zeros((p, fa.AB_PAD))
     b[:, :ntsf * ntsf + 1] = rng.normal(size=(p, ntsf * ntsf + 1))
     return dedg, b
+
+
+# reduced ni width: two eta groups, zeta 1 and 16 both present
+NI_REDUCED_ANG = ((0.01, -1.0, 1.0), (0.01, 1.0, 16.0), (0.05, 1.0, 1.0),
+                  (0.05, -1.0, 16.0))
+
+
+def reduced_ni_potential(seed=0, ang=NI_REDUCED_ANG, **kw):
+    """Synthetic ni-shape potential at reduced width (npsf 2, ntsf 4,
+    nnod 6, Rc 5.5 Bohr = 2.91 A, so Ks = 16 holds fcc's 12 partners): the
+    Pallas interpreter traces the full-width (27 functions, Ks 32) kernels
+    for about a minute, the reduced ones in seconds. Keywords go to
+    synthetic_ni_potential."""
+    return synthetic_ni_potential(seed, npsf=2, nnod=6, rc_bohr=5.5, ang=ang,
+                                  **kw)
+
+
+def ni_short_planes(rc_s, ks, n_cells=3, seed=0, disp=0.1):
+    """[P, Ks] displacement planes (numpy) from the short list at rc_s of
+    a perturbed fcc box with one vacancy, so that some rows hold fewer
+    partners than the rest; also the filler-lane mask."""
+    x, box = thermal_fcc(n_cells, seed=seed, disp=disp)
+    x = x[1:]                                           # the vacancy
+    nbrs = build_neighbors_n2(t64(x), t64(box), rc_s + 0.3, 64)
+    sidx = fa.compact_short(t64(x), t64(box), nbrs.idx, rc_s, ks,
+                            (True, True, True)).sidx
+    planes = [a.numpy() for a in fa.pair_dx_planes(t64(x), t64(box), sidx,
+                                                   (True, True, True))]
+    return planes, sidx.numpy() == len(x)
