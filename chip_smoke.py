@@ -1,13 +1,15 @@
 #!/usr/bin/env python3
 """Bring-up smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
 
-Drives `meng_zhang_tpu_torch` -- never JAX -- through its two main paths:
+Drives `meng_zhang_tpu_torch` -- never JAX -- through its three main paths:
 
   * fe Chebyshev ANNP on the reference benchmark scene: the 152,880-atom
     bcc-Fe slab (box 184 x 85.659 x 112.5 A, `boundary m p m`, positions
     from artifacts/bench_minimized.npz), NPT at 300 K with a y-coupled
     barostat, on a synthetic potential of the shipped fe width (npsf 9,
-    ntsf 19, nnod 10, rc 6.5 A; meng_zhang_tpu_torch/testing.py);
+    ntsf 19, nnod 10, rc 6.5 A; meng_zhang_tpu_torch/testing.py), once
+    through the harmonic kernels and once through the cos-matrix kernels
+    (`FusedAnnp(angular="matrix")`);
   * fcc-Ni Behler-Parrinello ANNP on the scene of
     `scripts/model_bench.py --model ni`: 256,000 atoms (fcc 40^3 cells,
     a = 3.52 A, fully periodic), NVT at 1200 K from 600 K velocities, on a
@@ -18,23 +20,36 @@ Phases, each fatal on failure:
 
   1. device: a CUDA card must be present; prints its name and power limit;
   2. build: compiles every ops/csrc/*.cu with nvcc for sm_90a, in parallel;
-  3. fe kernels vs their plain PyTorch versions on [P, 128] planes gathered
-     from the scene (filler lanes included), in f32 and f64, plus times;
-  4. fe evaluator: energy_forces_short through the kernels in f32 against
-     the plain path in f64 on the full scene, and the f64 kernel path
-     against the autograd model (models/annp.py) on a 250-atom box;
-  5. fe main path: init_state + 20 blocks of 10 NPT steps through
+  3. fe kernels vs their plain PyTorch versions, in f32 and f64, plus
+     times: the harmonic and cos-matrix kernels on [P, 128] short planes
+     gathered from the scene (filler lanes included), and g_cos also on its
+     [P, 192] skin planes;
+  4. harmonic fe evaluator: energy_forces_short through the kernels in f32
+     against the plain path in f64 on the full scene, and the f64 kernel
+     path against the autograd model (models/annp.py) on a 250-atom box;
+  5. harmonic fe main path: init_state + 20 blocks of 10 NPT steps through
      Simulator, one forced skin-list rebuild after the first block; checks
      finite thermo, no overflow / unsafe, and the kernels' launch counts;
-  6. ni kernels vs plain on [P, 32] planes of a thermal 256,000-atom box;
-  7. ni evaluator: FusedNi in f32 through the kernels against the f64
-     plain path on that box, and the f64 kernel path against the autograd
-     model on a 256-atom box;
-  8. ni main path: init_state + 20 blocks of 5 NVT steps with the light
-     (no-virial) force variant on all but each block's last step.
+  6. cos-matrix evaluator in f32 through the kernels against its plain
+     path in f64 on the full scene (the gates of phase 4);
+  7. matrix vs harmonic: both paths through the kernels in f64 on the full
+     scene, and energy_dedg's eat against the autograd model's per-atom
+     energies on a 432-atom box at the skin-list width;
+  8. cos-matrix fe main path: as phase 5, 10 blocks, and no launch of the
+     harmonic kernels;
+  9. ni kernels vs plain on [P, 32] planes of a thermal 256,000-atom box;
+  10. ni evaluator: FusedNi in f32 through the kernels against the f64
+      plain path on that box, and the f64 kernel path against the autograd
+      model on a 256-atom box;
+  11. ni main path: init_state + 20 blocks of 5 NVT steps with the light
+      (no-virial) force variant on all but each block's last step.
 
-Prints the kernels' JSON record on the line before the last, and as the
-last line {"ok": true, "device": {...}}. Run from the repository root:
+Each kernel's record carries its least time on the card (`bound_ms`, the
+larger of the FLOPs its function needs over the f32 peak and its bytes
+over the memory rate, counted from this run's inputs) and `library_ms` null: no single PyTorch
+call computes any of these functions. Prints the kernels' JSON record on
+the line before the last, and as the last line
+{"ok": true, "device": {...}}. Run from the repository root:
 `python3 chip_smoke.py`.
 """
 import json
@@ -55,19 +70,47 @@ COUPLE = (False, True, False)       # y-coupled barostat
 SKIN, CAPACITY, CELL_CAPACITY = 1.2, 192, 96
 K_SHORT, SHORT_DELTA, SHORT_EVERY, THERMO_EVERY = 128, 0.4, 10, 10
 N_BLOCKS, RATE_BLOCKS = 20, 15
+COS_BLOCKS, COS_RATE_BLOCKS = 10, 7
 SEED = 4928459
 # ni scene (scripts/model_bench.py --model ni)
 NI_CELLS, NI_A = 40, 3.52
 NI_SKIN, NI_CAPACITY, NI_CELL_CAPACITY = 0.5, 64, 24
 NI_KS, NI_DELTA, NI_SHORT_EVERY, NI_THERMO_EVERY = 32, 0.2, 5, 5
 NI_T, NI_T_INIT, NI_BLOCKS = 1200.0, 600.0, 20
-NI_DISP = 0.08      # A per component, the thermal box of phases 6 and 7
+NI_DISP = 0.08      # A per component, the thermal box of phases 9 and 10
 
 # Kernel vs plain, per output, as a fraction of the output's max |value|.
 # f32: the longest per-lane sums run over ~400 terms, whose worst-case
 # linear rounding growth is 400 * 6e-8 = 2.4e-5; 1e-4 leaves 4x over that.
 # f64: the same count at 1.1e-16 gives 4.4e-14; 1e-12 leaves 20x.
 REL_BOUND = {torch.float32: 1e-4, torch.float64: 1e-12}
+# The cos-matrix kernels, from their own chains (u = 6e-8 in f32):
+#   g_cos: an angular column sums w T_n(x) over the row's unordered pairs
+#     inside the cutoff (~6,200 of at most 127 * 128 / 2 at Ks 128), and
+#     |T_n| <= 1, so every column is bounded by column G_0 = sum w, the
+#     row's largest value. Each thread sums <= n/2 <= 64 pair terms, then
+#     5 shuffle levels and <= 8 warp partials: <= 77 roundings, 4.6e-6 of
+#     G_0; the T_n recurrence adds <= ntsf^2 / 2 = 180 roundings per term
+#     (a rounding at step m grows by |U_(n-m)| <= n - m + 1), 1.1e-5. The
+#     plain version carries as much: <= 3.1e-5 apart, and 1e-4 leaves 3x.
+#     A single serial chain over the ~12,400 ordered terms would reach 7e-4.
+#   force_cos: thread j sums its <= 127 partners in one chain, and P, P'
+#     carry the recurrences' <= 180 roundings: <= 310, 1.9e-5 of the
+#     largest column sum, 3.7e-5 between the two versions; the radial, A
+#     and B parts of Fj cancel, so allow the largest Fj to sit 8x under
+#     that sum: 3e-4.
+#   f64: the same counts at 1.1e-16 give <= 7e-14; 1e-12 leaves 14x.
+COS_REL_BOUND = {torch.float32: {"g_cos": 1e-4, "force_cos": 3e-4},
+                 torch.float64: {"g_cos": 1e-12, "force_cos": 1e-12}}
+# The two angular formulations in f64 on the full scene: the harmonic path
+# forms G_n = 1/2 (sum_l c_nl S_l - F2) from power sums S_l ~ (sum fc)^2
+# and subtracts, so it loses ~1e-13 of |G| that the matrix path does not.
+MATRIX_E_RTOL = 1e-11      # total energy, shift-free
+MATRIX_F_ATOL = 1e-9       # eV/A
+MATRIX_W_RTOL = 1e-9       # of max |W|
+# Least-time model: NVIDIA H100 SXM peak rates at 700 W
+PEAK_F32_FLOPS = 67e12     # f32 outside the tensor cores
+PEAK_BYTES = 3.35e12       # HBM3
 # Evaluator on the full scene, f32 kernel path against the f64 plain path,
 # each bound relative to the scale of what it measures. The f32 error has
 # one main source: normalisation subtracts a descriptor mean up to ~30 from
@@ -142,6 +185,81 @@ def cuda_ms(fn, reps):
     return float(np.median(times))
 
 
+def bound(flops, nbytes):
+    """(least ms, what bounds it): FLOPs over the f32 peak or bytes (each
+    input read once, each output written once) over the memory rate."""
+    t_ops, t_bytes = flops / PEAK_F32_FLOPS, nbytes / PEAK_BYTES
+    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes
+                                       else "bytes")
+
+
+def fe_counts(planes, rc):
+    """(lanes, unordered pairs) inside the cutoff on [P, K] planes: the
+    fe kernels' work on this run's data."""
+    dxx, dxy, dxz = planes
+    rsq = dxx * dxx + dxy * dxy + dxz * dxz
+    n = ((rsq < rc * rc) & (rsq > 1.0e-12)).sum(1).double()
+    return float(n.sum()), float((n * (n - 1) / 2).sum())
+
+
+# FLOPs per lane / per unordered pair inside the cutoff that each function
+# needs, counted from the kernels' sources (a fused multiply-add is 2, a
+# sqrt, cos or sin 1): the pair geometry costs GEO a lane; a radial
+# Chebyshev term 4 (g) or 8 (force, T and T'); a harmonic (l, m) step 9
+# (g_harm: H, w, the two A sums) or 22 (force_harm: H, dH, the B
+# contractions); a cos-matrix pair 7 + 4 ntsf (g_cos: cos, x, w, then T_n
+# and its sum) or 7 + 10 ntsf (force_cos: T_n, T'_n, P, P'), as x_kj =
+# x_jk, plus its five column sums on each side, 12 a side. force_cos runs
+# the recurrences once per ordered pair: twice what it needs.
+GEO = 20
+
+
+def fe_flops(name, lanes, pairs, npsf, ntsf):
+    n_lm = ntsf * (ntsf + 1) // 2
+    per_lane = {"g_harm": GEO + 4 * npsf + 9 * n_lm,
+                "force_harm": GEO + 8 * npsf + 22 * n_lm + 30,
+                "g_cos": GEO + 4 * npsf,
+                "force_cos": GEO + 8 * npsf + 20}[name]
+    per_pair = {"g_harm": 0, "force_harm": 0, "g_cos": 7 + 4 * ntsf,
+                "force_cos": 7 + 10 * ntsf + 2 * 12}[name]
+    return lanes * per_lane + pairs * per_pair
+
+
+def fe_bytes(name, p, k, itemsize):
+    """Planes in, then per kernel its other inputs and its outputs."""
+    rows = {"g_harm": 128 + 384, "force_harm": 128 + 384 + 3 * k,
+            "g_cos": 128, "force_cos": 128 + 3 * k}[name]
+    return p * (3 * k + rows) * itemsize
+
+
+def record(name, source, line, worst, ms, plain_ms, flops, nbytes):
+    b_ms, b_by = bound(flops, nbytes)
+    return {"name": name, "route": "cuda", "source": source,
+            "replaces": line, "max_abs_err": worst, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": None}
+
+
+def compare(tag, name, outs, got, ref, bound_rel, filler=None):
+    """Kernel outputs against the plain version's, each within bound_rel
+    of its max |value|; filler lanes of per-pair outputs exactly 0.
+    Returns the worst max abs error."""
+    worst = 0.0
+    for oname, a, r in zip(outs, got, ref):
+        check(bool(torch.isfinite(a).all()), f"{name} {tag}: non-finite "
+              f"{oname}")
+        err, rel = rel_err(a, r)
+        worst = max(worst, err)
+        log(f"[{tag}] {name} {oname}: max abs err {err:.3e} max rel err "
+            f"{rel:.3e} (bound {bound_rel:.0e})")
+        check(rel <= bound_rel, f"{name} {tag} {oname} disagrees with its "
+              f"plain version: rel {rel:.3e} > {bound_rel:.0e}")
+        if filler is not None and oname.startswith("fj"):
+            check(bool((a[filler] == 0).all()),
+                  f"{name} {tag}: filler lanes not exactly 0")
+    return worst
+
+
 def phase_device():
     check(torch.cuda.is_available(), "torch.cuda.is_available() is false")
     name = torch.cuda.get_device_name(0)
@@ -210,13 +328,24 @@ def rel_err(a, b):
     return err, err / max(float(b.abs().max()), 1e-300)
 
 
+# fe kernels: source in meng_zhang_tpu_torch/ops/csrc/, line of the TPU
+# kernel it replaces in meng_zhang_tpu/ops/pallas_annp.py
+FE_KERNELS = {"g_harm": ("annp_harm.cu", 299),
+              "force_harm": ("annp_harm.cu", 352),
+              "g_cos": ("annp_cos.cu", 116), "force_cos": ("annp_cos.cu", 193)}
+
+
 def phase_kernels(x, box, cfg32, p32):
-    """Kernel vs plain on the scene's [P, 128] planes; returns the JSON
-    records (without launch counts) and the planes' short list."""
+    """The four fe kernels against their plain versions in f32 and f64 on
+    the scene's [P, 128] short planes (filler lanes included), and g_cos
+    also on its [P, 192] skin planes, the shape energy_dedg gives it.
+    Returns the JSON records (without launch counts), timed at the main
+    path's [P, 128], and the short list."""
     from meng_zhang_tpu_torch.ops import fused_annp as fa
     from meng_zhang_tpu_torch.ops import kernels
     from meng_zhang_tpu_torch.system.neighbors import build_neighbors_cell
     dev = x.device
+    n = x.shape[0]
     mcfg = md_config(cfg32)
     t0 = time.time()
     nbrs = build_neighbors_cell(x, box, cfg32.cut + SKIN, CAPACITY,
@@ -224,91 +353,119 @@ def phase_kernels(x, box, cfg32, p32):
     ev = fa.FusedAnnp(cfg32, p32, k_short=K_SHORT, short_delta=SHORT_DELTA)
     sl = ev.compact_short(x, box, nbrs.idx)
     torch.cuda.synchronize()
-    n_real = int((sl.sidx < x.shape[0]).sum(1).max())
+    n_real = int((sl.sidx < n).sum(1).max())
     log(f"[kernels] skin list dims {mcfg.cell_dims} overflow "
-        f"{bool(nbrs.overflow)} max row {int((nbrs.idx < x.shape[0]).sum(1).max())}"
+        f"{bool(nbrs.overflow)} max row {int((nbrs.idx < n).sum(1).max())}"
         f"; short list overflow {bool(sl.overflow)} max row {n_real}/"
         f"{K_SHORT} ({time.time() - t0:.2f} s)")
     check(not bool(nbrs.overflow) and not bool(sl.overflow),
           "neighbor list overflow on the benchmark scene")
     npsf, ntsf, rc = cfg32.npsf, cfg32.ntsf, cfg32.cut
-    planes32 = fa.pair_dx_planes(x, box, sl.sidx, PBC)
-    p, k = planes32[0].shape
+    short32 = fa.pair_dx_planes(x, box, sl.sidx, PBC)
+    skin32 = fa.pair_dx_planes(x, box, nbrs.idx, PBC)
+    fill_short, fill_skin = sl.sidx >= n, nbrs.idx >= n
+    del nbrs
+    p, k = short32[0].shape
+    lanes, pairs = fe_counts(short32, rc)
+    log(f"[kernels] {lanes:.0f} lanes and {pairs:.0f} unordered pairs "
+        f"inside {rc} A ({lanes / p:.2f} lanes a row)")
     rng = np.random.default_rng(SEED)
     dedg_np = np.zeros((p, fa.NSF_PAD))
-    dedg_np[:, :npsf] = rng.normal(size=(p, npsf))
+    dedg_np[:, :npsf + ntsf] = rng.normal(size=(p, npsf + ntsf))
     b_np = np.zeros((p, fa.AB_PAD))
     b_np[:, :ntsf * ntsf + 1] = rng.normal(size=(p, ntsf * ntsf + 1))
-    records = []
+    records = {}
     for dtype in (torch.float32, torch.float64):
-        planes = [t.to(dtype) for t in planes32]
+        short = [t.to(dtype) for t in short32]
+        skin = [t.to(dtype) for t in skin32]
         dedg = torch.tensor(dedg_np, dtype=dtype, device=dev)
         b = torch.tensor(b_np, dtype=dtype, device=dev)
-        bound = REL_BOUND[dtype]
-        tag = "f32" if dtype == torch.float32 else "f64"
+        bounds = {"g_harm": REL_BOUND[dtype], "force_harm": REL_BOUND[dtype],
+                  **COS_REL_BOUND[dtype]}
+        tag = "kernels " + ("f32" if dtype == torch.float32 else "f64")
+        # (name, planes, filler lanes, kernel, plain version, outputs,
+        #  repetitions to time the plain version; None: kernel time only)
         cases = [
-            ("g_harm", lambda: kernels.g_harm(*planes, npsf, ntsf, rc),
-             lambda: fa.g_harm_plain(*planes, npsf, ntsf, rc),
-             ("g_raw", "A"), 299),
-            ("force_harm",
-             lambda: kernels.force_harm(*planes, dedg, b, npsf, ntsf, rc),
-             lambda: fa.force_harm_plain(*planes, dedg, b, npsf, ntsf, rc),
-             ("fjx", "fjy", "fjz"), 352),
+            ("g_harm", short, fill_short,
+             lambda pl: kernels.g_harm(*pl, npsf, ntsf, rc),
+             lambda pl: fa.g_harm_plain(*pl, npsf, ntsf, rc),
+             ("g_raw", "A"), 3),
+            ("force_harm", short, fill_short,
+             lambda pl: kernels.force_harm(*pl, dedg, b, npsf, ntsf, rc),
+             lambda pl: fa.force_harm_plain(*pl, dedg, b, npsf, ntsf, rc),
+             ("fjx", "fjy", "fjz"), 3),
+            ("g_cos", short, fill_short,
+             lambda pl: (kernels.g_cos(*pl, npsf, ntsf, rc),),
+             lambda pl: (fa.g_cos_plain(*pl, npsf, ntsf, rc),), ("g",), 1),
+            ("g_cos", skin, fill_skin,
+             lambda pl: (kernels.g_cos(*pl, npsf, ntsf, rc),),
+             lambda pl: (fa.g_cos_plain(*pl, npsf, ntsf, rc),), ("g",),
+             None),
+            ("force_cos", short, fill_short,
+             lambda pl: kernels.force_cos(*pl, dedg, npsf, ntsf, rc),
+             lambda pl: fa.force_cos_plain(*pl, dedg, npsf, ntsf, rc),
+             ("fjx", "fjy", "fjz"), 1),
         ]
-        for name, kern, plain, outs, line in cases:
-            got = kern()
-            ref = plain()
+        for name, pl, filler, kern, plain, outs, reps in cases:
+            shape = f"[{p}, {pl[0].shape[1]}]"
+            got = kern(pl)
+            ref = plain(pl)
             torch.cuda.synchronize()
-            worst = 0.0
-            for oname, a, r in zip(outs, got, ref):
-                check(bool(torch.isfinite(a).all()),
-                      f"{name} {tag}: non-finite {oname}")
-                err, rel = rel_err(a, r)
-                worst = max(worst, err)
-                log(f"[kernels] {name} {tag} {oname}: max abs err {err:.3e}"
-                    f" max rel err {rel:.3e} (bound {bound:.0e})")
-                check(rel <= bound, f"{name} {tag} {oname} disagrees with "
-                      f"its plain version: rel {rel:.3e} > {bound:.0e}")
+            worst = compare(tag, f"{name} {shape}", outs, got, ref,
+                            bounds[name], filler)
+            del got, ref
             if dtype != torch.float32:
                 continue
-            ms = cuda_ms(kern, 10)
-            plain_ms = cuda_ms(plain, 3)
-            log(f"[kernels] {name} f32 [{p}, {k}]: kernel {ms:.3f} ms, "
-                f"plain {plain_ms:.3f} ms (median, CUDA events)")
-            records.append({
-                "name": name, "route": "cuda",
-                "source": "meng_zhang_tpu_torch/ops/csrc/annp_harm.cu",
-                "replaces": f"meng_zhang_tpu/ops/pallas_annp.py:{line}",
-                "max_abs_err": worst, "ms": ms, "plain_ms": plain_ms})
-    return records, sl
+            ms = cuda_ms(lambda: kern(pl), 10)
+            if reps is None:
+                log(f"[kernels] {name} f32 {shape}: kernel {ms:.3f} ms "
+                    f"(skin-list width, energy_dedg)")
+                continue
+            plain_ms = cuda_ms(lambda: plain(pl), reps)
+            src, line = FE_KERNELS[name]
+            rec = records[name] = record(
+                name, f"meng_zhang_tpu_torch/ops/csrc/{src}",
+                f"meng_zhang_tpu/ops/pallas_annp.py:{line}", worst, ms,
+                plain_ms, fe_flops(name, lanes, pairs, npsf, ntsf),
+                fe_bytes(name, p, k, 4))
+            log(f"[kernels] {name} f32 {shape}: kernel {ms:.3f} ms, plain "
+                f"{plain_ms:.3f} ms (median, CUDA events), bound "
+                f"{rec['bound_ms']:.3f} ms ({rec['bound_by']})")
+    return list(records.values()), sl
 
 
-def phase_evaluator(x, box, cfg32, p32, cfg64, p64, sl):
+def phase_evaluator(x, box, cfg32, p32, cfg64, p64, sl, angular="harmonic"):
     """Kernel path in f32 against the plain path in f64, same short list;
-    then the f64 kernel path against the autograd model on a small box."""
+    on the harmonic path then the f64 kernel path against the autograd
+    model on a small box."""
     from meng_zhang_tpu_torch.models import annp
     from meng_zhang_tpu_torch.ops import fused_annp as fa
     from meng_zhang_tpu_torch.system.neighbors import build_neighbors_n2
     from meng_zhang_tpu_torch.testing import thermal_bcc
+    tag = "evaluator" if angular == "harmonic" else "cos-evaluator"
     n = x.shape[0]
     dev = x.device
-    ev32 = fa.FusedAnnp(cfg32, p32, k_short=K_SHORT, short_delta=SHORT_DELTA)
+    ev32 = fa.FusedAnnp(cfg32, p32, k_short=K_SHORT, short_delta=SHORT_DELTA,
+                        angular=angular)
     ev64 = fa.FusedAnnp(cfg64, p64, k_short=K_SHORT, short_delta=SHORT_DELTA,
-                        plain=True)
+                        plain=True, angular=angular)
     x64, box64 = x.double(), box.double()
     e32, f32, w32 = ev32.energy_forces_short(x, box, sl)
     e64, f64, w64 = ev64.energy_forces_short(
         x64, box64, fa.ShortList(sl.sidx, x64, sl.overflow))
     torch.cuda.synchronize()
     check(bool(torch.isfinite(f32).all()) and bool(torch.isfinite(e32)),
-          "evaluator: non-finite f32 output")
+          f"{tag}: non-finite f32 output")
     check(tuple(f32.shape) == (n, 3) and tuple(w32.shape) == (3, 3),
-          "evaluator: wrong output shapes")
+          f"{tag}: wrong output shapes")
     f_rms = float(f64.pow(2).mean().sqrt())
-    dd = fa.pair_dx_planes(x64, box64, sl.sidx, PBC)
-    fj = ev64._eval_fj(*dd)[1]
+    # the virial's scale from the f32 kernel path's Fj (a scale only);
     # filler lanes carry Fj = 0 exactly, so they add nothing here
-    w_abs = max(float((da * fb).abs().sum()) for da in dd for fb in fj)
+    dd = fa.pair_dx_planes(x, box, sl.sidx, PBC)
+    fj = ev32._eval_fj(*dd)[1]
+    w_abs = max(float((da.double() * fb.double()).abs().sum())
+                for da in dd for fb in fj)
+    del dd, fj
     got = {"dE_per_atom": abs(float(e32) - float(e64)) / n,
            "max_dF": float((f32.double() - f64).abs().max()),
            "max_dW": float((w32.double() - w64).abs().max()),
@@ -317,15 +474,18 @@ def phase_evaluator(x, box, cfg32, p32, cfg64, p64, sl):
              "max_dF": float(f64.abs().max()),
              "max_dW": w_abs, "sum_F": n * f_rms}
     vol = BOX[0] * BOX[1] * BOX[2]
-    log(f"[evaluator] N {n}: E/N f64 {float(e64) / n + cfg64.e_shift:.9f} eV"
+    log(f"[{tag}] N {n}: E/N f64 {float(e64) / n + cfg64.e_shift:.9f} eV"
         f" (shift-free {float(e64) / n:.6e}); RMS F {f_rms:.4e} eV/A; max|F|"
         f" {scale['max_dF']:.4e} eV/A; virial pressure "
         f"{float(torch.trace(w64)) / 3 / vol * 1.6021765e6:.1f} bar")
     for key, val in got.items():
-        bound = EVAL_REL[key] * scale[key]
-        log(f"[evaluator] {key} {val:.3e} (bound {bound:.3e} = "
+        bound_abs = EVAL_REL[key] * scale[key]
+        log(f"[{tag}] {key} {val:.3e} (bound {bound_abs:.3e} = "
             f"{EVAL_REL[key]:.0e} x {scale[key]:.4e})")
-        check(val <= bound, f"evaluator {key} {val:.3e} over {bound:.3e}")
+        check(val <= bound_abs, f"{tag} {key} {val:.3e} over "
+              f"{bound_abs:.3e}")
+    if angular != "harmonic":
+        return got
 
     xs, bs = thermal_bcc(5, seed=SEED, disp=0.08)
     xs = torch.tensor(xs, dtype=torch.float64, device=dev)
@@ -347,14 +507,75 @@ def phase_evaluator(x, box, cfg32, p32, cfg64, p64, sl):
     return got
 
 
-def phase_main_path(x, box, cfg32, p32, mass, card):
-    """init_state + N_BLOCKS blocks of the NPT main path."""
+def phase_matrix_vs_harmonic(x, box, cfg64, p64, sl):
+    """The two angular paths through their kernels in f64 on the full
+    scene; then energy_dedg (g_cos at the skin-list width) against the
+    autograd model's per-atom energies on a 432-atom periodic box (6^3
+    bcc cells: the smallest cube that holds rc + skin twice)."""
+    from meng_zhang_tpu_torch.models import annp
+    from meng_zhang_tpu_torch.ops import fused_annp as fa
+    from meng_zhang_tpu_torch.system.neighbors import build_neighbors_n2
+    from meng_zhang_tpu_torch.testing import thermal_bcc
+    dev = x.device
+    x64, box64 = x.double(), box.double()
+    sl64 = fa.ShortList(sl.sidx, x64, sl.overflow)
+    out = {}
+    for angular in ("matrix", "harmonic"):
+        ev = fa.FusedAnnp(cfg64, p64, k_short=K_SHORT,
+                          short_delta=SHORT_DELTA, angular=angular)
+        out[angular] = ev.energy_forces_short(x64, box64, sl64)
+    (e_m, f_m, w_m), (e_h, f_h, w_h) = out["matrix"], out["harmonic"]
+    de = abs(float(e_m) - float(e_h)) / abs(float(e_h))
+    df = float((f_m - f_h).abs().max())
+    dw = float((w_m - w_h).abs().max())
+    w_max = float(w_h.abs().max())
+    log(f"[matrix-vs-harmonic] N {x.shape[0]}, f64 kernels: rel dE {de:.3e}"
+        f" (bound {MATRIX_E_RTOL:.0e}), max dF {df:.3e} eV/A (bound "
+        f"{MATRIX_F_ATOL:.0e}), max dW {dw:.3e} eV (bound {MATRIX_W_RTOL:.0e}"
+        f" x max|W| {w_max:.4e})")
+    check(de <= MATRIX_E_RTOL and df <= MATRIX_F_ATOL
+          and dw <= MATRIX_W_RTOL * w_max,
+          "the matrix and harmonic paths disagree on the full scene")
+    del out, e_m, f_m, w_m, e_h, f_h, w_h
+
+    xs, bs = thermal_bcc(6, seed=SEED, disp=0.08)
+    xs = torch.tensor(xs, dtype=torch.float64, device=dev)
+    bs = torch.tensor(bs, dtype=torch.float64, device=dev)
+    cfg_p, p_p = annp.make_annp(_potential(), torch.float64, dev)
+    nb = build_neighbors_n2(xs, bs, cfg_p.cut + SKIN, CAPACITY)
+    check(not bool(nb.overflow), "energy_dedg box: neighbor overflow")
+    eat, dedg = fa.FusedAnnp(cfg_p, p_p).energy_dedg(xs, bs, nb.idx)
+    want = annp.atom_energies(cfg_p, p_p, xs, bs, nb.idx) - cfg_p.e_shift
+    err = float((eat - want).abs().max())
+    scale = float(want.abs().max())
+    log(f"[matrix-vs-harmonic] energy_dedg on {xs.shape[0]} atoms at K "
+        f"{nb.idx.shape[1]}, f64 g_cos vs autograd atom_energies: max "
+        f"|d eat| {err:.3e} eV (bound {REF_E_RTOL:.0e} x {scale:.4e})")
+    check(err <= REF_E_RTOL * scale,
+          "energy_dedg disagrees with the autograd per-atom energies")
+    check(tuple(dedg.shape) == (xs.shape[0], 128)
+          and bool(torch.isfinite(dedg).all())
+          and bool((dedg[:, cfg_p.nsf:] == 0).all()),
+          "energy_dedg: dedg of the wrong shape, non-finite or not padded")
+    return de, df
+
+
+def phase_main_path(x, box, cfg32, p32, mass, card, angular="harmonic"):
+    """init_state + blocks of the NPT main path through one angular path's
+    kernels; the other path's kernels must not launch."""
     from meng_zhang_tpu_torch.md.simulation import Simulator
     from meng_zhang_tpu_torch.ops import fused_annp as fa
     from meng_zhang_tpu_torch.ops import kernels
+    if angular == "harmonic":
+        tag, n_blocks, rate_blocks = "main", N_BLOCKS, RATE_BLOCKS
+        names, others = ("g_harm", "force_harm"), ("g_cos", "force_cos")
+    else:
+        tag, n_blocks, rate_blocks = "cos-main", COS_BLOCKS, COS_RATE_BLOCKS
+        names, others = ("g_cos", "force_cos"), ("g_harm", "force_harm")
     dev = x.device
     n = x.shape[0]
-    ev = fa.FusedAnnp(cfg32, p32, k_short=K_SHORT, short_delta=SHORT_DELTA)
+    ev = fa.FusedAnnp(cfg32, p32, k_short=K_SHORT, short_delta=SHORT_DELTA,
+                      angular=angular)
     mcfg = md_config(cfg32)
     sim = Simulator(lambda xx, bb, nb, sh: ev.energy_forces_short(xx, bb, sh),
                     torch.full((n,), mass, dtype=torch.float32, device=dev),
@@ -362,13 +583,14 @@ def phase_main_path(x, box, cfg32, p32, mass, card):
                     short_build=lambda xx, bb, nb: ev.compact_short(
                         xx, bb, nb.idx))
     pe_off = n * cfg32.e_shift
+    torch.cuda.reset_peak_memory_stats()
     kernels.reset_launch_counts()
     t0 = time.time()
     st = sim.init_state(x, box, seed=SEED, t_init=300.0)
     torch.cuda.synchronize()
-    log(f"[main] init_state {time.time() - t0:.2f} s")
+    log(f"[{tag}] init_state {time.time() - t0:.2f} s")
     rebuilds, rows, block_s = 0, [], []
-    for blk in range(N_BLOCKS):
+    for blk in range(n_blocks):
         t0 = time.time()
         st, th = sim.run(st, 1)
         torch.cuda.synchronize()
@@ -381,29 +603,33 @@ def phase_main_path(x, box, cfg32, p32, mass, card):
         rows.append(row)
         b = st.box.tolist()
         srow = int((st.short.sidx < n).sum(1).max())
-        log(f"[main] step {int(row[0]):4d} T {row[1]:8.3f} K  PE "
+        log(f"[{tag}] step {int(row[0]):4d} T {row[1]:8.3f} K  PE "
             f"{row[2] + pe_off:.6f} eV  P {row[4]:9.2f} bar  box "
             f"{b[0]:.4f} {b[1]:.5f} {b[2]:.4f}  conserved "
             f"{row[6]:.6e}  short row max {srow}/{K_SHORT}  "
             f"{block_s[-1] * 1e3:.1f} ms")
-    launches = {"g_harm": kernels.g_harm.launches,
-                "force_harm": kernels.force_harm.launches}
-    steps = N_BLOCKS * THERMO_EVERY
-    check(all(np.isfinite(r).all() for r in rows), "non-finite thermo")
-    check(not bool(st.overflow), "neighbor overflow in the main path")
-    check(not bool(st.unsafe), "unsafe (dangerous-build) latch set")
-    check(rebuilds >= 1, "no skin-list rebuild ran")
-    for name, cnt in launches.items():
-        check(cnt == steps + 1, f"{name} launched {cnt} times, expected "
-              f"{steps + 1} (init + one per step)")
-    window = sum(block_s[-RATE_BLOCKS:])
-    aps = n * RATE_BLOCKS * THERMO_EVERY / window
-    log(f"[main] {steps} NPT steps, {rebuilds} rebuilds, launches "
+    launches = {name: getattr(kernels, name).launches
+                for name in names + others}
+    steps = n_blocks * THERMO_EVERY
+    check(all(np.isfinite(r).all() for r in rows), f"{tag}: non-finite thermo")
+    check(not bool(st.overflow), f"{tag}: neighbor overflow")
+    check(not bool(st.unsafe), f"{tag}: unsafe (dangerous-build) latch set")
+    check(rebuilds >= 1, f"{tag}: no skin-list rebuild ran")
+    for name in names:
+        check(launches[name] == steps + 1, f"{name} launched "
+              f"{launches[name]} times, expected {steps + 1} (init + one "
+              "per step)")
+    for name in others:
+        check(launches[name] == 0, f"{name} launched {launches[name]} times "
+              f"on the {angular} path")
+    window = sum(block_s[-rate_blocks:])
+    aps = n * rate_blocks * THERMO_EVERY / window
+    log(f"[{tag}] {steps} NPT steps, {rebuilds} rebuilds, launches "
         f"{launches}, overflow {bool(st.overflow)} unsafe {bool(st.unsafe)}")
-    log(f"[main] {aps:.1f} atom-steps/s over the last {RATE_BLOCKS} blocks "
+    log(f"[{tag}] {aps:.1f} atom-steps/s over the last {rate_blocks} blocks "
         f"({window:.3f} s) on {card}; peak device memory "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
-    return launches
+    return {name: launches[name] for name in names}
 
 
 # ------------------------------------------------------------------ ni
@@ -456,6 +682,50 @@ def ni_thermal_scene(dev, cfg32, p32):
     return x, box, sl
 
 
+def ni_counts(planes, rc_a):
+    """(lanes inside the angular cutoff rc_a (Bohr), ordered legs (p, q),
+    p != q, whose three legs lie inside it) on [P, K] planes: the ni
+    kernels' work on this run's data."""
+    from meng_zhang_tpu_torch.units import CFLENGTH
+    lanes = legs = 0
+    eye = torch.eye(planes[0].shape[1], dtype=torch.bool,
+                    device=planes[0].device)
+    for i0 in range(0, planes[0].shape[0], 16384):
+        d = torch.stack([t[i0:i0 + 16384] for t in planes], -1).double()
+        r2 = (d * d).sum(-1)
+        ina = (r2 > 1.0e-12) & (r2 * CFLENGTH ** 2 < rc_a * rc_a)
+        djk = d[:, :, None, :] - d[:, None, :, :]
+        ok = (ina[:, :, None] & ina[:, None, :] & ~eye
+              & ((djk * djk).sum(-1) * CFLENGTH ** 2 < rc_a * rc_a))
+        lanes += int(ina.sum())
+        legs += int(ok.sum())
+    return float(lanes), float(legs)
+
+
+def ni_flops(name, lanes, legs, table):
+    """FLOPs that each function needs, counted from ni_bp.cu as fe_flops
+    does: per lane the geometry (15) and each radial function (cos, exp
+    and 8: 10 in ni_g; with sin and dfc 15 in ni_force). A G4 term is
+    symmetric in its legs (p, q), so per unordered leg pair: its geometry
+    (cs, rjk, sqrt, cos, fc3, r2sum: 20; with sin 24), an exp per eta group
+    (2) and per function 1 + lambda cos, the zeta squarings (2 log2 zeta)
+    and the sum (5 in ni_g; with the derivative and two sums 8 in
+    ni_force); ni_force then forms the shared partials in c and rjk (8)
+    and, on each side, the partial in its own leg and its four sums (22).
+    The kernels visit each ordered leg."""
+    zl = sum(int(zeta).bit_length() - 1 for _, group in table.ang
+             for _, zeta, _ in group)
+    n_f = sum(len(group) for _, group in table.ang)
+    n_r = len(table.rad)
+    if name == "ni_g":
+        per_lane, per_pair = 15 + 10 * n_r, 20 + 2 * len(table.ang) \
+            + 5 * n_f + 2 * zl
+    else:
+        per_lane, per_pair = 15 + 15 * n_r, 24 + 2 * len(table.ang) \
+            + 8 * n_f + 2 * zl + 8 + 2 * 22
+    return lanes * per_lane + legs / 2 * per_pair
+
+
 def phase_ni_kernels(x, box, cfg32, p32, sl):
     """ni_g / ni_force against their plain versions on the thermal scene's
     [P, 32] planes (filler lanes included), with seeded random dedg."""
@@ -470,12 +740,14 @@ def phase_ni_kernels(x, box, cfg32, p32, sl):
     dedg_np[:, :nsf] = np.random.default_rng(SEED).normal(size=(p, nsf))
     filler = sl.sidx >= x.shape[0]
     table = fn.ni_table(p32["coerad"], p32["coeang"])
+    counts = ni_counts(planes32, table.rc_a)
+    log(f"[ni-kernels] {counts[0]:.0f} lanes and {counts[1]:.0f} ordered "
+        f"legs inside {table.rc_a} Bohr")
     records = []
     for dtype in (torch.float32, torch.float64):
         planes = [t.to(dtype) for t in planes32]
         dedg = torch.tensor(dedg_np, dtype=dtype, device=dev)
-        bound = NI_REL_BOUND[dtype]
-        tag = "f32" if dtype == torch.float32 else "f64"
+        tag = "ni-kernels " + ("f32" if dtype == torch.float32 else "f64")
         cases = [
             ("ni_g", lambda: (kernels.ni_g(*planes, table),),
              lambda: (fn.ni_g_plain(*planes, table),), ("g",), 126),
@@ -487,30 +759,22 @@ def phase_ni_kernels(x, box, cfg32, p32, sl):
             got = kern()
             ref = plain()
             torch.cuda.synchronize()
-            worst = 0.0
-            for oname, a, r in zip(outs, got, ref):
-                check(bool(torch.isfinite(a).all()),
-                      f"{name} {tag}: non-finite {oname}")
-                err, rel = rel_err(a, r)
-                worst = max(worst, err)
-                log(f"[ni-kernels] {name} {tag} {oname}: max abs err "
-                    f"{err:.3e} max rel err {rel:.3e} (bound {bound:.0e})")
-                check(rel <= bound, f"{name} {tag} {oname} disagrees with "
-                      f"its plain version: rel {rel:.3e} > {bound:.0e}")
-                if name == "ni_force":
-                    check(bool((a[filler] == 0).all()),
-                          f"{name} {tag}: filler lanes not exactly 0")
+            worst = compare(tag, name, outs, got, ref, NI_REL_BOUND[dtype],
+                            filler)
             if dtype != torch.float32:
                 continue
             ms = cuda_ms(kern, 10)
             plain_ms = cuda_ms(plain, 3)
+            records.append(record(
+                name, "meng_zhang_tpu_torch/ops/csrc/ni_bp.cu",
+                f"meng_zhang_tpu/ops/pallas_ni.py:{line}", worst, ms,
+                plain_ms, ni_flops(name, *counts, table),
+                p * (3 * k + fn.NSF_SUB + (3 * k if name == "ni_force"
+                                           else 0)) * 4))
             log(f"[ni-kernels] {name} f32 [{p}, {k}]: kernel {ms:.3f} ms, "
-                f"plain {plain_ms:.3f} ms (median, CUDA events)")
-            records.append({
-                "name": name, "route": "cuda",
-                "source": "meng_zhang_tpu_torch/ops/csrc/ni_bp.cu",
-                "replaces": f"meng_zhang_tpu/ops/pallas_ni.py:{line}",
-                "max_abs_err": worst, "ms": ms, "plain_ms": plain_ms})
+                f"plain {plain_ms:.3f} ms (median, CUDA events), bound "
+                f"{records[-1]['bound_ms']:.3f} ms "
+                f"({records[-1]['bound_by']})")
     return records
 
 
@@ -659,6 +923,10 @@ def main():
         records, sl = phase_kernels(x, box, cfg32, p32)
         phase_evaluator(x, box, cfg32, p32, cfg64, p64, sl)
         launches = phase_main_path(x, box, cfg32, p32, mass, card)
+        phase_evaluator(x, box, cfg32, p32, cfg64, p64, sl, angular="matrix")
+        phase_matrix_vs_harmonic(x, box, cfg64, p64, sl)
+        launches.update(phase_main_path(x, box, cfg32, p32, mass, card,
+                                        angular="matrix"))
         del x, box, sl
         cfg32, p32, cfg64, p64, mass = ni_model(dev)
         x, box, sl = ni_thermal_scene(dev, cfg32, p32)

@@ -13,7 +13,7 @@ from typing import NamedTuple
 
 import torch
 
-from meng_zhang_tpu.units import BOLTZ, MVV2E
+from ..units import BOLTZ, MVV2E
 
 
 class NHCState(NamedTuple):
@@ -23,7 +23,7 @@ class NHCState(NamedTuple):
     v_xi: torch.Tensor    # [M]
 
     @staticmethod
-    def zeros(m=3, dtype=torch.float32, device="cpu"):
+    def zeros(m=3, dtype=torch.float32, device="cuda"):
         return NHCState(torch.zeros(m, dtype=dtype, device=device),
                         torch.zeros(m, dtype=dtype, device=device))
 
@@ -51,7 +51,7 @@ def vv_drift(x, v, dt):
     return x + dt * v
 
 
-def nhc_masses(ndof, t_target, tau, m, dtype, device="cpu"):
+def nhc_masses(ndof, t_target, tau, m, dtype, device="cuda"):
     q = torch.full((m,), BOLTZ * t_target * tau * tau, dtype=dtype,
                    device=device)
     q[0] = ndof * BOLTZ * t_target * tau * tau
@@ -119,7 +119,7 @@ def langevin_ou(v, masses, generator, t_target, damp, dt):
     return c1 * v + math.sqrt(1.0 - c1 * c1) * sigma * noise
 
 
-def npt_baro_masses(n_atoms, t_target, tau_p, dtype, device="cpu"):
+def npt_baro_masses(n_atoms, t_target, tau_p, dtype, device="cuda"):
     """MTK barostat mass W = (N+1) kB T tau_p^2 (per coupled axis)."""
     return torch.tensor((n_atoms + 1) * BOLTZ * t_target * tau_p * tau_p,
                         dtype=dtype, device=device)

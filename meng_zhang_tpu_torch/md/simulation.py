@@ -19,10 +19,9 @@ from typing import Any, Callable, NamedTuple, Optional
 
 import torch
 
-from meng_zhang_tpu.units import BOLTZ, MVV2E, NKTV2P
-
 from ..system.neighbors import (NeighborList, build_neighbors_cell,
                                 build_neighbors_n2, max_displacement_sq)
+from ..units import BOLTZ, MVV2E, NKTV2P
 from . import integrate as I
 
 

@@ -20,11 +20,9 @@ import dataclasses
 import numpy as np
 import torch
 
-from meng_zhang_tpu.io.potential import (AnnpPotential, SYM_BEHLER,
-                                         SYM_CHEBYSHEV)
-from meng_zhang_tpu.units import CFFORCE, CFLENGTH
-
+from ..io.potential import AnnpPotential, SYM_BEHLER, SYM_CHEBYSHEV
 from ..system.cell import min_image
+from ..units import CFFORCE, CFLENGTH
 from .descriptors import behler_g, chebyshev_g
 from .mlp import mlp_apply
 
@@ -50,7 +48,7 @@ class AnnpConfig:
         return self.npsf + self.ntsf
 
 
-def params_from_numpy(params_np, dtype=torch.float64, device="cpu"):
+def params_from_numpy(params_np, dtype=torch.float64, device="cuda"):
     """The JAX package's params dict (`w`, `b`: per-layer arrays
     [ne, n_out, n_in] / [ne, n_out]; `sf_scale`, `sf_shift` [nsf]; for the
     BP variant also `coerad` [npsf, 3] and `coeang` [ntsf, 4]), given as
@@ -68,7 +66,7 @@ def params_from_numpy(params_np, dtype=torch.float64, device="cpu"):
     return out
 
 
-def make_annp(pot: AnnpPotential, dtype=torch.float32, device="cpu",
+def make_annp(pot: AnnpPotential, dtype=torch.float32, device="cuda",
               pbc=(True, True, True)):
     """(config, params) from a parsed `.ann` potential.
 

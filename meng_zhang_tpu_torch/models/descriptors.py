@@ -11,7 +11,7 @@ import math
 
 import torch
 
-from meng_zhang_tpu.units import CFLENGTH
+from ..units import CFLENGTH
 
 
 def cutoff_cos(r, rc):

@@ -9,7 +9,7 @@ from __future__ import annotations
 
 import torch
 
-from meng_zhang_tpu.io.potential import ActivationStyle
+from ..io.potential import ActivationStyle
 
 _FE_A = 1.7159
 _FE_B = 0.666666666666667

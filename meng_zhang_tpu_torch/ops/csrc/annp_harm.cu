@@ -26,53 +26,20 @@
 //   b    [P, 384]: B_lm in the A layout, then 2q in column n_harm
 //   tab  ladder coefficients [h0 (L+1) | d1 (L+1) | e1 (L+1)^2 | e2 (L+1)^2],
 //        e1/e2 at l * (L + 1) + m (ops/fused_annp.py:ladder_table)
-#include <cuda_runtime.h>
-#include <math_constants.h>
+#include "pair_geometry.cuh"
 
 namespace {
+
+using annp::block_threads;
+using annp::Pair;
+using annp::pair_geometry;
+using annp::radial_coeff;
+using annp::warp_sum;
 
 constexpr int kNsfPad = 128;
 constexpr int kAbPad = 384;
 constexpr int kPart = kAbPad + kNsfPad;       // per-warp partial sums
 constexpr int kTabMax = 2 * 19 + 2 * 19 * 19;  // L <= 18
-
-__device__ __forceinline__ float dev_sqrt(float v) { return sqrtf(v); }
-__device__ __forceinline__ double dev_sqrt(double v) { return sqrt(v); }
-__device__ __forceinline__ float dev_cos(float v) { return cosf(v); }
-__device__ __forceinline__ double dev_cos(double v) { return cos(v); }
-__device__ __forceinline__ float dev_sin(float v) { return sinf(v); }
-__device__ __forceinline__ double dev_sin(double v) { return sin(v); }
-
-template <typename T>
-__device__ __forceinline__ T warp_sum(T v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
-
-// Per-pair geometry, as _pair_geometry: masked lanes get r = 1 before 1/r,
-// so every masked quantity is exactly 0.
-template <typename T>
-struct Pair {
-  T r, fc, dfc, inv_r, m, ux, uy, uz;
-};
-
-template <typename T>
-__device__ __forceinline__ Pair<T> pair_geometry(T x, T y, T z, double rc) {
-  Pair<T> p;
-  const T rsq = x * x + y * y + z * z;
-  const bool mask = (rsq < T(rc * rc)) && (rsq > T(1.0e-12));
-  p.r = dev_sqrt(mask ? rsq : T(1));
-  const T arg = T(CUDART_PI / rc) * p.r;
-  p.fc = mask ? T(0.5) * (dev_cos(arg) + T(1)) : T(0);
-  p.dfc = mask ? T(-0.5 * CUDART_PI / rc) * dev_sin(arg) : T(0);
-  p.inv_r = T(1) / p.r;
-  p.m = mask ? T(1) : T(0);
-  p.ux = x * p.inv_r * p.m;
-  p.uy = y * p.inv_r * p.m;
-  p.uz = z * p.inv_r * p.m;
-  return p;
-}
 
 template <typename T>
 __device__ __forceinline__ void load_tab(T* tab, const T* __restrict__ src,
@@ -242,20 +209,7 @@ __global__ void force_harm_kernel(const T* __restrict__ dxx,
   const Pair<T> p = pair_geometry(dxx[o], dxy[o], dxz[o], rc);
 
   // radial: coeff = sum_n w_n (T'_n (2/rc) fc + T_n dfc)
-  const T two_rc = T(2.0 / rc);
-  const T xch = T(2) * p.r / T(rc) - T(1);
-  T tp = p.m, tc = xch * p.m, dp = T(0), dc = p.m;
-  T coeff = wn[0] * (tp * p.dfc);
-  coeff = coeff + wn[1] * (dc * two_rc * p.fc + tc * p.dfc);
-  for (int n = 2; n < npsf; ++n) {
-    const T tn = T(2) * xch * tc - tp;
-    const T dn = T(2) * tc + T(2) * xch * dc - dp;
-    tp = tc;
-    tc = tn;
-    dp = dc;
-    dc = dn;
-    coeff = coeff + wn[n] * (dc * two_rc * p.fc + tc * p.dfc);
-  }
+  const T coeff = radial_coeff(p, wn, npsf, rc);
 
   // angular: SY = sum B Y, (Gx, Gy, Gz) = sum B dY/du
   T sy = T(0), gx = T(0), gy = T(0), gz = T(0);
@@ -312,8 +266,6 @@ __global__ void force_harm_kernel(const T* __restrict__ dxx,
   fjy[o] = (coeff + pref) * p.uy + fcr * gy;
   fjz[o] = (coeff + pref) * p.uz + fcr * gz;
 }
-
-inline int block_threads(int k) { return ((k + 31) / 32) * 32; }
 
 template <typename T>
 int launch_g(const void* dxx, const void* dxy, const void* dxz,

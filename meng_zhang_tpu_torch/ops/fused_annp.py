@@ -1,8 +1,7 @@
-"""Fused-kernel evaluator for the single-element Chebyshev ANNP, harmonic
-angular path.
+"""Fused-kernel evaluator for the single-element Chebyshev ANNP.
 
-Counterpart of `PallasAnnp` (meng_zhang_tpu/ops/pallas_annp.py:912) on its
-harmonic path:
+Counterpart of `PallasAnnp` (meng_zhang_tpu/ops/pallas_annp.py:912) on both
+of its angular paths:
   * tables `cheb_legendre`, `harm_tables`, `harm_layout` (:229-296), in
     numpy (the JAX module imports jax);
   * `pair_dx_planes` (:577) without the x8 packing and TILE padding;
@@ -10,24 +9,32 @@ harmonic path:
     (:698): rows keep the entries within rc + short_delta, ascending by
     partner id, padded with n;
   * `g_harm_plain` / `force_harm_plain`: plain PyTorch versions of the two
-    TPU kernels `_g_kernel_harm` (:299) and `_force_kernel_harm` (:352).
-    Their CUDA kernels live in csrc/annp_harm.cu and are launched through
-    ops/kernels.py;
-  * `FusedAnnp._mlp_eat_dedg_harm` (:1044), the MLP and its hand VJP;
+    harmonic-path TPU kernels `_g_kernel_harm` (:299) and
+    `_force_kernel_harm` (:352); their CUDA kernels live in
+    csrc/annp_harm.cu;
+  * `g_cos_plain` / `force_cos_plain`: plain PyTorch versions of the two
+    cos-matrix TPU kernels `_g_kernel` (:116, row body `_row_g` :88) and
+    `_force_kernel` (:193, `_row_force` :131); their CUDA kernels live in
+    csrc/annp_cos.cu. All four are launched through ops/kernels.py;
+  * `FusedAnnp._mlp_eat_dedg_harm` (:1044) and `_mlp_eat_dedg` (:1017),
+    the MLP and its hand VJP;
   * delivery: F_i = -sum_s Fj[i, s] + sum of Fj over the entries whose
     partner is i, as one `index_add_` (the JAX package routes the same sums
     with a sort, `_assemble` :638, because the TPU has no fast scatter);
-  * `energy_forces_short` (:1571) and `energy_forces` (:1648).
+  * `energy_forces_short` (:1571), `energy_forces` (:1648) and
+    `energy_dedg` (:1641).
 
 `single_network`, `mlp_eat_dedg` and `evaluate_pairs` (gather, delivery,
 virial, poisoning) are shared with the BP evaluator (ops/fused_ni.py), as
 `PairTableOps` (:623) is shared with `PallasNi` in the JAX package.
 
-Harmonic formulation: the Chebyshev angular descriptors
-G_n = 1/2 sum_{j!=k} T_n((cos+1)/2) fc_j fc_k are rewritten, through the
-spherical-harmonic addition theorem, as G_n = 1/2 (sum_l c_nl S_l - F2) with
-S_l = sum_m A_lm^2, A_lm = sum_j fc_j Y_lm(u_j) and F2 = sum_j fc_j^2. The
-per-pair work is the real-harmonic ladder up to L = ntsf - 1.
+The Chebyshev angular descriptors are G_n = 1/2 sum_{j!=k} T_n((cos_jk+1)/2)
+fc_j fc_k. The cos-matrix path evaluates them as written, over the row's
+[K, K] pair matrix (the reference CUDA's own j < k loops). The harmonic path
+rewrites them through the spherical-harmonic addition theorem as
+G_n = 1/2 (sum_l c_nl S_l - F2) with S_l = sum_m A_lm^2,
+A_lm = sum_j fc_j Y_lm(u_j) and F2 = sum_j fc_j^2; its per-pair work is the
+real-harmonic ladder up to L = ntsf - 1. Both give the same G_n.
 """
 from __future__ import annotations
 
@@ -37,8 +44,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from meng_zhang_tpu.io.potential import ActivationStyle
-
+from ..io.potential import ActivationStyle
 from ..models.mlp import _FE_A, _FE_B, _FE_C
 from . import kernels
 
@@ -193,6 +199,36 @@ def compact_short(x, box, nbr_idx, rc_s, ks, pbc, row_chunk=16384):
 
 
 # ------------------------------------------- plain versions of the kernels
+def _radial_g(r, fc, m, npsf, rc):
+    """Radial G_m = sum_j T_m(2r/rc - 1) fc_j, m < npsf (npsf >= 2), as a
+    list of [P] columns."""
+    xch = 2.0 * r / rc - 1.0
+    tp, tc = m, xch * m
+    cols = [(tp * fc).sum(1), (tc * fc).sum(1)]
+    for _ in range(2, npsf):
+        tp, tc = tc, 2.0 * xch * tc - tp
+        cols.append((tc * fc).sum(1))
+    return cols
+
+
+def _radial_coeff(r, fc, dfc, m, dedg, npsf, rc):
+    """[P, K] radial force coefficient sum_n w_n (T'_n (2/rc) fc + T_n dfc),
+    w_n = dedg[:, n]: Fj gains coeff * u_j."""
+    def wn(n):
+        return dedg[:, n:n + 1]
+
+    xch = 2.0 * r / rc - 1.0
+    tp, tc = m, xch * m
+    dp, dc = torch.zeros_like(r), m
+    coeff = wn(0) * (tp * dfc)
+    coeff = coeff + wn(1) * (dc * (2.0 / rc) * fc + tc * dfc)
+    for n in range(2, npsf):
+        tp, tc, dp, dc = tc, 2.0 * xch * tc - tp, dc, \
+            2.0 * tc + 2.0 * xch * dc - dp
+        coeff = coeff + wn(n) * (dc * (2.0 / rc) * fc + tc * dfc)
+    return coeff
+
+
 def g_harm_plain(dxx, dxy, dxz, npsf, ntsf, rc):
     """Plain PyTorch `_g_kernel_harm`: (g_raw [P, 128], A [P, 384]).
 
@@ -202,12 +238,7 @@ def g_harm_plain(dxx, dxy, dxz, npsf, ntsf, rc):
     lmax = ntsf - 1
     h0, d1, e1, e2 = harm_tables(lmax)
     r, fc, dfc, inv_r, m, ux, uy, uz = pair_geometry(dxx, dxy, dxz, rc)
-    xch = 2.0 * r / rc - 1.0
-    tp, tc = m, xch * m
-    cols = [(tp * fc).sum(1), (tc * fc).sum(1)]
-    for _ in range(2, npsf):
-        tp, tc = tc, 2.0 * xch * tc - tp
-        cols.append((tc * fc).sum(1))
+    cols = _radial_g(r, fc, m, npsf, rc)
     a_cols = []
     s_l = [None] * (lmax + 1)
     cm, sm = m, torch.zeros_like(m)
@@ -247,19 +278,7 @@ def force_harm_plain(dxx, dxy, dxz, dedg_rad, b, npsf, ntsf, rc):
     lmax = ntsf - 1
     h0, d1, e1, e2 = harm_tables(lmax)
     r, fc, dfc, inv_r, m, ux, uy, uz = pair_geometry(dxx, dxy, dxz, rc)
-
-    def wn(n):
-        return dedg_rad[:, n:n + 1]
-
-    xch = 2.0 * r / rc - 1.0
-    tp, tc = m, xch * m
-    dp, dc = torch.zeros_like(r), m
-    coeff = wn(0) * (tp * dfc)
-    coeff = coeff + wn(1) * (dc * (2.0 / rc) * fc + tc * dfc)
-    for n in range(2, npsf):
-        tp, tc, dp, dc = tc, 2.0 * xch * tc - tp, dc, \
-            2.0 * tc + 2.0 * xch * dc - dp
-        coeff = coeff + wn(n) * (dc * (2.0 / rc) * fc + tc * dfc)
+    coeff = _radial_coeff(r, fc, dfc, m, dedg_rad, npsf, rc)
 
     zero = torch.zeros_like(r)
     sy, gx, gy, gz = zero, zero, zero, zero
@@ -301,6 +320,94 @@ def force_harm_plain(dxx, dxy, dxz, dedg_rad, b, npsf, ntsf, rc):
     fcr = fc * inv_r
     return ((coeff + pref) * ux + fcr * gx, (coeff + pref) * uy + fcr * gy,
             (coeff + pref) * uz + fcr * gz)
+
+
+def _row_chunk(k):
+    """Rows per chunk of the cos-matrix plain versions: 2^24 [K, K] entries,
+    so that their ~10 live [rows, K, K] tensors stay near 1.3 GB in f64."""
+    return max(1, (1 << 24) // (k * k))
+
+
+def _angular_matrices(ux, uy, uz, fc):
+    """cos[r, k, j] = u_k . u_j, the weight w = fc_k fc_j with its diagonal
+    zeroed by index, and the [K, K] diagonal mask, for [rows, K] lanes
+    (`_angular_matrices`, meng_zhang_tpu/ops/pallas_annp.py:77)."""
+    k = ux.shape[1]
+    cos = (ux[:, :, None] * ux[:, None, :] + uy[:, :, None] * uy[:, None, :]
+           + uz[:, :, None] * uz[:, None, :])
+    diag = torch.eye(k, dtype=torch.bool, device=ux.device)
+    w = torch.where(diag, 0.0, fc[:, :, None] * fc[:, None, :])
+    return cos, w, diag
+
+
+def g_cos_plain(dxx, dxy, dxz, npsf, ntsf, rc):
+    """Plain PyTorch `_g_kernel`: raw descriptors g [P, 128], cols
+    [0, npsf) radial G_m, cols npsf + n the angular
+    G_n = 1/2 sum_{j!=k} T_n((cos_jk + 1)/2) fc_j fc_k, rest 0. The [K, K]
+    matrices are built in row chunks."""
+    p, k = dxx.shape
+    r, fc, dfc, inv_r, m, ux, uy, uz = pair_geometry(dxx, dxy, dxz, rc)
+    g = dxx.new_zeros(p, NSF_PAD)
+    g[:, :npsf] = torch.stack(_radial_g(r, fc, m, npsf, rc), 1)
+    rows = _row_chunk(k)
+    for i0 in range(0, p, rows):
+        c = slice(i0, i0 + rows)
+        cos, w, _ = _angular_matrices(ux[c], uy[c], uz[c], fc[c])
+        xa = 0.5 * (cos + 1.0)
+        tp, tc = torch.ones_like(xa), xa
+        sums = [(w * tp).sum((1, 2)), (w * tc).sum((1, 2))]
+        for _ in range(2, ntsf):
+            tp, tc = tc, 2.0 * xa * tc - tp
+            sums.append((w * tc).sum((1, 2)))
+        g[c, npsf:npsf + ntsf] = 0.5 * torch.stack(sums[:ntsf], 1)
+    return g
+
+
+def force_cos_plain(dxx, dxy, dxz, dedg, npsf, ntsf, rc):
+    """Plain PyTorch `_force_kernel`: per-pair Fj = -dE_i/dx_j as three
+    [P, K] planes from dedg [P, 128], dE/dG already multiplied by
+    sf_scale * e_scale. With P = sum_n w_n T_n(x_kj), the matrices
+    A[k, j] = 1/4 fc_k fc_j P'(x_kj) and B[k, j] = fc_k dfc_j P(x_kj)
+    (diagonal excluded by index) give
+    Fj = coeff u_j - ((sac u_j - sau) 2 / r_j - sb u_j), with the column
+    sums sac = sum_k A cos, sau = sum_k A u_k, sb = sum_k B."""
+    p, k = dxx.shape
+    r, fc, dfc, inv_r, m, ux, uy, uz = pair_geometry(dxx, dxy, dxz, rc)
+    coeff = _radial_coeff(r, fc, dfc, m, dedg, npsf, rc)
+    out = [torch.empty_like(dxx) for _ in range(3)]
+    rows = _row_chunk(k)
+    for i0 in range(0, p, rows):
+        c = slice(i0, i0 + rows)
+        cos, w, diag = _angular_matrices(ux[c], uy[c], uz[c], fc[c])
+
+        def wn(n):
+            return dedg[c, npsf + n].reshape(-1, 1, 1)
+
+        xa = 0.5 * (cos + 1.0)
+        tp = (~diag).to(xa.dtype)
+        tc = xa * tp
+        dp = torch.zeros_like(xa)
+        dc = tp
+        p_sum = wn(0) * tp
+        dp_sum = torch.zeros_like(xa)
+        if ntsf > 1:
+            p_sum = p_sum + wn(1) * tc
+            dp_sum = dp_sum + wn(1) * dc
+        for n in range(2, ntsf):
+            tp, tc, dp, dc = tc, 2.0 * xa * tc - tp, dc, \
+                2.0 * tc + 2.0 * xa * dc - dp
+            p_sum = p_sum + wn(n) * tc
+            dp_sum = dp_sum + wn(n) * dc
+        a_mat = (0.5 * 0.5) * w * dp_sum
+        b_mat = torch.where(diag, 0.0,
+                            fc[c][:, :, None] * dfc[c][:, None, :]) * p_sum
+        sac = (a_mat * cos).sum(1)
+        sb = b_mat.sum(1)
+        for o, u in zip(out, (ux, uy, uz)):
+            sau = (a_mat * u[c][:, :, None]).sum(1)
+            o[c] = (coeff[c] * u[c] - ((sac * u[c] - sau) * 2.0 * inv_r[c]
+                                       - sb * u[c])) * m[c]
+    return tuple(out)
 
 
 # ------------------------------------------------------------ evaluator
@@ -387,15 +494,18 @@ def evaluate_pairs(eval_fj, x, box, sidx, bad, pbc, e_shift, shift,
 
 
 class FusedAnnp:
-    """Per-step evaluator: gather -> g_harm -> MLP + VJP -> force_harm ->
-    index_add delivery.
+    """Per-step evaluator: gather -> descriptor kernel -> MLP + VJP -> force
+    kernel -> index_add delivery.
 
     k_short: short-list width Ks (128 on the benchmark path: bcc-Fe has at
     most ~112 partners within 6.9 A). short_delta: the inner skin of the
-    refresh-static short list. plain=True runs the plain PyTorch versions of
-    the two kernels on any device (the f64 reference on the card); with
-    plain=False the kernel wrappers run, which launch the CUDA kernels for
-    CUDA tensors and take the plain versions only for CPU tensors.
+    refresh-static short list. angular: "harmonic" (g_harm / force_harm)
+    selects the harmonic path, any other value the cos-matrix path (g_cos /
+    force_cos), as `PallasAnnp(angular=...)` does. plain=True runs the plain
+    PyTorch versions of the kernels on any device (the f64 reference on the
+    card); with plain=False the kernel wrappers run, which launch the CUDA
+    kernels for CUDA tensors and take the plain versions only for CPU
+    tensors.
 
     Built for a CUDA device, it turns TF32 off for matmuls and cuDNN
     (process-wide flags): the angular descriptors come out of S_l @ cmat
@@ -405,11 +515,12 @@ class FusedAnnp:
     """
 
     def __init__(self, cfg, params, k_short=128, short_delta=0.3,
-                 plain=False):
+                 plain=False, angular="harmonic"):
         self.cfg = cfg
         self.k_short = k_short
         self.short_delta = short_delta
         self.plain = plain
+        self.angular = angular
         self.pbc = tuple(cfg.pbc)
         self.npsf, self.ntsf = cfg.npsf, cfg.ntsf
         dt = params["sf_scale"].dtype
@@ -417,18 +528,31 @@ class FusedAnnp:
         if dev.type == "cuda":
             torch.backends.cuda.matmul.allow_tf32 = False
             torch.backends.cudnn.allow_tf32 = False
-        self.cmat = torch.as_tensor(cheb_legendre(cfg.ntsf), dtype=dt,
-                                    device=dev)
-        layout = harm_layout(cfg.ntsf - 1)
-        self.n_harm = len(layout)
-        assert self.n_harm <= AB_PAD - 1
-        self.l_of_col = torch.as_tensor(layout, device=dev)
+        if angular == "harmonic":
+            self.cmat = torch.as_tensor(cheb_legendre(cfg.ntsf), dtype=dt,
+                                        device=dev)
+            layout = harm_layout(cfg.ntsf - 1)
+            self.n_harm = len(layout)
+            assert self.n_harm <= AB_PAD - 1
+            self.l_of_col = torch.as_tensor(layout, device=dev)
         self.scale, self.shift = params["sf_scale"], params["sf_shift"]
         self.net = single_network(params)
 
     def compact_short(self, x, box, nbr_idx):
         return compact_short(x, box, nbr_idx, self.cfg.cut + self.short_delta,
                              self.k_short, self.pbc)
+
+    def _mlp_eat_dedg(self, g):
+        """MLP + VJP from raw descriptors g [P, 128]: (eat [P], dedg
+        [P, 128], zero beyond nsf, the cos force kernel's input)."""
+        nsf = self.npsf + self.ntsf
+        eat, dedg = mlp_eat_dedg(self.cfg, self.net,
+                                 (g[:, :nsf] - self.shift) * self.scale,
+                                 self.scale)
+        return eat, torch.nn.functional.pad(dedg, (0, NSF_PAD - nsf))
+
+    def _g_cos(self):
+        return g_cos_plain if self.plain else kernels.g_cos
 
     def _mlp_eat_dedg_harm(self, g_raw, a):
         """S_l power sums -> angular G, MLP + VJP, then the force kernel's
@@ -454,11 +578,31 @@ class FusedAnnp:
 
     def _eval_fj(self, dxx, dxy, dxz):
         c = self.cfg
+        if self.angular != "harmonic":
+            g = self._g_cos()(dxx, dxy, dxz, c.npsf, c.ntsf, c.cut)
+            eat, dedg = self._mlp_eat_dedg(g)
+            f_fn = force_cos_plain if self.plain else kernels.force_cos
+            return eat, f_fn(dxx, dxy, dxz, dedg, c.npsf, c.ntsf, c.cut)
         g_fn = g_harm_plain if self.plain else kernels.g_harm
         f_fn = force_harm_plain if self.plain else kernels.force_harm
         g_raw, a = g_fn(dxx, dxy, dxz, c.npsf, c.ntsf, c.cut)
         eat, dedg_rad, b = self._mlp_eat_dedg_harm(g_raw, a)
         return eat, f_fn(dxx, dxy, dxz, dedg_rad, b, c.npsf, c.ntsf, c.cut)
+
+    def energy_dedg(self, x, box, nbr_idx):
+        """Per-atom energies and descriptor gradients from the skin list
+        nbr_idx [N, K] at its full width, through g_cos whatever `angular`
+        is (counterpart of `PallasAnnp.energy_dedg`,
+        meng_zhang_tpu/ops/pallas_annp.py:1641).
+
+        Returns (eat [N], dedg [N, 128]). eat is shift-free, as everywhere in
+        this package: the JAX method's eat includes e_shift and equals
+        eat + cfg.e_shift. dedg is dE_i/dG_raw, carrying sf_scale * e_scale,
+        zero beyond nsf."""
+        c = self.cfg
+        dd = pair_dx_planes(x, box, nbr_idx, self.pbc)
+        return self._mlp_eat_dedg(
+            self._g_cos()(*dd, c.npsf, c.ntsf, c.cut))
 
     def energy_forces_short(self, x, box, sl: ShortList, shift=False):
         """(E, F [N, 3], W [3, 3]) against a refresh-static ShortList.

@@ -27,8 +27,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from meng_zhang_tpu.units import CFLENGTH
-
+from ..units import CFLENGTH
 from . import fused_annp as fa
 from . import kernels
 

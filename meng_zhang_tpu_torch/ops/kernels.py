@@ -2,13 +2,15 @@
 
 `csrc/annp_harm.cu` holds `g_harm` (replaces the TPU kernel
 `_g_kernel_harm`, meng_zhang_tpu/ops/pallas_annp.py:299) and `force_harm`
-(replaces `_force_kernel_harm`, :352); `csrc/ni_bp.cu` holds `ni_g`
-(replaces `_ni_g_kernel`, meng_zhang_tpu/ops/pallas_ni.py:126) and
-`ni_force` (replaces `_ni_force_kernel`, :170). Every `.cu` under `csrc/`
-is compiled at first use by `nvcc` for `sm_90a` into its own plain-C
-shared library under `meng_zhang_tpu_torch/_build/<hash of the sources and
-flags>/` (one nvcc per source, all started together), and bound with
-ctypes; kernels run on PyTorch's current stream.
+(replaces `_force_kernel_harm`, :352); `csrc/annp_cos.cu` holds `g_cos`
+(replaces `_g_kernel`, :116) and `force_cos` (replaces `_force_kernel`,
+:193); `csrc/ni_bp.cu` holds `ni_g` (replaces `_ni_g_kernel`,
+meng_zhang_tpu/ops/pallas_ni.py:126) and `ni_force` (replaces
+`_ni_force_kernel`, :170). Every `.cu` under `csrc/` is compiled at first
+use by `nvcc` for `sm_90a` into its own plain-C shared library under
+`meng_zhang_tpu_torch/_build/<hash of the sources, headers and flags>/`
+(one nvcc per source, all started together), and bound with ctypes;
+kernels run on PyTorch's current stream.
 
 Each wrapper takes the kernel's plain PyTorch version (ops/fused_annp.py,
 ops/fused_ni.py) only when its inputs lie on the CPU. For CUDA tensors it
@@ -34,7 +36,8 @@ _BUILD_ROOT = os.path.join(
     os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "_build")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
-MAX_K = 256          # harmonic kernels: one thread per lane, <= 8 warps
+MAX_K = 256          # fe kernels: one thread per lane, <= 8 warps
+COS_MAX_T = 32       # cos kernels: angular functions held in registers
 NI_MAX_K = 32        # ni kernels: one warp per row, one lane per slot
 
 
@@ -57,7 +60,7 @@ def build():
     load a partial file."""
     srcs = sorted(glob.glob(os.path.join(_CSRC, "*.cu")))
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in srcs:
+    for src in srcs + sorted(glob.glob(os.path.join(_CSRC, "*.cuh"))):
         with open(src, "rb") as f:
             h.update(os.path.basename(src).encode() + b"\0" + f.read())
     out_dir = os.path.join(_BUILD_ROOT, h.hexdigest()[:16])
@@ -95,16 +98,23 @@ def build():
 
 @functools.cache
 def _libs():
+    """{source stem: ctypes library}, argument types declared."""
     vp, ll, ci, cd = (ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
                       ctypes.c_double)
-    paths = build()[0]
-    harm, ni = ctypes.CDLL(paths["annp_harm"]), ctypes.CDLL(paths["ni_bp"])
+    libs = {stem: ctypes.CDLL(path) for stem, path in build()[0].items()}
+    harm, cos, ni = libs["annp_harm"], libs["annp_cos"], libs["ni_bp"]
     for suffix in ("f32", "f64"):
         g = getattr(harm, f"annp_g_harm_{suffix}")
         g.argtypes = [vp] * 6 + [ll, ci, ci, ci, cd, vp]
         g.restype = ci
         fn = getattr(harm, f"annp_force_harm_{suffix}")
         fn.argtypes = [vp] * 9 + [ll, ci, ci, ci, cd, vp]
+        fn.restype = ci
+        g = getattr(cos, f"annp_g_cos_{suffix}")
+        g.argtypes = [vp] * 4 + [ll, ci, ci, ci, cd, vp]
+        g.restype = ci
+        fn = getattr(cos, f"annp_force_cos_{suffix}")
+        fn.argtypes = [vp] * 7 + [ll, ci, ci, ci, cd, vp]
         fn.restype = ci
         g = getattr(ni, f"ni_g_{suffix}")
         g.argtypes = [vp] * 4 + [ll, ci, vp, vp]
@@ -117,7 +127,7 @@ def _libs():
         if size() != ctypes.sizeof(_NI_CFG[suffix]):
             raise RuntimeError("ni_bp.cu's NiCfg layout differs from the "
                                "ctypes mirror in ops/kernels.py")
-    return harm, ni
+    return libs
 
 
 _SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
@@ -192,7 +202,7 @@ class GHarm(_HarmKernel):
                         device=dxx.device)
         a = torch.empty((p, fused_annp.AB_PAD), dtype=dxx.dtype,
                         device=dxx.device)
-        fn = getattr(_libs()[0], f"annp_g_harm_{_SUFFIX[dxx.dtype]}")
+        fn = getattr(_libs()["annp_harm"], f"annp_g_harm_{_SUFFIX[dxx.dtype]}")
         with torch.cuda.device(dxx.device):
             stream = torch.cuda.current_stream().cuda_stream
             rc_ = fn(dxx.data_ptr(), dxy.data_ptr(), dxz.data_ptr(),
@@ -218,7 +228,8 @@ class ForceHarm(_HarmKernel):
         _check_row(dedg_rad, planes, fused_annp.NSF_PAD, "dedg_rad")
         _check_row(b, planes, fused_annp.AB_PAD, "b")
         out = [torch.empty_like(dxx) for _ in range(3)]
-        fn = getattr(_libs()[0], f"annp_force_harm_{_SUFFIX[dxx.dtype]}")
+        fn = getattr(_libs()["annp_harm"],
+                     f"annp_force_harm_{_SUFFIX[dxx.dtype]}")
         with torch.cuda.device(dxx.device):
             stream = torch.cuda.current_stream().cuda_stream
             rc_ = fn(dxx.data_ptr(), dxy.data_ptr(), dxz.data_ptr(),
@@ -227,6 +238,67 @@ class ForceHarm(_HarmKernel):
                      *(o.data_ptr() for o in out), p, k, npsf, ntsf,
                      float(rc), stream)
         _raise_on(rc_, "force_harm")
+        self.launches += 1
+        return tuple(out)
+
+
+# ---------------------------------------------------------- cos matrix
+def _check_cos(planes, npsf, ntsf):
+    p, k = _check_planes(planes, MAX_K)
+    if npsf < 2 or not 1 <= ntsf <= COS_MAX_T \
+            or npsf + ntsf > fused_annp.NSF_PAD:
+        raise ValueError(f"npsf {npsf}, ntsf {ntsf} outside the cos kernels' "
+                         "layout")
+    return p, k
+
+
+class GCos:
+    """g_cos(dxx, dxy, dxz, npsf, ntsf, rc) -> raw descriptors g [P, 128];
+    see fused_annp.g_cos_plain."""
+
+    def __init__(self):
+        self.launches = 0
+
+    def __call__(self, dxx, dxy, dxz, npsf, ntsf, rc):
+        if dxx.device.type == "cpu":
+            return fused_annp.g_cos_plain(dxx, dxy, dxz, npsf, ntsf, rc)
+        p, k = _check_cos((dxx, dxy, dxz), npsf, ntsf)
+        g = torch.empty((p, fused_annp.NSF_PAD), dtype=dxx.dtype,
+                        device=dxx.device)
+        fn = getattr(_libs()["annp_cos"], f"annp_g_cos_{_SUFFIX[dxx.dtype]}")
+        with torch.cuda.device(dxx.device):
+            stream = torch.cuda.current_stream().cuda_stream
+            rc_ = fn(dxx.data_ptr(), dxy.data_ptr(), dxz.data_ptr(),
+                     g.data_ptr(), p, k, npsf, ntsf, float(rc), stream)
+        _raise_on(rc_, "g_cos")
+        self.launches += 1
+        return g
+
+
+class ForceCos:
+    """force_cos(dxx, dxy, dxz, dedg, npsf, ntsf, rc) -> per-pair
+    Fj = -dE_i/dx_j as three [P, K] planes, dedg [P, 128] carrying
+    sf_scale * e_scale; see fused_annp.force_cos_plain."""
+
+    def __init__(self):
+        self.launches = 0
+
+    def __call__(self, dxx, dxy, dxz, dedg, npsf, ntsf, rc):
+        if dxx.device.type == "cpu":
+            return fused_annp.force_cos_plain(dxx, dxy, dxz, dedg, npsf, ntsf,
+                                              rc)
+        planes = (dxx, dxy, dxz)
+        p, k = _check_cos(planes, npsf, ntsf)
+        _check_row(dedg, planes, fused_annp.NSF_PAD, "dedg")
+        out = [torch.empty_like(dxx) for _ in range(3)]
+        fn = getattr(_libs()["annp_cos"],
+                     f"annp_force_cos_{_SUFFIX[dxx.dtype]}")
+        with torch.cuda.device(dxx.device):
+            stream = torch.cuda.current_stream().cuda_stream
+            rc_ = fn(dxx.data_ptr(), dxy.data_ptr(), dxz.data_ptr(),
+                     dedg.data_ptr(), *(o.data_ptr() for o in out), p, k,
+                     npsf, ntsf, float(rc), stream)
+        _raise_on(rc_, "force_cos")
         self.launches += 1
         return tuple(out)
 
@@ -296,7 +368,7 @@ class NiG:
         cfg = _ni_cfg(table, suffix)
         g = torch.empty((p, fused_ni.NSF_SUB), dtype=dxx.dtype,
                         device=dxx.device)
-        fn = getattr(_libs()[1], f"ni_g_{suffix}")
+        fn = getattr(_libs()["ni_bp"], f"ni_g_{suffix}")
         with torch.cuda.device(dxx.device):
             stream = torch.cuda.current_stream().cuda_stream
             rc_ = fn(dxx.data_ptr(), dxy.data_ptr(), dxz.data_ptr(),
@@ -322,7 +394,7 @@ class NiForce:
         _check_row(dedg, planes, fused_ni.NSF_SUB, "dedg")
         cfg = _ni_cfg(table, suffix)
         out = [torch.empty_like(dxx) for _ in range(3)]
-        fn = getattr(_libs()[1], f"ni_force_{suffix}")
+        fn = getattr(_libs()["ni_bp"], f"ni_force_{suffix}")
         with torch.cuda.device(dxx.device):
             stream = torch.cuda.current_stream().cuda_stream
             rc_ = fn(dxx.data_ptr(), dxy.data_ptr(), dxz.data_ptr(),
@@ -335,10 +407,12 @@ class NiForce:
 
 g_harm = GHarm()
 force_harm = ForceHarm()
+g_cos = GCos()
+force_cos = ForceCos()
 ni_g = NiG()
 ni_force = NiForce()
 
 
 def reset_launch_counts():
-    for kernel in (g_harm, force_harm, ni_g, ni_force):
+    for kernel in (g_harm, force_harm, g_cos, force_cos, ni_g, ni_force):
         kernel.launches = 0

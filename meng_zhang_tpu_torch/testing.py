@@ -18,12 +18,11 @@ from __future__ import annotations
 
 import numpy as np
 
-from meng_zhang_tpu.geometry.lattice import bcc, fcc
-from meng_zhang_tpu.io.potential import (ACT_LINEAR, ACT_TANH, ACT_TTANH,
-                                         ActivationStyle, AnnpPotential,
-                                         NetworkParams, SYM_BEHLER,
-                                         SYM_CHEBYSHEV)
-from meng_zhang_tpu.units import CFLENGTH, MASS_FE, MASS_NI
+from .geometry.lattice import bcc, fcc
+from .io.potential import (ACT_LINEAR, ACT_TANH, ACT_TTANH, ActivationStyle,
+                           AnnpPotential, NetworkParams, SYM_BEHLER,
+                           SYM_CHEBYSHEV)
+from .units import CFLENGTH, MASS_FE, MASS_NI
 
 RC_NI_BOHR = 7.3699319        # the shipped ni coefficient tables' Rc
 NI_ETAS = (0.01, 0.02, 0.05)  # the shipped radial etas

@@ -49,7 +49,7 @@ def case(request):
     full = pk.energy_forces(xj, bj, jn.idx, jn.rev, want_virial=True,
                             shift=False)
     auto = jannp.energy_forces(jcfg, jparams, xj, bj, jn.idx)
-    cfg, params = annp.make_annp(pot, torch.float64, pbc=pbc)
+    cfg, params = annp.make_annp(pot, torch.float64, device="cpu", pbc=pbc)
     return dict(pot=pot, x=x, box=box, pbc=pbc, jcfg=jcfg, jparams=jparams,
                 idx=torch.as_tensor(np.array(jn.idx)).long(), short=short,
                 full=full, auto=auto, cfg=cfg, params=params)
@@ -57,7 +57,7 @@ def case(request):
 
 def test_params_from_numpy_round_trip(case):
     jparams = case["jparams"]
-    p = annp.params_from_numpy(params_numpy(jparams))
+    p = annp.params_from_numpy(params_numpy(jparams), device="cpu")
     for key in ("w", "b"):
         for got, mine, want in zip(p[key], case["params"][key],
                                    jparams[key]):
@@ -119,7 +119,7 @@ def test_matches_numpy_oracle():
     pot = reduced_potential(cut=CUT)
     x, box = perturbed_bcc(4, seed=11, disp=0.1)
     e_ref, f_ref, _ = oracle_numpy.annp_fe_energy_forces(pot, x, box)
-    cfg, params = annp.make_annp(pot, torch.float64)
+    cfg, params = annp.make_annp(pot, torch.float64, device="cpu")
     nbrs = build_neighbors_n2(t64(x), t64(box), CUT + 0.5, 64)
     ev = fa.FusedAnnp(cfg, params, k_short=KS)
     e, f, _ = ev.energy_forces(t64(x), t64(box), nbrs.idx, shift=True)
@@ -132,7 +132,7 @@ def test_finite_differences():
     against the energy's response to a homogeneous strain."""
     pot = reduced_potential(cut=CUT)
     x, box = perturbed_bcc(4, seed=12, disp=0.1)
-    cfg, params = annp.make_annp(pot, torch.float64)
+    cfg, params = annp.make_annp(pot, torch.float64, device="cpu")
     ev = fa.FusedAnnp(cfg, params, k_short=KS)
     xt, bt = t64(x), t64(box)
     nbrs = build_neighbors_n2(xt, bt, CUT + 0.5, 64)
@@ -168,7 +168,7 @@ def test_full_width_matches_jax_autodiff():
     jn = jax_n2(jnp.asarray(x), jnp.asarray(box), pot.cut, 128)
     je, jf = jannp.energy_forces(jcfg, jparams, jnp.asarray(x),
                                  jnp.asarray(box), jn.idx)
-    cfg, params = annp.make_annp(pot, torch.float64)
+    cfg, params = annp.make_annp(pot, torch.float64, device="cpu")
     ev = fa.FusedAnnp(cfg, params, k_short=128)
     e, f, _ = ev.energy_forces(t64(x), t64(box),
                                torch.as_tensor(np.array(jn.idx)).long(),

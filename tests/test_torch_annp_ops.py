@@ -100,7 +100,7 @@ def test_compact_short_matches_jax_revfree(pbc):
     jn = jax_n2(jnp.asarray(x), jnp.asarray(box), 4.5, 48, pbc=pbc)
     pk = jpa.PallasAnnp(jcfg, jparams, k_short=32, short_delta=0.4)
     want = pk.compact_short(jnp.asarray(x), jnp.asarray(box), jn.idx, None)
-    cfg, params = make_annp(pot, torch.float64, pbc=pbc)
+    cfg, params = make_annp(pot, torch.float64, device="cpu", pbc=pbc)
     ev = fa.FusedAnnp(cfg, params, k_short=32, short_delta=0.4)
     got = ev.compact_short(t64(x), t64(box),
                            torch.as_tensor(np.asarray(jn.idx)).long())
@@ -112,7 +112,7 @@ def test_compact_short_matches_jax_revfree(pbc):
 def test_short_overflow_poisons():
     pot = reduced_potential(cut=4.0)
     x, box = perturbed_bcc(4, seed=6)
-    cfg, params = make_annp(pot, torch.float64)
+    cfg, params = make_annp(pot, torch.float64, device="cpu")
     nbrs = build_neighbors_n2(t64(x), t64(box), 4.5, 48)
     ev = fa.FusedAnnp(cfg, params, k_short=16, short_delta=0.4)
     sl = ev.compact_short(t64(x), t64(box), nbrs.idx)

@@ -11,23 +11,26 @@ order per lane, but reduce lanes in another order, so each output agrees to
 a few hundred ulps of its largest value: max |diff| <= 1e-12 of max |value|.
 In f32 the ni kernels' longest per-lane sums run over ~30 (p, q) terms and
 the G4 columns then sum 32 lanes: 1e-4 of max |value| leaves a wide margin
-over the ~1e-6 that f32 rounding of those sums gives.
+over the ~1e-6 that f32 rounding of those sums gives. The cos kernels' f32
+bounds are chip_smoke.py's COS_REL_BOUND, derived there.
 """
 import numpy as np
 import pytest
 import torch
 
-from meng_zhang_tpu.units import CFLENGTH
 from meng_zhang_tpu_torch.ops import fused_annp as fa
 from meng_zhang_tpu_torch.ops import fused_ni as fn
 from meng_zhang_tpu_torch.ops import kernels
 from meng_zhang_tpu_torch.testing import synthetic_ni_potential
+from meng_zhang_tpu_torch.units import CFLENGTH
 from torch_port_util import cuda_device  # noqa: F401  (fixture)
 from torch_port_util import (kernel_coeffs, ni_short_planes,
                              reduced_ni_potential, rel_max, short_planes, t64)
 
 RTOL = 1e-12
 NI_RTOL = {torch.float64: 1e-12, torch.float32: 1e-4}
+# chip_smoke.COS_REL_BOUND (g_cos, force_cos)
+COS_RTOL = {torch.float64: (1e-12, 1e-12), torch.float32: (1e-4, 3e-4)}
 
 
 @pytest.mark.cuda
@@ -65,6 +68,53 @@ def test_wrappers_refuse_bad_inputs(cuda_device):
     with pytest.raises(ValueError):                 # b of the wrong width
         kernels.force_harm(*planes, planes[0][:, :1].repeat(1, 128),
                            planes[0][:, :1].repeat(1, 100), 4, 5, 4.0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("n_cells,cut,ks,npsf,ntsf", [
+    (3, 4.0, 40, 4, 5),          # K not a multiple of 32
+    (5, 6.5, 128, 9, 19),        # the shipped fe width, short-list lanes
+    (5, 6.5, 192, 9, 19),        # skin-list lanes (energy_dedg)
+    (3, 4.0, 32, 4, 1),          # one angular function
+])
+def test_cos_kernels_match_plain(cuda_device, n_cells, cut, ks, npsf, ntsf,
+                                 dtype):
+    planes, filler = short_planes(n_cells, cut, ks)
+    planes = [torch.as_tensor(a, dtype=dtype, device=cuda_device)
+              for a in planes]
+    p = planes[0].shape[0]
+    dedg = np.zeros((p, fa.NSF_PAD))
+    dedg[:, :npsf + ntsf] = np.random.default_rng(1).normal(
+        size=(p, npsf + ntsf))
+    dedg = torch.as_tensor(dedg, dtype=dtype, device=cuda_device)
+    g_tol, f_tol = COS_RTOL[dtype]
+    before = (kernels.g_cos.launches, kernels.force_cos.launches)
+    g = kernels.g_cos(*planes, npsf, ntsf, cut)
+    assert rel_max(g.cpu(), fa.g_cos_plain(*planes, npsf, ntsf, cut).cpu()) \
+        <= g_tol
+    assert torch.all(g[:, npsf + ntsf:] == 0)
+    got = kernels.force_cos(*planes, dedg, npsf, ntsf, cut)
+    want = fa.force_cos_plain(*planes, dedg, npsf, ntsf, cut)
+    for u, v in zip(got, want):
+        assert rel_max(u.cpu(), v.cpu()) <= f_tol
+        assert torch.all(u.cpu()[torch.as_tensor(filler)] == 0)
+    assert (kernels.g_cos.launches, kernels.force_cos.launches) == \
+        (before[0] + 1, before[1] + 1)
+
+
+@pytest.mark.cuda
+def test_cos_wrappers_refuse_bad_inputs(cuda_device):
+    planes = [torch.zeros(8, 32, dtype=torch.float64, device=cuda_device)
+              for _ in range(3)]
+    with pytest.raises(ValueError):                 # K above 256 lanes
+        kernels.g_cos(*[torch.zeros(8, 300, device=cuda_device)] * 3,
+                      4, 5, 4.0)
+    with pytest.raises(ValueError):                 # more than 32 functions
+        kernels.g_cos(*planes, 4, 33, 4.0)
+    with pytest.raises(ValueError):                 # dedg of the wrong width
+        kernels.force_cos(*planes, planes[0][:, :1].repeat(1, 100), 4, 5,
+                          4.0)
 
 
 def _ni_case(width):

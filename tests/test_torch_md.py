@@ -1,8 +1,9 @@
 """The port's integrators and MD driver against the JAX package.
 
 Both drivers run the short-list path (refresh every `short_every` steps,
-Pallas interpret mode on the JAX side, the plain harmonic path in the port)
-from the same numpy positions and velocities, in f64 at reduced width.
+Pallas interpret mode on the JAX side, the plain harmonic or cos-matrix path
+in the port) from the same numpy positions and velocities, in f64 at
+reduced width.
 Tolerances: the force evaluations agree to rounding (summation order:
 `index_add_` against a sort), and 10 steps do not amplify that beyond a few
 ulps: positions and forces atol 1e-9 (A, eV/A), thermo rtol 1e-9.
@@ -16,11 +17,11 @@ from meng_zhang_tpu.md import integrate as JI
 from meng_zhang_tpu.md import simulation as JS
 from meng_zhang_tpu.models.annp import make_annp as jax_make_annp
 from meng_zhang_tpu.ops.pallas_annp import PallasAnnp
-from meng_zhang_tpu.units import MASS_FE
 from meng_zhang_tpu_torch.md import integrate as I
 from meng_zhang_tpu_torch.md import simulation as S
 from meng_zhang_tpu_torch.models.annp import make_annp
 from meng_zhang_tpu_torch.ops import fused_annp as fa
+from meng_zhang_tpu_torch.units import MASS_FE
 from torch_port_util import perturbed_bcc, reduced_potential, t64
 
 RTOL, ATOL = 1e-9, 1e-9
@@ -52,7 +53,8 @@ def test_integrate_matches_jax():
     np.testing.assert_allclose(I.vv_drift(xt, vt, 1e-3).numpy(),
                                _np(JI.vv_drift(xj, vj, 1e-3)), rtol=1e-14)
     for chain in (1, 3):
-        q = I.nhc_masses(3 * n - 3, 300.0, 0.1, chain, torch.float64)
+        q = I.nhc_masses(3 * n - 3, 300.0, 0.1, chain, torch.float64,
+                         device="cpu")
         qj = JI.nhc_masses(3 * n - 3, 300.0, 0.1, chain, jnp.float64)
         np.testing.assert_allclose(q.numpy(), _np(qj), rtol=1e-14)
         nhc = I.NHCState(t64(rng.normal(size=chain)),
@@ -69,7 +71,8 @@ def test_integrate_matches_jax():
             float(I.nhc_conserved(s1, q, 300.0, 3 * n - 3)),
             float(JI.nhc_conserved(s2, qj, 300.0, 3 * n - 3)), rtol=1e-13)
     np.testing.assert_allclose(
-        float(I.npt_baro_masses(n, 300.0, 1.0, torch.float64)),
+        float(I.npt_baro_masses(n, 300.0, 1.0, torch.float64,
+                                device="cpu")),
         float(JI.npt_baro_masses(n, 300.0, 1.0, jnp.float64)), rtol=1e-14)
     veps = rng.normal(size=3) * 0.1
     couple = np.array([0.0, 1.0, 0.0])
@@ -104,15 +107,17 @@ def _configs(ensemble, pbc):
             S.MDConfig(p_couple=couple, **common))
 
 
-@pytest.mark.parametrize("ensemble,pbc", [
-    ("nve", (True, True, True)),
-    ("nvt", (True, True, True)),
-    ("npt", (False, True, False)),
-])
-def test_trajectory_matches_jax(ensemble, pbc):
+@pytest.mark.parametrize("ensemble,pbc,angular", [
+    ("nve", (True, True, True), "harmonic"),
+    ("nvt", (True, True, True), "harmonic"),
+    ("npt", (False, True, False), "harmonic"),
+    ("npt", (False, True, False), "matrix"),
+], ids=["nve-pbc0", "nvt-pbc1", "npt-pbc2", "npt-pbc2-matrix"])
+def test_trajectory_matches_jax(ensemble, pbc, angular):
     """10 steps (two thermo blocks, two short-list refreshes) of both
-    Simulators on the short path; the NPT run is the benchmark's layout:
-    `boundary m p m` with a y-coupled barostat."""
+    Simulators on the short path, through the harmonic or the cos-matrix
+    evaluator; the NPT runs are the benchmark's layout: `boundary m p m`
+    with a y-coupled barostat."""
     pot = reduced_potential(cut=CUT)
     x, box = perturbed_bcc((4, 5, 4), seed=3, disp=0.08)
     n = len(x)
@@ -122,7 +127,7 @@ def test_trajectory_matches_jax(ensemble, pbc):
     jcfg, jmc = _configs(ensemble, pbc)
 
     jc, jp = jax_make_annp(pot, dtype=jnp.float64, pbc=pbc)
-    pk = PallasAnnp(jc, jp, k_short=KS, short_delta=0.4)
+    pk = PallasAnnp(jc, jp, k_short=KS, short_delta=0.4, angular=angular)
     jsim = JS.Simulator(
         lambda xx, bb, nb, sh: pk.energy_forces_short(
             xx, bb, sh, want_virial=True, shift=False),
@@ -131,8 +136,9 @@ def test_trajectory_matches_jax(ensemble, pbc):
     js = jsim.init_state(jnp.asarray(x), jnp.asarray(box), v=jnp.asarray(v))
     js, jth = jsim.run(js, 2)
 
-    cfg, params = make_annp(pot, torch.float64, pbc=pbc)
-    ev = fa.FusedAnnp(cfg, params, k_short=KS, short_delta=0.4)
+    cfg, params = make_annp(pot, torch.float64, device="cpu", pbc=pbc)
+    ev = fa.FusedAnnp(cfg, params, k_short=KS, short_delta=0.4,
+                      angular=angular)
     sim = S.Simulator(
         lambda xx, bb, nb, sh: ev.energy_forces_short(xx, bb, sh),
         torch.full((n,), MASS_FE, dtype=torch.float64), jmc,
@@ -165,7 +171,7 @@ def test_rebuild_and_flags():
     pot = reduced_potential(cut=CUT)
     x, box = perturbed_bcc(4, seed=9, disp=0.05)
     n = len(x)
-    cfg, params = make_annp(pot, torch.float64)
+    cfg, params = make_annp(pot, torch.float64, device="cpu")
     ev = fa.FusedAnnp(cfg, params, k_short=KS, short_delta=0.4)
     mc = S.MDConfig(dt=0.001, cutoff=CUT, skin=0.2, capacity=64,
                     nbr_method="n2", ensemble="nve", thermo_every=5,
@@ -206,7 +212,7 @@ def test_langevin_run_is_seeded():
     pot = reduced_potential(cut=CUT)
     x, box = perturbed_bcc(4, seed=10, disp=0.05)
     n = len(x)
-    cfg, params = make_annp(pot, torch.float64)
+    cfg, params = make_annp(pot, torch.float64, device="cpu")
     ev = fa.FusedAnnp(cfg, params, k_short=KS, short_delta=0.4)
     mc = S.MDConfig(dt=0.001, cutoff=CUT, skin=0.8, capacity=64,
                     nbr_method="n2", ensemble="langevin", damp=0.05,

@@ -67,7 +67,7 @@ def test_nvt_trajectory_matches_jax():
     js = jsim.init_state(jnp.asarray(x), jnp.asarray(box), v=jnp.asarray(v))
     js, jth = jsim.run(js, 2)
 
-    cfg, params = make_annp(pot, torch.float64)
+    cfg, params = make_annp(pot, torch.float64, device="cpu")
     ev = fn.FusedNi(cfg, params, k_short=KS, short_delta=DELTA)
     sim = S.Simulator(
         lambda xx, bb, nb, sh: ev.energy_forces_short(xx, bb, sh),

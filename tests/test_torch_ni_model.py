@@ -85,7 +85,7 @@ def test_behler_g_autograd_matches_jax_grad():
 def test_make_annp_bp_matches_jax():
     pot = synthetic_ni_potential(1)
     jcfg, jparams = jannp.make_annp(pot, dtype=jnp.float64)
-    cfg, params = annp.make_annp(pot, torch.float64)
+    cfg, params = annp.make_annp(pot, torch.float64, device="cpu")
     assert cfg.descriptor == jcfg.descriptor == SYM_BEHLER
     for field in ("npsf", "ntsf", "cut", "flagact", "act_style", "e_scale",
                   "e_shift", "pbc"):
@@ -97,13 +97,13 @@ def test_make_annp_bp_matches_jax():
         np.testing.assert_array_equal(params[key].numpy(),
                                       np.asarray(jparams[key]))
     # params_from_numpy carries the coefficient tables through
-    p2 = annp.params_from_numpy(params_numpy(jparams))
+    p2 = annp.params_from_numpy(params_numpy(jparams), device="cpu")
     for key in ("coerad", "coeang"):
         assert torch.equal(p2[key], params[key])
     for a, b in zip(p2["w"] + p2["b"], params["w"] + params["b"]):
         assert torch.equal(a, b)
     # f32 params for the card keep the tables in the working dtype
-    _, p32 = annp.make_annp(pot, torch.float32)
+    _, p32 = annp.make_annp(pot, torch.float32, device="cpu")
     assert p32["coeang"].dtype == torch.float32
 
 
@@ -111,7 +111,7 @@ def test_cutoffs_match_jax():
     for pot in (synthetic_ni_potential(0), reduced_ni_potential()):
         rc = annp.effective_cutoff(pot)
         assert rc == jannp.effective_cutoff(pot)
-        cfg, params = annp.make_annp(pot, torch.float64)
+        cfg, params = annp.make_annp(pot, torch.float64, device="cpu")
         jcfg, jparams = jannp.make_annp(pot, dtype=jnp.float64)
         assert annp.descriptor_cutoff(cfg, params) == \
             jannp.descriptor_cutoff(jcfg, jparams) == rc
@@ -127,7 +127,7 @@ def test_atom_energies_matches_jax():
     assert not bool(jn.overflow)
     want = jannp.atom_energies(jcfg, jparams, jnp.asarray(x),
                                jnp.asarray(box), jn.idx)
-    cfg, params = annp.make_annp(pot, torch.float64)
+    cfg, params = annp.make_annp(pot, torch.float64, device="cpu")
     idx = torch.as_tensor(np.array(jn.idx)).long()
     got = annp.atom_energies(cfg, params, t64(x), t64(box), idx)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=RTOL)

@@ -57,7 +57,7 @@ def case():
     full = pk.energy_forces(xj, bj, jn.idx, jn.rev, want_virial=True,
                             shift=False)
     strain = jannp.energy_forces_virial(jcfg, jparams, xj, bj, jn.idx)
-    cfg, params = annp.make_annp(pot, torch.float64)
+    cfg, params = annp.make_annp(pot, torch.float64, device="cpu")
     return dict(pot=pot, x=x, box=box, pk=pk, jcfg=jcfg, jparams=jparams,
                 idx=torch.as_tensor(np.array(jn.idx)).long(), short=short,
                 full=full, strain=strain, cfg=cfg, params=params)
@@ -169,7 +169,7 @@ def test_full_width_matches_autograd():
     pot = synthetic_ni_potential(0)
     x, box = thermal_fcc(3, seed=8, disp=0.1)
     x, box = t64(x), t64(box)
-    cfg, params = annp.make_annp(pot, torch.float64)
+    cfg, params = annp.make_annp(pot, torch.float64, device="cpu")
     ev = fn.FusedNi(cfg, params, k_short=32, short_delta=0.2)
     nbrs = build_neighbors_n2(x, box, ev.rc + 0.5, 64)
     sl = ev.compact_short(x, box, nbrs.idx)
@@ -202,4 +202,4 @@ def test_unsupported_shapes_refused(case):
     wide = synthetic_ni_potential(0, npsf=2, nnod=6,
                                   ang=((0.01, 1.0, 1.0),) * 31)
     with pytest.raises(ValueError):
-        fn.FusedNi(*annp.make_annp(wide, torch.float64))
+        fn.FusedNi(*annp.make_annp(wide, torch.float64, device="cpu"))
