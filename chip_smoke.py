@@ -22,8 +22,9 @@ Phases, each fatal on failure:
   2. build: compiles every ops/csrc/*.cu with nvcc for sm_90a, in parallel;
   3. fe kernels vs their plain PyTorch versions, in f32 and f64, plus
      times: the harmonic and cos-matrix kernels on [P, 128] short planes
-     gathered from the scene (filler lanes included), and g_cos also on its
-     [P, 192] skin planes;
+     gathered from the scene (filler lanes included), g_harm, force_harm
+     and g_cos also on the [P, 192] skin planes, and the harmonic pair
+     also at ntsf 5;
   4. harmonic fe evaluator: energy_forces_short through the kernels in f32
      against the plain path in f64 on the full scene, and the f64 kernel
      path against the autograd model (models/annp.py) on a 250-atom box;
@@ -42,7 +43,12 @@ Phases, each fatal on failure:
       plain path on that box, and the f64 kernel path against the autograd
       model on a 256-atom box;
   11. ni main path: init_state + 20 blocks of 5 NVT steps with the light
-      (no-virial) force variant on all but each block's last step.
+      (no-virial) force variant on all but each block's last step;
+  12. profile: a fresh harmonic main-path run (init_state and 5 blocks),
+      then one block without a skin-list rebuild under torch.profiler:
+      device time by kernel (top ten, ms per step) and the device's idle
+      share. It runs last, so that the profiler's tracing cannot touch any
+      other phase's timing.
 
 Each kernel's record carries its least time on the card (`bound_ms`, the
 larger of the FLOPs its function needs over the f32 peak and its bytes
@@ -340,7 +346,10 @@ def phase_kernels(x, box, cfg32, p32):
     the scene's [P, 128] short planes (filler lanes included), and g_cos
     also on its [P, 192] skin planes, the shape energy_dedg gives it.
     Returns the JSON records (without launch counts), timed at the main
-    path's [P, 128], and the short list."""
+    path's [P, 128], and the short list. g_harm and force_harm are also
+    held and timed on the skin planes and, on the short planes, at the
+    tests' reduced ntsf 5 (another compile-time instance of force_harm's
+    ladder), outside the records."""
     from meng_zhang_tpu_torch.ops import fused_annp as fa
     from meng_zhang_tpu_torch.ops import kernels
     from meng_zhang_tpu_torch.system.neighbors import build_neighbors_cell
@@ -383,31 +392,42 @@ def phase_kernels(x, box, cfg32, p32):
         bounds = {"g_harm": REL_BOUND[dtype], "force_harm": REL_BOUND[dtype],
                   **COS_REL_BOUND[dtype]}
         tag = "kernels " + ("f32" if dtype == torch.float32 else "f64")
-        # (name, planes, filler lanes, kernel, plain version, outputs,
-        #  repetitions to time the plain version; None: kernel time only)
+        def g_harm(nt):
+            return (lambda pl: kernels.g_harm(*pl, npsf, nt, rc),
+                    lambda pl: fa.g_harm_plain(*pl, npsf, nt, rc),
+                    ("g_raw", "A"))
+
+        def force_harm(nt):
+            return (lambda pl: kernels.force_harm(*pl, dedg, b, npsf, nt, rc),
+                    lambda pl: fa.force_harm_plain(*pl, dedg, b, npsf, nt,
+                                                   rc),
+                    ("fjx", "fjy", "fjz"))
+
+        # (name, what else sets the case apart, planes, filler lanes,
+        #  kernel, plain version, outputs, repetitions to time the plain
+        #  version; None: kernel time only, outside the record)
+        skin_w, reduced = "skin-list width", "ntsf 5"
         cases = [
-            ("g_harm", short, fill_short,
-             lambda pl: kernels.g_harm(*pl, npsf, ntsf, rc),
-             lambda pl: fa.g_harm_plain(*pl, npsf, ntsf, rc),
-             ("g_raw", "A"), 3),
-            ("force_harm", short, fill_short,
-             lambda pl: kernels.force_harm(*pl, dedg, b, npsf, ntsf, rc),
-             lambda pl: fa.force_harm_plain(*pl, dedg, b, npsf, ntsf, rc),
-             ("fjx", "fjy", "fjz"), 3),
-            ("g_cos", short, fill_short,
+            ("g_harm", "", short, fill_short, *g_harm(ntsf), 3),
+            ("force_harm", "", short, fill_short, *force_harm(ntsf), 3),
+            ("g_harm", skin_w, skin, fill_skin, *g_harm(ntsf), None),
+            ("force_harm", skin_w, skin, fill_skin, *force_harm(ntsf), None),
+            ("g_harm", reduced, short, fill_short, *g_harm(5), None),
+            ("force_harm", reduced, short, fill_short, *force_harm(5), None),
+            ("g_cos", "", short, fill_short,
              lambda pl: (kernels.g_cos(*pl, npsf, ntsf, rc),),
              lambda pl: (fa.g_cos_plain(*pl, npsf, ntsf, rc),), ("g",), 1),
-            ("g_cos", skin, fill_skin,
+            ("g_cos", skin_w, skin, fill_skin,
              lambda pl: (kernels.g_cos(*pl, npsf, ntsf, rc),),
              lambda pl: (fa.g_cos_plain(*pl, npsf, ntsf, rc),), ("g",),
              None),
-            ("force_cos", short, fill_short,
+            ("force_cos", "", short, fill_short,
              lambda pl: kernels.force_cos(*pl, dedg, npsf, ntsf, rc),
              lambda pl: fa.force_cos_plain(*pl, dedg, npsf, ntsf, rc),
              ("fjx", "fjy", "fjz"), 1),
         ]
-        for name, pl, filler, kern, plain, outs, reps in cases:
-            shape = f"[{p}, {pl[0].shape[1]}]"
+        for name, note, pl, filler, kern, plain, outs, reps in cases:
+            shape = f"[{p}, {pl[0].shape[1]}]" + (f" {note}" if note else "")
             got = kern(pl)
             ref = plain(pl)
             torch.cuda.synchronize()
@@ -419,7 +439,7 @@ def phase_kernels(x, box, cfg32, p32):
             ms = cuda_ms(lambda: kern(pl), 10)
             if reps is None:
                 log(f"[kernels] {name} f32 {shape}: kernel {ms:.3f} ms "
-                    f"(skin-list width, energy_dedg)")
+                    f"(median, CUDA events; not in the record)")
                 continue
             plain_ms = cuda_ms(lambda: plain(pl), reps)
             src, line = FE_KERNELS[name]
@@ -560,11 +580,22 @@ def phase_matrix_vs_harmonic(x, box, cfg64, p64, sl):
     return de, df
 
 
+def fe_simulator(x, cfg32, p32, mass, angular):
+    """The fe NPT main path's Simulator through one angular path."""
+    from meng_zhang_tpu_torch.md.simulation import Simulator
+    from meng_zhang_tpu_torch.ops import fused_annp as fa
+    ev = fa.FusedAnnp(cfg32, p32, k_short=K_SHORT, short_delta=SHORT_DELTA,
+                      angular=angular)
+    return Simulator(
+        lambda xx, bb, nb, sh: ev.energy_forces_short(xx, bb, sh),
+        torch.full((x.shape[0],), mass, dtype=torch.float32, device=x.device),
+        md_config(cfg32),
+        short_build=lambda xx, bb, nb: ev.compact_short(xx, bb, nb.idx))
+
+
 def phase_main_path(x, box, cfg32, p32, mass, card, angular="harmonic"):
     """init_state + blocks of the NPT main path through one angular path's
     kernels; the other path's kernels must not launch."""
-    from meng_zhang_tpu_torch.md.simulation import Simulator
-    from meng_zhang_tpu_torch.ops import fused_annp as fa
     from meng_zhang_tpu_torch.ops import kernels
     if angular == "harmonic":
         tag, n_blocks, rate_blocks = "main", N_BLOCKS, RATE_BLOCKS
@@ -572,16 +603,8 @@ def phase_main_path(x, box, cfg32, p32, mass, card, angular="harmonic"):
     else:
         tag, n_blocks, rate_blocks = "cos-main", COS_BLOCKS, COS_RATE_BLOCKS
         names, others = ("g_cos", "force_cos"), ("g_harm", "force_harm")
-    dev = x.device
     n = x.shape[0]
-    ev = fa.FusedAnnp(cfg32, p32, k_short=K_SHORT, short_delta=SHORT_DELTA,
-                      angular=angular)
-    mcfg = md_config(cfg32)
-    sim = Simulator(lambda xx, bb, nb, sh: ev.energy_forces_short(xx, bb, sh),
-                    torch.full((n,), mass, dtype=torch.float32, device=dev),
-                    mcfg,
-                    short_build=lambda xx, bb, nb: ev.compact_short(
-                        xx, bb, nb.idx))
+    sim = fe_simulator(x, cfg32, p32, mass, angular)
     pe_off = n * cfg32.e_shift
     torch.cuda.reset_peak_memory_stats()
     kernels.reset_launch_counts()
@@ -630,6 +653,50 @@ def phase_main_path(x, box, cfg32, p32, mass, card, angular="harmonic"):
         f"({window:.3f} s) on {card}; peak device memory "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     return {name: launches[name] for name in names}
+
+
+def phase_profile(x, box, cfg32, p32, mass, card):
+    """A fresh harmonic main-path run: init_state and the blocks before
+    phase 5's rate window, then one block under torch.profiler that ends
+    without a skin-list rebuild (the rate window's usual block; up to
+    three tries): the ten kernels with the most device time, in ms per
+    step, and the device's idle share of the block's wall time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    def dev_ms(e):
+        return getattr(e, "self_device_time_total", 0.0) / 1e3
+
+    sim = fe_simulator(x, cfg32, p32, mass, "harmonic")
+    st = sim.init_state(x, box, seed=SEED, t_init=300.0)
+    for _ in range(N_BLOCKS - RATE_BLOCKS):
+        st, _ = sim.run(st, 1)
+    check(not bool(st.overflow) and not bool(st.unsafe),
+          "profile: overflow or unsafe before the profiled block")
+    for _ in range(3):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.time()
+            st, _ = sim.run(st, 1)
+            torch.cuda.synchronize()
+            wall = (time.time() - t0) * 1e3
+        if sim.rebuild_count == 0:
+            break
+        log(f"[profile] block rebuilt its skin list ({wall:.3f} ms); again")
+    check(sim.rebuild_count == 0, "profile: every profiled block rebuilt")
+    ops = [e for e in prof.key_averages()
+           if e.device_type == DeviceType.CUDA and dev_ms(e) > 0]
+    busy = sum(dev_ms(e) for e in ops)
+    check(busy > 0, "profile: torch.profiler recorded no device time")
+    log(f"[profile] one {THERMO_EVERY}-step block of the harmonic main path "
+        f"on {card}: "
+        f"{busy:.3f} ms of device time in {wall:.3f} ms (device idle "
+        f"{100 * (1 - busy / wall):.1f} %, {busy / THERMO_EVERY:.3f} ms of "
+        f"device time a step)")
+    for e in sorted(ops, key=dev_ms, reverse=True)[:10]:
+        log(f"[profile]   {dev_ms(e) / THERMO_EVERY:8.3f} ms/step "
+            f"{100 * dev_ms(e) / busy:5.1f} %  x{e.count:<5d} {e.key[:100]}")
 
 
 # ------------------------------------------------------------------ ni
@@ -927,13 +994,15 @@ def main():
         phase_matrix_vs_harmonic(x, box, cfg64, p64, sl)
         launches.update(phase_main_path(x, box, cfg32, p32, mass, card,
                                         angular="matrix"))
-        del x, box, sl
+        fe = (x, box, cfg32, p32, mass)
+        del x, box, sl, cfg64, p64
         cfg32, p32, cfg64, p64, mass = ni_model(dev)
         x, box, sl = ni_thermal_scene(dev, cfg32, p32)
         records += phase_ni_kernels(x, box, cfg32, p32, sl)
         phase_ni_evaluator(x, box, cfg32, p32, cfg64, p64, sl)
         del x, box, sl
         launches.update(phase_ni_main_path(dev, cfg32, p32, mass, card))
+        phase_profile(*fe, card)
     except SmokeFailure as e:
         print(f"FAIL: {e}", file=sys.stderr, flush=True)
         return 1

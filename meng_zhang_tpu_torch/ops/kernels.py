@@ -27,6 +27,7 @@ import shutil
 import subprocess
 import time
 
+import numpy as np
 import torch
 
 from . import fused_annp, fused_ni
@@ -36,7 +37,7 @@ _BUILD_ROOT = os.path.join(
     os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "_build")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
-MAX_K = 256          # fe kernels: one thread per lane, <= 8 warps
+MAX_K = 256          # fe kernels: <= 8 slots a lane (g_harm), 8 warps a row
 COS_MAX_T = 32       # cos kernels: angular functions held in registers
 NI_MAX_K = 32        # ni kernels: one warp per row, one lane per slot
 
@@ -173,20 +174,19 @@ def _raise_on(rc, name):
 
 
 class _HarmKernel:
-    """Shared state of one kernel wrapper: launch count and the per-device
-    ladder coefficient tables."""
+    """Shared state of one kernel wrapper: launch count and the float64
+    ladder tables on the host, which each launch copies into its parameter
+    block."""
 
     def __init__(self):
         self.launches = 0
         self._tabs = {}
 
-    def _tab(self, ntsf, dtype, device):
-        key = (ntsf, dtype, device)
-        if key not in self._tabs:
-            self._tabs[key] = torch.as_tensor(
-                fused_annp.ladder_table(ntsf - 1), dtype=dtype,
-                device=device)
-        return self._tabs[key]
+    def _tab(self, ntsf):
+        if ntsf not in self._tabs:
+            self._tabs[ntsf] = np.ascontiguousarray(
+                fused_annp.ladder_table(ntsf - 1), dtype=np.float64)
+        return self._tabs[ntsf].ctypes.data
 
 
 class GHarm(_HarmKernel):
@@ -206,9 +206,8 @@ class GHarm(_HarmKernel):
         with torch.cuda.device(dxx.device):
             stream = torch.cuda.current_stream().cuda_stream
             rc_ = fn(dxx.data_ptr(), dxy.data_ptr(), dxz.data_ptr(),
-                     self._tab(ntsf, dxx.dtype, dxx.device).data_ptr(),
-                     g.data_ptr(), a.data_ptr(), p, k, npsf, ntsf,
-                     float(rc), stream)
+                     self._tab(ntsf), g.data_ptr(), a.data_ptr(), p, k,
+                     npsf, ntsf, float(rc), stream)
         _raise_on(rc_, "g_harm")
         self.launches += 1
         return g, a
@@ -233,8 +232,7 @@ class ForceHarm(_HarmKernel):
         with torch.cuda.device(dxx.device):
             stream = torch.cuda.current_stream().cuda_stream
             rc_ = fn(dxx.data_ptr(), dxy.data_ptr(), dxz.data_ptr(),
-                     dedg_rad.data_ptr(), b.data_ptr(),
-                     self._tab(ntsf, dxx.dtype, dxx.device).data_ptr(),
+                     dedg_rad.data_ptr(), b.data_ptr(), self._tab(ntsf),
                      *(o.data_ptr() for o in out), p, k, npsf, ntsf,
                      float(rc), stream)
         _raise_on(rc_, "force_harm")

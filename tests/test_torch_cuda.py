@@ -6,13 +6,16 @@ card. These tests skip without an NVIDIA GPU; on a machine with one, run
 (`--noconftest`: tests/conftest.py sets up JAX, which the port's machine
 need not have; this file imports no JAX.)
 
-Tolerance (f64): the kernels run the plain versions' recurrences in the same
-order per lane, but reduce lanes in another order, so each output agrees to
-a few hundred ulps of its largest value: max |diff| <= 1e-12 of max |value|.
-In f32 the ni kernels' longest per-lane sums run over ~30 (p, q) terms and
-the G4 columns then sum 32 lanes: 1e-4 of max |value| leaves a wide margin
-over the ~1e-6 that f32 rounding of those sums gives. The cos kernels' f32
-bounds are chip_smoke.py's COS_REL_BOUND, derived there.
+Tolerance (f64): the kernels run the plain versions' recurrences per lane
+(force_harm sums each m block's terms before it multiplies in the
+(x + iy)^m factors) and reduce lanes in another order, so each output agrees
+to a few hundred ulps of its largest value: max |diff| <= 1e-12 of max
+|value|. In f32 the harmonic kernels' bound is chip_smoke.py's REL_BOUND,
+1e-4, derived there; the ni kernels' longest per-lane sums run over ~30
+(p, q) terms and the G4 columns then sum 32 lanes: 1e-4 of max |value|
+leaves a wide margin over the ~1e-6 that f32 rounding of those sums gives.
+The cos kernels' f32 bounds are chip_smoke.py's COS_REL_BOUND, derived
+there.
 """
 import numpy as np
 import pytest
@@ -25,35 +28,78 @@ from meng_zhang_tpu_torch.testing import synthetic_ni_potential
 from meng_zhang_tpu_torch.units import CFLENGTH
 from torch_port_util import cuda_device  # noqa: F401  (fixture)
 from torch_port_util import (kernel_coeffs, ni_short_planes,
-                             reduced_ni_potential, rel_max, short_planes, t64)
+                             reduced_ni_potential, rel_max, short_planes)
 
-RTOL = 1e-12
+# harmonic kernels, per dtype: chip_smoke.REL_BOUND
+HARM_RTOL = {torch.float64: 1e-12, torch.float32: 1e-4}
 NI_RTOL = {torch.float64: 1e-12, torch.float32: 1e-4}
 # chip_smoke.COS_REL_BOUND (g_cos, force_cos)
 COS_RTOL = {torch.float64: (1e-12, 1e-12), torch.float32: (1e-4, 3e-4)}
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("n_cells,cut,ks,npsf,ntsf", [
-    (3, 4.0, 32, 4, 5),          # reduced width
-    (5, 6.5, 128, 9, 19),        # the shipped fe width
-])
-def test_kernels_match_plain(cuda_device, n_cells, cut, ks, npsf, ntsf):
-    planes, _ = short_planes(n_cells, cut, ks)
-    planes = [t64(a).to(cuda_device) for a in planes]
-    dedg, b = (t64(a).to(cuda_device)
+def _harm_case(n_cells, cut, ks, npsf, ntsf, dtype, device):
+    """Short planes of a perturbed bcc box with their lanes permuted (one
+    seeded permutation for every row), so that the box's neighbors reach
+    every slot of a wide K and filler lanes sit between them; the padding
+    rows past the box are all filler. Returns (planes, filler, dedg, b)."""
+    planes, filler = short_planes(n_cells, cut, ks)
+    perm = np.random.default_rng(ks).permutation(ks)
+    planes = [torch.as_tensor(np.ascontiguousarray(a[:, perm]), dtype=dtype,
+                              device=device) for a in planes]
+    dedg, b = (torch.as_tensor(a, dtype=dtype, device=device)
                for a in kernel_coeffs(planes[0].shape[0], npsf, ntsf))
+    return planes, torch.as_tensor(np.ascontiguousarray(filler[:, perm])), \
+        dedg, b
+
+
+def _check_harm(planes, filler, dedg, b, npsf, ntsf, cut):
+    """Both harmonic kernels against their plain versions; filler lanes'
+    Fj and all-filler rows' g and A exactly 0."""
+    tol = HARM_RTOL[planes[0].dtype]
     before = (kernels.g_harm.launches, kernels.force_harm.launches)
     got = kernels.g_harm(*planes, npsf, ntsf, cut)
     want = fa.g_harm_plain(*planes, npsf, ntsf, cut)
     for u, v in zip(got, want):
-        assert rel_max(u.cpu(), v.cpu()) <= RTOL
+        assert rel_max(u.cpu(), v.cpu()) <= tol
+    empty = filler.all(1)
+    assert bool(empty.any())
+    for u in got:
+        assert torch.all(u.cpu()[empty] == 0)
     got = kernels.force_harm(*planes, dedg, b, npsf, ntsf, cut)
     want = fa.force_harm_plain(*planes, dedg, b, npsf, ntsf, cut)
     for u, v in zip(got, want):
-        assert rel_max(u.cpu(), v.cpu()) <= RTOL
+        assert rel_max(u.cpu(), v.cpu()) <= tol
+        assert torch.all(u.cpu()[filler] == 0)
     assert (kernels.g_harm.launches, kernels.force_harm.launches) == \
         (before[0] + 1, before[1] + 1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("n_cells,cut,ks,npsf,ntsf", [
+    (3, 4.0, 32, 4, 1),          # ntsf 1: no m >= 1 block
+    (3, 4.0, 32, 4, 2),          # ntsf 2: no recurrence step
+    (3, 4.0, 32, 4, 5),          # reduced width
+    (3, 4.0, 40, 4, 5),          # K not a multiple of 32
+    (5, 6.5, 128, 9, 19),        # the shipped fe width
+    (5, 6.5, 192, 9, 19),        # skin-list lanes
+    (5, 6.5, 256, 9, 19),        # MAX_K: 8 slots a lane in g_harm
+])
+def test_kernels_match_plain(cuda_device, n_cells, cut, ks, npsf, ntsf,
+                             dtype):
+    _check_harm(*_harm_case(n_cells, cut, ks, npsf, ntsf, dtype,
+                            cuda_device), npsf, ntsf, cut)
+
+
+@pytest.mark.cuda
+def test_harm_widths_interleaved(cuda_device):
+    """ntsf 5, then 19, then 5 in one process: each launch carries its own
+    ladder table, so no launch sees another width's coefficients."""
+    for n_cells, cut, ks, npsf, ntsf in [(3, 4.0, 40, 4, 5),
+                                         (5, 6.5, 128, 9, 19),
+                                         (3, 4.0, 40, 4, 5)]:
+        _check_harm(*_harm_case(n_cells, cut, ks, npsf, ntsf, torch.float64,
+                                cuda_device), npsf, ntsf, cut)
 
 
 @pytest.mark.cuda
