@@ -22,9 +22,9 @@ Phases, each fatal on failure:
   2. build: compiles every ops/csrc/*.cu with nvcc for sm_90a, in parallel;
   3. fe kernels vs their plain PyTorch versions, in f32 and f64, plus
      times: the harmonic and cos-matrix kernels on [P, 128] short planes
-     gathered from the scene (filler lanes included), g_harm, force_harm
-     and g_cos also on the [P, 192] skin planes, and the harmonic pair
-     also at ntsf 5;
+     gathered from the scene (filler lanes included), all four also on
+     the [P, 192] skin planes (the cos pair's f64 comparison there on
+     every fourth row) and, on the short planes, at ntsf 5;
   4. harmonic fe evaluator: energy_forces_short through the kernels in f32
      against the plain path in f64 on the full scene, and the f64 kernel
      path against the autograd model (models/annp.py) on a 250-atom box;
@@ -38,7 +38,9 @@ Phases, each fatal on failure:
      energies on a 432-atom box at the skin-list width;
   8. cos-matrix fe main path: as phase 5, 10 blocks, and no launch of the
      harmonic kernels;
-  9. ni kernels vs plain on [P, 32] planes of a thermal 256,000-atom box;
+  9. ni kernels vs plain on [P, 32] planes of a thermal 256,000-atom box,
+     and on its first rows with a table whose zetas are not all powers of
+     two and whose eta groups differ in size (ni_force's pow route);
   10. ni evaluator: FusedNi in f32 through the kernels against the f64
       plain path on that box, and the f64 kernel path against the autograd
       model on a 256-atom box;
@@ -47,8 +49,9 @@ Phases, each fatal on failure:
   12. profile: a fresh harmonic main-path run (init_state and 5 blocks),
       then one block without a skin-list rebuild under torch.profiler:
       device time by kernel (top ten, ms per step) and the device's idle
-      share. It runs last, so that the profiler's tracing cannot touch any
-      other phase's timing.
+      share; then the same for the ni main path (4 blocks, then one). It
+      runs last, so that the profiler's tracing cannot touch any other
+      phase's timing.
 
 Each kernel's record carries its least time on the card (`bound_ms`, the
 larger of the FLOPs its function needs over the f32 peak and its bytes
@@ -84,6 +87,7 @@ NI_SKIN, NI_CAPACITY, NI_CELL_CAPACITY = 0.5, 64, 24
 NI_KS, NI_DELTA, NI_SHORT_EVERY, NI_THERMO_EVERY = 32, 0.2, 5, 5
 NI_T, NI_T_INIT, NI_BLOCKS = 1200.0, 600.0, 20
 NI_DISP = 0.08      # A per component, the thermal box of phases 9 and 10
+NI_POW_ROWS = 8192  # rows of that box held on the pow-route table
 
 # Kernel vs plain, per output, as a fraction of the output's max |value|.
 # f32: the longest per-lane sums run over ~400 terms, whose worst-case
@@ -100,14 +104,19 @@ REL_BOUND = {torch.float32: 1e-4, torch.float64: 1e-12}
 #     (a rounding at step m grows by |U_(n-m)| <= n - m + 1), 1.1e-5. The
 #     plain version carries as much: <= 3.1e-5 apart, and 1e-4 leaves 3x.
 #     A single serial chain over the ~12,400 ordered terms would reach 7e-4.
-#   force_cos: thread j sums its <= 127 partners in one chain, and P, P'
-#     carry the recurrences' <= 180 roundings: <= 310, 1.9e-5 of the
-#     largest column sum, 3.7e-5 between the two versions; the radial, A
-#     and B parts of Fj cancel, so allow the largest Fj to sit 8x under
-#     that sum: 3e-4.
+#   force_cos: a slot's sum has two chains, its <= 64 partners at k = j + d
+#     in thread j's registers and its <= 64 at k = j - d in shared memory,
+#     then one add: <= 65 roundings on the sum's path, and P, P' carry the
+#     recurrences' <= 180 (P' = sum n w_n U_(n-1): U's recurrence is T's,
+#     and n |U_(n-1)| <= n^2 as |T'_n|): <= 245, 1.5e-5 of that sum. The
+#     plain version sums the <= 127 partners as one reduction: <= 310,
+#     1.9e-5. So <= 3.4e-5 between the two versions (3.7e-5 when the kernel
+#     summed one chain of 127); the radial, A and B parts of Fj cancel, so
+#     allow the largest Fj to sit 8x under that sum: 3e-4, as before.
 #   f64: the same counts at 1.1e-16 give <= 7e-14; 1e-12 leaves 14x.
 COS_REL_BOUND = {torch.float32: {"g_cos": 1e-4, "force_cos": 3e-4},
                  torch.float64: {"g_cos": 1e-12, "force_cos": 1e-12}}
+COS_SKIN_F64_STRIDE = 4
 # The two angular formulations in f64 on the full scene: the harmonic path
 # forms G_n = 1/2 (sum_l c_nl S_l - F2) from power sums S_l ~ (sum fc)^2
 # and subtracts, so it loses ~1e-13 of |G| that the matrix path does not.
@@ -191,6 +200,17 @@ def cuda_ms(fn, reps):
     return float(np.median(times))
 
 
+def timed(fn):
+    """(fn(), its milliseconds by CUDA events): one run, no warm-up, for
+    the plain versions, whose comparison run is also their timing."""
+    t0, t1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    t0.record()
+    out = fn()
+    t1.record()
+    torch.cuda.synchronize()
+    return out, t0.elapsed_time(t1)
+
+
 def bound(flops, nbytes):
     """(least ms, what bounds it): FLOPs over the f32 peak or bytes (each
     input read once, each output written once) over the memory rate."""
@@ -215,8 +235,8 @@ def fe_counts(planes, rc):
 # (g_harm: H, w, the two A sums) or 22 (force_harm: H, dH, the B
 # contractions); a cos-matrix pair 7 + 4 ntsf (g_cos: cos, x, w, then T_n
 # and its sum) or 7 + 10 ntsf (force_cos: T_n, T'_n, P, P'), as x_kj =
-# x_jk, plus its five column sums on each side, 12 a side. force_cos runs
-# the recurrences once per ordered pair: twice what it needs.
+# x_jk, plus its five column sums on each side, 12 a side. Both cos
+# kernels visit each unordered pair once.
 GEO = 20
 
 
@@ -343,13 +363,14 @@ FE_KERNELS = {"g_harm": ("annp_harm.cu", 299),
 
 def phase_kernels(x, box, cfg32, p32):
     """The four fe kernels against their plain versions in f32 and f64 on
-    the scene's [P, 128] short planes (filler lanes included), and g_cos
-    also on its [P, 192] skin planes, the shape energy_dedg gives it.
-    Returns the JSON records (without launch counts), timed at the main
-    path's [P, 128], and the short list. g_harm and force_harm are also
-    held and timed on the skin planes and, on the short planes, at the
-    tests' reduced ntsf 5 (another compile-time instance of force_harm's
-    ladder), outside the records."""
+    the scene's [P, 128] short planes (filler lanes included). Returns the
+    JSON records (without launch counts), timed at the main path's
+    [P, 128], and the short list. All four are also held and timed on the
+    scene's [P, 192] skin planes (the shape energy_dedg gives g_cos; the
+    cos pair in f64 on every fourth row of them) and, on the short planes,
+    at the tests' reduced ntsf 5 (another compile-time
+    instance of force_harm's ladder and of force_cos's recurrence), outside
+    the records."""
     from meng_zhang_tpu_torch.ops import fused_annp as fa
     from meng_zhang_tpu_torch.ops import kernels
     from meng_zhang_tpu_torch.system.neighbors import build_neighbors_cell
@@ -392,65 +413,84 @@ def phase_kernels(x, box, cfg32, p32):
         bounds = {"g_harm": REL_BOUND[dtype], "force_harm": REL_BOUND[dtype],
                   **COS_REL_BOUND[dtype]}
         tag = "kernels " + ("f32" if dtype == torch.float32 else "f64")
+        # each: (kernel, plain version, outputs); both take the planes and
+        # the rows of dedg and b that go with them
         def g_harm(nt):
-            return (lambda pl: kernels.g_harm(*pl, npsf, nt, rc),
-                    lambda pl: fa.g_harm_plain(*pl, npsf, nt, rc),
+            return (lambda pl, r: kernels.g_harm(*pl, npsf, nt, rc),
+                    lambda pl, r: fa.g_harm_plain(*pl, npsf, nt, rc),
                     ("g_raw", "A"))
 
         def force_harm(nt):
-            return (lambda pl: kernels.force_harm(*pl, dedg, b, npsf, nt, rc),
-                    lambda pl: fa.force_harm_plain(*pl, dedg, b, npsf, nt,
-                                                   rc),
+            return (lambda pl, r: kernels.force_harm(*pl, dedg[r], b[r], npsf,
+                                                     nt, rc),
+                    lambda pl, r: fa.force_harm_plain(*pl, dedg[r], b[r],
+                                                      npsf, nt, rc),
+                    ("fjx", "fjy", "fjz"))
+
+        def g_cos(nt):
+            return (lambda pl, r: (kernels.g_cos(*pl, npsf, nt, rc),),
+                    lambda pl, r: (fa.g_cos_plain(*pl, npsf, nt, rc),),
+                    ("g",))
+
+        def force_cos(nt):
+            return (lambda pl, r: kernels.force_cos(
+                        *pl, dedg[r].contiguous(), npsf, nt, rc),
+                    lambda pl, r: fa.force_cos_plain(*pl, dedg[r], npsf, nt,
+                                                     rc),
                     ("fjx", "fjy", "fjz"))
 
         # (name, what else sets the case apart, planes, filler lanes,
-        #  kernel, plain version, outputs, repetitions to time the plain
-        #  version; None: kernel time only, outside the record)
+        #  kernel, plain version, outputs, whether the case is the kernel's
+        #  record; the others give a kernel time only)
         skin_w, reduced = "skin-list width", "ntsf 5"
         cases = [
-            ("g_harm", "", short, fill_short, *g_harm(ntsf), 3),
-            ("force_harm", "", short, fill_short, *force_harm(ntsf), 3),
-            ("g_harm", skin_w, skin, fill_skin, *g_harm(ntsf), None),
-            ("force_harm", skin_w, skin, fill_skin, *force_harm(ntsf), None),
-            ("g_harm", reduced, short, fill_short, *g_harm(5), None),
-            ("force_harm", reduced, short, fill_short, *force_harm(5), None),
-            ("g_cos", "", short, fill_short,
-             lambda pl: (kernels.g_cos(*pl, npsf, ntsf, rc),),
-             lambda pl: (fa.g_cos_plain(*pl, npsf, ntsf, rc),), ("g",), 1),
-            ("g_cos", skin_w, skin, fill_skin,
-             lambda pl: (kernels.g_cos(*pl, npsf, ntsf, rc),),
-             lambda pl: (fa.g_cos_plain(*pl, npsf, ntsf, rc),), ("g",),
-             None),
-            ("force_cos", "", short, fill_short,
-             lambda pl: kernels.force_cos(*pl, dedg, npsf, ntsf, rc),
-             lambda pl: fa.force_cos_plain(*pl, dedg, npsf, ntsf, rc),
-             ("fjx", "fjy", "fjz"), 1),
+            ("g_harm", "", short, fill_short, *g_harm(ntsf), True),
+            ("force_harm", "", short, fill_short, *force_harm(ntsf), True),
+            ("g_harm", skin_w, skin, fill_skin, *g_harm(ntsf), False),
+            ("force_harm", skin_w, skin, fill_skin, *force_harm(ntsf), False),
+            ("g_harm", reduced, short, fill_short, *g_harm(5), False),
+            ("force_harm", reduced, short, fill_short, *force_harm(5), False),
+            ("g_cos", "", short, fill_short, *g_cos(ntsf), True),
+            ("force_cos", "", short, fill_short, *force_cos(ntsf), True),
+            ("g_cos", skin_w, skin, fill_skin, *g_cos(ntsf), False),
+            ("force_cos", skin_w, skin, fill_skin, *force_cos(ntsf), False),
+            ("g_cos", reduced, short, fill_short, *g_cos(5), False),
+            ("force_cos", reduced, short, fill_short, *force_cos(5), False),
         ]
-        for name, note, pl, filler, kern, plain, outs, reps in cases:
-            shape = f"[{p}, {pl[0].shape[1]}]" + (f" {note}" if note else "")
-            got = kern(pl)
-            ref = plain(pl)
-            torch.cuda.synchronize()
+        if dtype == torch.float32:
+            # the process's first large allocations would otherwise count
+            # against the first plain version's one timed run
+            cases[0][5](short, slice(None))
+        for name, note, pl, filler, kern, plain, outs, in_record in cases:
+            # the cos plain versions build a [K, K] matrix a row: in f64 at
+            # the skin-list width they are held on every fourth row
+            rows = slice(None, None, COS_SKIN_F64_STRIDE) \
+                if (dtype == torch.float64 and note == skin_w
+                    and name in COS_REL_BOUND[dtype]) else slice(None)
+            cpl = [t[rows].contiguous() for t in pl]
+            shape = f"[{cpl[0].shape[0]}, {pl[0].shape[1]}]" \
+                + (f" {note}" if note else "")
+            got = kern(cpl, rows)
+            ref, plain_ms = timed(lambda: plain(cpl, rows))
             worst = compare(tag, f"{name} {shape}", outs, got, ref,
-                            bounds[name], filler)
-            del got, ref
+                            bounds[name], filler[rows])
+            del got, ref, cpl
             if dtype != torch.float32:
                 continue
-            ms = cuda_ms(lambda: kern(pl), 10)
-            if reps is None:
+            ms = cuda_ms(lambda: kern(pl, rows), 10)
+            if not in_record:
                 log(f"[kernels] {name} f32 {shape}: kernel {ms:.3f} ms "
                     f"(median, CUDA events; not in the record)")
                 continue
-            plain_ms = cuda_ms(lambda: plain(pl), reps)
             src, line = FE_KERNELS[name]
             rec = records[name] = record(
                 name, f"meng_zhang_tpu_torch/ops/csrc/{src}",
                 f"meng_zhang_tpu/ops/pallas_annp.py:{line}", worst, ms,
                 plain_ms, fe_flops(name, lanes, pairs, npsf, ntsf),
                 fe_bytes(name, p, k, 4))
-            log(f"[kernels] {name} f32 {shape}: kernel {ms:.3f} ms, plain "
-                f"{plain_ms:.3f} ms (median, CUDA events), bound "
-                f"{rec['bound_ms']:.3f} ms ({rec['bound_by']})")
+            log(f"[kernels] {name} f32 {shape}: kernel {ms:.3f} ms (median "
+                f"of 10, CUDA events), plain {plain_ms:.3f} ms (one run), "
+                f"bound {rec['bound_ms']:.3f} ms ({rec['bound_by']})")
     return list(records.values()), sl
 
 
@@ -655,25 +695,20 @@ def phase_main_path(x, box, cfg32, p32, mass, card, angular="harmonic"):
     return {name: launches[name] for name in names}
 
 
-def phase_profile(x, box, cfg32, p32, mass, card):
-    """A fresh harmonic main-path run: init_state and the blocks before
-    phase 5's rate window, then one block under torch.profiler that ends
-    without a skin-list rebuild (the rate window's usual block; up to
-    three tries): the ten kernels with the most device time, in ms per
-    step, and the device's idle share of the block's wall time."""
+def profile_block(tag, what, sim, st, steps, card, tries=3):
+    """One block of `steps` steps under torch.profiler that ends without a
+    skin-list rebuild (the rate window's usual block; up to `tries` tries):
+    the ten kernels with the most device time, in ms per step, and the
+    device's idle share of the block's wall time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     def dev_ms(e):
         return getattr(e, "self_device_time_total", 0.0) / 1e3
 
-    sim = fe_simulator(x, cfg32, p32, mass, "harmonic")
-    st = sim.init_state(x, box, seed=SEED, t_init=300.0)
-    for _ in range(N_BLOCKS - RATE_BLOCKS):
-        st, _ = sim.run(st, 1)
     check(not bool(st.overflow) and not bool(st.unsafe),
-          "profile: overflow or unsafe before the profiled block")
-    for _ in range(3):
+          f"{tag}: overflow or unsafe before the profiled block")
+    for _ in range(tries):
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
@@ -683,20 +718,29 @@ def phase_profile(x, box, cfg32, p32, mass, card):
             wall = (time.time() - t0) * 1e3
         if sim.rebuild_count == 0:
             break
-        log(f"[profile] block rebuilt its skin list ({wall:.3f} ms); again")
-    check(sim.rebuild_count == 0, "profile: every profiled block rebuilt")
+        log(f"[{tag}] block rebuilt its skin list ({wall:.3f} ms); again")
+    check(sim.rebuild_count == 0, f"{tag}: every profiled block rebuilt")
     ops = [e for e in prof.key_averages()
            if e.device_type == DeviceType.CUDA and dev_ms(e) > 0]
     busy = sum(dev_ms(e) for e in ops)
-    check(busy > 0, "profile: torch.profiler recorded no device time")
-    log(f"[profile] one {THERMO_EVERY}-step block of the harmonic main path "
-        f"on {card}: "
+    check(busy > 0, f"{tag}: torch.profiler recorded no device time")
+    log(f"[{tag}] one {steps}-step block of the {what} main path on {card}: "
         f"{busy:.3f} ms of device time in {wall:.3f} ms (device idle "
-        f"{100 * (1 - busy / wall):.1f} %, {busy / THERMO_EVERY:.3f} ms of "
+        f"{100 * (1 - busy / wall):.1f} %, {busy / steps:.3f} ms of "
         f"device time a step)")
     for e in sorted(ops, key=dev_ms, reverse=True)[:10]:
-        log(f"[profile]   {dev_ms(e) / THERMO_EVERY:8.3f} ms/step "
+        log(f"[{tag}]   {dev_ms(e) / steps:8.3f} ms/step "
             f"{100 * dev_ms(e) / busy:5.1f} %  x{e.count:<5d} {e.key[:100]}")
+
+
+def phase_profile(x, box, cfg32, p32, mass, card):
+    """A fresh harmonic main-path run: init_state and the blocks before
+    phase 5's rate window, then one block under torch.profiler."""
+    sim = fe_simulator(x, cfg32, p32, mass, "harmonic")
+    st = sim.init_state(x, box, seed=SEED, t_init=300.0)
+    for _ in range(N_BLOCKS - RATE_BLOCKS):
+        st, _ = sim.run(st, 1)
+    profile_block("profile", "harmonic", sim, st, THERMO_EVERY, card)
 
 
 # ------------------------------------------------------------------ ni
@@ -779,7 +823,8 @@ def ni_flops(name, lanes, legs, table):
     and the sum (5 in ni_g; with the derivative and two sums 8 in
     ni_force); ni_force then forms the shared partials in c and rjk (8)
     and, on each side, the partial in its own leg and its four sums (22).
-    The kernels visit each ordered leg."""
+    ni_force visits each unordered leg pair once, ni_g each ordered
+    leg."""
     zl = sum(int(zeta).bit_length() - 1 for _, group in table.ang
              for _, zeta, _ in group)
     n_f = sum(len(group) for _, group in table.ang)
@@ -824,24 +869,43 @@ def phase_ni_kernels(x, box, cfg32, p32, sl):
         ]
         for name, kern, plain, outs, line in cases:
             got = kern()
-            ref = plain()
-            torch.cuda.synchronize()
+            ref, plain_ms = timed(plain)
             worst = compare(tag, name, outs, got, ref, NI_REL_BOUND[dtype],
                             filler)
             if dtype != torch.float32:
                 continue
             ms = cuda_ms(kern, 10)
-            plain_ms = cuda_ms(plain, 3)
             records.append(record(
                 name, "meng_zhang_tpu_torch/ops/csrc/ni_bp.cu",
                 f"meng_zhang_tpu/ops/pallas_ni.py:{line}", worst, ms,
                 plain_ms, ni_flops(name, *counts, table),
                 p * (3 * k + fn.NSF_SUB + (3 * k if name == "ni_force"
                                            else 0)) * 4))
-            log(f"[ni-kernels] {name} f32 [{p}, {k}]: kernel {ms:.3f} ms, "
-                f"plain {plain_ms:.3f} ms (median, CUDA events), bound "
+            log(f"[ni-kernels] {name} f32 [{p}, {k}]: kernel {ms:.3f} ms "
+                f"(median of 10, CUDA events), plain {plain_ms:.3f} ms (one "
+                f"run), bound "
                 f"{records[-1]['bound_ms']:.3f} ms "
                 f"({records[-1]['bound_by']})")
+
+    # ni_force's pow route and a table that is no grid: zeta 3 and 6 (not
+    # powers of two) and one function moved into the first eta group, which
+    # then holds 9 functions, two of them alike, and the last group 7
+    coeang = p32["coeang"].clone()
+    coeang[1, 2], coeang[13, 2], coeang[16, 0] = 3.0, 6.0, coeang[0, 0]
+    odd = fn.ni_table(p32["coerad"], coeang)
+    rows = slice(0, NI_POW_ROWS)
+    for dtype in (torch.float32, torch.float64):
+        planes = [t[rows].to(dtype).contiguous() for t in planes32]
+        dedg = torch.tensor(dedg_np[rows], dtype=dtype, device=dev)
+        tag = "ni-kernels pow route " + ("f32" if dtype == torch.float32
+                                         else "f64")
+        compare(tag, f"ni_g [{NI_POW_ROWS}, {k}]", ("g",),
+                (kernels.ni_g(*planes, odd),),
+                (fn.ni_g_plain(*planes, odd),), NI_REL_BOUND[dtype])
+        compare(tag, f"ni_force [{NI_POW_ROWS}, {k}]", ("fjx", "fjy", "fjz"),
+                kernels.ni_force(*planes, dedg, odd),
+                fn.ni_force_plain(*planes, dedg, odd), NI_REL_BOUND[dtype],
+                filler[rows])
     return records
 
 
@@ -907,13 +971,12 @@ def phase_ni_evaluator(x, box, cfg32, p32, cfg64, p64, sl):
     return got
 
 
-def phase_ni_main_path(dev, cfg32, p32, mass, card):
-    """init_state + NI_BLOCKS blocks of the NVT main path of
-    scripts/model_bench.py --model ni, the light force variant wired as
-    there."""
+def ni_simulator(dev, cfg32, p32, mass):
+    """(Simulator, x, box, evaluator) of the NVT main path of
+    scripts/model_bench.py --model ni on the perfect lattice, the light
+    force variant wired as there."""
     from meng_zhang_tpu_torch.md.simulation import Simulator
     from meng_zhang_tpu_torch.ops import fused_ni as fn
-    from meng_zhang_tpu_torch.ops import kernels
     from meng_zhang_tpu_torch.testing import thermal_fcc
     xn, bn = thermal_fcc(NI_CELLS, disp=0.0, a=NI_A)     # the perfect lattice
     x = torch.tensor(xn, dtype=torch.float32, device=dev)
@@ -934,6 +997,14 @@ def phase_ni_main_path(dev, cfg32, p32, mass, card):
                     short_build=lambda xx, bb, nb: ev.compact_short(
                         xx, bb, nb.idx),
                     force_fn_light=force_fn_light)
+    return sim, x, box, ev
+
+
+def phase_ni_main_path(dev, cfg32, p32, mass, card):
+    """init_state + NI_BLOCKS blocks of the ni NVT main path."""
+    from meng_zhang_tpu_torch.ops import kernels
+    sim, x, box, ev = ni_simulator(dev, cfg32, p32, mass)
+    n = x.shape[0]
     torch.cuda.reset_peak_memory_stats()
     kernels.reset_launch_counts()
     t0 = time.time()
@@ -980,6 +1051,17 @@ def phase_ni_main_path(dev, cfg32, p32, mass, card):
     return launches
 
 
+def phase_ni_profile(dev, cfg32, p32, mass, card):
+    """A fresh ni main-path run: init_state and 4 blocks, then one block
+    under torch.profiler."""
+    sim, x, box, _ = ni_simulator(dev, cfg32, p32, mass)
+    st = sim.init_state(x, box, seed=SEED, t_init=NI_T_INIT)
+    for _ in range(4):
+        st, _ = sim.run(st, 1)
+    # the hot ni run rebuilds its skin list about every third block
+    profile_block("ni-profile", "ni", sim, st, NI_THERMO_EVERY, card, tries=5)
+
+
 def main():
     try:
         name, card = phase_device()
@@ -1003,6 +1085,8 @@ def main():
         del x, box, sl
         launches.update(phase_ni_main_path(dev, cfg32, p32, mass, card))
         phase_profile(*fe, card)
+        del fe
+        phase_ni_profile(dev, cfg32, p32, mass, card)
     except SmokeFailure as e:
         print(f"FAIL: {e}", file=sys.stderr, flush=True)
         return 1

@@ -13,24 +13,39 @@
 //             already multiplied by sf_scale * e_scale.
 //
 // What bounds them on this card: on the ni scene a row holds ~18 real
-// partners, so each kernel visits ~300 (p, q) leg pairs per atom, ~8e7 per
-// step at 256,000 atoms, each with a sqrt, a cos (and a sin in ni_force),
-// 3 exp (one per eta group) and ~150 FLOPs for the 24 functions, against
-// 12 bytes of dx read per lane: both kernels are compute bound on precise
-// expf/cosf and the zeta powers. The design keeps everything in registers
-// and the warp: each lane computes its own geometry once (u, r, the Bohr
-// radius a, fc, dfc), the q loop broadcasts slot q's values with
-// __shfl_sync and visits only the slots inside the angular cutoff (a
-// ballot of in_a), a lane computes a pair's terms only where its three legs
-// are inside Rc (other pairs add exact zeros in the TPU kernel), and
-// exp(-eta r2sum) is computed once per eta group, not once per function.
-// The per-function loop is unrolled over the compile-time bound kMaxAng,
-// so the 24 accumulators of ni_g stay in registers and the table sits in
-// kernel parameters (constant bank). ni_force keeps the TPU kernel's
-// no-reduction design: each lane accumulates its own u_p coefficient and
-// u_q-projected vector and writes its slot's Fj directly. Zeta powers go
-// by repeated squaring when zeta is a power of two (all of the shipped
-// table), by pow otherwise.
+// partners, ~300 ordered (p, q) leg pairs of which ~120 have their third leg
+// inside Rc too, each with a sqrt, a cos (and a sin in ni_force), 3 exp (one
+// per eta group) and ~150 FLOPs for the 24 functions, against 12 bytes of
+// dx read per lane: both kernels are compute bound on precise expf / cosf
+// and the zeta powers. Each lane computes its own geometry once (u, r, the
+// Bohr radius a, fc, dfc), and exp(-eta r2sum) is computed once per eta
+// group, not once per function. The table sits in kernel parameters
+// (constant bank). Zeta powers go by repeated squaring when zeta is a power
+// of two (all of the shipped table), by pow otherwise.
+//   ni_g keeps everything in registers and the warp: the q loop broadcasts
+// slot q's values with __shfl_sync and visits only the slots inside the
+// angular cutoff (a ballot of in_a), a lane computes a pair's terms only
+// where its three legs are inside Rc (other pairs add exact zeros in the TPU
+// kernel), and the per-function loop is unrolled over the compile-time
+// bound kMaxAng, so its 24 accumulators stay in registers.
+//   ni_force works from a pair list in the warp's shared memory. A q loop
+// runs its whole body once per slot q (~18 a row) while most lanes fail the
+// leg tests, and it computes every pair term twice although all of it but
+// the last ~15 operations is symmetric in (p, q). Instead the lanes inside
+// the cutoff are compacted (ballot + popc), the unordered pairs of compacted
+// lanes are enumerated 32 at a time and those with r_jk < Rc appended to
+// the list (stage 1, ~5 short rounds a row), and the list is then walked
+// with one pair a lane (stage 2, ~2 rounds a row with nearly all lanes
+// busy): the symmetric part once, then each side's own partial, added to
+// both lanes' sums with shared-memory atomicAdd (a few lanes of a round may
+// share a slot). So the order of a lane's sum may change from run to run
+// and f32 results are not bitwise reproducible, as the delivery's
+// index_add_ already is not. The table is read by its structure: each
+// distinct (lambda, zeta) shape's f^zeta and zeta f^(zeta - 1) once a pair,
+// power-of-two zetas of one lambda along one squaring chain, then per eta
+// group one exp and a dot product with the row's dE/dG weights summed per
+// (group, shape). The cutoffs go through sincospi(r / Rc): one call, no
+// rounding of pi r / Rc.
 #include <cuda_runtime.h>
 #include <math_constants.h>
 
@@ -39,6 +54,10 @@ namespace {
 constexpr int kNsfSub = 32;      // g / dedg row width
 constexpr int kMaxRad = 8;       // radial functions
 constexpr int kMaxAng = 32;      // angular functions
+constexpr int kMaxShape = 16;    // distinct (lambda, zeta) of the table
+constexpr int kMaxGroup = 16;    // eta groups
+constexpr int kMaxSlot = 128;    // eta groups x shapes
+constexpr int kMaxPair = 32 * 31 / 2;   // unordered pairs of one row's lanes
 constexpr int kWarps = 4;        // atom rows per block
 constexpr unsigned kFull = 0xffffffffu;
 constexpr double kCfLength = 1.889726;    // Angstrom -> Bohr (units.py)
@@ -47,6 +66,13 @@ constexpr double kCfLength = 1.889726;    // Angstrom -> Bohr (units.py)
 // Angular functions come group-major: first[f] marks the first function of
 // an eta group; col[f] is the descriptor column; zlog2[f] = log2(zeta)
 // when zeta is a power of two, else -1; coef[f] = 2^(1 - zeta).
+// ni_force reads the table by its structure: ngroup eta groups (grp_eta),
+// nshape distinct (lambda, zeta) shapes sorted by lambda, then zeta
+// (sh_lam, sh_zeta), and per function its group grp[f] and shape shp[f].
+// Power-of-two zetas of one lambda lie along one squaring chain: sh_new[s]
+// starts a chain at f = 1 + lambda cos, sh_adv[s] is the number of
+// squarings from the chain's state at the shape before; sh_adv[s] = -1
+// sends the shape through pow.
 template <typename T>
 struct NiCfg {
   int nrad;
@@ -61,6 +87,15 @@ struct NiCfg {
   int col[kMaxAng];
   int zlog2[kMaxAng];
   int first[kMaxAng];
+  int ngroup;
+  int nshape;
+  T grp_eta[kMaxGroup];
+  T sh_lam[kMaxShape];
+  T sh_zeta[kMaxShape];
+  int sh_adv[kMaxShape];
+  int sh_new[kMaxShape];
+  int grp[kMaxAng];
+  int shp[kMaxAng];
 };
 
 __device__ __forceinline__ float dev_sqrt(float v) { return sqrtf(v); }
@@ -71,6 +106,12 @@ __device__ __forceinline__ float dev_sin(float v) { return sinf(v); }
 __device__ __forceinline__ double dev_sin(double v) { return sin(v); }
 __device__ __forceinline__ float dev_exp(float v) { return expf(v); }
 __device__ __forceinline__ double dev_exp(double v) { return exp(v); }
+__device__ __forceinline__ void dev_sincospi(float v, float* s, float* c) {
+  sincospif(v, s, c);
+}
+__device__ __forceinline__ void dev_sincospi(double v, double* s, double* c) {
+  sincospi(v, s, c);
+}
 __device__ __forceinline__ float dev_pow(float b, float e) {
   return powf(b, e);
 }
@@ -219,28 +260,86 @@ ni_g_kernel(const T* __restrict__ dxx, const T* __restrict__ dxy,
   }
 }
 
+// One row's working set of ni_force in shared memory, one per warp.
+template <typename T>
+struct ForceRow {
+  // lanes inside the angular cutoff, compacted in lane order
+  T ux[32], uy[32], uz[32], a[32], fc[32], dfc[32], inv_r[32];
+  // per compacted lane: the u_p coefficient and the u_q-projected vector
+  T acc1[32], acc2x[32], acc2y[32], acc2z[32];
+  // per (eta group, shape): sum of dE/dG 2^(1 - zeta) over its functions,
+  // and the same times lambda
+  T wa[kMaxSlot], wc[kMaxSlot];
+  // surviving pairs, j | k << 8
+  unsigned short pairs[kMaxPair + 16];
+};
+
 template <typename T>
 __global__ void __launch_bounds__(kWarps * 32)
 ni_force_kernel(const T* __restrict__ dxx, const T* __restrict__ dxy,
                 const T* __restrict__ dxz, const T* __restrict__ dedg,
                 T* __restrict__ fjx, T* __restrict__ fjy,
                 T* __restrict__ fjz, long long p, int k,
-                const NiCfg<T> cfg) {
-  __shared__ T wv_s[kWarps][kMaxAng];
+                const __grid_constant__ NiCfg<T> cfg) {
+  __shared__ ForceRow<T> rows[kWarps];
   const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const long long row = (long long)blockIdx.x * kWarps + warp;
+  const long long row = (long long)blockIdx.x * kWarps + (threadIdx.x >> 5);
   if (row >= p) return;            // uniform across the warp
+  ForceRow<T>& sh = rows[threadIdx.x >> 5];
   const long long o = row * k + lane;
-  const Geo<T> g = ni_geometry(dxx, dxy, dxz, o, lane < k, cfg.rc_a);
   const T* w_row = dedg + row * kNsfSub;
 
-  // per-function weights dE/dG_col * 2^(1 - zeta), staged per warp
-  T* wv = wv_s[warp];
-#pragma unroll
-  for (int f = 0; f < kMaxAng; ++f)
-    if (f < cfg.nang && lane == f) wv[f] = w_row[cfg.col[f]] * cfg.coef[f];
+  // per-lane geometry, as ni_geometry with the cutoff through sincospi
+  const bool active = lane < k;
+  T x = T(0), y = T(0), z = T(0);
+  if (active) {
+    x = dxx[o];
+    y = dxy[o];
+    z = dxz[o];
+  }
+  const T rsq = x * x + y * y + z * z;
+  const bool valid = active && rsq > T(1.0e-12);
+  const T r = dev_sqrt(valid ? rsq : T(1));
+  const T inv_r = T(1) / r;
+  const T m = valid ? T(1) : T(0);
+  const T ux = x * inv_r * m, uy = y * inv_r * m, uz = z * inv_r * m;
+  const T rm = r * T(kCfLength);
+  const bool in_a = valid && rm < T(cfg.rc_a);
+  const T inv_rc = T(1.0 / cfg.rc_a);
+  const T dfc_scale = T(-0.5 * CUDART_PI / cfg.rc_a);
+
+  // compact the lanes inside the angular cutoff; zero the row's sums
+  const unsigned in_mask = __ballot_sync(kFull, in_a);
+  const int n_in = __popc(in_mask);
+  const int c = __popc(in_mask & ((1u << lane) - 1u));
+  if (in_a) {
+    T sn, cn;
+    dev_sincospi(rm * inv_rc, &sn, &cn);
+    sh.ux[c] = ux;
+    sh.uy[c] = uy;
+    sh.uz[c] = uz;
+    sh.a[c] = rm;
+    sh.fc[c] = T(0.5) * (cn + T(1));
+    sh.dfc[c] = dfc_scale * sn;
+    sh.inv_r[c] = inv_r;
+  }
+  sh.acc1[lane] = T(0);
+  sh.acc2x[lane] = T(0);
+  sh.acc2y[lane] = T(0);
+  sh.acc2z[lane] = T(0);
+  const int nslot = cfg.ngroup * cfg.nshape;
+  for (int i = lane; i < nslot; i += 32) {
+    sh.wa[i] = T(0);
+    sh.wc[i] = T(0);
+  }
   __syncwarp();
+  // per-function weights dE/dG_col * 2^(1 - zeta) into their (group, shape)
+  if (lane < cfg.nang) {
+    const T w = w_row[cfg.col[lane]] * cfg.coef[lane];
+    const int slot = cfg.grp[lane] * cfg.nshape + cfg.shp[lane];
+    atomicAdd(&sh.wa[slot], w);
+    atomicAdd(&sh.wc[slot], w * cfg.lam[lane]);
+  }
 
   // radial: d(sum_m w_m G2_m)/d rm
   T coeff = T(0);
@@ -249,8 +348,8 @@ ni_force_kernel(const T* __restrict__ dxx, const T* __restrict__ dxy,
     if (mi < cfg.nrad) {
       const double rc_r = cfg.rad_rc[mi];
       const double eta = cfg.rad_eta[mi];
-      T rr;
-      const bool in_r = radial_in(g, rc_r, &rr);
+      const bool in_r = active && rm < T(rc_r) && r > T(1.0e-6);
+      const T rr = in_r ? rm : T(rc_r);
       const T arg = T(CUDART_PI / rc_r) * rr;
       const T fc_r = T(0.5) * (dev_cos(arg) + T(1));
       const T dfc_r = T(-0.5 * CUDART_PI / rc_r) * dev_sin(arg);
@@ -262,78 +361,138 @@ ni_force_kernel(const T* __restrict__ dxx, const T* __restrict__ dxy,
   // dG2/dx_j = dg * CFL * (-u_j);  Fj = -w dG => + CFL w dg u
   coeff = coeff * T(kCfLength);
 
-  // angular: the u_p coefficient acc1 and the u_q-projected vector acc2
-  T acc1 = T(0), acc2x = T(0), acc2y = T(0), acc2z = T(0);
+  // stage 1: the unordered pairs (j, k) of compacted lanes, 32 a round;
+  // pair t is (j, j + d mod n_in) with d = t / n_in + 1, j = t mod n_in,
+  // which runs over every unordered pair once for t < n_in (n_in - 1) / 2.
+  // Those whose third leg r_jk lies inside the cutoff go to the list.
   const T rc_a2 = T(cfg.rc_a * cfg.rc_a);
-  unsigned qmask = __ballot_sync(kFull, g.in_a);
-  while (qmask) {
-    const int q = __ffs(qmask) - 1;
-    qmask &= qmask - 1;
-    const T uqx = __shfl_sync(kFull, g.ux, q);
-    const T uqy = __shfl_sync(kFull, g.uy, q);
-    const T uqz = __shfl_sync(kFull, g.uz, q);
-    const T aq = __shfl_sync(kFull, g.a, q);
-    const T fcq = __shfl_sync(kFull, g.fc_a, q);
-    if (!g.in_a || lane == q) continue;
-    const T cs = g.ux * uqx + g.uy * uqy + g.uz * uqz;
-    const T rjk2 = g.a * g.a + aq * aq - T(2) * g.a * aq * cs;
-    if (!(rjk2 < rc_a2)) continue;
+  const int n_cand = n_in * (n_in - 1) / 2;
+  // t / n_in for t < 1024, n_in <= 32, without a division a round
+  const unsigned inv_n = 65536u / (unsigned)(n_in > 0 ? n_in : 1) + 1u;
+  const unsigned lt_mask = (1u << lane) - 1u;
+  int n_pair = 0;
+  for (int base = 0; base < n_cand; base += 32) {
+    const bool cand = base + lane < n_cand;
+    const int t = cand ? base + lane : 0;
+    const int dd = (int)(((unsigned)t * inv_n) >> 16);
+    const int j = t - dd * n_in;
+    int kk = j + dd + 1;
+    if (kk >= n_in) kk -= n_in;
+    const T aj = sh.a[j], ak = sh.a[kk];
+    const T cs = sh.ux[j] * sh.ux[kk] + sh.uy[j] * sh.uy[kk]
+                 + sh.uz[j] * sh.uz[kk];
+    const T rjk2 = aj * aj + ak * ak - T(2) * aj * ak * cs;
+    const bool ok = cand && rjk2 < rc_a2;
+    const unsigned okm = __ballot_sync(kFull, ok);
+    if (ok)
+      sh.pairs[n_pair + __popc(okm & lt_mask)] =
+          (unsigned short)(j | (kk << 8));
+    n_pair += __popc(okm);
+  }
+  __syncwarp();
+
+  // stage 2: one lane a pair. What is symmetric in (j, k) is computed
+  // once: r_jk and its cutoff, fc3, r2sum, each shape's f^zeta and
+  // zeta f^(zeta - 1), each eta group's exp and sums; then each side's
+  // partial in its own leg and its C1, C2, added to both lanes' sums.
+  for (int base = 0; base < n_pair; base += 32) {
+    if (base + lane >= n_pair) continue;
+    const int pr = sh.pairs[base + lane];
+    const int j = pr & 255, kk = pr >> 8;
+    const T ujx = sh.ux[j], ujy = sh.uy[j], ujz = sh.uz[j];
+    const T ukx = sh.ux[kk], uky = sh.uy[kk], ukz = sh.uz[kk];
+    const T aj = sh.a[j], ak = sh.a[kk];
+    const T fcj = sh.fc[j], fck = sh.fc[kk];
+    const T cs = ujx * ukx + ujy * uky + ujz * ukz;
+    const T rjk2 = aj * aj + ak * ak - T(2) * aj * ak * cs;
     const T rjk = dev_sqrt(rjk2 > T(1.0e-12) ? rjk2 : T(1.0e-12));
-    const T ang_jk = T(CUDART_PI / cfg.rc_a) * rjk;
-    const T fc_jk = T(0.5) * (dev_cos(ang_jk) + T(1));
-    const T dfc_jk = T(-0.5 * CUDART_PI / cfg.rc_a) * dev_sin(ang_jk);
-    const T fc3 = g.fc_a * fcq * fc_jk;
-    const T r2sum = g.a * g.a + aq * aq + rjk2;
-    // sum_eta e S_A, sum_eta eta e S_A, sum_eta e S_C; per group e, S_A, S_C
-    T p_a = T(0), p_e = T(0), p_cs = T(0);
-    T e_eta = T(0), eta_g = T(0), s_a = T(0), s_c = T(0);
+    T sn, cn;
+    dev_sincospi(rjk * inv_rc, &sn, &cn);
+    const T fc_jk = T(0.5) * (cn + T(1));
+    const T dfc_jk = dfc_scale * sn;
+    const T fcjk2 = fcj * fck;
+    const T fc3 = fcjk2 * fc_jk;
+    const T r2sum = aj * aj + ak * ak + rjk2;
+
+    T fz[kMaxShape], dfz[kMaxShape];
+    T pz = T(0), fzm = T(0);             // the running chain
 #pragma unroll
-    for (int f = 0; f < kMaxAng; ++f) {
-      if (f < cfg.nang) {
-        if (cfg.first[f]) {
-          if (f > 0) {
-            const T t_a = e_eta * s_a;
-            p_a = p_a + t_a;
-            p_e = p_e + eta_g * t_a;
-            p_cs = p_cs + e_eta * s_c;
-          }
-          eta_g = cfg.eta[f];
-          e_eta = dev_exp(-eta_g * r2sum);
-          s_a = T(0);
-          s_c = T(0);
+    for (int s = 0; s < kMaxShape; ++s) {
+      if (s >= cfg.nshape) break;
+      const int adv = cfg.sh_adv[s];
+      if (adv < 0) {
+        const T f1 = T(1) + cfg.sh_lam[s] * cs;
+        fz[s] = dev_pow(f1, cfg.sh_zeta[s]);
+        dfz[s] = cfg.sh_zeta[s] * dev_pow(f1, cfg.sh_zeta[s] - T(1));
+      } else {
+        if (cfg.sh_new[s]) {
+          pz = T(1) + cfg.sh_lam[s] * cs;
+          fzm = T(1);
         }
-        T dfz;
-        const T fz = pow_zeta(T(1) + cfg.lam[f] * cs, cfg.zeta[f],
-                              cfg.zlog2[f], &dfz);
-        const T w = wv[f];
-        s_a = s_a + w * fz;
-        s_c = s_c + (w * cfg.lam[f]) * dfz;
+        // f^(zeta - 1) = f^1 f^2 ... f^(zeta/2), in _pow_zeta's order
+        for (int i = 0; i < adv; ++i) {
+          fzm = fzm * pz;
+          pz = pz * pz;
+        }
+        fz[s] = pz;
+        dfz[s] = cfg.sh_zeta[s] * fzm;
       }
     }
-    if (cfg.nang > 0) {
+    // sum_eta e S_A, sum_eta eta e S_A, sum_eta e S_C
+    T p_a = T(0), p_e = T(0), p_cs = T(0);
+    for (int g = 0; g < cfg.ngroup; ++g) {
+      const T eta_g = cfg.grp_eta[g];
+      const T e_eta = dev_exp(-eta_g * r2sum);
+      const T* wa = sh.wa + g * cfg.nshape;
+      const T* wc = sh.wc + g * cfg.nshape;
+      T s_a = T(0), s_c = T(0);
+#pragma unroll
+      for (int s = 0; s < kMaxShape; ++s) {
+        if (s >= cfg.nshape) break;
+        s_a = s_a + wa[s] * fz[s];
+        s_c = s_c + wc[s] * dfz[s];
+      }
       const T t_a = e_eta * s_a;
       p_a = p_a + t_a;
       p_e = p_e + eta_g * t_a;
       p_cs = p_cs + e_eta * s_c;
     }
-    // partials of h in the independent variables c, a_p, rjk
-    const T p_c = fc3 * p_cs;
-    const T p_ap = T(-2) * g.a * p_e * fc3 + g.dfc_a * fcq * fc_jk * p_a;
-    const T p_jk = T(-2) * rjk * p_e * fc3 + g.fc_a * fcq * dfc_jk * p_a;
-    const T inv_rjk = T(1) / rjk;
+    // partials of h in the independent variables c, a_j, a_k, rjk
     const T cfl = T(kCfLength);
-    const T c1 = p_c * cs * g.inv_r - cfl * p_ap - cfl * p_jk * g.a * inv_rjk;
-    const T c2 = -p_c * g.inv_r + cfl * p_jk * aq * inv_rjk;
-    acc1 = acc1 + c1;
-    acc2x = acc2x + c2 * uqx;
-    acc2y = acc2y + c2 * uqy;
-    acc2z = acc2z + c2 * uqz;
+    const T p_c = fc3 * p_cs;
+    const T pe3 = T(-2) * p_e * fc3;
+    const T p_jk = rjk * pe3 + fcjk2 * dfc_jk * p_a;
+    const T cjk = cfl * p_jk / rjk;
+    const T p_aj = aj * pe3 + sh.dfc[j] * fck * fc_jk * p_a;
+    const T p_ak = ak * pe3 + sh.dfc[kk] * fcj * fc_jk * p_a;
+    const T irj = sh.inv_r[j], irk = sh.inv_r[kk];
+    // d(sum w G)/dx_j = C1 u_j + C2 u_k, and the same with j and k exchanged
+    const T c1j = p_c * cs * irj - cfl * p_aj - cjk * aj;
+    const T c2j = cjk * ak - p_c * irj;
+    const T c1k = p_c * cs * irk - cfl * p_ak - cjk * ak;
+    const T c2k = cjk * aj - p_c * irk;
+    atomicAdd(&sh.acc1[j], c1j);
+    atomicAdd(&sh.acc2x[j], c2j * ukx);
+    atomicAdd(&sh.acc2y[j], c2j * uky);
+    atomicAdd(&sh.acc2z[j], c2j * ukz);
+    atomicAdd(&sh.acc1[kk], c1k);
+    atomicAdd(&sh.acc2x[kk], c2k * ujx);
+    atomicAdd(&sh.acc2y[kk], c2k * ujy);
+    atomicAdd(&sh.acc2z[kk], c2k * ujz);
   }
-  if (!g.active) return;
+  __syncwarp();
+  if (!active) return;
   // Fj = -(d sum w G / dx_j): radial +coeff u, angular -(acc1 u + acc2)
-  fjx[o] = (coeff - acc1) * g.ux - acc2x;
-  fjy[o] = (coeff - acc1) * g.uy - acc2y;
-  fjz[o] = (coeff - acc1) * g.uz - acc2z;
+  T acc1 = T(0), acc2x = T(0), acc2y = T(0), acc2z = T(0);
+  if (in_a) {
+    acc1 = sh.acc1[c];
+    acc2x = sh.acc2x[c];
+    acc2y = sh.acc2y[c];
+    acc2z = sh.acc2z[c];
+  }
+  fjx[o] = (coeff - acc1) * ux - acc2x;
+  fjy[o] = (coeff - acc1) * uy - acc2y;
+  fjz[o] = (coeff - acc1) * uz - acc2z;
 }
 
 inline unsigned n_blocks(long long p) {

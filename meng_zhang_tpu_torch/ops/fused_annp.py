@@ -604,19 +604,21 @@ class FusedAnnp:
         return self._mlp_eat_dedg(
             self._g_cos()(*dd, c.npsf, c.ntsf, c.cut))
 
-    def energy_forces_short(self, x, box, sl: ShortList, shift=False):
-        """(E, F [N, 3], W [3, 3]) against a refresh-static ShortList.
+    def energy_forces_short(self, x, box, sl: ShortList, want_virial=True,
+                            shift=False):
+        """(E, F [N, 3]) and, with want_virial, W [3, 3] against a
+        refresh-static ShortList.
 
         E is shift-free unless shift=True (readers add n * e_shift in f64);
-        W_ab = -sum dx_a Fj_b over real lanes, symmetrized. Short-list
-        overflow NaN-poisons E and F."""
+        W_ab = -sum dx_a Fj_b over real lanes, symmetrized; the light MD
+        step passes want_virial=False and skips W. Short-list overflow
+        NaN-poisons E and F."""
         return evaluate_pairs(self._eval_fj, x, box, sl.sidx, sl.overflow,
-                              self.pbc, self.cfg.e_shift, shift)
+                              self.pbc, self.cfg.e_shift, shift, want_virial)
 
-    def energy_forces(self, x, box, nbr_idx, shift=False):
+    def energy_forces(self, x, box, nbr_idx, want_virial=True, shift=False):
         """Full evaluation from a skin list: compact to Ks at rc, then the
         same per-step evaluation. Overflow of Ks NaN-poisons E and F."""
         sl = compact_short(x, box, nbr_idx, self.cfg.cut, self.k_short,
                            self.pbc)
-        return evaluate_pairs(self._eval_fj, x, box, sl.sidx, sl.overflow,
-                              self.pbc, self.cfg.e_shift, shift)
+        return self.energy_forces_short(x, box, sl, want_virial, shift)

@@ -303,6 +303,8 @@ class ForceCos:
 
 # ---------------------------------------------------------------- ni
 _NI_MAX_RAD, _NI_MAX_ANG = 8, 32
+# ni_force: eta groups, distinct (lambda, zeta) shapes, groups x shapes
+_NI_MAX_GROUP, _NI_MAX_SHAPE, _NI_MAX_SLOT = 16, 16, 128
 
 
 def _ni_cfg_type(real):
@@ -314,36 +316,75 @@ def _ni_cfg_type(real):
         ("eta", real * _NI_MAX_ANG), ("lam", real * _NI_MAX_ANG),
         ("zeta", real * _NI_MAX_ANG), ("coef", real * _NI_MAX_ANG),
         ("col", ci * _NI_MAX_ANG), ("zlog2", ci * _NI_MAX_ANG),
-        ("first", ci * _NI_MAX_ANG)]})
+        ("first", ci * _NI_MAX_ANG), ("ngroup", ci), ("nshape", ci),
+        ("grp_eta", real * _NI_MAX_GROUP), ("sh_lam", real * _NI_MAX_SHAPE),
+        ("sh_zeta", real * _NI_MAX_SHAPE), ("sh_adv", ci * _NI_MAX_SHAPE),
+        ("sh_new", ci * _NI_MAX_SHAPE), ("grp", ci * _NI_MAX_ANG),
+        ("shp", ci * _NI_MAX_ANG)]})
 
 
 _NI_CFG = {"f32": _ni_cfg_type(ctypes.c_float),
            "f64": _ni_cfg_type(ctypes.c_double)}
 
 
+def _zeta_log2(zeta):
+    """log2(zeta) when zeta is a positive power of two, else -1."""
+    zi = int(zeta)
+    pow2 = zeta == zi and zi > 0 and (zi & (zi - 1)) == 0
+    return zi.bit_length() - 1 if pow2 else -1
+
+
 @functools.cache
 def _ni_cfg(table, suffix):
-    """The kernels' NiCfg for a fused_ni.NiTable (functions group-major)."""
-    fns = [(eta, gi == 0, lam, zeta, col) for eta, group in table.ang
-           for gi, (lam, zeta, col) in enumerate(group)]
+    """The kernels' NiCfg for a fused_ni.NiTable (functions group-major).
+
+    Beside the per-function arrays that ni_g reads, it lists the table's
+    structure for ni_force: the eta groups, the distinct (lambda, zeta)
+    shapes sorted by lambda then zeta, and each function's group and shape.
+    Power-of-two zetas of one lambda share a squaring chain: sh_new starts
+    it, sh_adv counts the squarings from the shape before (-1: through
+    pow)."""
+    fns = [(gi, eta, fi == 0, lam, zeta, col)
+           for gi, (eta, group) in enumerate(table.ang)
+           for fi, (lam, zeta, col) in enumerate(group)]
+    shapes = sorted({(lam, zeta) for _, _, _, lam, zeta, _ in fns})
     if len(table.rad) > _NI_MAX_RAD or len(fns) > _NI_MAX_ANG:
         raise ValueError(f"{len(table.rad)} radial / {len(fns)} angular "
                          f"functions exceed the kernels' {_NI_MAX_RAD} / "
                          f"{_NI_MAX_ANG}")
-    if sorted(c for *_, c in fns) != list(range(
+    if len(table.ang) > _NI_MAX_GROUP or len(shapes) > _NI_MAX_SHAPE \
+            or len(table.ang) * len(shapes) > _NI_MAX_SLOT:
+        raise ValueError(f"{len(table.ang)} eta groups x {len(shapes)} "
+                         f"(lambda, zeta) shapes exceed the kernels' "
+                         f"{_NI_MAX_GROUP} x {_NI_MAX_SHAPE} (at most "
+                         f"{_NI_MAX_SLOT} together)")
+    if sorted(f[-1] for f in fns) != list(range(
             len(table.rad), len(table.rad) + len(fns))):
         raise ValueError("angular columns must follow the radial ones")
     c = _NI_CFG[suffix]()
     c.nrad, c.nang, c.rc_a = len(table.rad), len(fns), table.rc_a
+    c.ngroup, c.nshape = len(table.ang), len(shapes)
     for i, (eta, rc) in enumerate(table.rad):
         c.rad_eta[i], c.rad_rc[i] = eta, rc
-    for f, (eta, first, lam, zeta, col) in enumerate(fns):
-        zi = int(zeta)
-        pow2 = zeta == zi and zi > 0 and (zi & (zi - 1)) == 0
+    for gi, (eta, _) in enumerate(table.ang):
+        c.grp_eta[gi] = eta
+    chain = None                   # (lambda, log2 zeta) of the running chain
+    for si, (lam, zeta) in enumerate(shapes):
+        level = _zeta_log2(zeta)
+        c.sh_lam[si], c.sh_zeta[si] = lam, zeta
+        if level < 0:
+            c.sh_new[si], c.sh_adv[si], chain = 0, -1, None
+            continue
+        fresh = chain is None or chain[0] != lam
+        c.sh_new[si] = int(fresh)
+        c.sh_adv[si] = level if fresh else level - chain[1]
+        chain = (lam, level)
+    for f, (gi, eta, first, lam, zeta, col) in enumerate(fns):
         c.eta[f], c.lam[f], c.zeta[f] = eta, lam, zeta
         c.coef[f] = 2.0 ** (1.0 - zeta)
         c.col[f], c.first[f] = col, int(first)
-        c.zlog2[f] = zi.bit_length() - 1 if pow2 else -1
+        c.zlog2[f] = _zeta_log2(zeta)
+        c.grp[f], c.shp[f] = gi, shapes.index((lam, zeta))
     return c
 
 
@@ -379,7 +420,9 @@ class NiG:
 class NiForce:
     """ni_force(dxx, dxy, dxz, dedg, table) -> per-pair Fj = -dE_i/dx_j as
     three [P, K] planes, dedg [P, 32] carrying sf_scale * e_scale; see
-    fused_ni.ni_force_plain."""
+    fused_ni.ni_force_plain. The kernel sums each lane's pair terms with
+    shared-memory atomics, so f32 results may differ in the last bits from
+    run to run."""
 
     def __init__(self):
         self.launches = 0

@@ -15,7 +15,8 @@ to a few hundred ulps of its largest value: max |diff| <= 1e-12 of max
 (p, q) terms and the G4 columns then sum 32 lanes: 1e-4 of max |value|
 leaves a wide margin over the ~1e-6 that f32 rounding of those sums gives.
 The cos kernels' f32 bounds are chip_smoke.py's COS_REL_BOUND, derived
-there.
+there. The delivered forces of a kernel path sum to zero up to rounding:
+chip_smoke.py's EVAL_REL["sum_F"], 1e-6 N rms|F|.
 """
 import numpy as np
 import pytest
@@ -23,8 +24,12 @@ import torch
 
 from meng_zhang_tpu_torch.ops import fused_annp as fa
 from meng_zhang_tpu_torch.ops import fused_ni as fn
+from meng_zhang_tpu_torch.models.annp import make_annp
 from meng_zhang_tpu_torch.ops import kernels
-from meng_zhang_tpu_torch.testing import synthetic_ni_potential
+from meng_zhang_tpu_torch.system.neighbors import build_neighbors_n2
+from meng_zhang_tpu_torch.testing import (synthetic_fe_potential,
+                                          synthetic_ni_potential,
+                                          thermal_bcc, thermal_fcc)
 from meng_zhang_tpu_torch.units import CFLENGTH
 from torch_port_util import cuda_device  # noqa: F401  (fixture)
 from torch_port_util import (kernel_coeffs, ni_short_planes,
@@ -35,6 +40,7 @@ HARM_RTOL = {torch.float64: 1e-12, torch.float32: 1e-4}
 NI_RTOL = {torch.float64: 1e-12, torch.float32: 1e-4}
 # chip_smoke.COS_REL_BOUND (g_cos, force_cos)
 COS_RTOL = {torch.float64: (1e-12, 1e-12), torch.float32: (1e-4, 3e-4)}
+SUM_F_REL = 1e-6        # chip_smoke.EVAL_REL["sum_F"], of N rms|F|
 
 
 def _harm_case(n_cells, cut, ks, npsf, ntsf, dtype, device):
@@ -116,17 +122,39 @@ def test_wrappers_refuse_bad_inputs(cuda_device):
                            planes[0][:, :1].repeat(1, 100), 4, 5, 4.0)
 
 
+def _thin_rows(planes, filler, counts):
+    """Row i keeps its first counts[i] real lanes; the rest become filler
+    lanes (dx = 2 box + 10, the planes' largest value). In place."""
+    assert filler.any()
+    for i, keep in enumerate(counts):
+        real = np.flatnonzero(~filler[i])
+        assert len(real) >= keep
+        for a in planes:
+            a[i, real[keep:]] = a.max()
+        filler[i, real[keep:]] = True
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
 @pytest.mark.parametrize("n_cells,cut,ks,npsf,ntsf", [
     (3, 4.0, 40, 4, 5),          # K not a multiple of 32
     (5, 6.5, 128, 9, 19),        # the shipped fe width, short-list lanes
     (5, 6.5, 192, 9, 19),        # skin-list lanes (energy_dedg)
+    (5, 6.5, 256, 9, 19),        # MAX_K: 8 warps a row
     (3, 4.0, 32, 4, 1),          # one angular function
+    (3, 4.0, 32, 4, 2),          # no recurrence step
+    (3, 4.0, 40, 4, 12),         # one more instance of force_cos
+    (3, 4.0, 32, 4, 32),         # COS_MAX_T
 ])
 def test_cos_kernels_match_plain(cuda_device, n_cells, cut, ks, npsf, ntsf,
                                  dtype):
+    """Both cos kernels against their plain versions. The padding rows hold
+    no active lane; rows 0-3 are cut down to 1, 2, 7 and 8 active lanes
+    (force_cos pairs thread j with j + d: one lane has no pair, two lanes
+    one, and an even count ends on a half step)."""
     planes, filler = short_planes(n_cells, cut, ks)
+    _thin_rows(planes, filler, (1, 2, 7, 8))
+    assert filler.all(1).any()
     planes = [torch.as_tensor(a, dtype=dtype, device=cuda_device)
               for a in planes]
     p = planes[0].shape[0]
@@ -174,12 +202,38 @@ def _ni_case(width):
     return planes, filler, pot
 
 
+def _odd_coeang(pot):
+    """The potential's angular table with two zetas that are no powers of
+    two (ni_force's pow route) and, where it has three eta groups, one
+    function moved into the first."""
+    coeang = np.array(pot.sym_coeang, dtype=np.float64)
+    coeang[1, 2], coeang[-1, 2] = 3.0, 6.0
+    if len(coeang) > 16:
+        coeang[16, 0] = coeang[0, 0]
+    return coeang
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
-@pytest.mark.parametrize("width", ["reduced", "full"])
+@pytest.mark.parametrize("width", ["reduced", "full", "reduced-odd",
+                                   "full-odd"])
 def test_ni_kernels_match_plain(cuda_device, width, dtype):
+    """Both ni kernels against their plain versions, on the potential's
+    table or (-odd) one with zetas 3 and 6. Rows 0-2 are cut down to 0, 1
+    and 2 lanes, and row 3 holds Ks lanes inside the angular cutoff in
+    random directions: ni_force's longest pair list."""
+    width, _, odd = width.partition("-")
     planes, filler, pot = _ni_case(width)
-    table = fn.ni_table(pot.sym_coerad, pot.sym_coeang)
+    _thin_rows(planes, filler, (0, 1, 2))
+    rng = np.random.default_rng(3)
+    ks = planes[0].shape[1]
+    u = rng.normal(size=(3, ks))
+    r = float(pot.sym_coeang[0, 3]) / CFLENGTH * rng.uniform(0.5, 0.95, ks)
+    for a, ud in zip(planes, u / np.linalg.norm(u, axis=0) * r):
+        a[3] = ud
+    filler[3] = False
+    table = fn.ni_table(pot.sym_coerad,
+                        _odd_coeang(pot) if odd else pot.sym_coeang)
     p = planes[0].shape[0]
     dedg = np.zeros((p, fn.NSF_SUB))
     dedg[:, :pot.nsf] = np.random.default_rng(1).normal(size=(p, pot.nsf))
@@ -214,3 +268,40 @@ def test_ni_wrappers_refuse_bad_inputs(cuda_device):
     with pytest.raises(ValueError):                 # dedg of the wrong width
         kernels.ni_force(*planes, torch.zeros(8, 27, device=cuda_device),
                          table)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("path", ["matrix", "ni"])
+def test_delivered_forces_match_plain_and_sum_to_zero(cuda_device, path,
+                                                      dtype):
+    """force_cos and ni_force through evaluate_pairs: each row's Fj plus
+    the own-row term, delivered, against the plain path's forces, and the
+    total momentum change."""
+    if path == "matrix":
+        cfg, params = make_annp(synthetic_fe_potential(0), dtype, cuda_device)
+        x, box = thermal_bcc(5, seed=2, disp=0.08)
+        kw = dict(k_short=128, angular="matrix")
+        make, width = fa.FusedAnnp, cfg.cut
+    else:
+        cfg, params = make_annp(synthetic_ni_potential(0), dtype, cuda_device)
+        x, box = thermal_fcc(4, seed=2, disp=0.08)
+        kw = dict(k_short=32)
+        make = fn.FusedNi
+        width = float(params["coeang"][0, 3]) / CFLENGTH
+    x = torch.as_tensor(x, dtype=dtype, device=cuda_device)
+    box = torch.as_tensor(box, dtype=dtype, device=cuda_device)
+    nbrs = build_neighbors_n2(x, box, width + 0.3, 128)
+    assert not bool(nbrs.overflow)
+    e, f, w = make(cfg, params, **kw).energy_forces(x, box, nbrs.idx)
+    e0, f0, w0 = make(cfg, params, plain=True, **kw).energy_forces(
+        x, box, nbrs.idx)
+    assert torch.isfinite(f).all()
+    # normalisation carries the descriptors' rounding to the network inputs
+    # ~1e3x enlarged (chip_smoke.EVAL_REL["max_dF"], 1e-3 of max|F| in f32)
+    tol = {torch.float64: 1e-10, torch.float32: 1e-3}[dtype]
+    assert rel_max(f.cpu(), f0.cpu()) <= tol
+    assert abs(float(e) - float(e0)) <= tol * abs(float(e0))
+    assert rel_max(w.cpu(), w0.cpu()) <= tol
+    rms = float(f.double().pow(2).mean().sqrt())
+    assert float(f.double().sum(0).abs().max()) <= SUM_F_REL * len(x) * rms
