@@ -49,8 +49,8 @@ Phases, each fatal on failure:
   12. profile: a fresh harmonic main-path run (init_state and 5 blocks),
       then one block without a skin-list rebuild under torch.profiler:
       device time by kernel (top ten, ms per step) and the device's idle
-      share; then the same for the ni main path (4 blocks, then one). It
-      runs last, so that the profiler's tracing cannot touch any other
+      share; then the same for the cos-matrix main path (3 blocks, then
+      one) and the ni main path (4 blocks, then one). It runs last, so that the profiler's tracing cannot touch any other
       phase's timing.
 
 Each kernel's record carries its least time on the card (`bound_ms`, the
@@ -98,11 +98,14 @@ REL_BOUND = {torch.float32: 1e-4, torch.float64: 1e-12}
 #   g_cos: an angular column sums w T_n(x) over the row's unordered pairs
 #     inside the cutoff (~6,200 of at most 127 * 128 / 2 at Ks 128), and
 #     |T_n| <= 1, so every column is bounded by column G_0 = sum w, the
-#     row's largest value. Each thread sums <= n/2 <= 64 pair terms, then
-#     5 shuffle levels and <= 8 warp partials: <= 77 roundings, 4.6e-6 of
-#     G_0; the T_n recurrence adds <= ntsf^2 / 2 = 180 roundings per term
-#     (a rounding at step m grows by |U_(n-m)| <= n - m + 1), 1.1e-5. The
-#     plain version carries as much: <= 3.1e-5 apart, and 1e-4 leaves 3x.
+#     row's largest value. Each thread sums <= n/2 <= 64 pair terms of its
+#     own lane and, where a part-full last warp's lanes are dealt to the
+#     others, <= 21 more (a chunk is shorter than n/2 over the full warps,
+#     three at 97-127 lanes), then 5 shuffle levels and <= 8 warp partials:
+#     <= 98 roundings, 5.9e-6 of G_0; the T_n recurrence adds <= ntsf^2 / 2
+#     = 180 roundings per term (a rounding at step m grows by |U_(n-m)| <=
+#     n - m + 1), 1.1e-5. The plain version carries its own sum and the same
+#     recurrence: <= 3.3e-5 apart, and 1e-4 leaves 3x.
 #     A single serial chain over the ~12,400 ordered terms would reach 7e-4.
 #   force_cos: a slot's sum has two chains, its <= 64 partners at k = j + d
 #     in thread j's registers and its <= 64 at k = j - d in shared memory,
@@ -149,11 +152,23 @@ EVAL_REL = {"dE_per_atom": 1e-5, "max_dF": 1e-3, "max_dW": 3e-4,
 # periodic thermal bcc box; both are f64, so only rounding separates them.
 REF_F_ATOL = 1e-9          # eV/A
 REF_E_RTOL = 1e-10
-# ni kernel vs plain, per output, as a fraction of the output's max |value|.
-# Each G4 column sums ~1000 (p, q) terms per atom (~18 partners inside
-# 3.90 A, ~300 ordered pairs, x2 lambda x4 zeta within an eta group): worst-
-# case linear rounding growth is 1000 * 6e-8 = 6e-5 in f32, 1.1e-13 in f64;
-# the bounds leave ~3x and ~9x over that.
+# ni kernel vs plain, per output, as a fraction of the output's max |value|
+# (u = 6e-8 in f32).
+#   ni_g: a G4 column sums one term per listed leg pair of the row (60 a
+#     row on the scene, at most 496). A lane adds <= 16 of them in its
+#     register, then 5 shuffle levels: <= 21 roundings on the sum's path,
+#     and a term carries ~10 of its own (cospif, expf, the squaring chain,
+#     four products): 1.9e-6 of the column's largest value, all terms being
+#     positive. The plain version adds every term twice along a 32-step q
+#     loop and then sums 32 lanes: <= 74, 4.4e-6. So <= 6.3e-6 apart.
+#   ni_force: a lane's four sums take <= 31 pair contributions (its
+#     partners) in any order, each a dot product over the table's (eta
+#     group, shape) weights (24 terms) times ~20 roundings of factors: <= 75,
+#     4.5e-6 of the largest sum; the plain version's q loop as much. The
+#     radial, u_p and u_q parts of Fj cancel: allow the largest Fj to sit 8x
+#     under the largest part: 7.2e-5.
+# 2e-4 leaves ~3x over ni_force's figure (30x over ni_g's); in f64 the same
+# counts at 1.1e-16 give <= 1.3e-13, and 1e-12 leaves 7x.
 NI_REL_BOUND = {torch.float32: 2e-4, torch.float64: 1e-12}
 # ni evaluator on the thermal 256,000-atom box, f32 kernel path against the
 # f64 plain path, relative to the scales of what each measures. Min-max
@@ -358,7 +373,8 @@ def rel_err(a, b):
 # kernel it replaces in meng_zhang_tpu/ops/pallas_annp.py
 FE_KERNELS = {"g_harm": ("annp_harm.cu", 299),
               "force_harm": ("annp_harm.cu", 352),
-              "g_cos": ("annp_cos.cu", 116), "force_cos": ("annp_cos.cu", 193)}
+              "g_cos": ("annp_gcos.cu", 116),
+              "force_cos": ("annp_cos.cu", 193)}
 
 
 def phase_kernels(x, box, cfg32, p32):
@@ -733,14 +749,18 @@ def profile_block(tag, what, sim, st, steps, card, tries=3):
             f"{100 * dev_ms(e) / busy:5.1f} %  x{e.count:<5d} {e.key[:100]}")
 
 
-def phase_profile(x, box, cfg32, p32, mass, card):
-    """A fresh harmonic main-path run: init_state and the blocks before
-    phase 5's rate window, then one block under torch.profiler."""
-    sim = fe_simulator(x, cfg32, p32, mass, "harmonic")
+def phase_profile(x, box, cfg32, p32, mass, card, angular="harmonic"):
+    """A fresh fe main-path run through one angular path: init_state and the
+    blocks before its rate window, then one block under torch.profiler."""
+    if angular == "harmonic":
+        tag, warm = "profile", N_BLOCKS - RATE_BLOCKS
+    else:
+        tag, warm = "cos-profile", COS_BLOCKS - COS_RATE_BLOCKS
+    sim = fe_simulator(x, cfg32, p32, mass, angular)
     st = sim.init_state(x, box, seed=SEED, t_init=300.0)
-    for _ in range(N_BLOCKS - RATE_BLOCKS):
+    for _ in range(warm):
         st, _ = sim.run(st, 1)
-    profile_block("profile", "harmonic", sim, st, THERMO_EVERY, card)
+    profile_block(tag, angular, sim, st, THERMO_EVERY, card)
 
 
 # ------------------------------------------------------------------ ni
@@ -823,8 +843,8 @@ def ni_flops(name, lanes, legs, table):
     and the sum (5 in ni_g; with the derivative and two sums 8 in
     ni_force); ni_force then forms the shared partials in c and rjk (8)
     and, on each side, the partial in its own leg and its four sums (22).
-    ni_force visits each unordered leg pair once, ni_g each ordered
-    leg."""
+    Both kernels visit each unordered leg pair once, from the row's pair
+    list."""
     zl = sum(int(zeta).bit_length() - 1 for _, group in table.ang
              for _, zeta, _ in group)
     n_f = sum(len(group) for _, group in table.ang)
@@ -872,6 +892,10 @@ def phase_ni_kernels(x, box, cfg32, p32, sl):
             ref, plain_ms = timed(plain)
             worst = compare(tag, name, outs, got, ref, NI_REL_BOUND[dtype],
                             filler)
+            if name == "ni_g":
+                # register sums in list order, then shuffles: no atomics
+                check(torch.equal(kern()[0], got[0]),
+                      f"ni_g {tag}: two runs differ in their bits")
             if dtype != torch.float32:
                 continue
             ms = cuda_ms(kern, 10)
@@ -1085,6 +1109,7 @@ def main():
         del x, box, sl
         launches.update(phase_ni_main_path(dev, cfg32, p32, mass, card))
         phase_profile(*fe, card)
+        phase_profile(*fe, card, angular="matrix")
         del fe
         phase_ni_profile(dev, cfg32, p32, mass, card)
     except SmokeFailure as e:

@@ -16,36 +16,41 @@
 // partners, ~300 ordered (p, q) leg pairs of which ~120 have their third leg
 // inside Rc too, each with a sqrt, a cos (and a sin in ni_force), 3 exp (one
 // per eta group) and ~150 FLOPs for the 24 functions, against 12 bytes of
-// dx read per lane: both kernels are compute bound on precise expf / cosf
+// dx read per lane: both kernels are compute bound on precise expf / cospif
 // and the zeta powers. Each lane computes its own geometry once (u, r, the
 // Bohr radius a, fc, dfc), and exp(-eta r2sum) is computed once per eta
 // group, not once per function. The table sits in kernel parameters
 // (constant bank). Zeta powers go by repeated squaring when zeta is a power
 // of two (all of the shipped table), by pow otherwise.
-//   ni_g keeps everything in registers and the warp: the q loop broadcasts
-// slot q's values with __shfl_sync and visits only the slots inside the
-// angular cutoff (a ballot of in_a), a lane computes a pair's terms only
-// where its three legs are inside Rc (other pairs add exact zeros in the TPU
-// kernel), and the per-function loop is unrolled over the compile-time
-// bound kMaxAng, so its 24 accumulators stay in registers.
-//   ni_force works from a pair list in the warp's shared memory. A q loop
-// runs its whole body once per slot q (~18 a row) while most lanes fail the
-// leg tests, and it computes every pair term twice although all of it but
-// the last ~15 operations is symmetric in (p, q). Instead the lanes inside
-// the cutoff are compacted (ballot + popc), the unordered pairs of compacted
-// lanes are enumerated 32 at a time and those with r_jk < Rc appended to
-// the list (stage 1, ~5 short rounds a row), and the list is then walked
-// with one pair a lane (stage 2, ~2 rounds a row with nearly all lanes
-// busy): the symmetric part once, then each side's own partial, added to
-// both lanes' sums with shared-memory atomicAdd (a few lanes of a round may
-// share a slot). So the order of a lane's sum may change from run to run
-// and f32 results are not bitwise reproducible, as the delivery's
-// index_add_ already is not. The table is read by its structure: each
-// distinct (lambda, zeta) shape's f^zeta and zeta f^(zeta - 1) once a pair,
-// power-of-two zetas of one lambda along one squaring chain, then per eta
-// group one exp and a dot product with the row's dE/dG weights summed per
-// (group, shape). The cutoffs go through sincospi(r / Rc): one call, no
-// rounding of pi r / Rc.
+//   Both work from a list of the row's unordered leg pairs in the warp's
+// shared memory. A q loop over the slots would run its whole body once per
+// slot q (~18 a row) while most lanes fail the leg tests, and it would
+// compute every pair term twice although a G4 term is symmetric in (p, q),
+// as is all of a force term but its last ~15 operations. Instead the lanes
+// inside the cutoff are compacted (ballot + popc), the unordered pairs of
+// compacted lanes are enumerated 32 at a time and those with r_jk < Rc
+// appended to the list (stage 1, list_pairs: ~5 short rounds a row, one
+// piece of code for both kernels), and the list is then walked with one
+// pair a lane (stage 2, ~2 rounds a row with nearly all lanes busy). The
+// cutoffs go through cospi / sincospi of r / Rc: one call, no rounding of
+// pi r / Rc.
+//   ni_g's stage 2 adds a pair's term once, undoubled: G4's 1/2 and the
+// pair's two orders cancel. Each lane keeps its own 24 sums in registers
+// (the per-function loop is unrolled over the compile-time bound kMaxAng,
+// so the sums have compile-time indices), one exp per eta group and the
+// zeta powers by repeated squaring per function; a row ends in one warp
+// reduction per function. No atomics: a lane's sums run in list order and
+// the shuffles in a fixed order, so ni_g is deterministic (bitwise equal
+// from run to run), though its order is not the plain version's.
+//   ni_force's stage 2 computes the symmetric part once, then each side's
+// own partial, added to both lanes' sums with shared-memory atomicAdd (a
+// few lanes of a round may share a slot). So the order of a lane's sum may
+// change from run to run and f32 results are not bitwise reproducible, as
+// the delivery's index_add_ already is not. The table is read by its
+// structure: each distinct (lambda, zeta) shape's f^zeta and
+// zeta f^(zeta - 1) once a pair, power-of-two zetas of one lambda along one
+// squaring chain, then per eta group one exp and a dot product with the
+// row's dE/dG weights summed per (group, shape).
 #include <cuda_runtime.h>
 #include <math_constants.h>
 
@@ -106,6 +111,8 @@ __device__ __forceinline__ float dev_sin(float v) { return sinf(v); }
 __device__ __forceinline__ double dev_sin(double v) { return sin(v); }
 __device__ __forceinline__ float dev_exp(float v) { return expf(v); }
 __device__ __forceinline__ double dev_exp(double v) { return exp(v); }
+__device__ __forceinline__ float dev_cospi(float v) { return cospif(v); }
+__device__ __forceinline__ double dev_cospi(double v) { return cospi(v); }
 __device__ __forceinline__ void dev_sincospi(float v, float* s, float* c) {
   sincospif(v, s, c);
 }
@@ -143,12 +150,13 @@ __device__ __forceinline__ T pow_zeta(T f1, T zeta, int zl, T* dfz) {
   return p;
 }
 
-// Per-lane geometry, as _ni_geometry. Lanes at or beyond K are inactive:
-// they take part in the shuffles but are masked everywhere.
+// Per-lane geometry, as _ni_geometry without the cutoff function. Lanes at
+// or beyond K are inactive: they take part in the shuffles but are masked
+// everywhere.
 template <typename T>
 struct Geo {
   bool active, in_a;
-  T r, inv_r, ux, uy, uz, rm, a, fc_a, dfc_a;
+  T r, inv_r, ux, uy, uz, rm;
 };
 
 template <typename T>
@@ -173,11 +181,6 @@ __device__ __forceinline__ Geo<T> ni_geometry(const T* dxx, const T* dxy,
   g.uz = z * g.inv_r * m;
   g.rm = g.r * T(kCfLength);
   g.in_a = valid && g.rm < T(rc_a);
-  // masked lanes: a finite Bohr radius beyond the cutoff
-  g.a = g.in_a ? g.rm : T(rc_a + 1.0);
-  const T arg = T(CUDART_PI / rc_a) * g.a;
-  g.fc_a = g.in_a ? T(0.5) * (dev_cos(arg) + T(1)) : T(0);
-  g.dfc_a = g.in_a ? T(-0.5 * CUDART_PI / rc_a) * dev_sin(arg) : T(0);
   return g;
 }
 
@@ -190,182 +193,26 @@ __device__ __forceinline__ bool radial_in(const Geo<T>& g, double rc_r,
   return in_r;
 }
 
+// One row's lanes inside the angular cutoff, compacted in lane order (unit
+// vector, Bohr radius a, cutoff fc), and the list of its leg pairs: one per
+// warp, in shared memory.
 template <typename T>
-__global__ void __launch_bounds__(kWarps * 32)
-ni_g_kernel(const T* __restrict__ dxx, const T* __restrict__ dxy,
-            const T* __restrict__ dxz, T* __restrict__ g_out, long long p,
-            int k, const NiCfg<T> cfg) {
-  const int lane = threadIdx.x & 31;
-  const long long row = (long long)blockIdx.x * kWarps + (threadIdx.x >> 5);
-  if (row >= p) return;            // uniform across the warp
-  const Geo<T> g = ni_geometry(dxx, dxy, dxz, row * k + lane, lane < k,
-                               cfg.rc_a);
-  T* g_row = g_out + row * kNsfSub;
-  if (lane >= cfg.nrad + cfg.nang) g_row[lane] = T(0);
-
-  // radial G2
-#pragma unroll
-  for (int mi = 0; mi < kMaxRad; ++mi) {
-    if (mi < cfg.nrad) {
-      const double rc_r = cfg.rad_rc[mi];
-      T rr;
-      const bool in_r = radial_in(g, rc_r, &rr);
-      const T fc_r =
-          in_r ? T(0.5) * (dev_cos(T(CUDART_PI / rc_r) * rr) + T(1)) : T(0);
-      const T v = warp_sum(dev_exp(T(-cfg.rad_eta[mi]) * rr * rr) * fc_r);
-      if (lane == 0) g_row[mi] = v;
-    }
-  }
-
-  // angular G4: q runs over the slots inside the angular cutoff
-  T acc[kMaxAng];
-#pragma unroll
-  for (int f = 0; f < kMaxAng; ++f) acc[f] = T(0);
-  const T rc_a2 = T(cfg.rc_a * cfg.rc_a);
-  unsigned qmask = __ballot_sync(kFull, g.in_a);
-  while (qmask) {
-    const int q = __ffs(qmask) - 1;
-    qmask &= qmask - 1;
-    const T uqx = __shfl_sync(kFull, g.ux, q);
-    const T uqy = __shfl_sync(kFull, g.uy, q);
-    const T uqz = __shfl_sync(kFull, g.uz, q);
-    const T aq = __shfl_sync(kFull, g.a, q);
-    const T fcq = __shfl_sync(kFull, g.fc_a, q);
-    if (!g.in_a || lane == q) continue;
-    const T cs = g.ux * uqx + g.uy * uqy + g.uz * uqz;
-    const T rjk2 = g.a * g.a + aq * aq - T(2) * g.a * aq * cs;
-    if (!(rjk2 < rc_a2)) continue;
-    const T rjk = dev_sqrt(rjk2 > T(1.0e-12) ? rjk2 : T(1.0e-12));
-    const T fc_jk =
-        T(0.5) * (dev_cos(T(CUDART_PI / cfg.rc_a) * rjk) + T(1));
-    const T fc3 = g.fc_a * fcq * fc_jk;
-    const T r2sum = g.a * g.a + aq * aq + rjk2;
-    T t_eta = T(0);
-#pragma unroll
-    for (int f = 0; f < kMaxAng; ++f) {
-      if (f < cfg.nang) {
-        if (cfg.first[f]) t_eta = dev_exp(-cfg.eta[f] * r2sum) * fc3;
-        const T fz = pow_zeta(T(1) + cfg.lam[f] * cs, cfg.zeta[f],
-                              cfg.zlog2[f], (T*)nullptr);
-        acc[f] = acc[f] + cfg.coef[f] * fz * t_eta;
-      }
-    }
-  }
-#pragma unroll
-  for (int f = 0; f < kMaxAng; ++f) {
-    if (f < cfg.nang) {
-      const T v = warp_sum(acc[f]);
-      if (lane == 0) g_row[cfg.col[f]] = T(0.5) * v;
-    }
-  }
-}
-
-// One row's working set of ni_force in shared memory, one per warp.
-template <typename T>
-struct ForceRow {
-  // lanes inside the angular cutoff, compacted in lane order
-  T ux[32], uy[32], uz[32], a[32], fc[32], dfc[32], inv_r[32];
-  // per compacted lane: the u_p coefficient and the u_q-projected vector
-  T acc1[32], acc2x[32], acc2y[32], acc2z[32];
-  // per (eta group, shape): sum of dE/dG 2^(1 - zeta) over its functions,
-  // and the same times lambda
-  T wa[kMaxSlot], wc[kMaxSlot];
+struct PairRow {
+  T ux[32], uy[32], uz[32], a[32], fc[32];
   // surviving pairs, j | k << 8
   unsigned short pairs[kMaxPair + 16];
 };
 
+// Stage 1 of both kernels, called by the whole warp once the n_in compacted
+// lanes are written: the unordered pairs (j, k) of compacted lanes, 32 a
+// round; pair t is (j, j + d mod n_in) with d = t / n_in + 1, j = t mod
+// n_in, which runs over every unordered pair once for t < n_in (n_in - 1)
+// / 2. Those whose third leg r_jk lies inside the cutoff go to the list;
+// returns their number.
 template <typename T>
-__global__ void __launch_bounds__(kWarps * 32)
-ni_force_kernel(const T* __restrict__ dxx, const T* __restrict__ dxy,
-                const T* __restrict__ dxz, const T* __restrict__ dedg,
-                T* __restrict__ fjx, T* __restrict__ fjy,
-                T* __restrict__ fjz, long long p, int k,
-                const __grid_constant__ NiCfg<T> cfg) {
-  __shared__ ForceRow<T> rows[kWarps];
-  const int lane = threadIdx.x & 31;
-  const long long row = (long long)blockIdx.x * kWarps + (threadIdx.x >> 5);
-  if (row >= p) return;            // uniform across the warp
-  ForceRow<T>& sh = rows[threadIdx.x >> 5];
-  const long long o = row * k + lane;
-  const T* w_row = dedg + row * kNsfSub;
-
-  // per-lane geometry, as ni_geometry with the cutoff through sincospi
-  const bool active = lane < k;
-  T x = T(0), y = T(0), z = T(0);
-  if (active) {
-    x = dxx[o];
-    y = dxy[o];
-    z = dxz[o];
-  }
-  const T rsq = x * x + y * y + z * z;
-  const bool valid = active && rsq > T(1.0e-12);
-  const T r = dev_sqrt(valid ? rsq : T(1));
-  const T inv_r = T(1) / r;
-  const T m = valid ? T(1) : T(0);
-  const T ux = x * inv_r * m, uy = y * inv_r * m, uz = z * inv_r * m;
-  const T rm = r * T(kCfLength);
-  const bool in_a = valid && rm < T(cfg.rc_a);
-  const T inv_rc = T(1.0 / cfg.rc_a);
-  const T dfc_scale = T(-0.5 * CUDART_PI / cfg.rc_a);
-
-  // compact the lanes inside the angular cutoff; zero the row's sums
-  const unsigned in_mask = __ballot_sync(kFull, in_a);
-  const int n_in = __popc(in_mask);
-  const int c = __popc(in_mask & ((1u << lane) - 1u));
-  if (in_a) {
-    T sn, cn;
-    dev_sincospi(rm * inv_rc, &sn, &cn);
-    sh.ux[c] = ux;
-    sh.uy[c] = uy;
-    sh.uz[c] = uz;
-    sh.a[c] = rm;
-    sh.fc[c] = T(0.5) * (cn + T(1));
-    sh.dfc[c] = dfc_scale * sn;
-    sh.inv_r[c] = inv_r;
-  }
-  sh.acc1[lane] = T(0);
-  sh.acc2x[lane] = T(0);
-  sh.acc2y[lane] = T(0);
-  sh.acc2z[lane] = T(0);
-  const int nslot = cfg.ngroup * cfg.nshape;
-  for (int i = lane; i < nslot; i += 32) {
-    sh.wa[i] = T(0);
-    sh.wc[i] = T(0);
-  }
+__device__ __forceinline__ int list_pairs(PairRow<T>& sh, int n_in, int lane,
+                                          T rc_a2) {
   __syncwarp();
-  // per-function weights dE/dG_col * 2^(1 - zeta) into their (group, shape)
-  if (lane < cfg.nang) {
-    const T w = w_row[cfg.col[lane]] * cfg.coef[lane];
-    const int slot = cfg.grp[lane] * cfg.nshape + cfg.shp[lane];
-    atomicAdd(&sh.wa[slot], w);
-    atomicAdd(&sh.wc[slot], w * cfg.lam[lane]);
-  }
-
-  // radial: d(sum_m w_m G2_m)/d rm
-  T coeff = T(0);
-#pragma unroll
-  for (int mi = 0; mi < kMaxRad; ++mi) {
-    if (mi < cfg.nrad) {
-      const double rc_r = cfg.rad_rc[mi];
-      const double eta = cfg.rad_eta[mi];
-      const bool in_r = active && rm < T(rc_r) && r > T(1.0e-6);
-      const T rr = in_r ? rm : T(rc_r);
-      const T arg = T(CUDART_PI / rc_r) * rr;
-      const T fc_r = T(0.5) * (dev_cos(arg) + T(1));
-      const T dfc_r = T(-0.5 * CUDART_PI / rc_r) * dev_sin(arg);
-      const T e_r = dev_exp(T(-eta) * rr * rr);
-      const T dg = in_r ? e_r * (dfc_r - T(2.0 * eta) * rr * fc_r) : T(0);
-      coeff = coeff + w_row[mi] * dg;
-    }
-  }
-  // dG2/dx_j = dg * CFL * (-u_j);  Fj = -w dG => + CFL w dg u
-  coeff = coeff * T(kCfLength);
-
-  // stage 1: the unordered pairs (j, k) of compacted lanes, 32 a round;
-  // pair t is (j, j + d mod n_in) with d = t / n_in + 1, j = t mod n_in,
-  // which runs over every unordered pair once for t < n_in (n_in - 1) / 2.
-  // Those whose third leg r_jk lies inside the cutoff go to the list.
-  const T rc_a2 = T(cfg.rc_a * cfg.rc_a);
   const int n_cand = n_in * (n_in - 1) / 2;
   // t / n_in for t < 1024, n_in <= 32, without a division a round
   const unsigned inv_n = 65536u / (unsigned)(n_in > 0 ? n_in : 1) + 1u;
@@ -390,6 +237,179 @@ ni_force_kernel(const T* __restrict__ dxx, const T* __restrict__ dxy,
     n_pair += __popc(okm);
   }
   __syncwarp();
+  return n_pair;
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kWarps * 32)
+ni_g_kernel(const T* __restrict__ dxx, const T* __restrict__ dxy,
+            const T* __restrict__ dxz, T* __restrict__ g_out, long long p,
+            int k, const __grid_constant__ NiCfg<T> cfg) {
+  __shared__ PairRow<T> rows[kWarps];
+  const int lane = threadIdx.x & 31;
+  const long long row = (long long)blockIdx.x * kWarps + (threadIdx.x >> 5);
+  if (row >= p) return;            // uniform across the warp
+  PairRow<T>& sh = rows[threadIdx.x >> 5];
+  const Geo<T> g = ni_geometry(dxx, dxy, dxz, row * k + lane, lane < k,
+                               cfg.rc_a);
+  T* g_row = g_out + row * kNsfSub;
+  if (lane >= cfg.nrad + cfg.nang) g_row[lane] = T(0);
+
+  // compact the lanes inside the angular cutoff
+  const T inv_rc = T(1.0 / cfg.rc_a);
+  const unsigned in_mask = __ballot_sync(kFull, g.in_a);
+  const int n_in = __popc(in_mask);
+  if (g.in_a) {
+    const int c = __popc(in_mask & ((1u << lane) - 1u));
+    sh.ux[c] = g.ux;
+    sh.uy[c] = g.uy;
+    sh.uz[c] = g.uz;
+    sh.a[c] = g.rm;
+    sh.fc[c] = T(0.5) * (dev_cospi(g.rm * inv_rc) + T(1));
+  }
+
+  // radial G2
+#pragma unroll
+  for (int mi = 0; mi < kMaxRad; ++mi) {
+    if (mi < cfg.nrad) {
+      const double rc_r = cfg.rad_rc[mi];
+      T rr;
+      const bool in_r = radial_in(g, rc_r, &rr);
+      const T fc_r =
+          in_r ? T(0.5) * (dev_cos(T(CUDART_PI / rc_r) * rr) + T(1)) : T(0);
+      const T v = warp_sum(dev_exp(T(-cfg.rad_eta[mi]) * rr * rr) * fc_r);
+      if (lane == 0) g_row[mi] = v;
+    }
+  }
+
+  // angular G4, stage 1: the row's leg pairs
+  const int n_pair = list_pairs(sh, n_in, lane, T(cfg.rc_a * cfg.rc_a));
+
+  // stage 2: one lane a pair; what does not depend on the function (r_jk
+  // and its cutoff, fc3, r2sum) once, one exp per eta group, then each
+  // function's term into this lane's sum
+  T acc[kMaxAng];
+#pragma unroll
+  for (int f = 0; f < kMaxAng; ++f) acc[f] = T(0);
+  for (int base = 0; base < n_pair; base += 32) {
+    if (base + lane >= n_pair) continue;
+    const int pr = sh.pairs[base + lane];
+    const int j = pr & 255, kk = pr >> 8;
+    const T aj = sh.a[j], ak = sh.a[kk];
+    const T cs = sh.ux[j] * sh.ux[kk] + sh.uy[j] * sh.uy[kk]
+                 + sh.uz[j] * sh.uz[kk];
+    const T rjk2 = aj * aj + ak * ak - T(2) * aj * ak * cs;
+    const T rjk = dev_sqrt(rjk2 > T(1.0e-12) ? rjk2 : T(1.0e-12));
+    const T fc_jk = T(0.5) * (dev_cospi(rjk * inv_rc) + T(1));
+    const T fc3 = sh.fc[j] * sh.fc[kk] * fc_jk;
+    const T r2sum = aj * aj + ak * ak + rjk2;
+    T t_eta = T(0);
+#pragma unroll
+    for (int f = 0; f < kMaxAng; ++f) {
+      if (f < cfg.nang) {
+        if (cfg.first[f]) t_eta = dev_exp(-cfg.eta[f] * r2sum) * fc3;
+        const T fz = pow_zeta(T(1) + cfg.lam[f] * cs, cfg.zeta[f],
+                              cfg.zlog2[f], (T*)nullptr);
+        acc[f] = acc[f] + cfg.coef[f] * fz * t_eta;
+      }
+    }
+  }
+#pragma unroll
+  for (int f = 0; f < kMaxAng; ++f) {
+    if (f < cfg.nang) {
+      const T v = warp_sum(acc[f]);
+      if (lane == 0) g_row[cfg.col[f]] = v;
+    }
+  }
+}
+
+// One row's working set of ni_force in shared memory, one per warp.
+template <typename T>
+struct ForceRow {
+  PairRow<T> pr;
+  // per compacted lane: the cutoff's derivative and 1 / r (Angstrom)
+  T dfc[32], inv_r[32];
+  // per compacted lane: the u_p coefficient and the u_q-projected vector
+  T acc1[32], acc2x[32], acc2y[32], acc2z[32];
+  // per (eta group, shape): sum of dE/dG 2^(1 - zeta) over its functions,
+  // and the same times lambda
+  T wa[kMaxSlot], wc[kMaxSlot];
+};
+
+template <typename T>
+__global__ void __launch_bounds__(kWarps * 32)
+ni_force_kernel(const T* __restrict__ dxx, const T* __restrict__ dxy,
+                const T* __restrict__ dxz, const T* __restrict__ dedg,
+                T* __restrict__ fjx, T* __restrict__ fjy,
+                T* __restrict__ fjz, long long p, int k,
+                const __grid_constant__ NiCfg<T> cfg) {
+  __shared__ ForceRow<T> rows[kWarps];
+  const int lane = threadIdx.x & 31;
+  const long long row = (long long)blockIdx.x * kWarps + (threadIdx.x >> 5);
+  if (row >= p) return;            // uniform across the warp
+  ForceRow<T>& fr = rows[threadIdx.x >> 5];
+  PairRow<T>& sh = fr.pr;
+  const long long o = row * k + lane;
+  const T* w_row = dedg + row * kNsfSub;
+  const Geo<T> g = ni_geometry(dxx, dxy, dxz, o, lane < k, cfg.rc_a);
+  const T inv_rc = T(1.0 / cfg.rc_a);
+  const T dfc_scale = T(-0.5 * CUDART_PI / cfg.rc_a);
+
+  // compact the lanes inside the angular cutoff; zero the row's sums
+  const unsigned in_mask = __ballot_sync(kFull, g.in_a);
+  const int n_in = __popc(in_mask);
+  const int c = __popc(in_mask & ((1u << lane) - 1u));
+  if (g.in_a) {
+    T sn, cn;
+    dev_sincospi(g.rm * inv_rc, &sn, &cn);
+    sh.ux[c] = g.ux;
+    sh.uy[c] = g.uy;
+    sh.uz[c] = g.uz;
+    sh.a[c] = g.rm;
+    sh.fc[c] = T(0.5) * (cn + T(1));
+    fr.dfc[c] = dfc_scale * sn;
+    fr.inv_r[c] = g.inv_r;
+  }
+  fr.acc1[lane] = T(0);
+  fr.acc2x[lane] = T(0);
+  fr.acc2y[lane] = T(0);
+  fr.acc2z[lane] = T(0);
+  const int nslot = cfg.ngroup * cfg.nshape;
+  for (int i = lane; i < nslot; i += 32) {
+    fr.wa[i] = T(0);
+    fr.wc[i] = T(0);
+  }
+  __syncwarp();
+  // per-function weights dE/dG_col * 2^(1 - zeta) into their (group, shape)
+  if (lane < cfg.nang) {
+    const T w = w_row[cfg.col[lane]] * cfg.coef[lane];
+    const int slot = cfg.grp[lane] * cfg.nshape + cfg.shp[lane];
+    atomicAdd(&fr.wa[slot], w);
+    atomicAdd(&fr.wc[slot], w * cfg.lam[lane]);
+  }
+
+  // radial: d(sum_m w_m G2_m)/d rm
+  T coeff = T(0);
+#pragma unroll
+  for (int mi = 0; mi < kMaxRad; ++mi) {
+    if (mi < cfg.nrad) {
+      const double rc_r = cfg.rad_rc[mi];
+      const double eta = cfg.rad_eta[mi];
+      T rr;
+      const bool in_r = radial_in(g, rc_r, &rr);
+      const T arg = T(CUDART_PI / rc_r) * rr;
+      const T fc_r = T(0.5) * (dev_cos(arg) + T(1));
+      const T dfc_r = T(-0.5 * CUDART_PI / rc_r) * dev_sin(arg);
+      const T e_r = dev_exp(T(-eta) * rr * rr);
+      const T dg = in_r ? e_r * (dfc_r - T(2.0 * eta) * rr * fc_r) : T(0);
+      coeff = coeff + w_row[mi] * dg;
+    }
+  }
+  // dG2/dx_j = dg * CFL * (-u_j);  Fj = -w dG => + CFL w dg u
+  coeff = coeff * T(kCfLength);
+
+  // stage 1: the row's leg pairs
+  const int n_pair = list_pairs(sh, n_in, lane, T(cfg.rc_a * cfg.rc_a));
 
   // stage 2: one lane a pair. What is symmetric in (j, k) is computed
   // once: r_jk and its cutoff, fc3, r2sum, each shape's f^zeta and
@@ -440,11 +460,11 @@ ni_force_kernel(const T* __restrict__ dxx, const T* __restrict__ dxy,
     }
     // sum_eta e S_A, sum_eta eta e S_A, sum_eta e S_C
     T p_a = T(0), p_e = T(0), p_cs = T(0);
-    for (int g = 0; g < cfg.ngroup; ++g) {
-      const T eta_g = cfg.grp_eta[g];
+    for (int gi = 0; gi < cfg.ngroup; ++gi) {
+      const T eta_g = cfg.grp_eta[gi];
       const T e_eta = dev_exp(-eta_g * r2sum);
-      const T* wa = sh.wa + g * cfg.nshape;
-      const T* wc = sh.wc + g * cfg.nshape;
+      const T* wa = fr.wa + gi * cfg.nshape;
+      const T* wc = fr.wc + gi * cfg.nshape;
       T s_a = T(0), s_c = T(0);
 #pragma unroll
       for (int s = 0; s < kMaxShape; ++s) {
@@ -463,36 +483,36 @@ ni_force_kernel(const T* __restrict__ dxx, const T* __restrict__ dxy,
     const T pe3 = T(-2) * p_e * fc3;
     const T p_jk = rjk * pe3 + fcjk2 * dfc_jk * p_a;
     const T cjk = cfl * p_jk / rjk;
-    const T p_aj = aj * pe3 + sh.dfc[j] * fck * fc_jk * p_a;
-    const T p_ak = ak * pe3 + sh.dfc[kk] * fcj * fc_jk * p_a;
-    const T irj = sh.inv_r[j], irk = sh.inv_r[kk];
+    const T p_aj = aj * pe3 + fr.dfc[j] * fck * fc_jk * p_a;
+    const T p_ak = ak * pe3 + fr.dfc[kk] * fcj * fc_jk * p_a;
+    const T irj = fr.inv_r[j], irk = fr.inv_r[kk];
     // d(sum w G)/dx_j = C1 u_j + C2 u_k, and the same with j and k exchanged
     const T c1j = p_c * cs * irj - cfl * p_aj - cjk * aj;
     const T c2j = cjk * ak - p_c * irj;
     const T c1k = p_c * cs * irk - cfl * p_ak - cjk * ak;
     const T c2k = cjk * aj - p_c * irk;
-    atomicAdd(&sh.acc1[j], c1j);
-    atomicAdd(&sh.acc2x[j], c2j * ukx);
-    atomicAdd(&sh.acc2y[j], c2j * uky);
-    atomicAdd(&sh.acc2z[j], c2j * ukz);
-    atomicAdd(&sh.acc1[kk], c1k);
-    atomicAdd(&sh.acc2x[kk], c2k * ujx);
-    atomicAdd(&sh.acc2y[kk], c2k * ujy);
-    atomicAdd(&sh.acc2z[kk], c2k * ujz);
+    atomicAdd(&fr.acc1[j], c1j);
+    atomicAdd(&fr.acc2x[j], c2j * ukx);
+    atomicAdd(&fr.acc2y[j], c2j * uky);
+    atomicAdd(&fr.acc2z[j], c2j * ukz);
+    atomicAdd(&fr.acc1[kk], c1k);
+    atomicAdd(&fr.acc2x[kk], c2k * ujx);
+    atomicAdd(&fr.acc2y[kk], c2k * ujy);
+    atomicAdd(&fr.acc2z[kk], c2k * ujz);
   }
   __syncwarp();
-  if (!active) return;
+  if (!g.active) return;
   // Fj = -(d sum w G / dx_j): radial +coeff u, angular -(acc1 u + acc2)
   T acc1 = T(0), acc2x = T(0), acc2y = T(0), acc2z = T(0);
-  if (in_a) {
-    acc1 = sh.acc1[c];
-    acc2x = sh.acc2x[c];
-    acc2y = sh.acc2y[c];
-    acc2z = sh.acc2z[c];
+  if (g.in_a) {
+    acc1 = fr.acc1[c];
+    acc2x = fr.acc2x[c];
+    acc2y = fr.acc2y[c];
+    acc2z = fr.acc2z[c];
   }
-  fjx[o] = (coeff - acc1) * ux - acc2x;
-  fjy[o] = (coeff - acc1) * uy - acc2y;
-  fjz[o] = (coeff - acc1) * uz - acc2z;
+  fjx[o] = (coeff - acc1) * g.ux - acc2x;
+  fjy[o] = (coeff - acc1) * g.uy - acc2y;
+  fjz[o] = (coeff - acc1) * g.uz - acc2z;
 }
 
 inline unsigned n_blocks(long long p) {

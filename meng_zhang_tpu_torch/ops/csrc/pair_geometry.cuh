@@ -1,4 +1,5 @@
-// Per-pair helpers shared by the fe ANNP kernels (annp_harm.cu, annp_cos.cu).
+// Per-pair helpers shared by the fe ANNP kernels (annp_harm.cu, annp_gcos.cu,
+// annp_cos.cu).
 #pragma once
 
 #include <cuda_runtime.h>

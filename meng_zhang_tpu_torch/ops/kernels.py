@@ -2,9 +2,9 @@
 
 `csrc/annp_harm.cu` holds `g_harm` (replaces the TPU kernel
 `_g_kernel_harm`, meng_zhang_tpu/ops/pallas_annp.py:299) and `force_harm`
-(replaces `_force_kernel_harm`, :352); `csrc/annp_cos.cu` holds `g_cos`
-(replaces `_g_kernel`, :116) and `force_cos` (replaces `_force_kernel`,
-:193); `csrc/ni_bp.cu` holds `ni_g` (replaces `_ni_g_kernel`,
+(replaces `_force_kernel_harm`, :352); `csrc/annp_gcos.cu` holds `g_cos`
+(replaces `_g_kernel`, :116) and `csrc/annp_cos.cu` `force_cos` (replaces
+`_force_kernel`, :193); `csrc/ni_bp.cu` holds `ni_g` (replaces `_ni_g_kernel`,
 meng_zhang_tpu/ops/pallas_ni.py:126) and `ni_force` (replaces
 `_ni_force_kernel`, :170). Every `.cu` under `csrc/` is compiled at first
 use by `nvcc` for `sm_90a` into its own plain-C shared library under
@@ -35,10 +35,14 @@ from . import fused_annp, fused_ni
 _CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
 _BUILD_ROOT = os.path.join(
     os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "_build")
+# --split-compile 0: each source's kernel instances (up to 64) go through
+# the optimiser on all cores instead of one after another; on an 8-core
+# host the four sources build in 19 s with it and 35 s without (nvcc 12.9)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+              "--split-compile", "0")
 MAX_K = 256          # fe kernels: <= 8 slots a lane (g_harm), 8 warps a row
-COS_MAX_T = 32       # cos kernels: angular functions held in registers
+COS_MAX_T = 32       # cos kernels: one compiled instance per ntsf up to it
 NI_MAX_K = 32        # ni kernels: one warp per row, one lane per slot
 
 
@@ -103,7 +107,8 @@ def _libs():
     vp, ll, ci, cd = (ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
                       ctypes.c_double)
     libs = {stem: ctypes.CDLL(path) for stem, path in build()[0].items()}
-    harm, cos, ni = libs["annp_harm"], libs["annp_cos"], libs["ni_bp"]
+    harm, gcos, cos, ni = (libs[stem] for stem in (
+        "annp_harm", "annp_gcos", "annp_cos", "ni_bp"))
     for suffix in ("f32", "f64"):
         g = getattr(harm, f"annp_g_harm_{suffix}")
         g.argtypes = [vp] * 6 + [ll, ci, ci, ci, cd, vp]
@@ -111,7 +116,7 @@ def _libs():
         fn = getattr(harm, f"annp_force_harm_{suffix}")
         fn.argtypes = [vp] * 9 + [ll, ci, ci, ci, cd, vp]
         fn.restype = ci
-        g = getattr(cos, f"annp_g_cos_{suffix}")
+        g = getattr(gcos, f"annp_g_cos_{suffix}")
         g.argtypes = [vp] * 4 + [ll, ci, ci, ci, cd, vp]
         g.restype = ci
         fn = getattr(cos, f"annp_force_cos_{suffix}")
@@ -263,7 +268,8 @@ class GCos:
         p, k = _check_cos((dxx, dxy, dxz), npsf, ntsf)
         g = torch.empty((p, fused_annp.NSF_PAD), dtype=dxx.dtype,
                         device=dxx.device)
-        fn = getattr(_libs()["annp_cos"], f"annp_g_cos_{_SUFFIX[dxx.dtype]}")
+        fn = getattr(_libs()["annp_gcos"],
+                     f"annp_g_cos_{_SUFFIX[dxx.dtype]}")
         with torch.cuda.device(dxx.device):
             stream = torch.cuda.current_stream().cuda_stream
             rc_ = fn(dxx.data_ptr(), dxy.data_ptr(), dxz.data_ptr(),
@@ -395,7 +401,8 @@ def _check_ni(planes):
 
 class NiG:
     """ni_g(dxx, dxy, dxz, table) -> raw BP descriptors g [P, 32]; see
-    fused_ni.ni_g_plain."""
+    fused_ni.ni_g_plain. The kernel sums in a fixed order: two runs on the
+    same input agree bit for bit."""
 
     def __init__(self):
         self.launches = 0

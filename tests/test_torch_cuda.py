@@ -12,8 +12,9 @@ Tolerance (f64): the kernels run the plain versions' recurrences per lane
 to a few hundred ulps of its largest value: max |diff| <= 1e-12 of max
 |value|. In f32 the harmonic kernels' bound is chip_smoke.py's REL_BOUND,
 1e-4, derived there; the ni kernels' longest per-lane sums run over ~30
-(p, q) terms and the G4 columns then sum 32 lanes: 1e-4 of max |value|
-leaves a wide margin over the ~1e-6 that f32 rounding of those sums gives.
+pair terms (ni_force: a lane's partners; ni_g: <= 16 listed pairs a lane)
+and the G4 columns then sum 32 lanes: 1e-4 of max |value| leaves a wide
+margin over the ~1e-6 that f32 rounding of those sums gives.
 The cos kernels' f32 bounds are chip_smoke.py's COS_REL_BOUND, derived
 there. The delivered forces of a kernel path sum to zero up to rounding:
 chip_smoke.py's EVAL_REL["sum_F"], 1e-6 N rms|F|.
@@ -193,12 +194,17 @@ def test_cos_wrappers_refuse_bad_inputs(cuda_device):
 
 def _ni_case(width):
     """(planes [P, Ks] numpy, filler mask, potential) on a perturbed fcc box
-    with a vacancy: reduced width at Ks 16, the shipped width at Ks 32."""
+    with a vacancy: reduced width at Ks 16, the shipped width at Ks 32 or,
+    for "k17", 17 of its lanes, some of them filler (a K that leaves lanes of
+    the warp idle)."""
     pot = reduced_ni_potential() if width == "reduced" \
         else synthetic_ni_potential(0)
     ks = 16 if width == "reduced" else 32
     rc_s = float(pot.sym_coeang[0, 3]) / CFLENGTH + 0.2
     planes, filler = ni_short_planes(rc_s, ks, n_cells=4, seed=2)
+    if width == "k17":
+        planes = [np.ascontiguousarray(a[:, 4:21]) for a in planes]
+        filler = np.ascontiguousarray(filler[:, 4:21])
     return planes, filler, pot
 
 
@@ -216,12 +222,14 @@ def _odd_coeang(pot):
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
 @pytest.mark.parametrize("width", ["reduced", "full", "reduced-odd",
-                                   "full-odd"])
+                                   "full-odd", "k17"])
 def test_ni_kernels_match_plain(cuda_device, width, dtype):
     """Both ni kernels against their plain versions, on the potential's
     table or (-odd) one with zetas 3 and 6. Rows 0-2 are cut down to 0, 1
-    and 2 lanes, and row 3 holds Ks lanes inside the angular cutoff in
-    random directions: ni_force's longest pair list."""
+    and 2 lanes (no candidate pair, none, one), and row 3 holds Ks lanes
+    inside the angular cutoff in random directions: the longest pair list,
+    496 candidates at Ks 32. The padding-free box also has rows of its
+    usual ~12 partners, and "k17" runs with K = 17."""
     width, _, odd = width.partition("-")
     planes, filler, pot = _ni_case(width)
     _thin_rows(planes, filler, (0, 1, 2))
@@ -252,6 +260,37 @@ def test_ni_kernels_match_plain(cuda_device, width, dtype):
         assert torch.isfinite(u).all()
     assert (kernels.ni_g.launches, kernels.ni_force.launches) == \
         (before[0] + 1, before[1] + 1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_ni_g_is_deterministic(cuda_device, dtype):
+    """ni_g sums each lane's pair terms in list order in registers and
+    reduces with shuffles, no atomics: two runs agree bit for bit."""
+    planes, _, pot = _ni_case("full")
+    table = fn.ni_table(pot.sym_coerad, pot.sym_coeang)
+    tp = [torch.as_tensor(np.tile(a, (64, 1)), dtype=dtype,
+                          device=cuda_device) for a in planes]
+    first = kernels.ni_g(*tp, table)
+    for _ in range(3):
+        assert torch.equal(kernels.ni_g(*tp, table), first)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_g_cos_every_ntsf_instance(cuda_device, dtype):
+    """g_cos has one compiled instance per ntsf: each of the 32 against the
+    plain version on one set of planes."""
+    npsf, cut = 4, 4.0
+    planes, filler = short_planes(3, cut, 40)
+    _thin_rows(planes, filler, (1, 2, 7, 8))
+    planes = [torch.as_tensor(a, dtype=dtype, device=cuda_device)
+              for a in planes]
+    for ntsf in range(1, kernels.COS_MAX_T + 1):
+        g = kernels.g_cos(*planes, npsf, ntsf, cut)
+        want = fa.g_cos_plain(*planes, npsf, ntsf, cut)
+        assert rel_max(g.cpu(), want.cpu()) <= COS_RTOL[dtype][0], ntsf
+        assert torch.all(g[:, npsf + ntsf:] == 0)
 
 
 @pytest.mark.cuda
