@@ -1,7 +1,9 @@
 #!/usr/bin/env python3
 """Bring-up smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
 
-Drives `meng_zhang_tpu_torch` -- never JAX -- through its three main paths:
+Drives `meng_zhang_tpu_torch` -- never JAX -- through its three main paths,
+then through its user-facing run path (`python -m meng_zhang_tpu_torch`,
+called in-process as `run.main(argv)`):
 
   * fe Chebyshev ANNP on the reference benchmark scene: the 152,880-atom
     bcc-Fe slab (box 184 x 85.659 x 112.5 A, `boundary m p m`, positions
@@ -46,7 +48,25 @@ Phases, each fatal on failure:
       model on a 256-atom box;
   11. ni main path: init_state + 20 blocks of 5 NVT steps with the light
       (no-virial) force variant on all but each block's last step;
-  12. profile: a fresh harmonic main-path run (init_state and 5 blocks),
+  12. cli-fe: the benchmark scene as a LAMMPS data file and the synthetic
+      fe potential as a .ann file, both written with the port's writers,
+      through run.main: `--ensemble npt --temp 300 --couple y --boundary
+      "m p m" --skin 1.2 --capacity 192 --steps 40 --thermo 10 --dump ...
+      --dump-peratom --checkpoint ... --profile`, then `--restart` for 20
+      more steps. Checks finite thermo, no warning, g_harm / force_harm
+      launched once per evaluation and no plain version run, the last
+      dump's c_pe and c_stress finite with c_pe summing to the thermo row's
+      PotEng, and the restart's first row equal to the checkpoint's last;
+      prints the CLI's atom-steps/s and the cost of a per-atom dump;
+  13. cli-ni: `--lattice fcc --cells 40 40 40 --lattice-a 3.52 --ensemble
+      nvt --temp 1200 --steps 20 --thermo 5` with the synthetic ni .ann:
+      ni_g / ni_force through compact_neighbor_rows and the chunked
+      functions, once per evaluation, no plain version;
+  14. minimize: cg_relax on the benchmark scene with e_offset = n e_shift
+      (n_iter, n_evals, stopping reason, wall time), then a `--minimize`
+      (FIRE) CLI run on the screw-dislocation scene of `tools screw
+      --dislocation`, replicated to 10 Burgers vectors in z;
+  15. profile: a fresh harmonic main-path run (init_state and 5 blocks),
       then one block without a skin-list rebuild under torch.profiler:
       device time by kernel (top ten, ms per step) and the device's idle
       share; then the same for the cos-matrix main path (3 blocks, then
@@ -61,10 +81,14 @@ the line before the last, and as the last line
 {"ok": true, "device": {...}}. Run from the repository root:
 `python3 chip_smoke.py`.
 """
+import contextlib
+import io
 import json
+import math
 import os
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -88,6 +112,12 @@ NI_KS, NI_DELTA, NI_SHORT_EVERY, NI_THERMO_EVERY = 32, 0.2, 5, 5
 NI_T, NI_T_INIT, NI_BLOCKS = 1200.0, 600.0, 20
 NI_DISP = 0.08      # A per component, the thermal box of phases 9 and 10
 NI_POW_ROWS = 8192  # rows of that box held on the pow-route table
+# run path (`python -m meng_zhang_tpu_torch`, run.main in this process)
+CLI_FE_STEPS, CLI_FE_RESTART_STEPS, CLI_THERMO = 40, 20, 10
+CLI_NI_STEPS, CLI_NI_THERMO = 20, 5
+SCREW_REPLICATE = 10       # the screw scene's z (one Burgers vector, 2.47 A):
+                           # 24.7 A, 3 cells of rc + skin for the cell list
+FIRE_FTOL = 0.1            # eV/A, the --min-ftol of the [minimize] CLI run
 
 # Kernel vs plain, per output, as a fraction of the output's max |value|.
 # f32: the longest per-lane sums run over ~400 terms, whose worst-case
@@ -184,6 +214,22 @@ NI_REL_BOUND = {torch.float32: 2e-4, torch.float64: 1e-12}
 #     pair, so only rounding remains; one lost pair would fail it.
 NI_EVAL_REL = {"dE_per_atom": 1e-6, "max_dF": 2e-4, "max_dW": 3e-4,
                "sum_F": 1e-6}
+# The [cli-fe] dump's c_pe summed over its 152,880 atoms against the thermo
+# row's PotEng at the same step, both shift-free: each c_pe is the f32 sum
+# eat + e_shift, in which e_shift itself is rounded to f32 (the same
+# rounding for every atom, so the sum less n * e_shift carries a bias of n
+# times it, up to 37 eV: it is taken out by subtracting n * f32(e_shift));
+# what is left per atom is the sum's rounding (half an ULP at
+# |e_i| ~ 4.5e3 eV, 2.4e-4 eV) and the dump's 8 significant digits
+# (5e-5 eV), which at random signs add up to ~0.1 eV over the atoms; the
+# row's own f32 shift-free sum adds < 0.01 eV, and 1 eV leaves 10x.
+PE_SUM_ATOL = 1.0
+# the kernels' plain versions, none of which may run on the card
+PLAIN_VERSIONS = (("fused_annp", "g_harm_plain"),
+                  ("fused_annp", "force_harm_plain"),
+                  ("fused_annp", "g_cos_plain"),
+                  ("fused_annp", "force_cos_plain"),
+                  ("fused_ni", "ni_g_plain"), ("fused_ni", "ni_force_plain"))
 
 
 class SmokeFailure(Exception):
@@ -1086,6 +1132,320 @@ def phase_ni_profile(dev, cfg32, p32, mass, card):
     profile_block("ni-profile", "ni", sim, st, NI_THERMO_EVERY, card, tries=5)
 
 
+# ------------------------------------------------------------ run path
+@contextlib.contextmanager
+def plain_calls():
+    """Count the calls of the kernels' plain versions made inside the
+    block: {name: calls}."""
+    from meng_zhang_tpu_torch.ops import fused_annp, fused_ni
+    mods = {"fused_annp": fused_annp, "fused_ni": fused_ni}
+    counts, saved = {}, []
+    for mod, name in PLAIN_VERSIONS:
+        fn = getattr(mods[mod], name)
+
+        def counted(*a, _fn=fn, _name=name, **kw):
+            counts[_name] = counts.get(_name, 0) + 1
+            return _fn(*a, **kw)
+        saved.append((mods[mod], name, fn))
+        setattr(mods[mod], name, counted)
+    try:
+        yield counts
+    finally:
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
+
+
+def cli(tag, argv):
+    """meng_zhang_tpu_torch.run.main(argv) on the card in this process, its
+    output echoed: (thermo rows as printed, stderr lines, wall seconds);
+    the kernels' launches are counted from 0 and no plain version may
+    run."""
+    from meng_zhang_tpu_torch import profiling, run
+    from meng_zhang_tpu_torch.ops import kernels
+    out, err = io.StringIO(), io.StringIO()
+    kernels.reset_launch_counts()
+    profiling.reset()
+    t0 = time.time()
+    try:
+        with plain_calls() as plain, contextlib.redirect_stdout(out), \
+                contextlib.redirect_stderr(err):
+            run.main(argv)
+    except SystemExit as e:
+        raise SmokeFailure(f"{tag}: run.main exited ({e}): "
+                           f"{err.getvalue()[-2000:]}")
+    finally:
+        profiling.enable(False)
+    wall = time.time() - t0
+    lines = out.getvalue().splitlines()
+    for line in lines + err.getvalue().splitlines():
+        log(f"[{tag}] {line}")
+    check(not plain, f"{tag}: plain versions ran on the card: {plain}")
+    warn = [ln for ln in err.getvalue().splitlines() if "WARNING" in ln]
+    check(not warn, f"{tag}: {warn}")
+    rows = lines[1:]
+    check(len(rows) >= 2 and all(
+        math.isfinite(float(v)) for ln in rows for v in ln.split()),
+        f"{tag}: missing or non-finite thermo rows")
+    launches = {k: getattr(kernels, k).launches
+                for k in ("g_harm", "force_harm", "g_cos", "force_cos",
+                          "ni_g", "ni_force")}
+    log(f"[{tag}] {wall:.2f} s in run.main; launches {launches}")
+    return rows, err.getvalue().splitlines(), wall, launches
+
+
+def _loop_rate(err):
+    line = next(ln for ln in err if ln.startswith("Loop time"))
+    return float(line.split("(")[1].split()[0].replace(",", ""))
+
+
+def _phase_avg_ms(err, name):
+    """Average ms of a phase in the CLI's --profile report."""
+    line = next(ln for ln in err if ln.split()[:1] == [name])
+    return float(line.split()[3])
+
+
+def _last_snapshot(path):
+    """(column names, [N, C] array) of a .lammpstrj's last snapshot."""
+    with open(path) as f:
+        lines = f.read().splitlines()
+    i, last = 0, None
+    while i < len(lines):
+        n = int(lines[i + 3])
+        last = (i, n)
+        i += 9 + n
+    i, n = last
+    cols = lines[i + 8].split()[2:]
+    rows = np.array([ln.split() for ln in lines[i + 9:i + 9 + n]],
+                    dtype=np.float64)
+    return int(lines[i + 1]), cols, rows
+
+
+def write_inputs(tmp):
+    """The benchmark scene as a LAMMPS data file and the synthetic fe and
+    ni potentials as .ann files, written with the port's own writers."""
+    from meng_zhang_tpu_torch.io.lammps_data import LammpsData, write_data
+    from meng_zhang_tpu_torch.io.potential import write_ann
+    from meng_zhang_tpu_torch.testing import synthetic_ni_potential
+    x = np.load(SCENE_NPZ)["x"].astype(np.float64)
+    paths = {k: os.path.join(tmp, name) for k, name in (
+        ("data", "fe_st.dat"), ("fe", "fe.ann"), ("ni", "ni.ann"))}
+    write_data(paths["data"], LammpsData(
+        x=x, types=np.ones(len(x), np.int32), box_lo=np.zeros(3),
+        box_hi=np.asarray(BOX), n_types=1), comment="benchmark scene")
+    write_ann(paths["fe"], _potential())
+    write_ann(paths["ni"], synthetic_ni_potential(0))
+    return paths
+
+
+def phase_cli_fe(card, tmp, paths, dev):
+    """The benchmark workflow through the CLI: NPT with a per-atom dump and
+    a checkpoint, then --restart."""
+    from meng_zhang_tpu_torch.models.annp import make_annp
+    n = len(np.load(SCENE_NPZ)["x"])
+    dump, ck = os.path.join(tmp, "fe.lammpstrj"), os.path.join(tmp, "fe.npz")
+    argv = ["--data", paths["data"], "--potential", paths["fe"],
+            "--ensemble", "npt", "--temp", "300", "--couple", "y",
+            "--boundary", "m p m", "--skin", str(SKIN), "--capacity",
+            str(CAPACITY), "--thermo", str(CLI_THERMO)]
+    rows, err, _, launches = cli("cli-fe", argv + [
+        "--steps", str(CLI_FE_STEPS), "--dump", dump, "--dump-peratom",
+        "--checkpoint", ck, "--profile"])
+    n_dumps = CLI_FE_STEPS // CLI_THERMO
+    want = CLI_FE_STEPS + 1 + n_dumps       # init, steps, per-atom dumps
+    for name in ("g_harm", "force_harm"):
+        check(launches[name] == want, f"cli-fe: {name} launched "
+              f"{launches[name]} times, expected {want} (init + one per "
+              f"step + one per per-atom dump)")
+    check(launches["g_cos"] == launches["force_cos"] == 0,
+          "cli-fe: cos kernels launched on the harmonic path")
+    step, cols, snap = _last_snapshot(dump)
+    check(step == CLI_FE_STEPS and snap.shape == (n, 12) and cols[5:] == [
+        "c_pe"] + [f"c_stress[{k}]" for k in range(1, 7)],
+        f"cli-fe: dump columns {cols}, shape {snap.shape}, step {step}")
+    check(bool(np.isfinite(snap[:, 5:]).all()),
+          "cli-fe: non-finite c_pe / c_stress")
+    e_shift = make_annp(_potential(), torch.float32, "cpu")[0].e_shift
+    pe_row = float(rows[-1].split()[2]) - n * e_shift
+    pe_sum = math.fsum(snap[:, 5]) - n * float(np.float32(e_shift))
+    log(f"[cli-fe] step {step}: shift-free sum of c_pe {pe_sum:.4f} eV "
+        f"(less n f32(e_shift)), thermo PotEng {pe_row:.4f} eV (less "
+        f"n e_shift), |diff| {abs(pe_sum - pe_row):.4f} eV (bound "
+        f"{PE_SUM_ATOL}); max|c_stress| {np.abs(snap[:, 6:]).max():.4e} eV")
+    check(abs(pe_sum - pe_row) <= PE_SUM_ATOL,
+          "cli-fe: the dump's c_pe does not sum to the thermo PotEng")
+    rate = _loop_rate(err)
+    block_ms = _phase_avg_ms(err, "md_block")
+    dump_ms = _phase_avg_ms(err, "dump")
+    log(f"[cli-fe] Loop time rate {rate:.1f} atom-steps/s (per-atom dumps "
+        f"included); md_block {block_ms:.3f} ms a {CLI_THERMO}-step block = "
+        f"{n * CLI_THERMO / block_ms * 1e3:.1f} atom-steps/s; a per-atom "
+        f"dump {dump_ms:.3f} ms on {card}")
+
+    fe_step_costs(card, dev)
+
+    rows2, err2, _, launches2 = cli("cli-fe-restart", argv + [
+        "--steps", str(CLI_FE_RESTART_STEPS), "--restart", ck])
+    check(rows2[0] == rows[-1], "cli-fe: the restart's first row differs "
+          f"from the checkpoint's last: {rows2[0]!r} vs {rows[-1]!r}")
+    check(int(rows2[-1].split()[0]) == CLI_FE_STEPS + CLI_FE_RESTART_STEPS,
+          "cli-fe: the restart did not continue the step count")
+    for name in ("g_harm", "force_harm"):
+        check(launches2[name] == CLI_FE_RESTART_STEPS + 1,
+              f"cli-fe restart: {name} launched {launches2[name]} times")
+    return {k: launches[k] + launches2[k] for k in ("g_harm", "force_harm")}
+
+
+def step_costs(tag, card, fns):
+    """Median ms (CUDA events, 5 runs after a warm-up) of each named
+    evaluation, so that the run path's step can be set beside the
+    Simulator's."""
+    for name, fn in fns.items():
+        log(f"[{tag}] {name}: {cuda_ms(fn, 5):.3f} ms on {card}")
+
+
+def fe_step_costs(card, dev):
+    """The fe scene's evaluations: run.py's step (compaction of the skin
+    list at rc, then the kernels) against the Simulator's (the kernels on
+    a refresh-static short list), the compaction alone, and the per-atom
+    evaluation of a dump."""
+    from meng_zhang_tpu_torch.md.simulation import Simulator
+    from meng_zhang_tpu_torch.models.annp import make_annp
+    from meng_zhang_tpu_torch.ops import fused_annp as fa
+    x, box = scene(dev)
+    cfg32, p32 = make_annp(_potential(), torch.float32, dev, pbc=PBC)
+    ev = fa.FusedAnnp(cfg32, p32, k_short=K_SHORT)
+    nb = Simulator(None, torch.ones(x.shape[0], device=dev),
+                   md_config(cfg32)).build_nbrs(x, box)
+    sl = ev.compact_short(x, box, nb.idx)
+    step_costs("cli-fe", card, {
+        "run.py step, energy_forces (skin list [N, 192])":
+            lambda: ev.energy_forces(x, box, nb.idx),
+        "Simulator step, energy_forces_short (short list [N, 128])":
+            lambda: ev.energy_forces_short(x, box, sl),
+        "compact_short alone (at rc)":
+            lambda: fa.compact_short(x, box, nb.idx, cfg32.cut, K_SHORT,
+                                     PBC),
+        "a dump's per-atom evaluation (compact_short + per_atom=True)":
+            lambda: ev.energy_forces_short(
+                x, box, ev.compact_short(x, box, nb.idx),
+                want_virial=False, per_atom=True)})
+
+
+def phase_cli_ni(card, paths, dev):
+    """The fcc-Ni NVT workflow through the CLI: compact_neighbor_rows and
+    the chunked functions, hence FusedNi's kernels."""
+    argv = ["--lattice", "fcc", "--cells", str(NI_CELLS), str(NI_CELLS),
+            str(NI_CELLS), "--lattice-a", str(NI_A), "--potential",
+            paths["ni"], "--ensemble", "nvt", "--temp", str(NI_T),
+            "--steps", str(CLI_NI_STEPS), "--thermo", str(CLI_NI_THERMO)]
+    rows, err, _, launches = cli("cli-ni", argv)
+    for name in ("ni_g", "ni_force"):
+        check(launches[name] == CLI_NI_STEPS + 1, f"cli-ni: {name} "
+              f"launched {launches[name]} times, expected "
+              f"{CLI_NI_STEPS + 1} (init + one per step)")
+    log(f"[cli-ni] Loop time rate {_loop_rate(err):.1f} atom-steps/s on "
+        f"{card}")
+    ni_step_costs(card, dev)
+    return {k: launches[k] for k in ("ni_g", "ni_force")}
+
+
+def ni_step_costs(card, dev):
+    """The ni scene's evaluations at the CLI's defaults (skin 2.0,
+    capacity 256): run.py's step (compact_neighbor_rows to 32, then the
+    chunked function) against the Simulator's (FusedNi on a refresh-static
+    short list), and the repack alone."""
+    from meng_zhang_tpu_torch.md.simulation import MDConfig, Simulator
+    from meng_zhang_tpu_torch.models import annp
+    from meng_zhang_tpu_torch.ops import fused_ni as fn
+    from meng_zhang_tpu_torch.system.neighbors import cell_grid_dims
+    from meng_zhang_tpu_torch.testing import synthetic_ni_potential
+    from meng_zhang_tpu_torch.testing import thermal_fcc
+    xn, bn = thermal_fcc(NI_CELLS, seed=SEED, disp=NI_DISP, a=NI_A)
+    x = torch.tensor(xn, dtype=torch.float32, device=dev)
+    box = torch.tensor(bn, dtype=torch.float32, device=dev)
+    cfg, params = annp.make_annp(synthetic_ni_potential(0), torch.float32,
+                                 dev)
+    rc = annp.descriptor_cutoff(cfg, params)
+    nb = Simulator(None, torch.ones(x.shape[0], device=dev), MDConfig(
+        dt=0.001, cutoff=rc, skin=2.0, capacity=256, nbr_method="cell",
+        cell_dims=cell_grid_dims(bn, rc + 2.0))).build_nbrs(x, box)
+    ev = fn.FusedNi(cfg, params, k_short=NI_KS, short_delta=NI_DELTA)
+    sl = ev.compact_short(x, box, nb.idx)
+
+    def cli_step():
+        idx_s, _ = annp.compact_neighbor_rows(x, box, nb.idx, rc, NI_KS)
+        return annp.energy_forces_virial_chunked(cfg, params, x, box, idx_s,
+                                                 shift=False)
+
+    step_costs("cli-ni", card, {
+        "run.py step, compact_neighbor_rows ([N, 256] -> 32) + "
+        "energy_forces_virial_chunked": cli_step,
+        "Simulator step, FusedNi.energy_forces_short (short list [N, 32])":
+            lambda: ev.energy_forces_short(x, box, sl),
+        "compact_neighbor_rows alone":
+            lambda: annp.compact_neighbor_rows(x, box, nb.idx, rc, NI_KS)})
+
+
+def phase_minimize(card, tmp, paths, dev):
+    """cg_relax on the benchmark scene (the reference's `minimize 1e-6 1e-6
+    1000 10000`, shift-free energies with e_offset = n e_shift), then a
+    --minimize (FIRE) CLI run on the screw-dislocation scene of
+    `python -m meng_zhang_tpu_torch.tools screw --dislocation`."""
+    from meng_zhang_tpu_torch import tools
+    from meng_zhang_tpu_torch.md.minimize import cg_relax
+    from meng_zhang_tpu_torch.md.simulation import Simulator
+    from meng_zhang_tpu_torch.models.annp import make_annp
+    from meng_zhang_tpu_torch.ops import fused_annp as fa
+    from meng_zhang_tpu_torch.ops import kernels
+    x, box = scene(dev)
+    n = x.shape[0]
+    cfg32, p32 = make_annp(_potential(), torch.float32, dev, pbc=PBC)
+    ev = fa.FusedAnnp(cfg32, p32, k_short=K_SHORT)
+    sim = Simulator(None, torch.ones(n, device=dev), md_config(cfg32))
+
+    def ef(xx, bb, idx):
+        return ev.energy_forces(xx, bb, idx, want_virial=False, shift=False)
+
+    kernels.reset_launch_counts()
+    with plain_calls() as plain:
+        torch.cuda.synchronize()
+        t0 = time.time()
+        _, st = cg_relax(ef, sim.build_nbrs, x, box, etol=1e-6, ftol=1e-6,
+                         max_iter=1000, dmax=0.1,
+                         e_offset=n * cfg32.e_shift)
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+    check(not plain, f"minimize: plain versions ran on the card: {plain}")
+    check(st.converged in ("etol", "ftol"), f"cg stopped: {st.converged}")
+    check(kernels.g_harm.launches >= st.n_evals > 0,
+          "cg: fewer kernel launches than force evaluations")
+    log(f"[minimize] cg_relax on the {n}-atom scene: n_iter {st.n_iter}, "
+        f"n_evals {st.n_evals}, converged {st.converged!r}, pe "
+        f"{float(st.pe) + n * cfg32.e_shift:.4f} eV, fnorm {st.fnorm:.4e}, "
+        f"{wall:.3f} s on {card} (launches g_harm "
+        f"{kernels.g_harm.launches})")
+    del x, box, ev, sim
+
+    screw = os.path.join(tmp, "screw.dat")
+    tools.main(["screw", "--dislocation", "--out", screw])
+    rows, err, wall, launches = cli("minimize", [
+        "--data", screw, "--replicate", "1", "1", str(SCREW_REPLICATE),
+        "--potential", paths["fe"], "--skin", str(SKIN), "--capacity",
+        str(CAPACITY), "--minimize", "--min-ftol", str(FIRE_FTOL),
+        "--steps", str(CLI_THERMO), "--thermo", str(CLI_THERMO)])
+    fline = next(ln for ln in err if "fmax=" in ln)
+    fmax = float(fline.split("fmax=")[1].split()[0])
+    evals = launches["g_harm"] - CLI_THERMO - 1
+    check(fmax <= FIRE_FTOL, f"minimize: FIRE stopped at fmax {fmax}")
+    check(launches["force_harm"] == launches["g_harm"] and evals > 0,
+          "minimize: FIRE ran no kernel evaluation")
+    log(f"[minimize] FIRE (--minimize --min-ftol {FIRE_FTOL}) on the "
+        f"screw-dislocation scene: fmax {fmax:.4e} eV/A after {evals} force "
+        f"evaluations (kernel launches less the run's {CLI_THERMO + 1}); "
+        f"run.main {wall:.2f} s on {card}")
+    return {k: launches[k] for k in ("g_harm", "force_harm")}
+
+
 def main():
     try:
         name, card = phase_device()
@@ -1108,6 +1468,13 @@ def main():
         phase_ni_evaluator(x, box, cfg32, p32, cfg64, p64, sl)
         del x, box, sl
         launches.update(phase_ni_main_path(dev, cfg32, p32, mass, card))
+        with tempfile.TemporaryDirectory() as tmp:
+            paths = write_inputs(tmp)
+            cli_launches = {"cli-fe": phase_cli_fe(card, tmp, paths, dev),
+                            "cli-ni": phase_cli_ni(card, paths, dev),
+                            "minimize": phase_minimize(card, tmp, paths,
+                                                       dev)}
+        log(f"[smoke] run-path launches {cli_launches}")
         phase_profile(*fe, card)
         phase_profile(*fe, card, angular="matrix")
         del fe

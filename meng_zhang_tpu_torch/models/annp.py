@@ -8,6 +8,17 @@ Counterpart of meng_zhang_tpu/models/annp.py: `NI_HARTREE_EV` (:36),
 oracle the fused evaluators (ops/fused_annp.py, ops/fused_ni.py) are held
 against.
 
+The chunked function API that the run path and the minimizers call --
+`compact_neighbor_rows` (:354), `energy_chunked` (:494),
+`energy_forces_chunked` (:539), `energy_forces_virial_chunked` (:547),
+`ShortRows` and `make_short_chunked_fns` (:645-701) -- is a thin layer over
+the fused evaluators, `FusedAnnp` (Chebyshev, harmonic path) and `FusedNi`
+(BP): on CUDA tensors they launch the hand kernels, on CPU tensors the
+kernels' plain versions run. The JAX functions scan rematerialised row
+chunks through autodiff; the evaluators take every row at once, so the
+`chunk` argument only keeps the JAX signatures, as does `elems` (the
+evaluators take single-element networks only).
+
 Energy bookkeeping: E_i = e_scale * nn(G_i) + e_shift. fe: e_shift
 includes e_atom. ni: the network's output is in Hartree and e_scale is
 NI_HARTREE_EV = CFFORCE / CFLENGTH, so E is in eV and -dE/dx reproduces
@@ -16,6 +27,7 @@ the reference's CFFORCE-converted forces; e_shift is 0.
 from __future__ import annotations
 
 import dataclasses
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -23,6 +35,10 @@ import torch
 from ..io.potential import AnnpPotential, SYM_BEHLER, SYM_CHEBYSHEV
 from ..system.cell import min_image
 from ..units import CFFORCE, CFLENGTH
+from ..ops import fused_annp as fa
+from ..ops import fused_ni as fn
+from ..ops import kernels
+from ..system.neighbors import _compact_rows
 from .descriptors import behler_g, chebyshev_g
 from .mlp import mlp_apply
 
@@ -165,3 +181,145 @@ def energy_forces(cfg: AnnpConfig, params, x, box, nbr_idx, elems=None):
         e = energy(cfg, params, xg, box, nbr_idx, elems)
         (g,) = torch.autograd.grad(e, xg)
     return e.detach(), -g
+
+
+# ------------------------------------------------- chunked function API
+def compact_neighbor_rows(x, box, idx, rc, k_short, pbc=(True, True, True),
+                          row_chunk=8192):
+    """Per-eval short-neighbor repack (the reference's k_annp_short_nbor,
+    fe/lib/lal_annp.cu:267-344): each skin row [N, K] is compacted to its
+    entries within rc, ascending, padded with n to k_short columns.
+    Returns (idx_short [N, k_short], overflow: some row held more than
+    k_short entries, a bool tensor on the device)."""
+    n = x.shape[0]
+    parts, counts = [], []
+    for i0 in range(0, n, row_chunk):
+        ic = idx[i0:i0 + row_chunk]
+        dx, dy, dz = fa.pair_dx_planes(x, box, ic, pbc, row0=i0)
+        # filler lanes lie at 2*box + 10 per axis, beyond any rc
+        within = (ic < n) & (dx * dx + dy * dy + dz * dz < rc * rc)
+        idx_c, cnt = _compact_rows(within, ic, k_short, n)
+        parts.append(idx_c)
+        counts.append(cnt)
+    return torch.cat(parts), (torch.cat(counts) > k_short).any()
+
+
+# evaluators built once per (cfg, params): {(cfg, id(params)): (params, ev)}
+_FUSED = {}
+_FUSED_MAX = 8
+
+
+def fused_evaluator(cfg: AnnpConfig, params):
+    """The fused evaluator of (cfg, params) -- FusedAnnp (harmonic path)
+    for Chebyshev, FusedNi for BP -- built at the first call and reused
+    while `params` is the same object. Multi-element networks raise
+    NotImplementedError (`fused_annp.single_network`)."""
+    key = (cfg, id(params))
+    hit = _FUSED.get(key)
+    if hit is not None and hit[0] is params:
+        return hit[1]
+    if cfg.descriptor == SYM_CHEBYSHEV:
+        ev = fa.FusedAnnp(cfg, params, k_short=kernels.MAX_K)
+    else:
+        ev = fn.FusedNi(cfg, params, k_short=kernels.NI_MAX_K)
+    if len(_FUSED) >= _FUSED_MAX:
+        _FUSED.pop(next(iter(_FUSED)))
+    _FUSED[key] = (params, ev)
+    return ev
+
+
+def _short_list(ev, cfg, params, x, box, nbr_idx):
+    """nbr_idx rows as the evaluator's ShortList. Rows no wider than the
+    kernels take (ev.k_short: 256 fe, 32 BP) are evaluated as they are,
+    exactly as the JAX functions evaluate any row; wider rows are compacted
+    to that width at the descriptor cutoff, and a row with more partners
+    inside it than the kernels take raises (one host read per call, on
+    this path only)."""
+    if nbr_idx.shape[1] <= ev.k_short:
+        return fa.ShortList(nbr_idx, x, torch.zeros(
+            (), dtype=torch.bool, device=x.device))
+    sl = fa.compact_short(x, box, nbr_idx, descriptor_cutoff(cfg, params),
+                          ev.k_short, cfg.pbc)
+    if bool(sl.overflow):
+        limit = "NI_MAX_K" if cfg.descriptor == SYM_BEHLER else "MAX_K"
+        raise ValueError(
+            f"a neighbor row holds more than {ev.k_short} partners within "
+            f"the descriptor cutoff: the kernels take at most {limit} = "
+            f"{ev.k_short} slots a row (ops/kernels.py)")
+    return sl
+
+
+def _evaluate(cfg, params, x, box, nbr_idx, shift, want_virial):
+    """Multi-element networks raise in fused_evaluator, so `elems` of the
+    public functions selects nothing here."""
+    ev = fused_evaluator(cfg, params)
+    sl = _short_list(ev, cfg, params, x, box, nbr_idx)
+    return ev.energy_forces_short(x, box, sl, want_virial=want_virial,
+                                  shift=shift)
+
+
+def energy_chunked(cfg: AnnpConfig, params, x, box, nbr_idx, elems=None,
+                   chunk=256, eps=None, shift=True):
+    """Total energy (n * e_shift included unless shift=False). The strain
+    argument eps of the JAX function is not ported: the virial comes from
+    energy_forces_virial_chunked."""
+    if eps is not None:
+        raise NotImplementedError("energy_chunked(eps=...) is not ported; "
+                                  "energy_forces_virial_chunked returns W")
+    return _evaluate(cfg, params, x, box, nbr_idx, shift, False)[0]
+
+
+def energy_forces_chunked(cfg: AnnpConfig, params, x, box, nbr_idx,
+                          elems=None, chunk=256, shift=True):
+    """(E, F [N, 3])."""
+    return _evaluate(cfg, params, x, box, nbr_idx, shift, False)
+
+
+def energy_forces_virial_chunked(cfg: AnnpConfig, params, x, box, nbr_idx,
+                                 elems=None, chunk=256, shift=True):
+    """(E, F [N, 3], W [3, 3]); W is the pairwise tally -sum dx (x) Fj,
+    symmetrised, which equals the JAX function's strain derivative."""
+    return _evaluate(cfg, params, x, box, nbr_idx, shift, True)
+
+
+class ShortRows(NamedTuple):
+    """Refresh-static compacted neighbor rows of the chunked path (the
+    Simulator rebuilds them every cfg.short_every steps)."""
+    idx: torch.Tensor        # [N, k_short] compacted rows (sentinel n)
+    ref_x: torch.Tensor      # positions at refresh (drift guard)
+    overflow: torch.Tensor   # bool: some row exceeded k_short (poisons)
+
+
+def make_short_chunked_fns(cfg: AnnpConfig, params, k_short=32, delta=0.3,
+                           chunk=1024):
+    """(force_fn, force_fn_light, short_build) for
+    Simulator(force_fn, ..., short_build=short_build,
+    force_fn_light=force_fn_light) with cfg.short_every > 0 and
+    cfg.short_skin == delta: rows compacted against the descriptor cutoff
+    + delta once per short_every steps; short-list overflow NaN-poisons E
+    and F; the light variant returns a zero virial."""
+    rc = descriptor_cutoff(cfg, params)
+
+    def short_build(x, box, nbrs):
+        idx_s, ovf = compact_neighbor_rows(x, box, nbrs.idx, rc + delta,
+                                           k_short, pbc=cfg.pbc)
+        return ShortRows(idx=idx_s, ref_x=x, overflow=ovf)
+
+    def _poison(e, f, ovf):
+        nan = torch.full((), float("nan"), dtype=f.dtype, device=f.device)
+        return torch.where(ovf, nan, e), torch.where(ovf, nan, f)
+
+    def force_fn(x, box, nbrs, short):
+        e, f, w = energy_forces_virial_chunked(cfg, params, x, box,
+                                               short.idx, chunk=chunk,
+                                               shift=False)
+        e, f = _poison(e, f, short.overflow)
+        return e, f, w
+
+    def force_fn_light(x, box, nbrs, short):
+        e, f = energy_forces_chunked(cfg, params, x, box, short.idx,
+                                     chunk=chunk, shift=False)
+        e, f = _poison(e, f, short.overflow)
+        return e, f, torch.zeros((3, 3), dtype=x.dtype, device=x.device)
+
+    return force_fn, force_fn_light, short_build

@@ -21,8 +21,9 @@ of its angular paths:
   * delivery: F_i = -sum_s Fj[i, s] + sum of Fj over the entries whose
     partner is i, as one `index_add_` (the JAX package routes the same sums
     with a sort, `_assemble` :638, because the TPU has no fast scatter);
-  * `energy_forces_short` (:1571), `energy_forces` (:1648) and
-    `energy_dedg` (:1641).
+  * `energy_forces_short` (:1571) with its per-atom tallies (`per_atom`,
+    :1578-1585, :1625-1638), `energy_forces` (:1648) and `energy_dedg`
+    (:1641).
 
 `single_network`, `mlp_eat_dedg` and `evaluate_pairs` (gather, delivery,
 virial, poisoning) are shared with the BP evaluator (ops/fused_ni.py), as
@@ -460,12 +461,26 @@ def mlp_eat_dedg(cfg, net, g, scale):
     return eat, v * scale * cfg.e_scale
 
 
+# LAMMPS vatom columns (xx, yy, zz, xy, xz, yz) as (dx axis, Fj axis)
+VATOM_ORDER = ((0, 0), (1, 1), (2, 2), (0, 1), (0, 2), (1, 2))
+
+
 def evaluate_pairs(eval_fj, x, box, sidx, bad, pbc, e_shift, shift,
-                   want_virial=True):
+                   want_virial=True, per_atom=False):
     """One evaluation against the short rows sidx [P, K]: gather the dx
     planes, eval_fj(dxx, dxy, dxz) -> (eat [P], (fjx, fjy, fjz) [P, K])
-    with Fj = -dE_i/dx_j per pair, then deliver. Returns (E, F [N, 3]) and,
-    with want_virial, W [3, 3]; `bad` NaN-poisons E and F."""
+    with Fj = -dE_i/dx_j per pair, then deliver. Returns (E, F [N, 3]),
+    then W [3, 3] with want_virial, then eatom [N] and vatom [N, 6] with
+    per_atom; `bad` NaN-poisons every output but W.
+
+    eatom includes e_shift whatever `shift` is (LAMMPS pe/atom). vatom is
+    the +-1/2-per-pair virial tally in LAMMPS order (xx, yy, zz, xy, xz,
+    yz): the lane tally T = -1/2 dx (x) Fj (dx_a Fj_b, unsymmetrised) goes to
+    the row's own atom and, through the delivery's index_add_, to its
+    partner, so both ends of a pair receive 1/2 dx (x) (the pair's force on
+    the row's atom), the value the JAX package reads from the reverse slot
+    (`energy_forces_short(per_atom=True)`,
+    meng_zhang_tpu/ops/pallas_annp.py:1625-1638)."""
     n = x.shape[0]
     dd = pair_dx_planes(x, box, sidx, pbc)
     eat, fj = eval_fj(*dd)
@@ -476,9 +491,9 @@ def evaluate_pairs(eval_fj, x, box, sidx, bad, pbc, e_shift, shift,
     fjs = torch.stack(fj, dim=-1)                          # [P, K, 3]
     mask = sidx < n
     rows = torch.arange(sidx.shape[0], device=x.device)[:, None]
+    target = torch.where(mask, sidx, rows).reshape(-1)
     forces = -fjs.sum(dim=1)
-    forces.index_add_(0, torch.where(mask, sidx, rows).reshape(-1),
-                      fjs.reshape(-1, 3))
+    forces.index_add_(0, target, fjs.reshape(-1, 3))
     e = eat.sum()
     if shift:
         e = e + n * e_shift
@@ -490,6 +505,13 @@ def evaluate_pairs(eval_fj, x, box, sidx, bad, pbc, e_shift, shift,
         w = torch.stack([torch.stack([-(da * fb).sum() for fb in fj])
                          for da in dd])
         out = out + (0.5 * (w + w.T),)
+    if per_atom:
+        t = torch.stack([-0.5 * dd[a] * fj[b] for a, b in VATOM_ORDER],
+                        dim=-1)                            # [P, K, 6]
+        vat = t.sum(dim=1)
+        vat.index_add_(0, target, t.reshape(-1, 6))
+        out = out + (torch.where(bad, nan, eat + e_shift),
+                     torch.where(bad, nan, vat))
     return out
 
 
@@ -605,20 +627,25 @@ class FusedAnnp:
             self._g_cos()(*dd, c.npsf, c.ntsf, c.cut))
 
     def energy_forces_short(self, x, box, sl: ShortList, want_virial=True,
-                            shift=False):
-        """(E, F [N, 3]) and, with want_virial, W [3, 3] against a
-        refresh-static ShortList.
+                            shift=False, per_atom=False):
+        """(E, F [N, 3]), then W [3, 3] with want_virial, then eatom [N]
+        and vatom [N, 6] with per_atom, against a refresh-static ShortList
+        (`evaluate_pairs` gives the per-atom contract).
 
         E is shift-free unless shift=True (readers add n * e_shift in f64);
         W_ab = -sum dx_a Fj_b over real lanes, symmetrized; the light MD
         step passes want_virial=False and skips W. Short-list overflow
-        NaN-poisons E and F."""
+        NaN-poisons E, F, eatom and vatom."""
         return evaluate_pairs(self._eval_fj, x, box, sl.sidx, sl.overflow,
-                              self.pbc, self.cfg.e_shift, shift, want_virial)
+                              self.pbc, self.cfg.e_shift, shift, want_virial,
+                              per_atom)
 
-    def energy_forces(self, x, box, nbr_idx, want_virial=True, shift=False):
+    def energy_forces(self, x, box, nbr_idx, want_virial=True, shift=False,
+                      per_atom=False):
         """Full evaluation from a skin list: compact to Ks at rc, then the
-        same per-step evaluation. Overflow of Ks NaN-poisons E and F."""
+        same per-step evaluation. Overflow of Ks NaN-poisons the
+        outputs."""
         sl = compact_short(x, box, nbr_idx, self.cfg.cut, self.k_short,
                            self.pbc)
-        return self.energy_forces_short(x, box, sl, want_virial, shift)
+        return self.energy_forces_short(x, box, sl, want_virial, shift,
+                                        per_atom)

@@ -272,18 +272,22 @@ class FusedNi:
         return eat, f_fn(dxx, dxy, dxz, dedg, self.table)
 
     def energy_forces_short(self, x, box, sl: fa.ShortList, want_virial=True,
-                            shift=False):
-        """(E, F [N, 3]) and, with want_virial, W [3, 3] against a
-        refresh-static ShortList. E is shift-free unless shift=True; the
-        light MD step passes want_virial=False and skips W. Short-list
-        overflow NaN-poisons E and F."""
+                            shift=False, per_atom=False):
+        """(E, F [N, 3]), then W [3, 3] with want_virial, then eatom [N]
+        and vatom [N, 6] with per_atom (the contract of
+        `PallasNi.energy_forces_short(per_atom=True)`,
+        meng_zhang_tpu/ops/pallas_ni.py:372-417), against a refresh-static
+        ShortList. E is shift-free unless shift=True; the light MD step
+        passes want_virial=False and skips W. Short-list overflow
+        NaN-poisons E, F, eatom and vatom."""
         return fa.evaluate_pairs(self._eval_fj, x, box, sl.sidx, sl.overflow,
                                  self.pbc, self.cfg.e_shift, shift,
-                                 want_virial)
+                                 want_virial, per_atom)
 
-    def energy_forces(self, x, box, nbr_idx, want_virial=True, shift=False):
+    def energy_forces(self, x, box, nbr_idx, want_virial=True, shift=False,
+                      per_atom=False):
         """Full evaluation from a skin list: compact to Ks at the
         descriptor cutoff + short_delta, then the per-step evaluation."""
         return self.energy_forces_short(x, box,
                                         self.compact_short(x, box, nbr_idx),
-                                        want_virial, shift)
+                                        want_virial, shift, per_atom)

@@ -344,3 +344,61 @@ def test_delivered_forces_match_plain_and_sum_to_zero(cuda_device, path,
     assert rel_max(w.cpu(), w0.cpu()) <= tol
     rms = float(f.double().pow(2).mean().sqrt())
     assert float(f.double().sum(0).abs().max()) <= SUM_F_REL * len(x) * rms
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("path", ["harmonic", "ni"])
+def test_per_atom_and_chunked_functions_match_plain(cuda_device, path):
+    """The per-atom tallies and the chunked functions (models/annp.py)
+    through the kernels in f64 against the plain evaluator: each output
+    within 1e-10 of its largest |value| (the kernels' 1e-12 per output,
+    carried through the network and the tallies)."""
+    from meng_zhang_tpu_torch.models import annp
+    dtype = torch.float64
+    if path == "harmonic":
+        cfg, params = make_annp(synthetic_fe_potential(0), dtype, cuda_device)
+        x, box = thermal_bcc(5, seed=3, disp=0.08)
+        kw, make, width = dict(k_short=128), fa.FusedAnnp, cfg.cut
+    else:
+        cfg, params = make_annp(synthetic_ni_potential(0), dtype, cuda_device)
+        x, box = thermal_fcc(4, seed=3, disp=0.08)
+        kw, make = dict(k_short=32), fn.FusedNi
+        width = float(params["coeang"][0, 3]) / CFLENGTH
+    x = torch.as_tensor(x, dtype=dtype, device=cuda_device)
+    box = torch.as_tensor(box, dtype=dtype, device=cuda_device)
+    nbrs = build_neighbors_n2(x, box, width + 0.3, 128)
+    kernels.reset_launch_counts()
+    got = make(cfg, params, **kw).energy_forces(x, box, nbrs.idx,
+                                                per_atom=True)
+    chunked = annp.energy_forces_virial_chunked(cfg, params, x, box,
+                                                nbrs.idx, shift=False)
+    names = ("g_harm", "force_harm") if path == "harmonic" \
+        else ("ni_g", "ni_force")
+    assert all(getattr(kernels, k).launches == 2 for k in names)
+    want = make(cfg, params, plain=True, **kw).energy_forces(
+        x, box, nbrs.idx, per_atom=True)
+    for a, b in zip(got + chunked, want + want[:3]):
+        assert torch.isfinite(a).all()
+        assert rel_max(a.cpu(), b.cpu()) <= 1e-10
+
+
+@pytest.mark.cuda
+def test_cli_runs_on_the_card(cuda_device, tmp_path, capsys):
+    """python -m meng_zhang_tpu_torch's run.main on the card (its default):
+    NPT with a per-atom dump, through g_harm and force_harm."""
+    from meng_zhang_tpu_torch import run
+    from meng_zhang_tpu_torch.io.potential import write_ann
+    from torch_port_util import reduced_potential
+    ann = str(tmp_path / "fe.ann")
+    write_ann(ann, reduced_potential(cut=4.0))
+    kernels.reset_launch_counts()
+    run.main(["--lattice", "bcc", "--cells", "6", "6", "6", "--potential",
+              ann, "--skin", "1.0", "--capacity", "64", "--ensemble", "npt",
+              "--couple", "y", "--boundary", "m p m", "--steps", "20",
+              "--thermo", "10", "--dump", str(tmp_path / "d.lammpstrj"),
+              "--dump-peratom"])
+    rows = capsys.readouterr().out.splitlines()[1:]
+    assert len(rows) == 3
+    assert np.isfinite([[float(v) for v in r.split()] for r in rows]).all()
+    # init, 20 steps, two per-atom dumps
+    assert kernels.g_harm.launches == kernels.force_harm.launches == 23

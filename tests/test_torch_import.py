@@ -15,7 +15,7 @@ import torch
 from meng_zhang_tpu import units as j_units
 from meng_zhang_tpu.geometry import lattice as j_lattice
 from meng_zhang_tpu.io import potential as j_potential
-from meng_zhang_tpu_torch import units
+from meng_zhang_tpu_torch import run, units
 from meng_zhang_tpu_torch.geometry import lattice
 from meng_zhang_tpu_torch.io import potential
 from meng_zhang_tpu_torch.md import integrate
@@ -30,7 +30,10 @@ import sys
 import numpy as np
 import torch
 import meng_zhang_tpu_torch
-from meng_zhang_tpu_torch.md import integrate, simulation
+from meng_zhang_tpu_torch import profiling, run, tools
+from meng_zhang_tpu_torch.geometry import lattice, screw, stgb
+from meng_zhang_tpu_torch.io import dump, lammps_data, potential
+from meng_zhang_tpu_torch.md import checkpoint, integrate, minimize, simulation
 from meng_zhang_tpu_torch.models import annp, descriptors, mlp
 from meng_zhang_tpu_torch.ops import fused_annp, fused_ni, kernels
 from meng_zhang_tpu_torch.system import cell, neighbors
@@ -49,6 +52,8 @@ cfg, params = annp.make_annp(synthetic_ni_potential(0, npsf=2, nnod=6),
                              torch.float64, device="cpu")
 e, f, w = fused_ni.FusedNi(cfg, params, k_short=16).energy_forces(
     x, box, nbrs.idx)
+assert torch.isfinite(f).all() and f.shape == (16, 3)
+e, f, w = annp.energy_forces_virial_chunked(cfg, params, x, box, nbrs.idx)
 assert torch.isfinite(f).all() and f.shape == (16, 3)
 bad = sorted(m for m in sys.modules if m == "jax" or m.startswith("jax.")
              or m == "meng_zhang_tpu" or m.startswith("meng_zhang_tpu."))
@@ -93,7 +98,8 @@ def test_no_source_imports_jax():
 
 def test_port_imports_only_numpy_modules_of_jax_package():
     """No module of the JAX package at all, numpy-only ones included: the
-    port keeps its own copies (units, io.potential, geometry.lattice)."""
+    port keeps its own copies (units, io.potential, io.lammps_data,
+    io.dump, geometry.lattice, geometry.screw, geometry.stgb, tools)."""
     for path in _port_sources():
         assert not _OLD_PKG.findall(_read(path)), path
 
@@ -134,12 +140,13 @@ def test_copies_equal_jax_package(make):
 
 
 def test_entry_points_default_to_the_card():
-    """make_annp, params_from_numpy and the md/integrate.py helpers put
-    their tensors on the card unless the caller names another device; on a
-    torch without CUDA a call without a device raises instead of handing
-    back CPU tensors."""
+    """make_annp, params_from_numpy, the md/integrate.py helpers and the
+    CLI's run.main put their tensors on the card unless the caller names
+    another device; on a torch without CUDA a call without a device raises
+    instead of handing back CPU tensors (run.main: tests/test_torch_run.py)."""
     for fn in (annp.make_annp, annp.params_from_numpy, integrate.nhc_masses,
-               integrate.npt_baro_masses, integrate.NHCState.zeros):
+               integrate.npt_baro_masses, integrate.NHCState.zeros,
+               run.main):
         assert inspect.signature(fn).parameters["device"].default == "cuda"
     if torch.cuda.is_available():
         return
