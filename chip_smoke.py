@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Bring-up smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
 
-Drives `meng_zhang_tpu_torch` -- never JAX -- through its three main paths,
+Drives `meng_zhang_tpu_torch` -- never JAX -- through its four main paths,
 then through its user-facing run path (`python -m meng_zhang_tpu_torch`,
 called in-process as `run.main(argv)`):
 
@@ -16,7 +16,12 @@ called in-process as `run.main(argv)`):
     `scripts/model_bench.py --model ni`: 256,000 atoms (fcc 40^3 cells,
     a = 3.52 A, fully periodic), NVT at 1200 K from 600 K velocities, on a
     synthetic potential of the shipped ni width (npsf 3 + ntsf 24, nnod 24,
-    Rc 7.3699319 Bohr = 3.90 A).
+    Rc 7.3699319 Bohr = 3.90 A);
+  * bcc-Fe ANNA-ADP on the scene of `scripts/model_bench.py --model anna`:
+    128,000 atoms (bcc 40^3 cells, a = 2.8553 A, fully periodic), NVE from
+    300 K velocities, through `make_anna_fast_fns` (phase 1 on g_harm), on
+    a synthetic potential of the shipped width (npsf 9 + ntsf 19, nnod 6,
+    two outputs, rc 5.055 A).
 
 Phases, each fatal on failure:
 
@@ -48,7 +53,18 @@ Phases, each fatal on failure:
       model on a 256-atom box;
   11. ni main path: init_state + 20 blocks of 5 NVT steps with the light
       (no-virial) force variant on all but each block's last step;
-  12. cli-fe: the benchmark scene as a LAMMPS data file and the synthetic
+  12. anna-kernel: g_harm against its plain version in f32 and f64 on the
+      [128000, 72] short planes of a thermal box of the ANNA scene at rc
+      5.055 A (its 3-slots-a-lane instance), and its time and bound;
+  13. anna-eval: the fast path's force_fn in f32 through g_harm against
+      the same path in f64 on g_harm's plain version on that box, and the
+      f64 fast path against the reference-shaped energy_forces_virial on a
+      432-atom box;
+  14. anna-md: init_state + 20 blocks of 5 NVE steps with the light force
+      variant; finite thermo, no overflow / unsafe, g_harm once a step and
+      no other kernel or plain version; prints the rate and the NVE drift
+      (not gated: the forces freeze (d2, q2), so NVE drifts by design);
+  15. cli-fe: the benchmark scene as a LAMMPS data file and the synthetic
       fe potential as a .ann file, both written with the port's writers,
       through run.main: `--ensemble npt --temp 300 --couple y --boundary
       "m p m" --skin 1.2 --capacity 192 --steps 40 --thermo 10 --dump ...
@@ -58,25 +74,35 @@ Phases, each fatal on failure:
       dump's c_pe and c_stress finite with c_pe summing to the thermo row's
       PotEng, and the restart's first row equal to the checkpoint's last;
       prints the CLI's atom-steps/s and the cost of a per-atom dump;
-  13. cli-ni: `--lattice fcc --cells 40 40 40 --lattice-a 3.52 --ensemble
+  16. cli-ni: `--lattice fcc --cells 40 40 40 --lattice-a 3.52 --ensemble
       nvt --temp 1200 --steps 20 --thermo 5` with the synthetic ni .ann:
       ni_g / ni_force through compact_neighbor_rows and the chunked
       functions, once per evaluation, no plain version;
-  14. minimize: cg_relax on the benchmark scene with e_offset = n e_shift
+  17. minimize: cg_relax on the benchmark scene with e_offset = n e_shift
       (n_iter, n_evals, stopping reason, wall time), then a `--minimize`
       (FIRE) CLI run on the screw-dislocation scene of `tools screw
       --dislocation`, replicated to 10 Burgers vectors in z;
-  15. profile: a fresh harmonic main-path run (init_state and 5 blocks),
+  18. cli-anna: `--lattice bcc --cells 40 40 40 --ensemble nve --temp 300
+      --steps 20 --thermo 5` with the synthetic .anna (run.py's defaults,
+      the reference-shaped functions on the skin list), g_harm once per
+      evaluation; then `--minimize` with a per-atom dump on a 432-atom
+      thermal box, whose c_pe sums to the thermo row's PotEng;
+  19. profile: a fresh harmonic main-path run (init_state and 5 blocks),
       then one block without a skin-list rebuild under torch.profiler:
       device time by kernel (top ten, ms per step) and the device's idle
       share; then the same for the cos-matrix main path (3 blocks, then
-      one) and the ni main path (4 blocks, then one). It runs last, so that the profiler's tracing cannot touch any other
+      one), the ni main path (4 blocks, then one) and the ANNA main path
+      (4 blocks, then one, and its light step's phases timed apart). It
+      runs last, so that the profiler's tracing cannot touch any other
       phase's timing.
 
 Each kernel's record carries its least time on the card (`bound_ms`, the
 larger of the FLOPs its function needs over the f32 peak and its bytes
 over the memory rate, counted from this run's inputs) and `library_ms` null: no single PyTorch
-call computes any of these functions. Prints the kernels' JSON record on
+call computes any of these functions. g_harm's record also carries its
+ANNA-shape figures (`anna_shape`, `anna_ms`, `anna_plain_ms`,
+`anna_bound_ms`, `anna_bound_by`, `anna_max_abs_err`, and `anna_launches`
+from phase 14). Prints the kernels' JSON record on
 the line before the last, and as the last line
 {"ok": true, "device": {...}}. Run from the repository root:
 `python3 chip_smoke.py`.
@@ -118,6 +144,14 @@ CLI_NI_STEPS, CLI_NI_THERMO = 20, 5
 SCREW_REPLICATE = 10       # the screw scene's z (one Burgers vector, 2.47 A):
                            # 24.7 A, 3 cells of rc + skin for the cell list
 FIRE_FTOL = 0.1            # eV/A, the --min-ftol of the [minimize] CLI run
+# ANNA-ADP scene (scripts/model_bench.py --model anna): perfect bcc 40^3
+# cells, 128,000 atoms, NVE from 300 K velocities
+ANNA_CELLS, ANNA_T = 40, 300.0
+ANNA_SKIN, ANNA_CAPACITY, ANNA_CELL_CAPACITY = 0.5, 96, 48
+ANNA_KS, ANNA_DELTA, ANNA_EVERY, ANNA_BLOCKS = 72, 0.2, 5, 20
+ANNA_DISP = 0.08    # A per component, the thermal box of [anna-kernel/eval]
+CLI_ANNA_STEPS, CLI_ANNA_THERMO = 20, 5
+ANNA_MIN_CELLS, ANNA_MIN_FTOL = 6, 0.05     # the small box of the FIRE run
 
 # Kernel vs plain, per output, as a fraction of the output's max |value|.
 # f32: the longest per-lane sums run over ~400 terms, whose worst-case
@@ -224,6 +258,42 @@ NI_EVAL_REL = {"dE_per_atom": 1e-6, "max_dF": 2e-4, "max_dW": 3e-4,
 # (5e-5 eV), which at random signs add up to ~0.1 eV over the atoms; the
 # row's own f32 shift-free sum adds < 0.01 eV, and 1 eV leaves 10x.
 PE_SUM_ATOL = 1.0
+# ANNA fast path (make_anna_fast_fns) on the thermal 128,000-atom box, f32
+# through g_harm against f64 on its plain version, each bound relative to
+# the scale of what it measures (u = 6e-8 in f32). Phase 1 forms the
+# angular G from power sums S_l ~ (sum fc)^2 and subtracts (g_harm's f32
+# outputs agree with the plain version's to ~4e-6 of their largest value),
+# and the first layer divides G by its spread over thermal boxes, so
+# (d2, q2) carry ~3e-6 relative (1.2e-6 of 0.39 /A with plain f32 on a
+# 3,456-atom box on a CPU), 10x more with the kernel's rounding.
+#   dE_per_atom <= 1e-5 * |E/N|: an atom's energy sums ~58 pair terms of
+#     ~20 roundings each over terms whose sizes reach a few |E/N|: ~4e-6
+#     of |E/N| in the worst case, plus the (d2, q2) error through the
+#     angular terms; the CPU read 7e-8 (it averages over the atoms);
+#   max_dF <= 3e-4 * max|F|: a force sums ~58 pair terms, each a difference
+#     of two centred terms of up to ~|F|: ~90 roundings on ~10 |F| of terms,
+#     5e-5, plus (d2, q2)'s ~3e-5; the CPU read 2.8e-6;
+#   max_dW <= 3e-4 * max|W|: W inherits the pair terms' relative error,
+#     which (d2, q2)'s shared bias adds up over the pairs; the CPU read
+#     4.5e-6 (W ~ +20 kbar, no cancellation to speak of);
+#   sum_F <= 1e-6 * N * rms|F|: every pair's term enters its two atoms'
+#     forces with opposite signs (newton-off: the same two centred terms
+#     at both ends), so only rounding remains; one lost pair would leave
+#     ~rms|F| and fail it.
+ANNA_EVAL_REL = {"dE_per_atom": 1e-5, "max_dF": 3e-4, "max_dW": 3e-4,
+                 "sum_F": 1e-6}
+# the fast path against the reference-shaped energy_forces_virial in f64
+# on a 432-atom box: the CPU tests' bars (tests/test_torch_anna.py)
+ANNA_REF = {"E_rtol": 1e-10, "F_rtol": 1e-8, "F_atol": 1e-10,
+            "W_rtol": 1e-8, "W_atol": 1e-9}
+# The [cli-anna] dump's c_pe summed over its 432 atoms against the thermo
+# PotEng: both come from the same f32 atom energies, e_base included,
+# and the thermo row's shift-free sum takes f32(e_base) out exactly
+# (Sterbenz); so the sum of c_pe less n f32(e_base) differs from the row
+# less n e_base by the dump's 8 significant digits (5e-5 eV at
+# |e_i| ~ 4.5e3 eV, 0.022 eV over 432 atoms at worst), the row's printed
+# 4 decimals and the f32 sum's rounding (~1e-4): 0.05 eV.
+ANNA_PE_SUM_ATOL = 0.05
 # the kernels' plain versions, none of which may run on the card
 PLAIN_VERSIONS = (("fused_annp", "g_harm_plain"),
                   ("fused_annp", "force_harm_plain"),
@@ -1132,6 +1202,259 @@ def phase_ni_profile(dev, cfg32, p32, mass, card):
     profile_block("ni-profile", "ni", sim, st, NI_THERMO_EVERY, card, tries=5)
 
 
+# --------------------------------------------------------------- ANNA
+def anna_model(dev):
+    """(cfg32, p32, cfg64, p64, mass) of the synthetic ANNA-ADP potential."""
+    from meng_zhang_tpu_torch.models.anna_adp import make_anna
+    from meng_zhang_tpu_torch.testing import synthetic_anna_potential
+    pot = synthetic_anna_potential(0)
+    cfg32, p32 = make_anna(pot, torch.float32, dev)
+    cfg64, p64 = make_anna(pot, torch.float64, dev)
+    return cfg32, p32, cfg64, p64, float(pot.masses[0])
+
+
+def anna_md_config(rc, box):
+    from meng_zhang_tpu_torch.md.simulation import MDConfig
+    from meng_zhang_tpu_torch.system.neighbors import cell_grid_dims
+    return MDConfig(dt=0.001, cutoff=rc, skin=ANNA_SKIN,
+                    capacity=ANNA_CAPACITY, nbr_method="cell",
+                    cell_dims=cell_grid_dims(np.asarray(box),
+                                             rc + ANNA_SKIN),
+                    cell_capacity=ANNA_CELL_CAPACITY, ensemble="nve",
+                    t_target=ANNA_T, tau_t=0.1, thermo_every=ANNA_EVERY,
+                    stale_factor=0.5, short_every=ANNA_EVERY,
+                    short_skin=ANNA_DELTA)
+
+
+def phase_anna_kernel(dev, cfg32, p32):
+    """g_harm against its plain version on the short planes [128000, 72]
+    of a thermal box of the ANNA scene, at rc 5.055 A, in f32 and f64,
+    and its f32 time. Returns the ANNA fields of g_harm's record and the
+    box with its skin and short lists."""
+    from meng_zhang_tpu_torch.models.anna_adp import make_anna_fast_fns
+    from meng_zhang_tpu_torch.ops import fused_annp as fa
+    from meng_zhang_tpu_torch.ops import kernels
+    from meng_zhang_tpu_torch.system.neighbors import build_neighbors_cell
+    from meng_zhang_tpu_torch.testing import thermal_bcc
+    xn, bn = thermal_bcc(ANNA_CELLS, seed=SEED, disp=ANNA_DISP)
+    x = torch.tensor(xn, dtype=torch.float32, device=dev)
+    box = torch.tensor(bn, dtype=torch.float32, device=dev)
+    n, rc, npsf, ntsf = x.shape[0], cfg32.cut, cfg32.npsf, cfg32.ntsf
+    mcfg = anna_md_config(rc, bn)
+    nbrs = build_neighbors_cell(x, box, rc + ANNA_SKIN, ANNA_CAPACITY,
+                                mcfg.cell_dims, ANNA_CELL_CAPACITY)
+    short = make_anna_fast_fns(cfg32, p32, k_short=ANNA_KS,
+                               delta=ANNA_DELTA)[2](x, box, nbrs)
+    log(f"[anna-kernel] thermal box N {n}: skin list dims {mcfg.cell_dims} "
+        f"overflow {bool(nbrs.overflow)} max row "
+        f"{int((nbrs.idx < n).sum(1).max())}/{ANNA_CAPACITY}; short list "
+        f"overflow {bool(short.overflow)} max row "
+        f"{int((short.idx < n).sum(1).max())}/{ANNA_KS}")
+    check(not bool(nbrs.overflow) and not bool(short.overflow),
+          "anna: neighbor list overflow on the thermal box")
+    planes32 = fa.pair_dx_planes(x, box, short.idx, (True,) * 3)
+    p, k = planes32[0].shape
+    lanes, pairs = fe_counts(planes32, rc)
+    log(f"[anna-kernel] {lanes:.0f} lanes inside {rc} A ({lanes / p:.2f} a "
+        f"row)")
+    out = {}
+    for dtype in (torch.float32, torch.float64):
+        planes = [t.to(dtype) for t in planes32]
+        tag = "anna-kernel " + ("f32" if dtype == torch.float32 else "f64")
+        got = kernels.g_harm(*planes, npsf, ntsf, rc)
+        ref, plain_ms = timed(lambda: fa.g_harm_plain(*planes, npsf, ntsf,
+                                                      rc))
+        worst = compare(tag, f"g_harm [{p}, {k}]", ("g_raw", "A"), got, ref,
+                        REL_BOUND[dtype])
+        del got, ref
+        if dtype == torch.float32:
+            ms = cuda_ms(lambda: kernels.g_harm(*planes, npsf, ntsf, rc), 10)
+            b_ms, b_by = bound(fe_flops("g_harm", lanes, pairs, npsf, ntsf),
+                               fe_bytes("g_harm", p, k, 4))
+            out = {"anna_shape": [p, k], "anna_ms": ms,
+                   "anna_plain_ms": plain_ms, "anna_bound_ms": b_ms,
+                   "anna_bound_by": b_by, "anna_max_abs_err": worst}
+            log(f"[anna-kernel] g_harm f32 [{p}, {k}] rc {rc}: kernel "
+                f"{ms:.3f} ms (median of 10, CUDA events), plain "
+                f"{plain_ms:.3f} ms (one run), bound {b_ms:.3f} ms ({b_by})")
+    return out, (x, box, nbrs, short)
+
+
+def phase_anna_eval(box_lists, cfg32, p32, cfg64, p64):
+    """make_anna_fast_fns' force_fn through g_harm in f32 against the same
+    path in f64 on g_harm's plain version on the thermal box; then the f64
+    fast path through the kernel against the reference-shaped
+    energy_forces_virial on a 432-atom box."""
+    from meng_zhang_tpu_torch.models import anna_adp as A
+    from meng_zhang_tpu_torch.system.neighbors import build_neighbors_n2
+    from meng_zhang_tpu_torch.testing import thermal_bcc
+    x, box, nbrs, short = box_lists
+    n, dev = x.shape[0], x.device
+    f32_fn = A.make_anna_fast_fns(cfg32, p32, k_short=ANNA_KS,
+                                  delta=ANNA_DELTA)[0]
+    f64_fn = A.make_anna_fast_fns(cfg64, p64, k_short=ANNA_KS,
+                                  delta=ANNA_DELTA, plain=True)[0]
+    x64, box64 = x.double(), box.double()
+    e32, f32, w32 = f32_fn(x, box, nbrs, short)
+    e64, f64, w64 = f64_fn(x64, box64, nbrs, short._replace(ref_x=x64))
+    torch.cuda.synchronize()
+    check(bool(torch.isfinite(f32).all()) and bool(torch.isfinite(e32))
+          and bool(torch.isfinite(w32).all()), "anna-eval: non-finite f32")
+    f_rms = float(f64.pow(2).mean().sqrt())
+    got = {"dE_per_atom": abs(float(e32) - float(e64)) / n,
+           "max_dF": float((f32.double() - f64).abs().max()),
+           "max_dW": float((w32.double() - w64).abs().max()),
+           "sum_F": float(f32.double().sum(0).abs().max())}
+    scale = {"dE_per_atom": abs(float(e64)) / n,
+             "max_dF": float(f64.abs().max()),
+             "max_dW": float(w64.abs().max()), "sum_F": n * f_rms}
+    vol = float(box64.prod())
+    log(f"[anna-eval] N {n}: E/N f64 {float(e64) / n + cfg64.e_base:.9f} eV"
+        f" (shift-free {float(e64) / n:.6e}); RMS F {f_rms:.4e} eV/A; "
+        f"max|F| {scale['max_dF']:.4e} eV/A; virial pressure "
+        f"{float(torch.trace(w64)) / 3 / vol * 1.6021765e6:.1f} bar")
+    for key, val in got.items():
+        bound_abs = ANNA_EVAL_REL[key] * scale[key]
+        log(f"[anna-eval] {key} {val:.3e} (bound {bound_abs:.3e} = "
+            f"{ANNA_EVAL_REL[key]:.0e} x {scale[key]:.4e})")
+        check(val <= bound_abs, f"anna-eval {key} {val:.3e} over "
+              f"{bound_abs:.3e}")
+    del f32_fn, f64_fn, e32, f32, w32, e64, f64, w64, x64, box64
+
+    xs, bs = thermal_bcc(6, seed=SEED, disp=ANNA_DISP)
+    xs = torch.tensor(xs, dtype=torch.float64, device=dev)
+    bs = torch.tensor(bs, dtype=torch.float64, device=dev)
+    nb = build_neighbors_n2(xs, bs, cfg64.cut + 0.3, ANNA_CAPACITY)
+    fns = A.make_anna_fast_fns(cfg64, p64, k_short=ANNA_KS, delta=ANNA_DELTA)
+    e_f, f_f, w_f = fns[0](xs, bs, nb, fns[2](xs, bs, nb))
+    e_r, f_r, w_r = A.energy_forces_virial(cfg64, p64, xs, bs, nb.idx,
+                                           shift=False)
+    de = abs(float(e_f) - float(e_r)) / abs(float(e_r))
+    df = float(((f_f - f_r).abs() - ANNA_REF["F_rtol"] * f_r.abs()).max())
+    dw = float(((w_f - w_r).abs() - ANNA_REF["W_rtol"] * w_r.abs()).max())
+    log(f"[anna-eval] {xs.shape[0]}-atom box, f64 fast path (kernel) vs "
+        f"reference-shaped energy_forces_virial: rel dE {de:.3e} (bound "
+        f"{ANNA_REF['E_rtol']:.0e}), max(|dF| - {ANNA_REF['F_rtol']:.0e} "
+        f"|F|) {df:.3e} eV/A (bound {ANNA_REF['F_atol']:.0e}), max(|dW| - "
+        f"{ANNA_REF['W_rtol']:.0e} |W|) {dw:.3e} eV (bound "
+        f"{ANNA_REF['W_atol']:.0e})")
+    check(de <= ANNA_REF["E_rtol"] and df <= ANNA_REF["F_atol"]
+          and dw <= ANNA_REF["W_atol"],
+          "anna: the fast path disagrees with the reference-shaped path")
+    return got
+
+
+def anna_simulator(dev, cfg32, p32, mass):
+    """(Simulator, x, box) of the ANNA NVE main path on the perfect
+    lattice, the light force variant wired as scripts/model_bench.py
+    wires it."""
+    from meng_zhang_tpu_torch.geometry.lattice import bcc
+    from meng_zhang_tpu_torch.md.simulation import Simulator
+    from meng_zhang_tpu_torch.models.anna_adp import make_anna_fast_fns
+    xn, bn = bcc(ANNA_CELLS)
+    x = torch.tensor(xn, dtype=torch.float32, device=dev)
+    box = torch.tensor(bn, dtype=torch.float32, device=dev)
+    force_fn, force_fn_light, short_build = make_anna_fast_fns(
+        cfg32, p32, k_short=ANNA_KS, delta=ANNA_DELTA)
+    sim = Simulator(force_fn, torch.full((x.shape[0],), mass,
+                                         dtype=torch.float32, device=dev),
+                    anna_md_config(cfg32.cut, bn), short_build=short_build,
+                    force_fn_light=force_fn_light)
+    return sim, x, box
+
+
+def phase_anna_md(dev, cfg32, p32, mass, card):
+    """init_state + ANNA_BLOCKS blocks of the ANNA NVE main path."""
+    from meng_zhang_tpu_torch.ops import kernels
+    sim, x, box = anna_simulator(dev, cfg32, p32, mass)
+    n = x.shape[0]
+    pe_off = n * cfg32.e_base
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    with plain_calls() as plain:
+        t0 = time.time()
+        st = sim.init_state(x, box, seed=SEED, t_init=ANNA_T)
+        torch.cuda.synchronize()
+        log(f"[anna-md] N {n}, rc {cfg32.cut} A, init_state "
+            f"{time.time() - t0:.2f} s")
+        rebuilds, rows, block_s, srow_max = 0, [], [], 0
+        for _ in range(ANNA_BLOCKS):
+            t0 = time.time()
+            st, th = sim.run(st, 1)
+            torch.cuda.synchronize()
+            block_s.append(time.time() - t0)
+            rebuilds += sim.rebuild_count
+            row = [float(v[-1]) for v in th]
+            rows.append(row)
+            srow = int((st.short.idx < n).sum(1).max())
+            srow_max = max(srow_max, srow)
+            log(f"[anna-md] step {int(row[0]):4d} T {row[1]:8.3f} K  PE "
+                f"{row[2] + pe_off:.4f} eV  P {row[4]:9.2f} bar  conserved "
+                f"{row[6] + pe_off:.4f} eV  short row max {srow}/{ANNA_KS}  "
+                f"{block_s[-1] * 1e3:.1f} ms")
+    launches = {k: getattr(kernels, k).launches
+                for k in ("g_harm", "force_harm", "g_cos", "force_cos",
+                          "ni_g", "ni_force")}
+    steps = ANNA_BLOCKS * ANNA_EVERY
+    check(not plain, f"anna-md: plain versions ran on the card: {plain}")
+    check(all(np.isfinite(r).all() for r in rows), "anna: non-finite thermo")
+    check(not bool(st.overflow), "anna: neighbor overflow in the main path")
+    check(not bool(st.unsafe), "anna: unsafe (dangerous-build) latch set")
+    check(srow_max <= ANNA_KS, f"anna: short row of {srow_max} partners")
+    check(launches["g_harm"] == steps + 1, f"anna: g_harm launched "
+          f"{launches['g_harm']} times, expected {steps + 1} (init + one per "
+          "step, light steps included)")
+    check(sum(launches.values()) == launches["g_harm"],
+          f"anna: other kernels launched: {launches}")
+    window = sum(block_s[-RATE_BLOCKS:])
+    aps = n * RATE_BLOCKS * ANNA_EVERY / window
+    drift = rows[-1][6] - rows[0][6]
+    log(f"[anna-md] {steps} NVE steps, {rebuilds} rebuilds, widest short "
+        f"row {srow_max}/{ANNA_KS}, launches {launches}, overflow "
+        f"{bool(st.overflow)} unsafe {bool(st.unsafe)}; conserved energy "
+        f"drift {drift:.4f} eV over steps {int(rows[0][0])}-"
+        f"{int(rows[-1][0])} ({drift / n:.3e} eV/atom; not gated: the "
+        f"forces freeze (d2, q2))")
+    log(f"[anna-md] {aps:.1f} atom-steps/s over the last {RATE_BLOCKS} "
+        f"blocks ({window:.3f} s) on {card}; peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    return launches["g_harm"]
+
+
+def phase_anna_profile(dev, cfg32, p32, mass, card):
+    """A fresh ANNA main-path run: init_state and 4 blocks, then one block
+    under torch.profiler; then the light step's three phases timed apart
+    on the run's last state (make_anna_fast_fns' own functions)."""
+    from meng_zhang_tpu_torch.models import anna_adp as A
+    from meng_zhang_tpu_torch.ops import fused_annp as fa
+    sim, x, box = anna_simulator(dev, cfg32, p32, mass)
+    st = sim.init_state(x, box, seed=SEED, t_init=ANNA_T)
+    for _ in range(4):
+        st, _ = sim.run(st, 1)
+    profile_block("anna-profile", "ANNA", sim, st, ANNA_EVERY, card, tries=5)
+    gp = A._gp(p32)
+    idx = st.short.idx
+    pl = fa.pair_dx_planes(st.x, st.box, idx, cfg32.pbc)
+    lp = A._phase1(cfg32, p32, pl)
+    e_at, fcols = A._fields_from_planes(cfg32, gp, *pl, lp)
+    ftab = torch.nn.functional.pad(fcols, (0, 1, 0, 16 - fcols.shape[0]))
+    step_costs("anna-profile", card, {
+        "dx planes [N, 72] x3": lambda: fa.pair_dx_planes(
+            st.x, st.box, idx, cfg32.pbc),
+        "phase 1 (g_harm, S_l -> G, network)":
+            lambda: A._phase1(cfg32, p32, pl),
+        "phase 2 (fields and atom energies)":
+            lambda: A._fields_from_planes(cfg32, gp, *pl, lp),
+        "phase 3 (newton-off pair forces, light)":
+            lambda: A._force_from_planes(cfg32, gp, *pl, idx, ftab, fcols,
+                                         False),
+        "phase 3 with the virial":
+            lambda: A._force_from_planes(cfg32, gp, *pl, idx, ftab, fcols,
+                                         True),
+        "force_fn_light (the whole light step's evaluation)":
+            lambda: sim.force_fn_light(st.x, st.box, st.nbrs, st.short)})
+
+
 # ------------------------------------------------------------ run path
 @contextlib.contextmanager
 def plain_calls():
@@ -1221,19 +1544,25 @@ def _last_snapshot(path):
 
 
 def write_inputs(tmp):
-    """The benchmark scene as a LAMMPS data file and the synthetic fe and
-    ni potentials as .ann files, written with the port's own writers."""
+    """The benchmark scene as a LAMMPS data file, the synthetic fe and ni
+    potentials as .ann files (the port's own writers) and the synthetic
+    ANNA-ADP potential as a .anna file (testing.anna_text)."""
     from meng_zhang_tpu_torch.io.lammps_data import LammpsData, write_data
     from meng_zhang_tpu_torch.io.potential import write_ann
-    from meng_zhang_tpu_torch.testing import synthetic_ni_potential
+    from meng_zhang_tpu_torch.testing import (anna_text,
+                                              synthetic_anna_potential,
+                                              synthetic_ni_potential)
     x = np.load(SCENE_NPZ)["x"].astype(np.float64)
     paths = {k: os.path.join(tmp, name) for k, name in (
-        ("data", "fe_st.dat"), ("fe", "fe.ann"), ("ni", "ni.ann"))}
+        ("data", "fe_st.dat"), ("fe", "fe.ann"), ("ni", "ni.ann"),
+        ("anna", "fe.anna"))}
     write_data(paths["data"], LammpsData(
         x=x, types=np.ones(len(x), np.int32), box_lo=np.zeros(3),
         box_hi=np.asarray(BOX), n_types=1), comment="benchmark scene")
     write_ann(paths["fe"], _potential())
     write_ann(paths["ni"], synthetic_ni_potential(0))
+    with open(paths["anna"], "w") as f:
+        f.write(anna_text(synthetic_anna_potential(0)))
     return paths
 
 
@@ -1329,6 +1658,61 @@ def fe_step_costs(card, dev):
             lambda: ev.energy_forces_short(
                 x, box, ev.compact_short(x, box, nb.idx),
                 want_virial=False, per_atom=True)})
+
+
+def phase_cli_anna(card, tmp, paths):
+    """The ANNA NVE workflow through the CLI on the 128,000-atom scene
+    (run.py's defaults: --skin 2.0 --capacity 256, reference-shaped
+    energy_forces_virial every step), then --minimize (FIRE) with a
+    per-atom dump on a small thermal box."""
+    from meng_zhang_tpu_torch.io.lammps_data import LammpsData, write_data
+    from meng_zhang_tpu_torch.testing import E_BASE_ANNA, thermal_bcc
+    cells = [str(ANNA_CELLS)] * 3
+    rows, err, _, launches = cli("cli-anna", [
+        "--lattice", "bcc", "--cells", *cells, "--potential",
+        paths["anna"], "--ensemble", "nve", "--temp", str(ANNA_T),
+        "--steps", str(CLI_ANNA_STEPS), "--thermo", str(CLI_ANNA_THERMO)])
+    check(launches["g_harm"] == CLI_ANNA_STEPS + 1, f"cli-anna: g_harm "
+          f"launched {launches['g_harm']} times, expected "
+          f"{CLI_ANNA_STEPS + 1} (init + one per step)")
+    check(sum(launches.values()) == launches["g_harm"],
+          f"cli-anna: other kernels launched: {launches}")
+    log(f"[cli-anna] Loop time rate {_loop_rate(err):.1f} atom-steps/s on "
+        f"{card}")
+    total = launches["g_harm"]
+
+    xs, bs = thermal_bcc(ANNA_MIN_CELLS, seed=SEED, disp=0.1)
+    data = os.path.join(tmp, "anna_small.dat")
+    write_data(data, LammpsData(x=xs, types=np.ones(len(xs), np.int32),
+                                box_lo=np.zeros(3), box_hi=bs, n_types=1))
+    dump = os.path.join(tmp, "anna.lammpstrj")
+    rows, err, wall, launches = cli("cli-anna-min", [
+        "--data", data, "--potential", paths["anna"], "--skin",
+        str(ANNA_SKIN), "--capacity", str(ANNA_CAPACITY), "--minimize",
+        "--min-ftol", str(ANNA_MIN_FTOL), "--steps", str(CLI_THERMO),
+        "--thermo", str(CLI_THERMO), "--dump", dump, "--dump-peratom"])
+    fline = next(ln for ln in err if "fmax=" in ln)
+    fmax = float(fline.split("fmax=")[1].split()[0])
+    evals = launches["g_harm"] - CLI_THERMO - 2      # run and one dump
+    check(fmax <= ANNA_MIN_FTOL and evals > 0,
+          f"cli-anna: FIRE stopped at fmax {fmax} after {evals} evaluations")
+    n = len(xs)
+    step, cols, snap = _last_snapshot(dump)
+    check(step == CLI_THERMO and snap.shape == (n, 6) and cols[5:] == [
+        "c_pe"] and bool(np.isfinite(snap[:, 5]).all()),
+        f"cli-anna: dump columns {cols}, shape {snap.shape}, step {step}")
+    e_base = E_BASE_ANNA
+    pe_row = float(rows[-1].split()[2]) - n * e_base
+    pe_sum = math.fsum(snap[:, 5]) - n * float(np.float32(e_base))
+    log(f"[cli-anna] FIRE (--minimize --min-ftol {ANNA_MIN_FTOL}) on a "
+        f"{n}-atom thermal box: fmax {fmax:.4e} eV/A after {evals} "
+        f"evaluations, run.main {wall:.2f} s; step {step}: sum of c_pe less "
+        f"n f32(e_base) {pe_sum:.4f} eV, thermo PotEng less n e_base "
+        f"{pe_row:.4f} eV, |diff| {abs(pe_sum - pe_row):.4f} eV (bound "
+        f"{ANNA_PE_SUM_ATOL})")
+    check(abs(pe_sum - pe_row) <= ANNA_PE_SUM_ATOL,
+          "cli-anna: the dump's c_pe does not sum to the thermo PotEng")
+    return total + launches["g_harm"]
 
 
 def phase_cli_ni(card, paths, dev):
@@ -1468,17 +1852,30 @@ def main():
         phase_ni_evaluator(x, box, cfg32, p32, cfg64, p64, sl)
         del x, box, sl
         launches.update(phase_ni_main_path(dev, cfg32, p32, mass, card))
+        ni = (dev, cfg32, p32, mass, card)
+        t_anna = time.time()
+        cfg32, p32, cfg64, p64, mass = anna_model(dev)
+        anna, box_lists = phase_anna_kernel(dev, cfg32, p32)
+        phase_anna_eval(box_lists, cfg32, p32, cfg64, p64)
+        del box_lists
+        anna["anna_launches"] = phase_anna_md(dev, cfg32, p32, mass, card)
+        log(f"[anna-md] phases anna-kernel, anna-eval and anna-md took "
+            f"{time.time() - t_anna:.1f} s")
+        anna_prof = (dev, cfg32, p32, mass, card)
         with tempfile.TemporaryDirectory() as tmp:
             paths = write_inputs(tmp)
             cli_launches = {"cli-fe": phase_cli_fe(card, tmp, paths, dev),
                             "cli-ni": phase_cli_ni(card, paths, dev),
                             "minimize": phase_minimize(card, tmp, paths,
-                                                       dev)}
+                                                       dev),
+                            "cli-anna": {"g_harm": phase_cli_anna(
+                                card, tmp, paths)}}
         log(f"[smoke] run-path launches {cli_launches}")
         phase_profile(*fe, card)
         phase_profile(*fe, card, angular="matrix")
         del fe
-        phase_ni_profile(dev, cfg32, p32, mass, card)
+        phase_ni_profile(*ni)
+        phase_anna_profile(*anna_prof)
     except SmokeFailure as e:
         print(f"FAIL: {e}", file=sys.stderr, flush=True)
         return 1
@@ -1488,6 +1885,8 @@ def main():
         return 1
     for r in records:
         r["launches"] = launches[r["name"]]
+        if r["name"] == "g_harm":
+            r.update(anna)
     log(f"[smoke] wall {time.time() - T_START:.1f} s")
     print(json.dumps({"kernels": records}))
     print(json.dumps({"ok": True, "device": {

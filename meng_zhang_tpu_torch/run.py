@@ -14,15 +14,23 @@ pe_offset rules and the same engine routing:
   * a BP potential, or `--engine xla`: `compact_neighbor_rows` then
     `energy_forces_virial_chunked` (models/annp.py: FusedNi's kernels ni_g
     and ni_force for BP, FusedAnnp's for Chebyshev); `--dump-peratom` adds
-    c_pe from the autograd model (`annp.atom_energies`).
+    c_pe from the autograd model (`annp.atom_energies`);
+  * an ANNA-ADP potential (`.anna`, or `--model anna`): every step runs
+    `anna_adp.energy_forces_virial` on the skin list (its phase 1 through
+    the kernel g_harm), `--minimize` `anna_adp.energy_forces`, and
+    `--dump-peratom` adds c_pe from `anna_adp.atom_energies`. A
+    multi-element `.anna` selects each atom's network by its data-file
+    type, as the JAX CLI does.
 
 Runs on the card; `main(argv, device="cpu")` is the only way to the CPU,
-where the kernels' plain versions run. ANNA-ADP (`.anna`) potentials and
-multi-element networks are not ported and exit with an error. One
-difference from the JAX CLI: the cell list's per-cell capacity is sized
-from the scene's densest cell (at least MDConfig's 64), where the JAX CLI
-keeps 64 and overflows on the 152,880-atom benchmark scene (83 atoms in its
-densest cell at --skin 1.2).
+where the kernels' plain versions run. Multi-element ANNP (`.ann`)
+networks are not ported and exit with an error. Two differences from the
+JAX CLI: the cell list's per-cell capacity is sized from the scene's
+densest cell (at least MDConfig's 64), where the JAX CLI keeps 64 and
+overflows on the 152,880-atom benchmark scene (83 atoms in its densest
+cell at --skin 1.2); and `--minimize` on a multi-element `.anna` selects
+the networks by type, where the JAX CLI's minimizer evaluates every atom
+with the first element's network.
 
 Example (the benchmark scene's workflow):
     python -m meng_zhang_tpu_torch \\
@@ -44,7 +52,8 @@ def log(*a):
 def build_parser():
     ap = argparse.ArgumentParser(
         prog="meng_zhang_tpu_torch",
-        description="MD on an NVIDIA GPU with ANNP neural-network potentials")
+        description="MD on an NVIDIA GPU with ANNP/ANNA-ADP neural-network "
+                    "potentials")
     src = ap.add_argument_group("scene")
     src.add_argument("--data", help="LAMMPS data file (atomic style)")
     src.add_argument("--lattice", choices=("bcc", "fcc"),
@@ -122,9 +131,9 @@ def main(argv=None, device="cuda"):
     from . import profiling
     from .geometry import lattice as L
     from .io.lammps_data import read_data
-    from .io.potential import read_ann
+    from .io.potential import read_ann, read_anna
     from .md.simulation import MDConfig, Simulator
-    from .models import annp
+    from .models import anna_adp, annp
     from .system.neighbors import cell_grid_dims
 
     dev = torch.device(device)
@@ -157,12 +166,14 @@ def main(argv=None, device="cuda"):
     is_anna = (args.model == "anna") if args.model else \
         args.potential.endswith(".anna")
     if is_anna:
-        sys.exit("error: ANNA-ADP (.anna) potentials are not ported to "
-                 "meng_zhang_tpu_torch yet; run them with meng_zhang_tpu")
-    pot = read_ann(args.potential)
-    mcfg, params = annp.make_annp(pot, torch.float32, dev, pbc=pbc)
-    model_name = "annp-" + ("behler" if pot.sym_coerad is not None
-                            else "chebyshev")
+        pot = read_anna(args.potential)
+        mcfg, params = anna_adp.make_anna(pot, torch.float32, dev, pbc=pbc)
+        model_name = "anna_adp"
+    else:
+        pot = read_ann(args.potential)
+        mcfg, params = annp.make_annp(pot, torch.float32, dev, pbc=pbc)
+        model_name = "annp-" + ("behler" if pot.sym_coerad is not None
+                                else "chebyshev")
     # ---- species mapping: data-file atom types -> potential elements ----
     # type t maps to element t-1; generator scenes use extra types for the
     # same element (the boundary shell), which clamp to the last element
@@ -175,16 +186,26 @@ def main(argv=None, device="cuda"):
             sys.exit(f"error: data file has {int(np.max(types))} atom types "
                      f"but the potential defines only {ne} elements; "
                      "provide a type->element mapping scene")
-    if ne > 1:
-        sys.exit(f"error: {ne}-element potentials are not ported to "
+    if ne > 1 and not is_anna:
+        sys.exit(f"error: {ne}-element ANNP potentials are not ported to "
                  "meng_zhang_tpu_torch yet; run them with meng_zhang_tpu")
     elems = None
+    if ne > 1:
+        if types is None:
+            log(f"note: no atom types in scene; all atoms set to element 0 "
+                f"({pot.elements[0]})")
+        else:
+            elems = torch.as_tensor(np.minimum(types, ne) - 1, device=dev)
     # per-atom masses: Masses section if present, else the potential's mass
     if masses_in is not None and types is not None:
         masses_np = np.asarray(masses_in)[
             np.minimum(types, len(masses_in)) - 1]
     else:
-        masses_np = np.full(len(x_np), float(np.asarray(pot.masses)[0]))
+        pmass = np.asarray(pot.masses)
+        if types is not None and ne > 1:
+            masses_np = pmass[np.minimum(types, ne) - 1]
+        else:
+            masses_np = np.full(len(x_np), float(pmass[0]))
     log(f"model: {model_name}  elements={pot.elements}  cut={mcfg.cut} A  "
         f"atoms={len(x_np)}  box={np.round(box_np, 3)}")
 
@@ -209,7 +230,7 @@ def main(argv=None, device="cuda"):
     # scene sits where f32 ULP is ~64 eV and the thermo PE column would
     # quantize. The constant n*e_shift is added back in f64 at print time.
     n_atoms = len(x_np)
-    pe_offset = n_atoms * mcfg.e_shift
+    pe_offset = n_atoms * (mcfg.e_base if is_anna else mcfg.e_shift)
     if use_pallas:
         from .ops.fused_annp import FusedAnnp
         ev = FusedAnnp(mcfg, params)
@@ -217,6 +238,10 @@ def main(argv=None, device="cuda"):
         def force_fn(xx, bb, nbrs):
             return ev.energy_forces(xx, bb, nbrs.idx, want_virial=True,
                                     shift=False)
+    elif is_anna:
+        def force_fn(xx, bb, nbrs):
+            return anna_adp.energy_forces_virial(mcfg, params, xx, bb,
+                                                 nbrs.idx, elems, shift=False)
     else:
         # per-eval short-neighbor repack (K drops from the skin-list
         # capacity to the in-cutoff count -- k_annp_short_nbor's job), then
@@ -263,9 +288,14 @@ def main(argv=None, device="cuda"):
         from .md.minimize import fire_relax
         log("FIRE minimization...")
 
-        def ef(xx, bb, idx):
-            return annp.energy_forces_chunked(mcfg, params, xx, bb, idx,
-                                              chunk=256)
+        if is_anna:
+            def ef(xx, bb, idx):
+                return anna_adp.energy_forces(mcfg, params, xx, bb, idx,
+                                              elems)
+        else:
+            def ef(xx, bb, idx):
+                return annp.energy_forces_chunked(mcfg, params, xx, bb, idx,
+                                                  chunk=256)
 
         x, fst = fire_relax(ef, lambda xx, bb: sim.build_nbrs(xx, bb),
                             x, box, f_tol=args.min_ftol)
@@ -295,8 +325,10 @@ def main(argv=None, device="cuda"):
                     ss.x, ss.box, sl, want_virial=False, per_atom=True)
                 return {"c_pe": eat, "c_stress": vat}
         else:
+            model = anna_adp if is_anna else annp
+
             def peratom_fn(ss):
-                return {"c_pe": annp.atom_energies(
+                return {"c_pe": model.atom_energies(
                     mcfg, params, ss.x, ss.box, ss.nbrs.idx, elems)}
 
     n_blocks = max(1, args.steps // args.thermo)

@@ -1,15 +1,21 @@
-"""Synthetic ANNP potentials of the shipped shapes (numpy only).
+"""Synthetic ANNP and ANNA-ADP potentials of the shipped shapes (numpy
+only).
 
-The shipped `fe_annp_potential_2.ann` and `ni_annp_potential_2.ann` are not
-part of the repository, so the port's tests and `chip_smoke.py` run on
-potentials with the same shapes and random weights drawn from a seed:
+The shipped `fe_annp_potential_2.ann`, `ni_annp_potential_2.ann` and
+`fe_adp_potential_2310.anna` are not part of the repository, so the port's
+tests and `chip_smoke.py` run on potentials with the same shapes and
+random weights drawn from a seed:
 
   * fe (Chebyshev): npsf 9 + ntsf 19 = 28 descriptors, two hidden layers of
     10 nodes, rc 6.5 A, activation flags (4, 4, 0), FE activation style,
     Gaussian normalisation;
   * ni (Behler-Parrinello): npsf 3 + ntsf 24 = 27 descriptors, two hidden
     layers of 24 nodes, Rc 7.3699319 Bohr, min-max normalisation, NI
-    activation style (the shape tests/test_potential_io.py pins).
+    activation style (the shape tests/test_potential_io.py pins);
+  * ANNA-ADP: npsf 9 + ntsf 19 raw Chebyshev descriptors, two hidden
+    layers of 6 nodes, two outputs (d2, q2), Rc 5.055 A, activation flags
+    (modified, modified, linear) in the ANNA style, e_base -4473.0075,
+    e_scale 1, and 17 global ADP parameters chosen to hold bcc-Fe.
 
 Kernel cost does not depend on the weight values, and both packages
 evaluate the same numbers from them.
@@ -19,9 +25,9 @@ from __future__ import annotations
 import numpy as np
 
 from .geometry.lattice import bcc, fcc
-from .io.potential import (ACT_LINEAR, ACT_TANH, ACT_TTANH, ActivationStyle,
-                           AnnpPotential, NetworkParams, SYM_BEHLER,
-                           SYM_CHEBYSHEV)
+from .io.potential import (ACT_LINEAR, ACT_MTANH, ACT_TANH, ACT_TTANH,
+                           ActivationStyle, AnnaPotential, AnnpPotential,
+                           NetworkParams, SYM_BEHLER, SYM_CHEBYSHEV)
 from .units import CFLENGTH, MASS_FE, MASS_NI
 
 RC_NI_BOHR = 7.3699319        # the shipped ni coefficient tables' Rc
@@ -290,3 +296,116 @@ def synthetic_ni_potential(seed=0, npsf=3, nnod=24, rc_bohr=RC_NI_BOHR,
         cut=6.5, flagsym=SYM_BEHLER, norm_row0=norm_row0,
         norm_row1=norm_row1, norm_style="minmax", e_scale=1.0, e_shift=0.0,
         e_atom=0.0, networks=(net,), sym_coerad=coerad, sym_coeang=coeang)
+
+
+E_BASE_ANNA = -4473.0075        # the shipped .anna file's e_base
+# The 17 global ADP parameters (A0, yy, gamma, C0, c1F, c2F, V0, b1, b2,
+# delta, r0, r1, hc, d1, q1, d3, q3) of synthetic_anna_potential.
+ANNA_GPARAMS = (1000.0, 1.5, 4.0, 0.05, -0.3, 1.0e-3, -0.15, 4.0, 8.0,
+                0.02, 0.5, 2.9, 0.3, 0.1, 0.04, 0.01, 0.005)
+# A set whose density terms reach the cutoff (gamma 0.6, hc 0.8): there the
+# reference's d_rho quirk moves the hand forces away from the gradient by
+# far more than rounding, which a test of the quirk needs.
+ANNA_GPARAMS_QUIRK = (1.0, 1.5, 0.6, 0.05, -0.3, 1.0e-3, -0.15, 4.0, 8.0,
+                      0.02, 0.5, 2.9, 0.8, 0.1, 0.04, 0.01, 0.005)
+
+
+def synthetic_anna_potential(seed=0, npsf=9, ntsf=19, nnod=6, cut=5.055,
+                             gparams=ANNA_GPARAMS, lp0=(0.3, 0.3),
+                             elements=("Fe",)) -> AnnaPotential:
+    """An ANNA-ADP potential of the shipped shape with seeded random
+    network weights, one network per element.
+
+    The network maps the raw Chebyshev descriptors (no normalisation rows in
+    ANNA) to (d2, q2). Its first layer is scaled by the descriptors' size:
+    w1 = N(0, 1) / sqrt(nsf) / std(G) per column and b1 = -w1 . mean(G),
+    with mean and spread taken over a 5x5x5 bcc box (a = 2.8553 A) with
+    Gaussian displacements of 0.1 A per component, so that the first
+    layer's inputs are O(1) in bulk; the output layer's weights are small
+    (0.05 N(0, 1)) and its biases lp0, so that (d2, q2) stay positive and
+    near lp0 (1/A) in any environment: the ANNA activation 1.7 tanh(0.3 x)
+    bounds every hidden value by 1.7.
+
+    gparams (ANNA_GPARAMS by default): the pair term has its well of depth
+    V0 = -0.15 eV at r1 = 2.9 A, just beyond bcc's second shell (2.86 A),
+    so that the first two shells push and the lattice sits near zero
+    pressure; the density decays as e^-4r from r0 = 0.5 A, below every
+    pair distance, and so does the d_rho quirk of the hand forces (the
+    autodiff forces differ from them by ~1e-5 eV/A near the cutoff). The
+    dipole and quadrupole terms (d1, q1) both vanish on the perfect lattice
+    and grow quadratically under any distortion: they stiffen it, and
+    d1 = 0.1, q1 = 0.04 keep the stiffness near real iron's. Measured with
+    this package in f64 on the CPU: the perfect 128-atom periodic lattice
+    carries +20 kbar, and the Hessian of its frozen-(d2, q2) energy has
+    eigenvalues from 8.5 to 63 eV/A^2 besides the three translations
+    (without d1 and q1: 0.40 to 10); on a periodic 432-atom box in NVE
+    from 300 K velocities (the fast path, k_short 72, delta 0.2, 300
+    steps) the temperature settles near 150 K (the lattice takes up half
+    the kinetic energy), no atom strays more than 0.14 A from its site
+    (RMS 0.045 A), the widest row within rc + 0.2 A holds 58 partners, as
+    perfect bcc does (the next shell lies at 5.71 A), and (d2, q2) stay
+    within 0.29-0.34 /A. The forces freeze (d2, q2), so NVE conserves
+    energy only approximately (here to 0.02 eV in 300 steps).
+    tests/test_torch_anna_md.py::test_synthetic_anna_holds_bcc checks the
+    128-atom figures and a 100-step NVE run of that box.
+    """
+    rng = np.random.default_rng(seed)
+    nsf = npsf + ntsf
+    x, box = thermal_bcc(5, seed=12345, disp=0.1)
+    g = _chebyshev_g_np(x, box, npsf, ntsf, cut)
+    mean, std = g.mean(0), np.maximum(g.std(0), 1e-6)
+    nets = []
+    for _ in elements:
+        w1 = rng.normal(size=(nnod, nsf)) / np.sqrt(nsf) / std
+        b1 = -w1 @ mean
+        w2 = rng.normal(size=(nnod, nnod)) / np.sqrt(nnod)
+        b2 = 0.1 * rng.normal(size=nnod)
+        w3 = 0.05 * rng.normal(size=(2, nnod))
+        nets.append(NetworkParams(
+            weights=(w1, w2, w3), biases=(b1, b2, np.asarray(lp0, float)),
+            flagact=(ACT_MTANH, ACT_MTANH, ACT_LINEAR),
+            act_style=ActivationStyle.ANNA))
+    return AnnaPotential(
+        elements=tuple(elements),
+        masses=np.asarray([MASS_FE] * len(elements)), ntl=4, nhl=2,
+        nnod=nnod, nout=2, nsf=nsf, npsf=npsf, ntsf=ntsf, cut=float(cut),
+        flagsym=SYM_CHEBYSHEV, e_base=E_BASE_ANNA, e_scale=1.0,
+        gparams=np.asarray(gparams, dtype=np.float64), networks=tuple(nets))
+
+
+def anna_text(pot: AnnaPotential) -> str:
+    """`pot` as `.anna` text at the fixed line offsets `read_anna` reads
+    (pair_anna_adp.cpp:392-562), numbers with 17 significant digits so
+    that they read back to the bit. Test tooling: the JAX package writes no
+    `.anna` file either."""
+    act = {ACT_LINEAR: "linear", ACT_TANH: "hyperbolic", ACT_MTANH: "modified",
+           ACT_TTANH: "tanh"}
+
+    def nums(a):
+        return "\t".join(f"{v:.17g}" for v in np.ravel(a))
+
+    ne = len(pot.elements)
+    lines = ["#ANNA-ADP potential (synthetic)", "#", "#", "",
+             "#element parameters_(nelement #n element mass)", str(ne)]
+    lines += [f"{k + 1}\t{el}\t{m:.17g}"
+              for k, (el, m) in enumerate(zip(pot.elements, pot.masses))]
+    lines += ["", "#ann parameters_(TL HL Nodes_HL Nout Num_SF Num_PSF "
+              "Num_TSF Cut)",
+              "\t".join(str(v) for v in (pot.ntl, pot.nhl, pot.nnod, pot.nout,
+                                         pot.nsf, pot.npsf, pot.ntsf))
+              + f"\t{pot.cut:.17g}", "",
+              "#types of symmetry function and activation function",
+              "\t".join(["Chebyshev"] + [act[f] for f in
+                                         pot.networks[0].flagact]), "",
+              "#energy_(E_base E_scale)",
+              f"{pot.e_base:.17g}\t{pot.e_scale:.17g}", "",
+              "#global parameters", str(len(pot.gparams)), nums(pot.gparams)]
+    for el, net in zip(pot.elements, pot.networks):
+        lines.append(f"#{el}")
+        for layer, (w, b) in enumerate(zip(net.weights, net.biases), start=1):
+            lines.append(f"#{layer}_(weight)")
+            lines += [nums(row) for row in w]
+            # bias rows hold nnod entries; the last layer uses the first nout
+            lines.append(f"#{layer}_(bias)")
+            lines.append(nums(np.pad(b, (0, pot.nnod - len(b)))))
+    return "\n".join(lines) + "\n"

@@ -402,3 +402,87 @@ def test_cli_runs_on_the_card(cuda_device, tmp_path, capsys):
     assert np.isfinite([[float(v) for v in r.split()] for r in rows]).all()
     # init, 20 steps, two per-atom dumps
     assert kernels.g_harm.launches == kernels.force_harm.launches == 23
+
+
+# ANNA-ADP: g_harm at the ANNA scene's shape (K 72, rc 5.055), the fast and
+# reference-shaped paths on the card against the same on the CPU, the CLI
+ANNA_RC, ANNA_KS = 5.055, 72
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_g_harm_at_the_anna_shape(cuda_device, dtype):
+    """g_harm on [P, 72] short planes at rc 5.055 A (its 3-slots-a-lane
+    instance) at the shipped ANNA width (npsf 9, ntsf 19) against its
+    plain version; all-filler rows exactly 0."""
+    planes, filler = short_planes(5, ANNA_RC, ANNA_KS)
+    planes = [torch.as_tensor(a, dtype=dtype, device=cuda_device)
+              for a in planes]
+    before = kernels.g_harm.launches
+    got = kernels.g_harm(*planes, 9, 19, ANNA_RC)
+    want = fa.g_harm_plain(*planes, 9, 19, ANNA_RC)
+    assert kernels.g_harm.launches == before + 1
+    empty = torch.as_tensor(filler).all(1)
+    for u, v in zip(got, want):
+        assert rel_max(u.cpu(), v.cpu()) <= HARM_RTOL[dtype]
+        assert torch.all(u.cpu()[empty] == 0)
+
+
+def _anna_case(device):
+    from meng_zhang_tpu_torch.models import anna_adp as A
+    from meng_zhang_tpu_torch.testing import synthetic_anna_potential
+    cfg, params = A.make_anna(synthetic_anna_potential(0), torch.float64,
+                              device)
+    x, box = thermal_bcc(5, seed=3, disp=0.08)
+    x = torch.as_tensor(x, dtype=torch.float64, device=device)
+    box = torch.as_tensor(box, dtype=torch.float64, device=device)
+    nbrs = build_neighbors_n2(x, box, cfg.cut + 0.3, 96)
+    fns = A.make_anna_fast_fns(cfg, params, k_short=ANNA_KS, delta=0.2)
+    short = fns[2](x, box, nbrs)
+    return A, cfg, params, x, box, nbrs, fns, short
+
+
+@pytest.mark.cuda
+def test_anna_paths_on_card_match_cpu(cuda_device):
+    """make_anna_fast_fns (force, light) and the reference-shaped
+    energy_forces_virial / atom_energies in f64 on the card (g_harm's
+    kernel) against the same on the CPU (its plain version): each output
+    within 1e-10 of its largest |value| (the kernel's 1e-12 carried through
+    the network and the ADP terms); one g_harm launch an evaluation."""
+    kernels.reset_launch_counts()
+    A, cfg, p, x, box, nbrs, fns, short = _anna_case(cuda_device)
+    got = list(fns[0](x, box, nbrs, short)) \
+        + list(fns[1](x, box, nbrs, short)[:2]) \
+        + list(A.energy_forces_virial(cfg, p, x, box, nbrs.idx)) \
+        + [A.atom_energies(cfg, p, x, box, nbrs.idx)]
+    assert kernels.g_harm.launches == 4
+    assert kernels.force_harm.launches == 0
+    A, cfg, p, x, box, nbrs, fns, short = _anna_case("cpu")
+    want = list(fns[0](x, box, nbrs, short)) \
+        + list(fns[1](x, box, nbrs, short)[:2]) \
+        + list(A.energy_forces_virial(cfg, p, x, box, nbrs.idx)) \
+        + [A.atom_energies(cfg, p, x, box, nbrs.idx)]
+    for a, b in zip(got, want):
+        assert torch.isfinite(a).all()
+        assert rel_max(a.cpu(), b) <= 1e-10
+
+
+@pytest.mark.cuda
+def test_cli_anna_runs_on_the_card(cuda_device, tmp_path, capsys):
+    """run.main on a .anna on the card: NVE with a per-atom dump, g_harm
+    once an evaluation (init, 20 steps, two dumps), no force_harm."""
+    from meng_zhang_tpu_torch import run
+    from meng_zhang_tpu_torch.testing import (anna_text,
+                                              synthetic_anna_potential)
+    anna = tmp_path / "fe.anna"
+    anna.write_text(anna_text(synthetic_anna_potential(0)))
+    kernels.reset_launch_counts()
+    run.main(["--lattice", "bcc", "--cells", "6", "6", "6", "--potential",
+              str(anna), "--skin", "0.5", "--capacity", "96", "--steps",
+              "20", "--thermo", "10", "--dump", str(tmp_path / "d.lammpstrj"),
+              "--dump-peratom"])
+    rows = capsys.readouterr().out.splitlines()[1:]
+    assert len(rows) == 3
+    assert np.isfinite([[float(v) for v in r.split()] for r in rows]).all()
+    assert kernels.g_harm.launches == 23
+    assert kernels.force_harm.launches == 0

@@ -19,8 +19,9 @@ from meng_zhang_tpu_torch import run, units
 from meng_zhang_tpu_torch.geometry import lattice
 from meng_zhang_tpu_torch.io import potential
 from meng_zhang_tpu_torch.md import integrate
-from meng_zhang_tpu_torch.models import annp
-from meng_zhang_tpu_torch.testing import (synthetic_fe_potential,
+from meng_zhang_tpu_torch.models import anna_adp, annp
+from meng_zhang_tpu_torch.testing import (synthetic_anna_potential,
+                                          synthetic_fe_potential,
                                           synthetic_ni_potential)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -34,7 +35,7 @@ from meng_zhang_tpu_torch import profiling, run, tools
 from meng_zhang_tpu_torch.geometry import lattice, screw, stgb
 from meng_zhang_tpu_torch.io import dump, lammps_data, potential
 from meng_zhang_tpu_torch.md import checkpoint, integrate, minimize, simulation
-from meng_zhang_tpu_torch.models import annp, descriptors, mlp
+from meng_zhang_tpu_torch.models import anna_adp, annp, descriptors, mlp
 from meng_zhang_tpu_torch.ops import fused_annp, fused_ni, kernels
 from meng_zhang_tpu_torch.system import cell, neighbors
 from meng_zhang_tpu_torch.testing import synthetic_fe_potential
@@ -54,6 +55,12 @@ e, f, w = fused_ni.FusedNi(cfg, params, k_short=16).energy_forces(
     x, box, nbrs.idx)
 assert torch.isfinite(f).all() and f.shape == (16, 3)
 e, f, w = annp.energy_forces_virial_chunked(cfg, params, x, box, nbrs.idx)
+assert torch.isfinite(f).all() and f.shape == (16, 3)
+from meng_zhang_tpu_torch.testing import synthetic_anna_potential
+cfg, params = anna_adp.make_anna(
+    synthetic_anna_potential(0, npsf=4, ntsf=5, nnod=6, cut=4.0),
+    torch.float64, device="cpu")
+e, f, w = anna_adp.energy_forces_virial(cfg, params, x, box, nbrs.idx)
 assert torch.isfinite(f).all() and f.shape == (16, 3)
 bad = sorted(m for m in sys.modules if m == "jax" or m.startswith("jax.")
              or m == "meng_zhang_tpu" or m.startswith("meng_zhang_tpu."))
@@ -140,11 +147,13 @@ def test_copies_equal_jax_package(make):
 
 
 def test_entry_points_default_to_the_card():
-    """make_annp, params_from_numpy, the md/integrate.py helpers and the
-    CLI's run.main put their tensors on the card unless the caller names
-    another device; on a torch without CUDA a call without a device raises
-    instead of handing back CPU tensors (run.main: tests/test_torch_run.py)."""
-    for fn in (annp.make_annp, annp.params_from_numpy, integrate.nhc_masses,
+    """make_annp, make_anna, both params_from_numpy, the md/integrate.py
+    helpers and the CLI's run.main put their tensors on the card unless
+    the caller names another device; on a torch without CUDA a call
+    without a device raises instead of handing back CPU tensors (run.main:
+    tests/test_torch_run.py)."""
+    for fn in (annp.make_annp, annp.params_from_numpy, anna_adp.make_anna,
+               anna_adp.params_from_numpy, integrate.nhc_masses,
                integrate.npt_baro_masses, integrate.NHCState.zeros,
                run.main):
         assert inspect.signature(fn).parameters["device"].default == "cuda"
@@ -152,6 +161,8 @@ def test_entry_points_default_to_the_card():
         return
     pot = synthetic_fe_potential(0, npsf=4, ntsf=5, nnod=6, cut=4.0)
     calls = (lambda: annp.make_annp(pot, torch.float64),
+             lambda: anna_adp.make_anna(synthetic_anna_potential(0),
+                                        torch.float64),
              lambda: integrate.nhc_masses(30, 300.0, 0.1, 3, torch.float64),
              lambda: integrate.npt_baro_masses(10, 300.0, 1.0,
                                                torch.float64),
