@@ -96,13 +96,43 @@ Phases, each fatal on failure:
       runs last, so that the profiler's tracing cannot touch any other
       phase's timing.
 
+The multi-element and thin-box paths, each fatal on failure, by tag:
+
+  * [multi-fe] (after phase 8): the benchmark scene with types 1/2 drawn
+    50/50 (numpy.random.default_rng(0)) and the two-element synthetic fe
+    potential (testing.synthetic_fe_potential_multi): phase 4's gates with
+    elems on both angular paths, the f64 kernel path against the autograd
+    model with elems on a 250-atom box, the elems-blind control
+    (BLIND_OVER_*), then 10 NPT blocks through Simulator with the
+    atoms' masses (101 launches of each harmonic kernel, no plain
+    version), its rate beside phase 5's;
+  * [rowsweep]: build_neighbors_cell_rowsweep against build_neighbors_cell
+    on the benchmark scene, and Simulator(nbr_method="rowsweep") through a
+    forced rebuild;
+  * [multi-ni] (after phase 11): the thermal ni box typed 50/50 with the
+    two-element ni potential: phase 10's gates with elems, the
+    elems-blind control, 2 NVT blocks of make_short_chunked_fns(elems)
+    from the perfect lattice;
+  * [thin-box] (after phase 17): `tools screw --dislocation` as it is
+    (5,016 atoms, z one Burgers vector, pbc (F, F, T)) through 9 explicit
+    z-images: image mode in f64 against the z-replicated scene (E/9, F of
+    the first copy, W/9, THIN_REL), the f32 kernels against the f64 plain
+    path (THIN_W_OVER_PLAIN for W) and g_harm / force_harm against their
+    plain versions on the image planes, 10 NVE blocks through
+    Simulator(image_shifts=...), and FIRE on the image route;
+  * [cli-multi]: run.main on the benchmark scene written with its
+    [multi-fe] types and the two-element .ann: 20 NPT steps with per-atom
+    dumps, c_pe summing to PotEng.
+
 Each kernel's record carries its least time on the card (`bound_ms`, the
 larger of the FLOPs its function needs over the f32 peak and its bytes
 over the memory rate, counted from this run's inputs) and `library_ms` null: no single PyTorch
 call computes any of these functions. g_harm's record also carries its
 ANNA-shape figures (`anna_shape`, `anna_ms`, `anna_plain_ms`,
 `anna_bound_ms`, `anna_bound_by`, `anna_max_abs_err`, and `anna_launches`
-from phase 14). Prints the kernels' JSON record on
+from phase 14). Its `launches` add the new paths' runs ([multi-fe]'s and
+[rowsweep]'s Simulators, [multi-ni]'s, [thin-box]'s Simulator and FIRE,
+[cli-multi]) to the main paths'. Prints the kernels' JSON record on
 the line before the last, and as the last line
 {"ok": true, "device": {...}}. Run from the repository root:
 `python3 chip_smoke.py`.
@@ -152,6 +182,34 @@ ANNA_KS, ANNA_DELTA, ANNA_EVERY, ANNA_BLOCKS = 72, 0.2, 5, 20
 ANNA_DISP = 0.08    # A per component, the thermal box of [anna-kernel/eval]
 CLI_ANNA_STEPS, CLI_ANNA_THERMO = 20, 5
 ANNA_MIN_CELLS, ANNA_MIN_FTOL = 6, 0.05     # the small box of the FIRE run
+# multi-element and thin-box paths
+MULTI_BLOCKS, MULTI_RATE_BLOCKS = 10, 7     # [multi-fe] NPT blocks
+MULTI_NI_BLOCKS = 2                         # [multi-ni] NVT blocks
+CLI_MULTI_STEPS = 20
+THIN_PBC = (False, False, True)    # the screw scene: periodic along the line
+THIN_IMAGES = 9                    # 2 ceil((rc + skin) / b) + 1 z-images
+THIN_BLOCKS, THIN_RATE_BLOCKS = 10, 7
+# image mode against the z-replicated scene, both f64 through the kernels:
+# one evaluation of the same pairs in another order, so rounding alone
+# (~1e-14 relative on the full scene, see MATRIX_*) separates them
+THIN_REL = 1e-9
+# The f32 kernel path against the f64 plain path in image mode: EVAL_REL,
+# but for W. The screw cell's per-atom virial carries the same f32 bias as
+# the slab's (~1e-4 eV an atom from the normalisation, see EVAL_REL), over
+# a smaller sum |dx Fj| (0.32 against 0.78 eV an atom): f32 arithmetic
+# alone reads 3.6e-4 of that scale, through the plain path on a CPU. The
+# kernels' own rounding (~4e-6 relative, REL_BOUND's measurements) is far
+# below that bias, so the kernel path's W error is held to 2x the plain
+# f32 path's on the same inputs, measured in the same run.
+THIN_W_OVER_PLAIN = 2.0
+# The elems-blind evaluation (every atom through element 1's network) must
+# differ from the selected one by far more than the f32 path's error: by
+# more than 100 times the difference the f32 kernels read against the f64
+# plain path, and by more than 10 times that difference's bound. (Element
+# 2's weights are element 1's times 1 + 0.02 N(0, 1): on a 768-atom slab
+# of the fe potential through the plain path on a CPU, the blind forces
+# differ by 6.8 % of max|F|, 68x the max_dF bound, and f32 by 1.8e-5.)
+BLIND_OVER_ERR, BLIND_OVER_BOUND = 100.0, 10.0
 
 # Kernel vs plain, per output, as a fraction of the output's max |value|.
 # f32: the longest per-lane sums run over ~400 terms, whose worst-case
@@ -626,21 +684,24 @@ def phase_kernels(x, box, cfg32, p32):
     return list(records.values()), sl
 
 
-def phase_evaluator(x, box, cfg32, p32, cfg64, p64, sl, angular="harmonic"):
+def phase_evaluator(x, box, cfg32, p32, cfg64, p64, sl, angular="harmonic",
+                    elems=None, pot=None, tag=None):
     """Kernel path in f32 against the plain path in f64, same short list;
     on the harmonic path then the f64 kernel path against the autograd
-    model on a small box."""
+    model on a small box. elems: the atoms' elements (a multi-element
+    potential `pot`; the small box then takes types 50/50 from SEED)."""
     from meng_zhang_tpu_torch.models import annp
     from meng_zhang_tpu_torch.ops import fused_annp as fa
     from meng_zhang_tpu_torch.system.neighbors import build_neighbors_n2
     from meng_zhang_tpu_torch.testing import thermal_bcc
-    tag = "evaluator" if angular == "harmonic" else "cos-evaluator"
+    if tag is None:
+        tag = "evaluator" if angular == "harmonic" else "cos-evaluator"
     n = x.shape[0]
     dev = x.device
     ev32 = fa.FusedAnnp(cfg32, p32, k_short=K_SHORT, short_delta=SHORT_DELTA,
-                        angular=angular)
+                        angular=angular, elems=elems)
     ev64 = fa.FusedAnnp(cfg64, p64, k_short=K_SHORT, short_delta=SHORT_DELTA,
-                        plain=True, angular=angular)
+                        plain=True, angular=angular, elems=elems)
     x64, box64 = x.double(), box.double()
     e32, f32, w32 = ev32.energy_forces_short(x, box, sl)
     e64, f64, w64 = ev64.energy_forces_short(
@@ -654,48 +715,61 @@ def phase_evaluator(x, box, cfg32, p32, cfg64, p64, sl, angular="harmonic"):
     # the virial's scale from the f32 kernel path's Fj (a scale only);
     # filler lanes carry Fj = 0 exactly, so they add nothing here
     dd = fa.pair_dx_planes(x, box, sl.sidx, PBC)
-    fj = ev32._eval_fj(*dd)[1]
+    fj = ev32._eval_fj(*dd, elems)[1]
     w_abs = max(float((da.double() * fb.double()).abs().sum())
                 for da in dd for fb in fj)
     del dd, fj
-    got = {"dE_per_atom": abs(float(e32) - float(e64)) / n,
-           "max_dF": float((f32.double() - f64).abs().max()),
-           "max_dW": float((w32.double() - w64).abs().max()),
-           "sum_F": float(f32.double().sum(0).abs().max())}
-    scale = {"dE_per_atom": abs(float(e64)) / n,
-             "max_dF": float(f64.abs().max()),
-             "max_dW": w_abs, "sum_F": n * f_rms}
     vol = BOX[0] * BOX[1] * BOX[2]
     log(f"[{tag}] N {n}: E/N f64 {float(e64) / n + cfg64.e_shift:.9f} eV"
         f" (shift-free {float(e64) / n:.6e}); RMS F {f_rms:.4e} eV/A; max|F|"
-        f" {scale['max_dF']:.4e} eV/A; virial pressure "
+        f" {float(f64.abs().max()):.4e} eV/A; virial pressure "
         f"{float(torch.trace(w64)) / 3 / vol * 1.6021765e6:.1f} bar")
-    for key, val in got.items():
-        bound_abs = EVAL_REL[key] * scale[key]
-        log(f"[{tag}] {key} {val:.3e} (bound {bound_abs:.3e} = "
-            f"{EVAL_REL[key]:.0e} x {scale[key]:.4e})")
-        check(val <= bound_abs, f"{tag} {key} {val:.3e} over "
-              f"{bound_abs:.3e}")
+    got = eval_gates(tag, EVAL_REL, (e32, f32, w32), (e64, f64, w64), w_abs)
     if angular != "harmonic":
         return got
 
     xs, bs = thermal_bcc(5, seed=SEED, disp=0.08)
     xs = torch.tensor(xs, dtype=torch.float64, device=dev)
     bs = torch.tensor(bs, dtype=torch.float64, device=dev)
-    cfg_p, p_p = annp.make_annp(_potential(), torch.float64, dev)
+    cfg_p, p_p = annp.make_annp(pot or _potential(), torch.float64, dev)
+    el = None if elems is None else torch.as_tensor(
+        np.random.default_rng(SEED).integers(0, 2, xs.shape[0]), device=dev)
     nb = build_neighbors_n2(xs, bs, cfg_p.cut, K_SHORT)
     check(not bool(nb.overflow), "small box: neighbor overflow")
-    e_k, f_k, _ = fa.FusedAnnp(cfg_p, p_p, k_short=K_SHORT).energy_forces(
-        xs, bs, nb.idx)
-    e_a, f_a = annp.energy_forces(cfg_p, p_p, xs, bs, nb.idx)
+    e_k, f_k, _ = fa.FusedAnnp(cfg_p, p_p, k_short=K_SHORT,
+                               elems=el).energy_forces(xs, bs, nb.idx)
+    e_a, f_a = annp.energy_forces(cfg_p, p_p, xs, bs, nb.idx, el)
     e_a = float(e_a) - xs.shape[0] * cfg_p.e_shift       # shift-free
     de = abs(float(e_k) - e_a) / abs(e_a)
     df = float((f_k - f_a).abs().max())
-    log(f"[evaluator] 250-atom box, f64 kernels vs autograd model: rel dE "
+    log(f"[{tag}] 250-atom box, f64 kernels vs autograd model: rel dE "
         f"{de:.3e} (bound {REF_E_RTOL:.0e}), max dF {df:.3e} eV/A (bound "
         f"{REF_F_ATOL:.0e})")
     check(de <= REF_E_RTOL and df <= REF_F_ATOL,
-          "kernel path disagrees with the autograd model on the small box")
+          f"{tag}: kernel path disagrees with the autograd model on the "
+          "small box")
+    return got
+
+
+def eval_gates(tag, rel, out32, out64, w_abs):
+    """The evaluator gates: (E, F, W) of the f32 kernel path against the
+    f64 plain path, each difference within rel[key] of its scale (W's:
+    w_abs = max_ab sum_pairs |dx_a Fj_b|). Returns the differences."""
+    (e32, f32, w32), (e64, f64, w64) = out32, out64
+    n = f64.shape[0]
+    got = {"dE_per_atom": abs(float(e32) - float(e64)) / n,
+           "max_dF": float((f32.double() - f64).abs().max()),
+           "max_dW": float((w32.double() - w64).abs().max()),
+           "sum_F": float(f32.double().sum(0).abs().max())}
+    scale = {"dE_per_atom": abs(float(e64)) / n,
+             "max_dF": float(f64.abs().max()), "max_dW": w_abs,
+             "sum_F": n * float(f64.pow(2).mean().sqrt())}
+    for key, r in rel.items():
+        bound_abs = r * scale[key]
+        log(f"[{tag}] {key} {got[key]:.3e} (bound {bound_abs:.3e} = "
+            f"{r:.0e} x {scale[key]:.4e})")
+        check(got[key] <= bound_abs, f"{tag} {key} {got[key]:.3e} over "
+              f"{bound_abs:.3e}")
     return got
 
 
@@ -752,60 +826,70 @@ def phase_matrix_vs_harmonic(x, box, cfg64, p64, sl):
     return de, df
 
 
-def fe_simulator(x, cfg32, p32, mass, angular):
-    """The fe NPT main path's Simulator through one angular path."""
+def fe_simulator(x, cfg32, p32, mass, angular, elems=None, mcfg=None):
+    """The fe NPT main path's Simulator through one angular path; mass a
+    number or the atoms' masses, elems the atoms' elements, mcfg the
+    MDConfig (default md_config)."""
     from meng_zhang_tpu_torch.md.simulation import Simulator
     from meng_zhang_tpu_torch.ops import fused_annp as fa
     ev = fa.FusedAnnp(cfg32, p32, k_short=K_SHORT, short_delta=SHORT_DELTA,
-                      angular=angular)
+                      angular=angular, elems=elems)
+    masses = torch.as_tensor(mass, dtype=torch.float32, device=x.device)
     return Simulator(
         lambda xx, bb, nb, sh: ev.energy_forces_short(xx, bb, sh),
-        torch.full((x.shape[0],), mass, dtype=torch.float32, device=x.device),
-        md_config(cfg32),
+        masses.expand(x.shape[0]).contiguous(), mcfg or md_config(cfg32),
         short_build=lambda xx, bb, nb: ev.compact_short(xx, bb, nb.idx))
 
 
-def phase_main_path(x, box, cfg32, p32, mass, card, angular="harmonic"):
+def phase_main_path(x, box, cfg32, p32, mass, card, angular="harmonic",
+                    elems=None, tag=None, n_blocks=None, rate_blocks=None):
     """init_state + blocks of the NPT main path through one angular path's
-    kernels; the other path's kernels must not launch."""
+    kernels (elems: the atoms' elements, with `mass` their masses); the
+    other path's kernels and the plain versions must not run. Returns the
+    path's launches, its atom-steps/s over the rate window and its median
+    block's ms (a block without a skin rebuild)."""
     from meng_zhang_tpu_torch.ops import kernels
     if angular == "harmonic":
-        tag, n_blocks, rate_blocks = "main", N_BLOCKS, RATE_BLOCKS
+        tag0, nb0, rb0 = "main", N_BLOCKS, RATE_BLOCKS
         names, others = ("g_harm", "force_harm"), ("g_cos", "force_cos")
     else:
-        tag, n_blocks, rate_blocks = "cos-main", COS_BLOCKS, COS_RATE_BLOCKS
+        tag0, nb0, rb0 = "cos-main", COS_BLOCKS, COS_RATE_BLOCKS
         names, others = ("g_cos", "force_cos"), ("g_harm", "force_harm")
+    tag, n_blocks = tag or tag0, n_blocks or nb0
+    rate_blocks = rate_blocks or rb0
     n = x.shape[0]
-    sim = fe_simulator(x, cfg32, p32, mass, angular)
+    sim = fe_simulator(x, cfg32, p32, mass, angular, elems)
     pe_off = n * cfg32.e_shift
     torch.cuda.reset_peak_memory_stats()
     kernels.reset_launch_counts()
     t0 = time.time()
-    st = sim.init_state(x, box, seed=SEED, t_init=300.0)
-    torch.cuda.synchronize()
-    log(f"[{tag}] init_state {time.time() - t0:.2f} s")
-    rebuilds, rows, block_s = 0, [], []
-    for blk in range(n_blocks):
-        t0 = time.time()
-        st, th = sim.run(st, 1)
+    with plain_calls() as plain:
+        st = sim.init_state(x, box, seed=SEED, t_init=300.0)
         torch.cuda.synchronize()
-        block_s.append(time.time() - t0)
-        rebuilds += sim.rebuild_count
-        if blk == 0:
-            st = sim.rebuild(st)       # drive the rebuild path once
-            rebuilds += 1
-        row = [float(v[-1]) for v in th]
-        rows.append(row)
-        b = st.box.tolist()
-        srow = int((st.short.sidx < n).sum(1).max())
-        log(f"[{tag}] step {int(row[0]):4d} T {row[1]:8.3f} K  PE "
-            f"{row[2] + pe_off:.6f} eV  P {row[4]:9.2f} bar  box "
-            f"{b[0]:.4f} {b[1]:.5f} {b[2]:.4f}  conserved "
-            f"{row[6]:.6e}  short row max {srow}/{K_SHORT}  "
-            f"{block_s[-1] * 1e3:.1f} ms")
+        log(f"[{tag}] init_state {time.time() - t0:.2f} s")
+        rebuilds, rows, block_s = 0, [], []
+        for blk in range(n_blocks):
+            t0 = time.time()
+            st, th = sim.run(st, 1)
+            torch.cuda.synchronize()
+            block_s.append(time.time() - t0)
+            rebuilds += sim.rebuild_count
+            if blk == 0:
+                st = sim.rebuild(st)       # drive the rebuild path once
+                rebuilds += 1
+            row = [float(v[-1]) for v in th]
+            rows.append(row)
+            b = st.box.tolist()
+            srow = int((st.short.sidx < n).sum(1).max())
+            log(f"[{tag}] step {int(row[0]):4d} T {row[1]:8.3f} K  PE "
+                f"{row[2] + pe_off:.6f} eV  P {row[4]:9.2f} bar  box "
+                f"{b[0]:.4f} {b[1]:.5f} {b[2]:.4f}  conserved "
+                f"{row[6]:.6e}  short row max {srow}/{K_SHORT}  "
+                f"{block_s[-1] * 1e3:.1f} ms")
     launches = {name: getattr(kernels, name).launches
                 for name in names + others}
     steps = n_blocks * THERMO_EVERY
+    check(not plain, f"{tag}: plain versions ran on the card: {plain}")
     check(all(np.isfinite(r).all() for r in rows), f"{tag}: non-finite thermo")
     check(not bool(st.overflow), f"{tag}: neighbor overflow")
     check(not bool(st.unsafe), f"{tag}: unsafe (dangerous-build) latch set")
@@ -824,7 +908,8 @@ def phase_main_path(x, box, cfg32, p32, mass, card, angular="harmonic"):
     log(f"[{tag}] {aps:.1f} atom-steps/s over the last {rate_blocks} blocks "
         f"({window:.3f} s) on {card}; peak device memory "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
-    return {name: launches[name] for name in names}
+    return ({name: launches[name] for name in names}, aps,
+            float(np.median(block_s)) * 1e3)
 
 
 def profile_block(tag, what, sim, st, steps, card, tries=3):
@@ -1076,22 +1161,12 @@ def phase_ni_evaluator(x, box, cfg32, p32, cfg64, p64, sl):
     dd = fa.pair_dx_planes(x64, box64, sl.sidx, cfg64.pbc)
     fj = ev64._eval_fj(*dd)[1]
     w_abs = max(float((da * fb).abs().sum()) for da in dd for fb in fj)
-    got = {"dE_per_atom": abs(float(e32) - float(e64)) / n,
-           "max_dF": float((f32.double() - f64).abs().max()),
-           "max_dW": float((w32.double() - w64).abs().max()),
-           "sum_F": float(f32.double().sum(0).abs().max())}
-    scale = {"dE_per_atom": abs(float(e64)) / n,
-             "max_dF": float(f64.abs().max()),
-             "max_dW": w_abs, "sum_F": n * f_rms}
     vol = float(box64.prod())
     log(f"[ni-evaluator] N {n}: E/N f64 {float(e64) / n:.9f} eV; RMS F "
-        f"{f_rms:.4e} eV/A; max|F| {scale['max_dF']:.4e} eV/A; virial "
-        f"pressure {float(torch.trace(w64)) / 3 / vol * 1.6021765e6:.1f} bar")
-    for key, val in got.items():
-        bound = NI_EVAL_REL[key] * scale[key]
-        log(f"[ni-evaluator] {key} {val:.3e} (bound {bound:.3e} = "
-            f"{NI_EVAL_REL[key]:.0e} x {scale[key]:.4e})")
-        check(val <= bound, f"ni evaluator {key} {val:.3e} over {bound:.3e}")
+        f"{f_rms:.4e} eV/A; max|F| {float(f64.abs().max()):.4e} eV/A; virial"
+        f" pressure {float(torch.trace(w64)) / 3 / vol * 1.6021765e6:.1f} bar")
+    got = eval_gates("ni-evaluator", NI_EVAL_REL, (e32, f32, w32),
+                     (e64, f64, w64), w_abs)
 
     xs, bs = thermal_fcc(4, seed=SEED, disp=NI_DISP, a=NI_A)
     xs = torch.tensor(xs, dtype=torch.float64, device=dev)
@@ -1830,6 +1905,427 @@ def phase_minimize(card, tmp, paths, dev):
     return {k: launches[k] for k in ("g_harm", "force_harm")}
 
 
+# ------------------------------------------ multi-element and thin box
+def blind_gate(tag, f_blind, f_sel, measured, bound):
+    """The elems-blind forces must differ from the selected ones by more
+    than BLIND_OVER_ERR x the measured f32 error and BLIND_OVER_BOUND x its
+    bound: the select is live."""
+    diff = float((f_blind.double() - f_sel.double()).abs().max())
+    log(f"[{tag}] elems-blind: max |F_blind - F_elems| {diff:.4e} eV/A = "
+        f"{diff / max(measured, 1e-300):.1f}x the f32 error {measured:.3e}, "
+        f"{diff / bound:.1f}x its bound {bound:.3e}")
+    check(diff > BLIND_OVER_ERR * measured and diff > BLIND_OVER_BOUND * bound,
+          f"{tag}: the elems-blind evaluation is too close to the selected "
+          "one: the network select is not live")
+
+
+def phase_multi_fe(x, box, sl, card, single):
+    """The benchmark scene with types 1/2 drawn 50/50 and the two-element
+    synthetic fe potential: (a) f32 kernels with elems against the f64
+    plain path with elems on both angular paths, and (b) the f64 kernel
+    path against the autograd model on a 250-atom box (phase_evaluator);
+    (c) the elems-blind control; (d) init_state + MULTI_BLOCKS NPT blocks
+    through Simulator. Returns (launches, types)."""
+    from meng_zhang_tpu_torch.models.annp import make_annp
+    from meng_zhang_tpu_torch.ops import fused_annp as fa
+    from meng_zhang_tpu_torch.testing import synthetic_fe_potential_multi
+    n, dev = x.shape[0], x.device
+    pot = synthetic_fe_potential_multi(2)
+    types = np.random.default_rng(0).integers(1, 3, n)
+    el = torch.as_tensor(types - 1, device=dev)
+    cfg32, p32 = make_annp(pot, torch.float32, dev, pbc=PBC)
+    cfg64, p64 = make_annp(pot, torch.float64, dev, pbc=PBC)
+    log(f"[multi-fe] {pot.elements} masses {pot.masses}: "
+        f"{int((types == 1).sum())} / {int((types == 2).sum())} atoms")
+    got = {angular: phase_evaluator(x, box, cfg32, p32, cfg64, p64, sl,
+                                    angular, elems=el, pot=pot,
+                                    tag=f"multi-fe {angular}")
+           for angular in ("harmonic", "matrix")}
+    ev = fa.FusedAnnp(cfg32, p32, k_short=K_SHORT, short_delta=SHORT_DELTA)
+    f_sel = ev.energy_forces_short(x, box, sl, elems=el)[1]
+    f_blind = ev.energy_forces_short(x, box, sl)[1]
+    f_max = float(f_sel.abs().max())
+    blind_gate("multi-fe", f_blind, f_sel, got["harmonic"]["max_dF"],
+               EVAL_REL["max_dF"] * f_max)
+    del f_sel, f_blind
+    masses = torch.as_tensor(pot.masses, dtype=torch.float32,
+                             device=dev)[el]
+    launches, rate, block_ms = phase_main_path(
+        x, box, cfg32, p32, masses, card, elems=el, tag="multi-fe",
+        n_blocks=MULTI_BLOCKS, rate_blocks=MULTI_RATE_BLOCKS)
+    log(f"[multi-fe] {rate:.1f} atom-steps/s against {single[0]:.1f} of "
+        f"the single-element main path ({100 * (rate / single[0] - 1):+.1f}"
+        f" %; their windows hold different shares of skin rebuilds); median "
+        f"block {block_ms:.3f} ms against {single[1]:.3f} "
+        f"({100 * (block_ms / single[1] - 1):+.1f} %) on {card}")
+    return launches, types
+
+
+def phase_rowsweep(x, box, cfg32, p32, mass, card):
+    """build_neighbors_cell_rowsweep against build_neighbors_cell on the
+    benchmark scene, then Simulator(nbr_method="rowsweep"): a block, a
+    forced rebuild (its list equal to a fresh build), a block."""
+    import dataclasses
+    from meng_zhang_tpu_torch.ops import kernels
+    from meng_zhang_tpu_torch.system.neighbors import (
+        build_neighbors_cell, build_neighbors_cell_rowsweep)
+    mcfg = dataclasses.replace(md_config(cfg32), nbr_method="rowsweep")
+    args = (x, box, cfg32.cut + SKIN, CAPACITY, mcfg.cell_dims,
+            CELL_CAPACITY)
+    a = build_neighbors_cell_rowsweep(*args, pbc=PBC)
+    b = build_neighbors_cell(*args, pbc=PBC)
+    check(torch.equal(a.idx, b.idx) and bool(a.overflow) == bool(b.overflow)
+          and not bool(a.overflow), "rowsweep: rows or flags differ from "
+          "build_neighbors_cell")
+    sim = fe_simulator(x, cfg32, p32, mass, "harmonic", mcfg=mcfg)
+    kernels.reset_launch_counts()
+    with plain_calls() as plain:
+        st = sim.init_state(x, box, seed=SEED, t_init=300.0)
+        st, th0 = sim.run(st, 1)
+        st = sim.rebuild(st)
+        fresh = build_neighbors_cell(st.x, st.box, *args[2:], pbc=PBC)
+        check(torch.equal(st.nbrs.idx, fresh.idx),
+              "rowsweep: the Simulator's rebuilt list differs from a fresh "
+              "build")
+        st, th1 = sim.run(st, 1)
+    launches = {k: getattr(kernels, k).launches
+                for k in ("g_harm", "force_harm")}
+    rows = [[float(v[-1]) for v in th] for th in (th0, th1)]
+    check(not plain and all(np.isfinite(r).all() for r in rows)
+          and not bool(st.overflow) and not bool(st.unsafe),
+          f"rowsweep: plain {plain}, rows {rows}, overflow "
+          f"{bool(st.overflow)}, unsafe {bool(st.unsafe)}")
+    want = 2 * THERMO_EVERY + 1
+    check(all(v == want for v in launches.values()),
+          f"rowsweep: launches {launches}, expected {want} each")
+    log(f"[rowsweep] {x.shape[0]} atoms: rows and flags equal to "
+        f"build_neighbors_cell; Simulator(nbr_method='rowsweep') 2 blocks "
+        f"around a forced rebuild, T {rows[-1][1]:.3f} K, launches "
+        f"{launches} on {card}")
+    return launches
+
+
+def phase_multi_ni(dev, card):
+    """The thermal ni box with types 1/2 drawn 50/50 and the two-element
+    synthetic ni potential: (a) FusedNi(elems) in f32 through the kernels
+    against the f64 plain path; (b) the elems-blind control; (c) init_state
+    + MULTI_NI_BLOCKS NVT blocks of the chunked functions with elems
+    (make_short_chunked_fns), whose evaluator is FusedNi, from the perfect
+    lattice."""
+    from meng_zhang_tpu_torch.md.simulation import Simulator
+    from meng_zhang_tpu_torch.models import annp
+    from meng_zhang_tpu_torch.ops import fused_annp as fa
+    from meng_zhang_tpu_torch.ops import fused_ni as fn
+    from meng_zhang_tpu_torch.ops import kernels
+    from meng_zhang_tpu_torch.testing import (synthetic_ni_potential_multi,
+                                              thermal_fcc)
+    pot = synthetic_ni_potential_multi(2)
+    cfg32, p32 = annp.make_annp(pot, torch.float32, dev)
+    cfg64, p64 = annp.make_annp(pot, torch.float64, dev)
+    x, box, sl = ni_thermal_scene(dev, cfg32, p32)
+    n = x.shape[0]
+    el = torch.as_tensor(np.random.default_rng(0).integers(0, 2, n),
+                         device=dev)
+    ev32 = fn.FusedNi(cfg32, p32, k_short=NI_KS, short_delta=NI_DELTA,
+                      elems=el)
+    ev64 = fn.FusedNi(cfg64, p64, k_short=NI_KS, short_delta=NI_DELTA,
+                      plain=True, elems=el)
+    x64, box64 = x.double(), box.double()
+    out32 = ev32.energy_forces_short(x, box, sl)
+    out64 = ev64.energy_forces_short(x64, box64,
+                                     fa.ShortList(sl.sidx, x64, sl.overflow))
+    dd = fa.pair_dx_planes(x64, box64, sl.sidx, cfg64.pbc)
+    fj = ev64._eval_fj(*dd, el)[1]
+    w_abs = max(float((da * fb).abs().sum()) for da in dd for fb in fj)
+    del dd, fj
+    got = eval_gates("multi-ni", NI_EVAL_REL, out32, out64, w_abs)
+    f_blind = fn.FusedNi(cfg32, p32, k_short=NI_KS).energy_forces_short(
+        x, box, sl)[1]
+    blind_gate("multi-ni", f_blind, out32[1], got["max_dF"],
+               NI_EVAL_REL["max_dF"] * float(out64[1].abs().max()))
+    del out32, out64, f_blind, x64, box64
+
+    force_fn, light, short_build = annp.make_short_chunked_fns(
+        cfg32, p32, k_short=NI_KS, delta=NI_DELTA, elems=el)
+    rc = annp.descriptor_cutoff(cfg32, p32)
+    masses = torch.as_tensor(pot.masses, dtype=torch.float32,
+                             device=dev)[el]
+    sim = Simulator(force_fn, masses, ni_md_config(rc, box.cpu().numpy()),
+                    short_build=short_build, force_fn_light=light)
+    # from the perfect lattice, as the ni main path: on the thermal box the
+    # stiff potential's forces move atoms past short_delta/2 in an epoch
+    x0 = torch.tensor(thermal_fcc(NI_CELLS, disp=0.0, a=NI_A)[0],
+                      dtype=torch.float32, device=dev)
+    kernels.reset_launch_counts()
+    t0 = time.time()
+    with plain_calls() as plain:
+        st = sim.init_state(x0, box, seed=SEED, t_init=NI_T_INIT)
+        st, th = sim.run(st, MULTI_NI_BLOCKS)
+        torch.cuda.synchronize()
+    wall = time.time() - t0
+    launches = {k: getattr(kernels, k).launches for k in ("ni_g", "ni_force")}
+    want = MULTI_NI_BLOCKS * NI_THERMO_EVERY + 1
+    check(not plain and bool(torch.isfinite(th.temp).all())
+          and bool(torch.isfinite(th.pe).all()) and not bool(st.overflow)
+          and not bool(st.unsafe), f"multi-ni: plain {plain}, T "
+          f"{th.temp.tolist()}, overflow {bool(st.overflow)}, unsafe "
+          f"{bool(st.unsafe)}")
+    check(all(v == want for v in launches.values()),
+          f"multi-ni: launches {launches}, expected {want} each")
+    log(f"[multi-ni] {MULTI_NI_BLOCKS} NVT blocks of the chunked functions "
+        f"with elems: T {[round(t, 3) for t in th.temp.tolist()]} K, "
+        f"launches {launches}, {wall:.2f} s with init_state on {card}")
+    return launches
+
+
+def phase_thin_box(card, tmp, dev):
+    """The screw-dislocation scene of `tools screw --dislocation`, one
+    Burgers vector thick along z, run as it is through explicit images:
+    (a) image mode in f64 against the z-replicated scene through the
+    ordinary path, (b) the f32 kernels against the f64 plain path in image
+    mode, and g_harm / force_harm against their plain versions on the
+    image planes, (c) init_state + THIN_BLOCKS NVE blocks through
+    Simulator(image_shifts=...), (d) FIRE (--min-ftol FIRE_FTOL) on the
+    image route. Returns (c)'s and (d)'s launches."""
+    import dataclasses
+    from meng_zhang_tpu_torch import tools
+    from meng_zhang_tpu_torch.io.lammps_data import read_data
+    from meng_zhang_tpu_torch.md.minimize import fire_relax
+    from meng_zhang_tpu_torch.md.simulation import MDConfig, Simulator
+    from meng_zhang_tpu_torch.models import annp
+    from meng_zhang_tpu_torch.ops import fused_annp as fa
+    from meng_zhang_tpu_torch.ops import kernels
+    from meng_zhang_tpu_torch.system.cell import image_table
+    from meng_zhang_tpu_torch.system.neighbors import (
+        build_neighbors_cell, build_neighbors_images, cell_grid_dims)
+    path = os.path.join(tmp, "screw_thin.dat")
+    tools.main(["screw", "--dislocation", "--out", path])
+    data = read_data(path)
+    xn, bn = data.x.copy(), data.box
+    xn[:, 2] %= bn[2]           # the dislocation's u_z leaves [0, b): wrap
+    n = len(xn)
+    pot = _potential()
+    rlist = pot.cut + SKIN
+    shifts, pbc_eff = annp.image_shift_table(bn, rlist, THIN_PBC)
+    check(shifts is not None and len(shifts) == THIN_IMAGES
+          and pbc_eff == (False,) * 3, f"thin-box: image shifts {shifts}, "
+          f"pbc_eff {pbc_eff}")
+    log(f"[thin-box] {n} atoms, box {np.round(bn, 4).tolist()} A, pbc "
+        f"{THIN_PBC}: {len(shifts)} z-images, x_ext {len(shifts) * n} rows")
+    sh = torch.as_tensor(shifts, device=dev)
+    cfg64, p64 = annp.make_annp(pot, torch.float64, dev, pbc=pbc_eff)
+    cfg32, p32 = annp.make_annp(pot, torch.float32, dev, pbc=pbc_eff)
+    x64 = torch.tensor(xn, dtype=torch.float64, device=dev)
+    box64 = torch.tensor(bn, dtype=torch.float64, device=dev)
+    t0 = time.time()
+    nb = build_neighbors_images(x64, box64, sh, rlist, CAPACITY, pbc_eff)
+    torch.cuda.synchronize()
+    n_ext = len(shifts) * n
+    log(f"[thin-box] image n2 build {time.time() - t0:.3f} s, overflow "
+        f"{bool(nb.overflow)}, widest row {int((nb.idx < n_ext).sum(1).max())}"
+        f"/{CAPACITY}")
+    check(not bool(nb.overflow), "thin-box: image neighbor overflow")
+
+    # (a) image mode against the z-replicated scene, both f64 kernels
+    img = annp.energy_forces_virial_images(cfg64, p64, x64, box64, nb.idx,
+                                           sh, shift=False)
+    reps = len(shifts)
+    dz = torch.tensor([0.0, 0.0, bn[2]], dtype=torch.float64, device=dev)
+    x_rep = torch.cat([x64 + k * dz for k in range(reps)])
+    box_rep = box64 * torch.tensor([1.0, 1.0, reps], dtype=torch.float64,
+                                   device=dev)
+    cfgr, pr = annp.make_annp(pot, torch.float64, dev, pbc=THIN_PBC)
+    rr = pot.cut + 0.3
+    nbr = build_neighbors_cell(x_rep, box_rep, rr, CAPACITY,
+                               cell_grid_dims(box_rep.cpu().numpy(), rr),
+                               CELL_CAPACITY, pbc=THIN_PBC)
+    check(not bool(nbr.overflow), "thin-box: replicated scene overflow")
+    rep = annp.energy_forces_virial_chunked(cfgr, pr, x_rep, box_rep,
+                                            nbr.idx, shift=False)
+    del nbr, x_rep
+    de = abs(float(img[0]) - float(rep[0]) / reps) / abs(float(rep[0]) / reps)
+    df = float((img[1] - rep[1][:n]).abs().max()) / float(rep[1].abs().max())
+    dw = float((img[2] - rep[2] / reps).abs().max()) \
+        / float((rep[2] / reps).abs().max())
+    log(f"[thin-box] f64 image mode vs the z-replicated scene ({reps * n} "
+        f"atoms): rel dE {de:.3e}, max dF {df:.3e} of max|F|, max dW "
+        f"{dw:.3e} of max|W| (bound {THIN_REL:.0e} each); E/N "
+        f"{float(img[0]) / n + cfg64.e_shift:.9f} eV")
+    check(max(de, df, dw) <= THIN_REL,
+          "thin-box: image mode disagrees with the replicated scene")
+    del rep
+
+    # (b) f32 kernels against the f64 plain path, image mode
+    x32, box32 = x64.float(), box64.float()
+    out32 = annp.energy_forces_virial_images(cfg32, p32, x32, box32, nb.idx,
+                                             sh, shift=False)
+    x_ext64 = image_table(x64, box64, sh)
+    ev64 = fa.FusedAnnp(cfg64, p64, k_short=kernels.MAX_K, plain=True)
+    zero = torch.zeros((), dtype=torch.bool, device=dev)
+    out64 = ev64.energy_forces_short(x64, box64,
+                                     fa.ShortList(nb.idx, x64, zero),
+                                     x_ext=x_ext64)
+    dd = fa.pair_dx_planes(x64, box64, nb.idx, pbc_eff, x_ext=x_ext64)
+    fj = ev64._eval_fj(*dd)[1]
+    w_abs = max(float((da * fb).abs().sum()) for da in dd for fb in fj)
+    # W: on this scene f32 arithmetic itself misses max_dW's bound (the
+    # plain path in f32 reads 3.6e-4 of the scale on a CPU): the kernel
+    # path is held to the plain path's own f32 error instead
+    got = eval_gates("thin-box", {k: v for k, v in EVAL_REL.items()
+                                  if k != "max_dW"}, out32, out64, w_abs)
+    x_ext32 = image_table(x32, box32, sh)
+    w32p = fa.FusedAnnp(cfg32, p32, k_short=kernels.MAX_K,
+                        plain=True).energy_forces_short(
+        x32, box32, fa.ShortList(nb.idx, x32, zero), x_ext=x_ext32)[2]
+    dw_plain = float((w32p.double() - out64[2]).abs().max())
+    log(f"[thin-box] max_dW {got['max_dW']:.3e} ({got['max_dW'] / w_abs:.2e}"
+        f" of {w_abs:.4e}), the f32 plain path's {dw_plain:.3e} (bound "
+        f"{THIN_W_OVER_PLAIN} x that)")
+    check(got["max_dW"] <= THIN_W_OVER_PLAIN * dw_plain,
+          "thin-box: the kernels' f32 virial error exceeds the plain f32 "
+          "path's")
+    del x_ext32, w32p
+    # the kernels' inputs in image mode: self-image lanes (dx = (0, 0, k b),
+    # longer than the box) are ordinary lanes to them
+    self_img = (nb.idx < n_ext) & (nb.idx % n == torch.arange(
+        n, device=dev)[:, None])
+    p, k = dd[0].shape
+    rng = np.random.default_rng(SEED)
+    dedg_np = np.zeros((p, fa.NSF_PAD))
+    dedg_np[:, :cfg64.nsf] = rng.normal(size=(p, cfg64.nsf))
+    b_np = np.zeros((p, fa.AB_PAD))
+    b_np[:, :cfg64.ntsf ** 2 + 1] = rng.normal(size=(p, cfg64.ntsf ** 2 + 1))
+    filler = nb.idx >= n_ext
+    for dtype in (torch.float32, torch.float64):
+        pl = [t.to(dtype) for t in dd]
+        dedg = torch.tensor(dedg_np, dtype=dtype, device=dev)
+        b = torch.tensor(b_np, dtype=dtype, device=dev)
+        tag = "thin-box kernels " + ("f32" if dtype == torch.float32
+                                     else "f64")
+        args = (cfg64.npsf, cfg64.ntsf, cfg64.cut)
+        compare(tag, f"g_harm [{p}, {k}]", ("g_raw", "A"),
+                kernels.g_harm(*pl, *args), fa.g_harm_plain(*pl, *args),
+                REL_BOUND[dtype])
+        compare(tag, f"force_harm [{p}, {k}]", ("fjx", "fjy", "fjz"),
+                kernels.force_harm(*pl, dedg, b, *args),
+                fa.force_harm_plain(*pl, dedg, b, *args), REL_BOUND[dtype],
+                filler)
+    log(f"[thin-box] {int(self_img.sum())} self-image lanes (an atom and its "
+        f"own z-image) among {int((~filler).sum())} lanes")
+    del dd, fj, out32, out64, x_ext64
+
+    # (c) NVE through Simulator(image_shifts=...)
+    def force_fn(xx, bb, nbrs):
+        return annp.energy_forces_virial_images(cfg32, p32, xx, bb, nbrs.idx,
+                                                sh, shift=False)
+
+    mcfg = MDConfig(dt=0.001, cutoff=pot.cut, skin=SKIN, capacity=CAPACITY,
+                    nbr_method="n2", ensemble="nve", t_target=300.0,
+                    thermo_every=THERMO_EVERY, pbc=pbc_eff)
+    masses = torch.full((n,), float(pot.masses[0]), dtype=torch.float32,
+                        device=dev)
+    sim = Simulator(force_fn, masses, mcfg, image_shifts=sh)
+    kernels.reset_launch_counts()
+    block_s, rows = [], []
+    with plain_calls() as plain:
+        t0 = time.time()
+        st = sim.init_state(x32, box32, seed=SEED, t_init=300.0)
+        torch.cuda.synchronize()
+        log(f"[thin-box] init_state {time.time() - t0:.3f} s")
+        for _ in range(THIN_BLOCKS):
+            t0 = time.time()
+            st, th = sim.run(st, 1)
+            torch.cuda.synchronize()
+            block_s.append(time.time() - t0)
+            rows.append([float(v[-1]) for v in th])
+            log(f"[thin-box] step {int(rows[-1][0]):4d} T {rows[-1][1]:8.3f} "
+                f"K  PE {rows[-1][2] + n * cfg32.e_shift:.6f} eV  conserved "
+                f"{rows[-1][6]:.6e}  rebuilds {sim.rebuild_count}  "
+                f"{block_s[-1] * 1e3:.1f} ms")
+    launches = {k: getattr(kernels, k).launches
+                for k in ("g_harm", "force_harm")}
+    want = THIN_BLOCKS * THERMO_EVERY + 1
+    check(not plain and all(np.isfinite(r).all() for r in rows)
+          and not bool(st.overflow), f"thin-box: plain {plain}, finite "
+          f"{all(np.isfinite(r).all() for r in rows)}, overflow "
+          f"{bool(st.overflow)}")
+    check(all(v == want for v in launches.values()),
+          f"thin-box: launches {launches}, expected {want} each")
+    window = sum(block_s[-THIN_RATE_BLOCKS:])
+    log(f"[thin-box] {THIN_BLOCKS * THERMO_EVERY} NVE steps: "
+        f"{n * THIN_RATE_BLOCKS * THERMO_EVERY / window:.1f} atom-steps/s "
+        f"over the last {THIN_RATE_BLOCKS} blocks ({window:.3f} s), "
+        f"conserved-energy drift {rows[-1][6] - rows[0][6]:+.6e} eV over "
+        f"{(THIN_BLOCKS - 1) * THERMO_EVERY} steps, unsafe "
+        f"{bool(st.unsafe)}, launches {launches} on {card}")
+
+    # (d) FIRE on the image route
+    kernels.reset_launch_counts()
+    with plain_calls() as plain:
+        t0 = time.time()
+        _, fst = fire_relax(
+            lambda xx, bb, idx: annp.energy_forces_virial_images(
+                cfg32, p32, xx, bb, idx, sh, shift=False)[:2],
+            sim.build_nbrs, x32, box32, f_tol=FIRE_FTOL)
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+    evals = kernels.g_harm.launches
+    check(not plain and float(fst.fmax) <= FIRE_FTOL and evals > 0,
+          f"thin-box FIRE: fmax {float(fst.fmax)} after {evals} evaluations")
+    log(f"[thin-box] FIRE (f_tol {FIRE_FTOL}) on the {n}-atom image route: "
+        f"fmax {float(fst.fmax):.4e} eV/A after {evals} evaluations, "
+        f"{wall:.3f} s on {card}")
+    return {k: launches[k] + getattr(kernels, k).launches for k in launches}
+
+
+def phase_cli_multi(card, tmp, types):
+    """run.main on the benchmark scene written with its [multi-fe] types
+    and the two-element .ann: NPT with per-atom dumps."""
+    from meng_zhang_tpu_torch.io.lammps_data import LammpsData, write_data
+    from meng_zhang_tpu_torch.io.potential import write_ann
+    from meng_zhang_tpu_torch.testing import synthetic_fe_potential_multi
+    x = np.load(SCENE_NPZ)["x"].astype(np.float64)
+    n = len(x)
+    data, ann = (os.path.join(tmp, f) for f in ("fe_st2.dat", "fe2.ann"))
+    dump = os.path.join(tmp, "fe2.lammpstrj")
+    write_data(data, LammpsData(x=x, types=types.astype(np.int32),
+                                box_lo=np.zeros(3), box_hi=np.asarray(BOX),
+                                n_types=2), comment="benchmark scene, typed")
+    pot = synthetic_fe_potential_multi(2)
+    write_ann(ann, pot)
+    rows, err, wall, launches = cli("cli-multi", [
+        "--data", data, "--potential", ann, "--ensemble", "npt", "--temp",
+        "300", "--couple", "y", "--boundary", "m p m", "--skin", str(SKIN),
+        "--capacity", str(CAPACITY), "--steps", str(CLI_MULTI_STEPS),
+        "--thermo", str(CLI_THERMO), "--dump", dump, "--dump-peratom",
+        "--profile"])
+    check(any(f"elements={pot.elements}" in ln for ln in err),
+          "cli-multi: the run did not read two elements")
+    want = CLI_MULTI_STEPS + 1 + CLI_MULTI_STEPS // CLI_THERMO
+    check(launches["g_harm"] == launches["force_harm"] == want,
+          f"cli-multi: launches {launches}, expected {want} of g_harm and "
+          "force_harm (init + one per step + one per per-atom dump)")
+    check(sum(launches.values()) == 2 * want,
+          f"cli-multi: other kernels launched: {launches}")
+    step, cols, snap = _last_snapshot(dump)
+    check(step == CLI_MULTI_STEPS and snap.shape == (n, 12)
+          and bool(np.isfinite(snap[:, 5:]).all()),
+          f"cli-multi: dump step {step}, shape {snap.shape}")
+    e_shift = pot.e_shift + pot.e_atom
+    pe_row = float(rows[-1].split()[2]) - n * e_shift
+    pe_sum = math.fsum(snap[:, 5]) - n * float(np.float32(e_shift))
+    block_ms = _phase_avg_ms(err, "md_block")
+    log(f"[cli-multi] step {step}: shift-free sum of c_pe {pe_sum:.4f} eV, "
+        f"thermo PotEng {pe_row:.4f} eV, |diff| {abs(pe_sum - pe_row):.4f} "
+        f"eV (bound {PE_SUM_ATOL}); Loop time rate {_loop_rate(err):.1f} "
+        f"atom-steps/s (per-atom dumps included); md_block {block_ms:.3f} ms"
+        f" a {CLI_THERMO}-step block = {n * CLI_THERMO / block_ms * 1e3:.1f}"
+        f" atom-steps/s; run.main {wall:.2f} s on {card}")
+    check(abs(pe_sum - pe_row) <= PE_SUM_ATOL,
+          "cli-multi: the dump's c_pe does not sum to the thermo PotEng")
+    return {k: launches[k] for k in ("g_harm", "force_harm")}
+
+
 def main():
     try:
         name, card = phase_device()
@@ -1839,11 +2335,16 @@ def main():
         cfg32, p32, cfg64, p64, mass = model(dev)
         records, sl = phase_kernels(x, box, cfg32, p32)
         phase_evaluator(x, box, cfg32, p32, cfg64, p64, sl)
-        launches = phase_main_path(x, box, cfg32, p32, mass, card)
+        launches, *main_rate = phase_main_path(x, box, cfg32, p32, mass,
+                                               card)
         phase_evaluator(x, box, cfg32, p32, cfg64, p64, sl, angular="matrix")
         phase_matrix_vs_harmonic(x, box, cfg64, p64, sl)
         launches.update(phase_main_path(x, box, cfg32, p32, mass, card,
-                                        angular="matrix"))
+                                        angular="matrix")[0])
+        multi_launches, types = phase_multi_fe(x, box, sl, card, main_rate)
+        # launches of the new paths' runs, added to the records' counts
+        extra = {"multi-fe": multi_launches,
+                 "rowsweep": phase_rowsweep(x, box, cfg32, p32, mass, card)}
         fe = (x, box, cfg32, p32, mass)
         del x, box, sl, cfg64, p64
         cfg32, p32, cfg64, p64, mass = ni_model(dev)
@@ -1853,6 +2354,7 @@ def main():
         del x, box, sl
         launches.update(phase_ni_main_path(dev, cfg32, p32, mass, card))
         ni = (dev, cfg32, p32, mass, card)
+        extra["multi-ni"] = phase_multi_ni(dev, card)
         t_anna = time.time()
         cfg32, p32, cfg64, p64, mass = anna_model(dev)
         anna, box_lists = phase_anna_kernel(dev, cfg32, p32)
@@ -1868,9 +2370,13 @@ def main():
                             "cli-ni": phase_cli_ni(card, paths, dev),
                             "minimize": phase_minimize(card, tmp, paths,
                                                        dev),
+                            "thin-box": phase_thin_box(card, tmp, dev),
+                            "cli-multi": phase_cli_multi(card, tmp, types),
                             "cli-anna": {"g_harm": phase_cli_anna(
                                 card, tmp, paths)}}
         log(f"[smoke] run-path launches {cli_launches}")
+        for key in ("thin-box", "cli-multi"):
+            extra[key] = cli_launches[key]
         phase_profile(*fe, card)
         phase_profile(*fe, card, angular="matrix")
         del fe
@@ -1883,8 +2389,10 @@ def main():
         print(f"FAIL: run chip_smoke.py from the repository root ({e})",
               file=sys.stderr, flush=True)
         return 1
+    log(f"[smoke] main-path launches {launches}; new paths' {extra}")
     for r in records:
-        r["launches"] = launches[r["name"]]
+        r["launches"] = launches[r["name"]] + sum(
+            d.get(r["name"], 0) for d in extra.values())
         if r["name"] == "g_harm":
             r.update(anna)
     log(f"[smoke] wall {time.time() - T_START:.1f} s")

@@ -1,9 +1,10 @@
 """LAMMPS data-file reader/writer (`atomic` atom style), numpy only.
 
 Counterpart of meng_zhang_tpu/io/lammps_data.py: `LammpsData`, `read_data`
-(:40) and `write_data` (:118). The JAX reader first tries the native C++
-parser (meng_zhang_tpu/io/native.py, native/libmzt.so); this one is the
-pure-Python reader behind it, which gives the same result.
+(:40) and `write_data` (:118). Like the JAX reader, `read_data` first tries
+the native C++ parser (io/native.py, built from native/mzt_native.cpp at
+first use) and falls back to the pure-Python reader, `read_data_python`,
+which gives the same result.
 
 Covers the subset the reference produces and consumes: the benchmark scene
 `fe_st.dat` (read by LAMMPS `read_data`, in.st_test:13) and the output of
@@ -47,7 +48,20 @@ def read_data(path: str) -> LammpsData:
     """Read a LAMMPS data file. Coordinates are shifted into the engine's
     [0, box) frame (x -= box_lo): the cell binning and wrap logic assume a
     zero origin, and LAMMPS boxes commonly have nonzero xlo/ylo/zlo.
-    `box_lo` is kept so `write_data` restores the original frame exactly."""
+    `box_lo` is kept so `write_data` restores the original frame exactly.
+    The native parser reads the file when it is available
+    (io/native.py), else `read_data_python`."""
+    from .native import read_data_native
+    nat = read_data_native(path)
+    if nat is None:
+        return read_data_python(path)
+    x, types, v, masses, lo, hi, n_types = nat
+    return LammpsData(x=x - lo, types=types, box_lo=lo, box_hi=hi,
+                      n_types=n_types, v=v, masses=masses)
+
+
+def read_data_python(path: str) -> LammpsData:
+    """`read_data` in pure Python."""
     with open(path) as f:
         lines = f.read().splitlines()
 

@@ -1,7 +1,8 @@
 """MD driver: velocity Verlet with NVE, NHC NVT, MTK NPT and Langevin.
 
 Counterpart of meng_zhang_tpu/md/simulation.py: `MDConfig`, `MDState`,
-`Thermo`, `npt_drift_vcoef` (:111), `create_velocities` and `Simulator`.
+`Thermo`, `npt_drift_vcoef` (:111), `create_velocities` and `Simulator`,
+with its thin-box image mode (`image_shifts`, :188-212, :370-378).
 
 The JAX driver is one jitted `lax.scan`; here a thermo block is a plain
 Python loop of steps. A step keeps every flag (`stale`, `unsafe`,
@@ -20,7 +21,9 @@ from typing import Any, Callable, NamedTuple, Optional
 import torch
 
 from ..system.neighbors import (NeighborList, build_neighbors_cell,
-                                build_neighbors_n2, max_displacement_sq)
+                                build_neighbors_cell_rowsweep,
+                                build_neighbors_images, build_neighbors_n2,
+                                max_displacement_sq)
 from ..units import BOLTZ, MVV2E, NKTV2P
 from . import integrate as I
 
@@ -63,7 +66,7 @@ class MDConfig:
     cutoff: float                   # model cutoff (A)
     skin: float = 2.0
     capacity: int = 256
-    nbr_method: str = "cell"        # "cell" | "n2"
+    nbr_method: str = "cell"        # "cell" | "rowsweep" | "n2"
     cell_dims: Optional[tuple] = None
     cell_capacity: int = 64
     ensemble: str = "nve"           # "nve" | "nvt" | "npt" | "langevin"
@@ -117,7 +120,14 @@ class Simulator:
     and may return a zero virial cheaply; outside NPT it serves every step
     whose virial nobody reads, all but the last of each thermo block (the
     block-end thermo row reads the virial; NPT's barostat reads it every
-    step). masses [N] fix the dtype and device of the run's constants."""
+    step). masses [N] fix the dtype and device of the run's constants.
+
+    image_shifts [R, 3] (models/annp.image_shift_table) runs a box with
+    periodic edges thinner than 2 (cutoff + skin): the skin list is built
+    over the image-extended table (`build_neighbors_images`, cfg.pbc the
+    table's pbc_eff) and force_fn must read it so
+    (models/annp.energy_forces_virial_images). As in the JAX Simulator,
+    image mode takes no short_build."""
 
     def __init__(self, force_fn: Callable, masses, cfg: MDConfig,
                  short_build: Optional[Callable] = None,
@@ -127,9 +137,12 @@ class Simulator:
         if short_build_colored is not None or cfg.short_host_refresh:
             raise NotImplementedError("the colored short list and its host "
                                       "refresh are not ported")
-        if image_shifts is not None:
-            raise NotImplementedError("thin-box image mode is not ported")
-        if cfg.nbr_method not in ("cell", "n2"):
+        if image_shifts is not None and short_build is not None:
+            raise NotImplementedError(
+                "thin-box image mode takes no short_build: its force_fn "
+                "evaluates the skin list (energy_forces_virial_images), as "
+                "in the JAX Simulator")
+        if cfg.nbr_method not in ("cell", "rowsweep", "n2"):
             raise ValueError(f"unknown nbr_method {cfg.nbr_method!r}")
         if short_build is not None and not (
                 cfg.short_every > 0 and cfg.short_skin > 0.0
@@ -143,6 +156,8 @@ class Simulator:
         self.short_build = short_build
         self.n = masses.shape[0]
         self.ndof = 3 * self.n - 3
+        self.image_shifts = None if image_shifts is None else \
+            torch.as_tensor(image_shifts, device=masses.device)
         self.rebuild_count = 0
         dt, dev = masses.dtype, masses.device
         c = cfg
@@ -161,13 +176,18 @@ class Simulator:
     def build_nbrs(self, x, box):
         c = self.cfg
         rlist = c.cutoff + c.skin
+        if self.image_shifts is not None:
+            return build_neighbors_images(x, box, self.image_shifts, rlist,
+                                          c.capacity, pbc=c.pbc)
         if c.nbr_method == "n2":
             return build_neighbors_n2(x, box, rlist, c.capacity, pbc=c.pbc)
         if c.cell_dims is None:
             raise ValueError("cell_dims required for the cell neighbor "
                              "method")
-        return build_neighbors_cell(x, box, rlist, c.capacity, c.cell_dims,
-                                    c.cell_capacity, pbc=c.pbc)
+        build = build_neighbors_cell_rowsweep if c.nbr_method == "rowsweep" \
+            else build_neighbors_cell
+        return build(x, box, rlist, c.capacity, c.cell_dims,
+                     c.cell_capacity, pbc=c.pbc)
 
     # ---------- single step ----------
     def _eval_force(self, x, box, nbrs, short=None, light=False):
@@ -275,12 +295,15 @@ class Simulator:
         rlist = self.cfg.cutoff + self.cfg.skin
         small = [float(b) for b, p in zip(box.tolist(), self.cfg.pbc)
                  if p and float(b) < 2.0 * rlist]
-        if small:
+        if small and self.image_shifts is None:
             raise ValueError(
                 f"box edges {small} are below 2*(cutoff+skin)="
                 f"{2 * rlist:.2f} A: the single-image minimum-image "
-                "convention would miss periodic images; replicate the scene "
-                "(meng_zhang_tpu.geometry.lattice.replicate_data)")
+                "convention would miss periodic images. Pass image_shifts "
+                "(meng_zhang_tpu_torch.models.annp.image_shift_table + "
+                "energy_forces_virial_images, with cfg.pbc = pbc_eff) or "
+                "replicate the scene "
+                "(meng_zhang_tpu_torch.geometry.lattice.replicate_data).")
         dtype, dev = x.dtype, x.device
         gen = torch.Generator(device=dev)
         gen.manual_seed(seed)

@@ -4,9 +4,9 @@
 Counterpart of meng_zhang_tpu/models/annp.py: `NI_HARTREE_EV` (:36),
 `AnnpConfig`, `make_annp` (:58), `effective_cutoff` (:96),
 `atom_energies` with its descriptor dispatch (:111-146), `energy`,
-`energy_forces` (:153) and `descriptor_cutoff` (:397). It is the slow
-oracle the fused evaluators (ops/fused_annp.py, ops/fused_ni.py) are held
-against.
+`energy_forces` (:153), `energy_forces_virial` (:704) and
+`descriptor_cutoff` (:397). It is the slow oracle the fused evaluators
+(ops/fused_annp.py, ops/fused_ni.py) are held against.
 
 The chunked function API that the run path and the minimizers call --
 `compact_neighbor_rows` (:354), `energy_chunked` (:494),
@@ -16,8 +16,15 @@ the fused evaluators, `FusedAnnp` (Chebyshev, harmonic path) and `FusedNi`
 (BP): on CUDA tensors they launch the hand kernels, on CPU tensors the
 kernels' plain versions run. The JAX functions scan rematerialised row
 chunks through autodiff; the evaluators take every row at once, so the
-`chunk` argument only keeps the JAX signatures, as does `elems` (the
-evaluators take single-element networks only).
+`chunk` argument only keeps the JAX signatures. `elems` (each atom's
+element) selects the atoms' networks of a multi-element potential; it is
+passed to the evaluator per call, so two scenes sharing one potential (and
+one cached evaluator) keep their own element ids.
+
+Thin periodic boxes: `image_shift_table` (:566) and
+`energy_forces_virial_images` (:591), the latter on the same fused
+evaluators over the image-extended partner table (ops/fused_annp.py), not
+through autodiff.
 
 Energy bookkeeping: E_i = e_scale * nn(G_i) + e_shift. fe: e_shift
 includes e_atom. ni: the network's output is in Hartree and e_scale is
@@ -27,13 +34,14 @@ the reference's CFFORCE-converted forces; e_shift is 0.
 from __future__ import annotations
 
 import dataclasses
+import itertools
 from typing import NamedTuple
 
 import numpy as np
 import torch
 
 from ..io.potential import AnnpPotential, SYM_BEHLER, SYM_CHEBYSHEV
-from ..system.cell import min_image
+from ..system.cell import image_table, min_image
 from ..units import CFFORCE, CFLENGTH
 from ..ops import fused_annp as fa
 from ..ops import fused_ni as fn
@@ -149,8 +157,13 @@ def _gather_dx(x, box, nbr_idx, pbc):
 
 
 def atom_energies(cfg: AnnpConfig, params, x, box, nbr_idx, elems=None):
-    """Per-atom energies [N] from positions and a padded neighbor table."""
+    """Per-atom energies [N] from positions and a padded neighbor table;
+    elems [N] selects each atom's network (None: the first element's)."""
     dx, mask = _gather_dx(x, box, nbr_idx, cfg.pbc)
+    return _atom_energies_dx(cfg, params, dx, mask, elems)
+
+
+def _atom_energies_dx(cfg, params, dx, mask, elems):
     if cfg.descriptor == SYM_CHEBYSHEV:
         rsq = (dx * dx).sum(dim=-1)
         m = mask & (rsq < cfg.cut * cfg.cut)
@@ -158,7 +171,7 @@ def atom_energies(cfg: AnnpConfig, params, x, box, nbr_idx, elems=None):
     else:
         g_raw = behler_g(dx, mask, params["coerad"], params["coeang"])
     g = (g_raw - params["sf_shift"]) * params["sf_scale"]
-    ne = params["w"][0].shape[0]
+    ne = params["w"][0].shape[0] if elems is not None else 1
     out = None
     for e in range(ne):
         o = mlp_apply([w[e] for w in params["w"]], [b[e] for b in params["b"]],
@@ -181,6 +194,24 @@ def energy_forces(cfg: AnnpConfig, params, x, box, nbr_idx, elems=None):
         e = energy(cfg, params, xg, box, nbr_idx, elems)
         (g,) = torch.autograd.grad(e, xg)
     return e.detach(), -g
+
+
+def energy_forces_virial(cfg: AnnpConfig, params, x, box, nbr_idx,
+                         elems=None):
+    """(E, F, W) through autograd, W = -dE/d(strain) symmetrised: the
+    displacements are strained as dx (I + eps) and W = -1/2 (g + g^T) with
+    g = dE/d eps at eps = 0. The small-box oracle of the multi-element
+    fused paths."""
+    xg = x.detach().requires_grad_(True)
+    eps = torch.zeros((3, 3), dtype=x.dtype, device=x.device,
+                      requires_grad=True)
+    eye = torch.eye(3, dtype=x.dtype, device=x.device)
+    with torch.enable_grad():
+        dx, mask = _gather_dx(xg, box, nbr_idx, cfg.pbc)
+        e = _atom_energies_dx(cfg, params, dx @ (eye + eps), mask,
+                              elems).sum()
+        g_x, g_eps = torch.autograd.grad(e, (xg, eps))
+    return e.detach(), -g_x, -0.5 * (g_eps + g_eps.T)
 
 
 # ------------------------------------------------- chunked function API
@@ -212,8 +243,8 @@ _FUSED_MAX = 8
 def fused_evaluator(cfg: AnnpConfig, params):
     """The fused evaluator of (cfg, params) -- FusedAnnp (harmonic path)
     for Chebyshev, FusedNi for BP -- built at the first call and reused
-    while `params` is the same object. Multi-element networks raise
-    NotImplementedError (`fused_annp.single_network`)."""
+    while `params` is the same object. It holds no element ids: the
+    chunked functions pass theirs per call."""
     key = (cfg, id(params))
     hit = _FUSED.get(key)
     if hit is not None and hit[0] is params:
@@ -228,18 +259,18 @@ def fused_evaluator(cfg: AnnpConfig, params):
     return ev
 
 
-def _short_list(ev, cfg, params, x, box, nbr_idx):
+def _short_list(ev, cfg, params, x, box, nbr_idx, x_ext=None):
     """nbr_idx rows as the evaluator's ShortList. Rows no wider than the
     kernels take (ev.k_short: 256 fe, 32 BP) are evaluated as they are,
     exactly as the JAX functions evaluate any row; wider rows are compacted
     to that width at the descriptor cutoff, and a row with more partners
     inside it than the kernels take raises (one host read per call, on
-    this path only)."""
+    this path only). x_ext: the image-extended table the rows index."""
     if nbr_idx.shape[1] <= ev.k_short:
         return fa.ShortList(nbr_idx, x, torch.zeros(
             (), dtype=torch.bool, device=x.device))
     sl = fa.compact_short(x, box, nbr_idx, descriptor_cutoff(cfg, params),
-                          ev.k_short, cfg.pbc)
+                          ev.k_short, cfg.pbc, x_ext=x_ext)
     if bool(sl.overflow):
         limit = "NI_MAX_K" if cfg.descriptor == SYM_BEHLER else "MAX_K"
         raise ValueError(
@@ -249,13 +280,16 @@ def _short_list(ev, cfg, params, x, box, nbr_idx):
     return sl
 
 
-def _evaluate(cfg, params, x, box, nbr_idx, shift, want_virial):
-    """Multi-element networks raise in fused_evaluator, so `elems` of the
-    public functions selects nothing here."""
+def _elems(elems, x):
+    return None if elems is None else torch.as_tensor(elems, device=x.device)
+
+
+def _evaluate(cfg, params, x, box, nbr_idx, shift, want_virial, elems):
+    """One evaluation of the cached evaluator, with the call's elems."""
     ev = fused_evaluator(cfg, params)
     sl = _short_list(ev, cfg, params, x, box, nbr_idx)
     return ev.energy_forces_short(x, box, sl, want_virial=want_virial,
-                                  shift=shift)
+                                  shift=shift, elems=_elems(elems, x))
 
 
 def energy_chunked(cfg: AnnpConfig, params, x, box, nbr_idx, elems=None,
@@ -266,20 +300,66 @@ def energy_chunked(cfg: AnnpConfig, params, x, box, nbr_idx, elems=None,
     if eps is not None:
         raise NotImplementedError("energy_chunked(eps=...) is not ported; "
                                   "energy_forces_virial_chunked returns W")
-    return _evaluate(cfg, params, x, box, nbr_idx, shift, False)[0]
+    return _evaluate(cfg, params, x, box, nbr_idx, shift, False, elems)[0]
 
 
 def energy_forces_chunked(cfg: AnnpConfig, params, x, box, nbr_idx,
                           elems=None, chunk=256, shift=True):
     """(E, F [N, 3])."""
-    return _evaluate(cfg, params, x, box, nbr_idx, shift, False)
+    return _evaluate(cfg, params, x, box, nbr_idx, shift, False, elems)
 
 
 def energy_forces_virial_chunked(cfg: AnnpConfig, params, x, box, nbr_idx,
                                  elems=None, chunk=256, shift=True):
     """(E, F [N, 3], W [3, 3]); W is the pairwise tally -sum dx (x) Fj,
     symmetrised, which equals the JAX function's strain derivative."""
-    return _evaluate(cfg, params, x, box, nbr_idx, shift, True)
+    return _evaluate(cfg, params, x, box, nbr_idx, shift, True, elems)
+
+
+def image_shift_table(box, rlist, pbc):
+    """Integer image-shift table for boxes with periodic dims thinner than
+    2*rlist (where the single-image minimum-image convention misses
+    periodic self-images -- LAMMPS handles these with ghost atoms).
+
+    Returns (shifts [R, 3] int array with shifts[0] == 0, pbc_eff): the
+    neighbor build and the models then run over the image-extended
+    position table x_ext = (x[None] + shifts*box).reshape(-1, 3) with the
+    thin dims' periodicity OFF (images are explicit). R is bounded by the
+    per-dim replication 2*ceil(rlist/L) + 1. Returns (None, pbc) when no
+    dim is thin. (numpy; a copy of the JAX function)"""
+    ms = [int(np.ceil(rlist / float(b)))
+          if (p and float(b) < 2.0 * rlist) else 0
+          for b, p in zip(np.asarray(box), pbc)]
+    if not any(ms):
+        return None, tuple(pbc)
+    shifts = [np.zeros(3, np.int64)]
+    for s in itertools.product(*[range(-m, m + 1) for m in ms]):
+        if any(s):
+            shifts.append(np.asarray(s, np.int64))
+    pbc_eff = tuple(bool(p) and m == 0 for p, m in zip(pbc, ms))
+    return np.stack(shifts), pbc_eff
+
+
+def energy_forces_virial_images(cfg: AnnpConfig, params, x, box, nbr_idx,
+                                shifts, elems=None, chunk=256, shift=True):
+    """(E, F [N, 3], W [3, 3]) of a thin periodic box through explicit
+    images, on the fused evaluator (its kernels on CUDA tensors).
+
+    nbr_idx [N, K] indexes the image-extended table (rows [0, R*N); row
+    r*N + i is atom i shifted by shifts[r], `system.cell.image_table`,
+    rebuilt here from the current box); cfg.pbc must be the pbc_eff of
+    `image_shift_table` (thin dims off). Each lane's Fj is delivered to
+    the real atom behind its partner, so an atom interacting with several
+    images of one partner (or of itself) tallies every image pair, as the
+    JAX function's autodiff through x_ext does; W = -sum dx (x) Fj over the
+    image separations, which equals its strain derivative. Rows wider than
+    the kernels take are compacted at the descriptor cutoff (`_short_list`).
+    `chunk` only keeps the JAX signature."""
+    ev = fused_evaluator(cfg, params)
+    x_ext = image_table(x, box, shifts)
+    sl = _short_list(ev, cfg, params, x, box, nbr_idx, x_ext)
+    return ev.energy_forces_short(x, box, sl, want_virial=True, shift=shift,
+                                  elems=_elems(elems, x), x_ext=x_ext)
 
 
 class ShortRows(NamedTuple):
@@ -291,13 +371,14 @@ class ShortRows(NamedTuple):
 
 
 def make_short_chunked_fns(cfg: AnnpConfig, params, k_short=32, delta=0.3,
-                           chunk=1024):
+                           chunk=1024, elems=None):
     """(force_fn, force_fn_light, short_build) for
     Simulator(force_fn, ..., short_build=short_build,
     force_fn_light=force_fn_light) with cfg.short_every > 0 and
     cfg.short_skin == delta: rows compacted against the descriptor cutoff
     + delta once per short_every steps; short-list overflow NaN-poisons E
-    and F; the light variant returns a zero virial."""
+    and F; the light variant returns a zero virial. elems: the atoms'
+    elements, passed to every call of the chunked functions."""
     rc = descriptor_cutoff(cfg, params)
 
     def short_build(x, box, nbrs):
@@ -311,13 +392,13 @@ def make_short_chunked_fns(cfg: AnnpConfig, params, k_short=32, delta=0.3,
 
     def force_fn(x, box, nbrs, short):
         e, f, w = energy_forces_virial_chunked(cfg, params, x, box,
-                                               short.idx, chunk=chunk,
+                                               short.idx, elems, chunk=chunk,
                                                shift=False)
         e, f = _poison(e, f, short.overflow)
         return e, f, w
 
     def force_fn_light(x, box, nbrs, short):
-        e, f = energy_forces_chunked(cfg, params, x, box, short.idx,
+        e, f = energy_forces_chunked(cfg, params, x, box, short.idx, elems,
                                      chunk=chunk, shift=False)
         e, f = _poison(e, f, short.overflow)
         return e, f, torch.zeros((3, 3), dtype=x.dtype, device=x.device)

@@ -1,4 +1,4 @@
-"""Fused-kernel evaluator for the single-element Chebyshev ANNP.
+"""Fused-kernel evaluator for the Chebyshev ANNP.
 
 Counterpart of `PallasAnnp` (meng_zhang_tpu/ops/pallas_annp.py:912) on both
 of its angular paths:
@@ -17,7 +17,8 @@ of its angular paths:
     `_force_kernel` (:193, `_row_force` :131); their CUDA kernels live in
     csrc/annp_cos.cu. All four are launched through ops/kernels.py;
   * `FusedAnnp._mlp_eat_dedg_harm` (:1044) and `_mlp_eat_dedg` (:1017),
-    the MLP and its hand VJP;
+    the MLP and its hand VJP, with the per-row network select of
+    multi-element potentials (`elems`, :994-995, `_el_rows` :1068);
   * delivery: F_i = -sum_s Fj[i, s] + sum of Fj over the entries whose
     partner is i, as one `index_add_` (the JAX package routes the same sums
     with a sort, `_assemble` :638, because the TPU has no fast scatter);
@@ -25,9 +26,17 @@ of its angular paths:
     :1578-1585, :1625-1638), `energy_forces` (:1648) and `energy_dedg`
     (:1641).
 
-`single_network`, `mlp_eat_dedg` and `evaluate_pairs` (gather, delivery,
+`element_networks`, `mlp_eat_dedg` and `evaluate_pairs` (gather, delivery,
 virial, poisoning) are shared with the BP evaluator (ops/fused_ni.py), as
 `PairTableOps` (:623) is shared with `PallasNi` in the JAX package.
+
+Thin periodic boxes (models/annp.py `image_shift_table`): the partner table
+may be the image-extended table x_ext = (x[None] + shifts * box).reshape(-1,
+3) [R*n, 3] instead of the centres x [n, 3]. Rows then index x_ext, the
+filler sentinel is R*n, dx runs with the thin axes' periodicity off, and
+delivery adds each lane's Fj to the real atom sidx % n, so that a lane whose
+partner is an image of its own centre nets to zero, as the JAX package's
+autodiff through x_ext gives it.
 
 The Chebyshev angular descriptors are G_n = 1/2 sum_{j!=k} T_n((cos_jk+1)/2)
 fc_j fc_k. The cos-matrix path evaluates them as written, over the row's
@@ -150,14 +159,15 @@ def pair_geometry(dxx, dxy, dxz, rc):
         dxz * inv_r * m
 
 
-def pair_dx_planes(x, box, sidx, pbc, row0=0):
+def pair_dx_planes(x, box, sidx, pbc, row0=0, x_ext=None):
     """dx = x_i - x_j as three [P, K] planes for the neighbor rows sidx
-    [P, K] of atoms row0 .. row0 + P - 1. Filler lanes (sidx == n) get
-    2*box + 10 on every axis; the periodic wrap applies per axis."""
-    n = x.shape[0]
+    [P, K] of atoms row0 .. row0 + P - 1, whose partners index x_ext (the
+    image-extended table, default x). Filler lanes (sidx == len(x_ext))
+    get 2*box + 10 on every axis; the periodic wrap applies per axis."""
+    src = x if x_ext is None else x_ext
     p = sidx.shape[0]
-    valid = sidx < n
-    xp = torch.cat([x, x.new_zeros(1, 3)])
+    valid = sidx < src.shape[0]
+    xp = torch.cat([src, src.new_zeros(1, 3)])
     out = []
     for d in range(3):
         dd = x[row0:row0 + p, d][:, None] - xp[sidx, d]
@@ -174,17 +184,20 @@ class ShortList(NamedTuple):
     overflow: torch.Tensor   # bool: some row had > Ks entries within rc_s
 
 
-def compact_short(x, box, nbr_idx, rc_s, ks, pbc, row_chunk=16384):
+def compact_short(x, box, nbr_idx, rc_s, ks, pbc, row_chunk=16384,
+                  x_ext=None):
     """Compact each skin-list row to its entries within rc_s, ascending by
-    partner id, padded with n to Ks columns (rev-free, `_compact_block_norev`
-    semantics). The list stays valid while no atom moves more than
-    (rc_s - rc)/2 since this call."""
-    n = x.shape[0]
+    partner id, padded with the sentinel (n, or R*n for rows that index
+    the image-extended table x_ext) to Ks columns (rev-free,
+    `_compact_block_norev` semantics). The list stays valid while no atom
+    moves more than (rc_s - rc)/2 since this call."""
+    n = x.shape[0] if x_ext is None else x_ext.shape[0]
     parts = []
     overflow = torch.zeros((), dtype=torch.bool, device=x.device)
-    for i0 in range(0, n, row_chunk):
+    for i0 in range(0, x.shape[0], row_chunk):
         idx_c = nbr_idx[i0:i0 + row_chunk]
-        dx, dy, dz = pair_dx_planes(x, box, idx_c, pbc, row0=i0)
+        dx, dy, dz = pair_dx_planes(x, box, idx_c, pbc, row0=i0,
+                                    x_ext=x_ext)
         rsq = dx * dx + dy * dy + dz * dz
         # filler lanes lie at 2*box + 10 per axis, beyond any rc_s
         mask = (rsq < rc_s * rc_s) & (rsq > 1.0e-12)
@@ -430,25 +443,19 @@ def _act_and_grad(z, flag: int, style: str):
     return t, 1.0 - t * t
 
 
-def single_network(params):
-    """((w1, w2, w3), (b1, b2, b3)) of a one-element, two-hidden-layer
-    params dict, the network shape the fused evaluators take."""
-    if params["w"][0].shape[0] != 1:
-        raise NotImplementedError("multi-element networks are not ported")
+def element_networks(params):
+    """Every element's ((w1, w2, w3), (b1, b2, b3)), in element order, of a
+    two-hidden-layer params dict, the network shape the fused evaluators
+    take."""
     if len(params["w"]) != 3:
         raise NotImplementedError("the fused path assumes two hidden "
                                   "layers, as every shipped potential")
-    return (tuple(w[0] for w in params["w"]),
-            tuple(b[0] for b in params["b"]))
+    return tuple((tuple(w[e] for w in params["w"]),
+                  tuple(b[e] for b in params["b"]))
+                 for e in range(params["w"][0].shape[0]))
 
 
-def mlp_eat_dedg(cfg, net, g, scale):
-    """MLP forward and hand VJP on normalized descriptors g [P, nsf]:
-    (eat [P], dE/dG_raw [P, nsf]). eat is the shift-free per-atom energy
-    e_scale * nn(g); the gradient is taken with respect to the raw
-    descriptors, g = (G_raw - shift) * scale, and carries e_scale.
-    Counterpart of `_mlp_eat_dedg` (meng_zhang_tpu/ops/pallas_annp.py:1017,
-    ops/pallas_ni.py:339)."""
+def _mlp_one(cfg, net, g, scale):
     (w1, w2, w3), (b1, b2, b3) = net
     fl, style = cfg.flagact, cfg.act_style
     h1, d1 = _act_and_grad(g @ w1.T + b1, fl[0], style)
@@ -461,17 +468,47 @@ def mlp_eat_dedg(cfg, net, g, scale):
     return eat, v * scale * cfg.e_scale
 
 
+def mlp_eat_dedg(cfg, nets, g, scale, el=None):
+    """MLP forward and hand VJP on normalized descriptors g [P, nsf]:
+    (eat [P], dE/dG_raw [P, nsf]). eat is the shift-free per-atom energy
+    e_scale * nn(g); the gradient is taken with respect to the raw
+    descriptors, g = (G_raw - shift) * scale, and carries e_scale.
+
+    nets: `element_networks(params)`. el [P] (int, the element of each
+    row) selects each row's network when there are several: every network
+    runs on all rows and a where keeps the row's own (a row whose element
+    has no network gets 0), the dense select of `_mlp_eat_dedg(el)`;
+    el None, or one network, runs the first network alone. Counterpart of
+    `_mlp_eat_dedg` (meng_zhang_tpu/ops/pallas_annp.py:1017,
+    ops/pallas_ni.py:339)."""
+    if el is None or len(nets) == 1:
+        return _mlp_one(cfg, nets[0], g, scale)
+    eat = g.new_zeros(g.shape[0])
+    dedg = torch.zeros_like(g)
+    for e, net in enumerate(nets):
+        ea, de = _mlp_one(cfg, net, g, scale)
+        sel = el == e
+        eat = torch.where(sel, ea, eat)
+        dedg = torch.where(sel[:, None], de, dedg)
+    return eat, dedg
+
+
 # LAMMPS vatom columns (xx, yy, zz, xy, xz, yz) as (dx axis, Fj axis)
 VATOM_ORDER = ((0, 0), (1, 1), (2, 2), (0, 1), (0, 2), (1, 2))
 
 
 def evaluate_pairs(eval_fj, x, box, sidx, bad, pbc, e_shift, shift,
-                   want_virial=True, per_atom=False):
+                   want_virial=True, per_atom=False, el=None, x_ext=None):
     """One evaluation against the short rows sidx [P, K]: gather the dx
-    planes, eval_fj(dxx, dxy, dxz) -> (eat [P], (fjx, fjy, fjz) [P, K])
-    with Fj = -dE_i/dx_j per pair, then deliver. Returns (E, F [N, 3]),
-    then W [3, 3] with want_virial, then eatom [N] and vatom [N, 6] with
-    per_atom; `bad` NaN-poisons every output but W.
+    planes, eval_fj(dxx, dxy, dxz, el) -> (eat [P], (fjx, fjy, fjz)
+    [P, K]) with Fj = -dE_i/dx_j per pair, then deliver. el [P]: the
+    rows' element ids, or None. Returns (E, F [N, 3]), then W [3, 3] with
+    want_virial, then eatom [N] and vatom [N, 6] with per_atom; `bad`
+    NaN-poisons every output but W.
+
+    x_ext [R*N, 3]: the image-extended partner table that sidx indexes
+    (sentinel R*N); a lane's Fj goes to the real atom sidx % N, and
+    W = -sum dx (x) Fj over the image separations dx.
 
     eatom includes e_shift whatever `shift` is (LAMMPS pe/atom). vatom is
     the +-1/2-per-pair virial tally in LAMMPS order (xx, yy, zz, xy, xz,
@@ -482,16 +519,19 @@ def evaluate_pairs(eval_fj, x, box, sidx, bad, pbc, e_shift, shift,
     (`energy_forces_short(per_atom=True)`,
     meng_zhang_tpu/ops/pallas_annp.py:1625-1638)."""
     n = x.shape[0]
-    dd = pair_dx_planes(x, box, sidx, pbc)
-    eat, fj = eval_fj(*dd)
+    dd = pair_dx_planes(x, box, sidx, pbc, x_ext=x_ext)
+    eat, fj = eval_fj(*dd, el)
     # delivery: own row -sum_s Fj, partners +Fj through one index_add_.
-    # Filler lanes (sidx == n) carry Fj exactly 0 and add it to their
+    # Filler lanes (the sentinel) carry Fj exactly 0 and add it to their
     # own row: sent to one shared dump row instead, their ~2e6 atomic
     # adds per step serialise on one address
     fjs = torch.stack(fj, dim=-1)                          # [P, K, 3]
-    mask = sidx < n
     rows = torch.arange(sidx.shape[0], device=x.device)[:, None]
-    target = torch.where(mask, sidx, rows).reshape(-1)
+    if x_ext is None:
+        target = torch.where(sidx < n, sidx, rows).reshape(-1)
+    else:
+        target = torch.where(sidx < x_ext.shape[0], sidx % n,
+                             rows).reshape(-1)
     forces = -fjs.sum(dim=1)
     forces.index_add_(0, target, fjs.reshape(-1, 3))
     e = eat.sum()
@@ -527,7 +567,11 @@ class FusedAnnp:
     PyTorch versions of the kernels on any device (the f64 reference on the
     card); with plain=False the kernel wrappers run, which launch the CUDA
     kernels for CUDA tensors and take the plain versions only for CPU
-    tensors.
+    tensors. elems [N] (int): each atom's element, which selects its
+    network on a multi-element potential (`mlp_eat_dedg`), as
+    `PallasAnnp(elems=...)` does; the evaluation methods also take elems
+    per call, which overrides these. None evaluates every atom with the
+    first element's network.
 
     Built for a CUDA device, it turns TF32 off for matmuls and cuDNN
     (process-wide flags): the angular descriptors come out of S_l @ cmat
@@ -537,7 +581,7 @@ class FusedAnnp:
     """
 
     def __init__(self, cfg, params, k_short=128, short_delta=0.3,
-                 plain=False, angular="harmonic"):
+                 plain=False, angular="harmonic", elems=None):
         self.cfg = cfg
         self.k_short = k_short
         self.short_delta = short_delta
@@ -558,36 +602,39 @@ class FusedAnnp:
             assert self.n_harm <= AB_PAD - 1
             self.l_of_col = torch.as_tensor(layout, device=dev)
         self.scale, self.shift = params["sf_scale"], params["sf_shift"]
-        self.net = single_network(params)
+        self.nets = element_networks(params)
+        self.elems = None if elems is None else torch.as_tensor(elems,
+                                                                device=dev)
 
     def compact_short(self, x, box, nbr_idx):
         return compact_short(x, box, nbr_idx, self.cfg.cut + self.short_delta,
                              self.k_short, self.pbc)
 
-    def _mlp_eat_dedg(self, g):
-        """MLP + VJP from raw descriptors g [P, 128]: (eat [P], dedg
-        [P, 128], zero beyond nsf, the cos force kernel's input)."""
+    def _mlp_eat_dedg(self, g, el=None):
+        """MLP + VJP from raw descriptors g [P, 128], each row through the
+        network of its element el [P]: (eat [P], dedg [P, 128], zero beyond
+        nsf, the cos force kernel's input)."""
         nsf = self.npsf + self.ntsf
-        eat, dedg = mlp_eat_dedg(self.cfg, self.net,
+        eat, dedg = mlp_eat_dedg(self.cfg, self.nets,
                                  (g[:, :nsf] - self.shift) * self.scale,
-                                 self.scale)
+                                 self.scale, el)
         return eat, torch.nn.functional.pad(dedg, (0, NSF_PAD - nsf))
 
     def _g_cos(self):
         return g_cos_plain if self.plain else kernels.g_cos
 
-    def _mlp_eat_dedg_harm(self, g_raw, a):
-        """S_l power sums -> angular G, MLP + VJP, then the force kernel's
-        per-atom coefficients: dedg_rad [P, 128] and b [P, 384] (B_lm, then
-        2q in column n_harm)."""
+    def _mlp_eat_dedg_harm(self, g_raw, a, el=None):
+        """S_l power sums -> angular G, MLP + VJP (rows' elements el), then
+        the force kernel's per-atom coefficients: dedg_rad [P, 128] and b
+        [P, 384] (B_lm, then 2q in column n_harm)."""
         npsf, ntsf = self.npsf, self.ntsf
         s_l = g_raw[:, npsf:npsf + ntsf]
         f2 = g_raw[:, npsf + ntsf:npsf + ntsf + 1]
         g_ang = 0.5 * (s_l @ self.cmat.T - f2)
         g_all = torch.cat([g_raw[:, :npsf], g_ang], dim=1)
-        eat, dedg = mlp_eat_dedg(self.cfg, self.net,
+        eat, dedg = mlp_eat_dedg(self.cfg, self.nets,
                                  (g_all - self.shift) * self.scale,
-                                 self.scale)
+                                 self.scale, el)
         dedg_ang = dedg[:, npsf:]
         bco = dedg_ang @ self.cmat
         b = a[:, :self.n_harm] * bco[:, self.l_of_col]
@@ -598,20 +645,23 @@ class FusedAnnp:
                                            (0, NSF_PAD - npsf))
         return eat, dedg_rad, b
 
-    def _eval_fj(self, dxx, dxy, dxz):
+    def _eval_fj(self, dxx, dxy, dxz, el=None):
         c = self.cfg
         if self.angular != "harmonic":
             g = self._g_cos()(dxx, dxy, dxz, c.npsf, c.ntsf, c.cut)
-            eat, dedg = self._mlp_eat_dedg(g)
+            eat, dedg = self._mlp_eat_dedg(g, el)
             f_fn = force_cos_plain if self.plain else kernels.force_cos
             return eat, f_fn(dxx, dxy, dxz, dedg, c.npsf, c.ntsf, c.cut)
         g_fn = g_harm_plain if self.plain else kernels.g_harm
         f_fn = force_harm_plain if self.plain else kernels.force_harm
         g_raw, a = g_fn(dxx, dxy, dxz, c.npsf, c.ntsf, c.cut)
-        eat, dedg_rad, b = self._mlp_eat_dedg_harm(g_raw, a)
+        eat, dedg_rad, b = self._mlp_eat_dedg_harm(g_raw, a, el)
         return eat, f_fn(dxx, dxy, dxz, dedg_rad, b, c.npsf, c.ntsf, c.cut)
 
-    def energy_dedg(self, x, box, nbr_idx):
+    def _el(self, elems):
+        return self.elems if elems is None else elems
+
+    def energy_dedg(self, x, box, nbr_idx, elems=None):
         """Per-atom energies and descriptor gradients from the skin list
         nbr_idx [N, K] at its full width, through g_cos whatever `angular`
         is (counterpart of `PallasAnnp.energy_dedg`,
@@ -624,13 +674,15 @@ class FusedAnnp:
         c = self.cfg
         dd = pair_dx_planes(x, box, nbr_idx, self.pbc)
         return self._mlp_eat_dedg(
-            self._g_cos()(*dd, c.npsf, c.ntsf, c.cut))
+            self._g_cos()(*dd, c.npsf, c.ntsf, c.cut), self._el(elems))
 
     def energy_forces_short(self, x, box, sl: ShortList, want_virial=True,
-                            shift=False, per_atom=False):
+                            shift=False, per_atom=False, elems=None,
+                            x_ext=None):
         """(E, F [N, 3]), then W [3, 3] with want_virial, then eatom [N]
         and vatom [N, 6] with per_atom, against a refresh-static ShortList
-        (`evaluate_pairs` gives the per-atom contract).
+        (`evaluate_pairs` gives the per-atom contract and x_ext's, the
+        image-extended table the rows index in a thin box).
 
         E is shift-free unless shift=True (readers add n * e_shift in f64);
         W_ab = -sum dx_a Fj_b over real lanes, symmetrized; the light MD
@@ -638,14 +690,14 @@ class FusedAnnp:
         NaN-poisons E, F, eatom and vatom."""
         return evaluate_pairs(self._eval_fj, x, box, sl.sidx, sl.overflow,
                               self.pbc, self.cfg.e_shift, shift, want_virial,
-                              per_atom)
+                              per_atom, self._el(elems), x_ext)
 
     def energy_forces(self, x, box, nbr_idx, want_virial=True, shift=False,
-                      per_atom=False):
+                      per_atom=False, elems=None):
         """Full evaluation from a skin list: compact to Ks at rc, then the
         same per-step evaluation. Overflow of Ks NaN-poisons the
         outputs."""
         sl = compact_short(x, box, nbr_idx, self.cfg.cut, self.k_short,
                            self.pbc)
         return self.energy_forces_short(x, box, sl, want_virial, shift,
-                                        per_atom)
+                                        per_atom, elems)

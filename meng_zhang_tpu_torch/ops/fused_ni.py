@@ -1,4 +1,4 @@
-"""Fused-kernel evaluator for the single-element Behler-Parrinello ANNP (ni).
+"""Fused-kernel evaluator for the Behler-Parrinello ANNP (ni).
 
 Counterpart of meng_zhang_tpu/ops/pallas_ni.py:
   * `ni_table`, the kernels' static configuration (`_ni_cfg_key`, :57);
@@ -8,7 +8,11 @@ Counterpart of meng_zhang_tpu/ops/pallas_ni.py:
   * `FusedNi`, the counterpart of `PallasNi` (:298): refresh-static short
     list at the descriptor cutoff + short_delta, gather, G2/G4 descriptors,
     the min-max-normalised MLP and its hand VJP, per-pair forces, and the
-    `index_add_` delivery shared with ops/fused_annp.py.
+    `index_add_` delivery shared with ops/fused_annp.py. `PallasNi` is
+    single-element; `FusedNi(elems=...)` also selects each atom's network
+    (`fused_annp.mlp_eat_dedg`), so that the chunked BP functions
+    (models/annp.py), which run on FusedNi, honour their `elems` as the JAX
+    functions do (`_chunk_mlp_eat`, meng_zhang_tpu/models/annp.py:239).
 
 Layout: the TPU kernels run transposed [Ks, 128] blocks (the ni rows hold
 only ~20 partners, so the fe layout would waste 3/4 of each TPU vector
@@ -223,7 +227,8 @@ class FusedNi:
     refresh-static short list. plain=True runs the plain PyTorch versions
     of the two kernels on any device (the f64 reference on the card); with
     plain=False the kernel wrappers run, which launch the CUDA kernels for
-    CUDA tensors and take the plain versions only for CPU tensors.
+    CUDA tensors and take the plain versions only for CPU tensors. elems:
+    each atom's element, as in FusedAnnp.
 
     Built for a CUDA device, it turns TF32 off for matmuls and cuDNN
     (process-wide flags), as FusedAnnp does: min-max normalisation divides
@@ -232,9 +237,9 @@ class FusedNi:
     """
 
     def __init__(self, cfg, params, k_short=32, short_delta=0.3,
-                 plain=False):
+                 plain=False, elems=None):
         self.cfg = cfg
-        self.net = fa.single_network(params)
+        self.nets = fa.element_networks(params)
         self.k_short = k_short
         self.short_delta = short_delta
         self.plain = plain
@@ -250,6 +255,8 @@ class FusedNi:
             torch.backends.cuda.matmul.allow_tf32 = False
             torch.backends.cudnn.allow_tf32 = False
         self.scale, self.shift = params["sf_scale"], params["sf_shift"]
+        self.elems = None if elems is None else torch.as_tensor(
+            elems, device=params["sf_scale"].device)
 
     @property
     def short_rc(self):
@@ -260,34 +267,38 @@ class FusedNi:
                                 self.short_rc + self.short_delta,
                                 self.k_short, self.pbc)
 
-    def _eval_fj(self, dxx, dxy, dxz):
+    def _eval_fj(self, dxx, dxy, dxz, el=None):
         g_fn = ni_g_plain if self.plain else kernels.ni_g
         f_fn = ni_force_plain if self.plain else kernels.ni_force
         g = g_fn(dxx, dxy, dxz, self.table)
         # ni normalisation (G - min) * 1/(max - min)
         eat, dedg = fa.mlp_eat_dedg(
-            self.cfg, self.net, (g[:, :self.nsf] - self.shift) * self.scale,
-            self.scale)
+            self.cfg, self.nets, (g[:, :self.nsf] - self.shift) * self.scale,
+            self.scale, el)
         dedg = torch.nn.functional.pad(dedg, (0, NSF_SUB - self.nsf))
         return eat, f_fn(dxx, dxy, dxz, dedg, self.table)
 
     def energy_forces_short(self, x, box, sl: fa.ShortList, want_virial=True,
-                            shift=False, per_atom=False):
+                            shift=False, per_atom=False, elems=None,
+                            x_ext=None):
         """(E, F [N, 3]), then W [3, 3] with want_virial, then eatom [N]
         and vatom [N, 6] with per_atom (the contract of
         `PallasNi.energy_forces_short(per_atom=True)`,
         meng_zhang_tpu/ops/pallas_ni.py:372-417), against a refresh-static
-        ShortList. E is shift-free unless shift=True; the light MD step
-        passes want_virial=False and skips W. Short-list overflow
-        NaN-poisons E, F, eatom and vatom."""
+        ShortList (rows into x_ext in a thin box, as in FusedAnnp). E is
+        shift-free unless shift=True; the light MD step passes
+        want_virial=False and skips W. Short-list overflow NaN-poisons E,
+        F, eatom and vatom."""
         return fa.evaluate_pairs(self._eval_fj, x, box, sl.sidx, sl.overflow,
                                  self.pbc, self.cfg.e_shift, shift,
-                                 want_virial, per_atom)
+                                 want_virial, per_atom,
+                                 self.elems if elems is None else elems,
+                                 x_ext)
 
     def energy_forces(self, x, box, nbr_idx, want_virial=True, shift=False,
-                      per_atom=False):
+                      per_atom=False, elems=None):
         """Full evaluation from a skin list: compact to Ks at the
         descriptor cutoff + short_delta, then the per-step evaluation."""
         return self.energy_forces_short(x, box,
                                         self.compact_short(x, box, nbr_idx),
-                                        want_virial, shift, per_atom)
+                                        want_virial, shift, per_atom, elems)

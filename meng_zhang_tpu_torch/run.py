@@ -14,23 +14,26 @@ pe_offset rules and the same engine routing:
   * a BP potential, or `--engine xla`: `compact_neighbor_rows` then
     `energy_forces_virial_chunked` (models/annp.py: FusedNi's kernels ni_g
     and ni_force for BP, FusedAnnp's for Chebyshev); `--dump-peratom` adds
-    c_pe from the autograd model (`annp.atom_energies`);
+    c_pe from the autograd model (`annp.atom_energies`). A multi-element BP
+    (or `--engine xla`) potential runs this route too, where the JAX CLI
+    runs the plain `annp.energy_forces_virial`: the same energy, on the
+    kernels;
   * an ANNA-ADP potential (`.anna`, or `--model anna`): every step runs
     `anna_adp.energy_forces_virial` on the skin list (its phase 1 through
     the kernel g_harm), `--minimize` `anna_adp.energy_forces`, and
-    `--dump-peratom` adds c_pe from `anna_adp.atom_energies`. A
-    multi-element `.anna` selects each atom's network by its data-file
-    type, as the JAX CLI does.
+    `--dump-peratom` adds c_pe from `anna_adp.atom_energies`.
+
+A multi-element potential (`.ann` or `.anna`) selects each atom's network
+by its data-file type (type t is element t - 1), as the JAX CLI does.
 
 Runs on the card; `main(argv, device="cpu")` is the only way to the CPU,
-where the kernels' plain versions run. Multi-element ANNP (`.ann`)
-networks are not ported and exit with an error. Two differences from the
-JAX CLI: the cell list's per-cell capacity is sized from the scene's
-densest cell (at least MDConfig's 64), where the JAX CLI keeps 64 and
-overflows on the 152,880-atom benchmark scene (83 atoms in its densest
-cell at --skin 1.2); and `--minimize` on a multi-element `.anna` selects
-the networks by type, where the JAX CLI's minimizer evaluates every atom
-with the first element's network.
+where the kernels' plain versions run. Two differences from the JAX CLI:
+the cell list's per-cell capacity is sized from the scene's densest cell
+(at least MDConfig's 64), where the JAX CLI keeps 64 and overflows on the
+152,880-atom benchmark scene (83 atoms in its densest cell at --skin 1.2);
+and `--minimize` on a multi-element potential selects the networks by
+type, where the JAX CLI's minimizer evaluates every atom with the first
+element's network (meng_zhang_tpu/run.py:257-263 pass no elems).
 
 Example (the benchmark scene's workflow):
     python -m meng_zhang_tpu_torch \\
@@ -186,9 +189,6 @@ def main(argv=None, device="cuda"):
             sys.exit(f"error: data file has {int(np.max(types))} atom types "
                      f"but the potential defines only {ne} elements; "
                      "provide a type->element mapping scene")
-    if ne > 1 and not is_anna:
-        sys.exit(f"error: {ne}-element ANNP potentials are not ported to "
-                 "meng_zhang_tpu_torch yet; run them with meng_zhang_tpu")
     elems = None
     if ne > 1:
         if types is None:
@@ -233,7 +233,7 @@ def main(argv=None, device="cuda"):
     pe_offset = n_atoms * (mcfg.e_base if is_anna else mcfg.e_shift)
     if use_pallas:
         from .ops.fused_annp import FusedAnnp
-        ev = FusedAnnp(mcfg, params)
+        ev = FusedAnnp(mcfg, params, elems=elems)
 
         def force_fn(xx, bb, nbrs):
             return ev.energy_forces(xx, bb, nbrs.idx, want_virial=True,
@@ -295,7 +295,7 @@ def main(argv=None, device="cuda"):
         else:
             def ef(xx, bb, idx):
                 return annp.energy_forces_chunked(mcfg, params, xx, bb, idx,
-                                                  chunk=256)
+                                                  elems, chunk=256)
 
         x, fst = fire_relax(ef, lambda xx, bb: sim.build_nbrs(xx, bb),
                             x, box, f_tol=args.min_ftol)

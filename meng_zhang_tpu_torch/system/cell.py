@@ -1,5 +1,7 @@
 """Orthogonal simulation cell (counterpart of meng_zhang_tpu/system/cell.py,
-`min_image`)."""
+`min_image`), and the image-extended position table of thin periodic boxes
+(built inline in the JAX package: models/annp.py:619,
+md/simulation.py:209-210)."""
 from __future__ import annotations
 
 import torch
@@ -23,3 +25,13 @@ def min_image(dx, box, pbc=(True, True, True)):
             c = c - box[d] * torch.round(c / box[d])
         cols.append(c)
     return torch.stack(cols, dim=-1)
+
+
+def image_table(x, box, shifts):
+    """x_ext [R*N, 3]: row r*N + i is atom i shifted by shifts[r] box
+    lengths (shifts [R, 3] integer, shifts[0] = 0, from
+    models/annp.image_shift_table; pass it as a tensor on x's device to
+    spare a host copy a call). Built from the current box, so the images
+    follow an NPT box."""
+    sh = torch.as_tensor(shifts, device=x.device).to(x.dtype)
+    return (x[None, :, :] + (sh * box)[:, None, :]).reshape(-1, 3)

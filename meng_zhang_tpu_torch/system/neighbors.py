@@ -1,8 +1,12 @@
 """Fixed-capacity padded neighbor lists, built on the device.
 
 Counterpart of meng_zhang_tpu/system/neighbors.py: `build_neighbors_n2`
-(:71), `cell_grid_dims` (:90), `build_neighbors_cell` (:187),
-`max_displacement_sq` (:290) and `estimate_capacity` (:314).
+(:71), `cell_grid_dims` (:90), `build_neighbors_cell_rowsweep` (:95) and
+`build_neighbors_cell` (:187), which here share one row-sweep body,
+`max_displacement_sq` (:290), `needs_rebuild` (:305) and
+`estimate_capacity` (:314); and `build_neighbors_images`, the n2 build of
+a thin periodic box over its image-extended table (the JAX Simulator's
+image branch, meng_zhang_tpu/md/simulation.py:205-212).
 
 Every list is a dense [N, K] int64 tensor whose rows hold the partner ids
 ascending, padded with the sentinel N. Capacity problems are reported
@@ -19,7 +23,7 @@ from typing import NamedTuple
 
 import torch
 
-from .cell import min_image
+from .cell import image_table, min_image
 
 
 class NeighborList(NamedTuple):
@@ -41,21 +45,66 @@ def _compact_rows(within, cand, capacity, n):
     return keys[:, :capacity], counts
 
 
+# rows of an all-pairs build at a time: [2048, M, 3] displacements, 2.2 GB
+# in f64 for the 45,144-row image table of the 5,016-atom screw cell
+N2_ROW_CHUNK = 2048
+
+
+def _n2_rows(x, x_src, box, cutoff, capacity, pbc):
+    """Rows of the centres x [N, 3] against every row of x_src [M, 3]
+    (M >= N, its first N rows the centres), N2_ROW_CHUNK rows at a time:
+    (idx [N, capacity] padded with M, overflow)."""
+    n, m = x.shape[0], x_src.shape[0]
+    cand = torch.arange(m, device=x.device)
+    parts, counts = [], []
+    for i0 in range(0, n, N2_ROW_CHUNK):
+        xc = x[i0:i0 + N2_ROW_CHUNK]
+        dx = min_image(xc[:, None, :] - x_src[None, :, :], box, pbc)
+        rsq = (dx * dx).sum(dim=-1)
+        ids = torch.arange(i0, i0 + xc.shape[0], device=x.device)
+        within = (rsq < cutoff * cutoff) & (rsq > 1.0e-12) \
+            & (cand[None, :] != ids[:, None])
+        idx_c, cnt = _compact_rows(within, cand.expand(xc.shape[0], m),
+                                   capacity, m)
+        parts.append(idx_c)
+        counts.append(cnt)
+    return torch.cat(parts), (torch.cat(counts) > capacity).any()
+
+
 def build_neighbors_n2(x, box, cutoff, capacity, pbc=(True, True, True)):
     """All-pairs build (N up to a few thousand)."""
-    n = x.shape[0]
-    dx = min_image(x[:, None, :] - x[None, :, :], box, pbc)
-    rsq = (dx * dx).sum(dim=-1)
-    within = (rsq < cutoff * cutoff) & (rsq > 1.0e-12)
-    within &= ~torch.eye(n, dtype=torch.bool, device=x.device)
-    cand = torch.arange(n, device=x.device).expand(n, n)
-    idx, counts = _compact_rows(within, cand, capacity, n)
-    return NeighborList(idx, (counts > capacity).any(), x)
+    idx, overflow = _n2_rows(x, x, box, cutoff, capacity, pbc)
+    return NeighborList(idx, overflow, x)
+
+
+def build_neighbors_images(x, box, shifts, cutoff, capacity,
+                           pbc=(True, True, True)):
+    """All-pairs build of a thin periodic box over its image-extended table
+    x_ext (`cell.image_table`, shifts from models/annp.image_shift_table,
+    pbc its pbc_eff): rows only for the N real atoms, entries the x_ext
+    rows r*N + i within the cutoff (images of the atom itself included),
+    padded with R*N; ref_x is x. The JAX Simulator builds all R*N rows and
+    keeps the first N: the same rows, at 1/R of the work."""
+    idx, overflow = _n2_rows(x, image_table(x, box, shifts), box, cutoff,
+                             capacity, pbc)
+    return NeighborList(idx, overflow, x)
 
 
 def cell_grid_dims(box, cutoff):
     """Static grid dimensions (>= 1 cell of edge >= cutoff per axis)."""
     return tuple(max(int(float(b) // cutoff), 1) for b in box)
+
+
+def build_neighbors_cell_rowsweep(x, box, cutoff, capacity, dims,
+                                  cell_capacity, row_chunk=16384,
+                                  with_rev=False, pbc=(True, True, True)):
+    """The JAX package's row-sweep cell list under its name and signature:
+    `build_neighbors_cell` is that row sweep. The reverse-slot map
+    (`with_rev`) is not ported."""
+    if with_rev:
+        raise NotImplementedError("reverse slots are not ported")
+    return build_neighbors_cell(x, box, cutoff, capacity, dims,
+                                cell_capacity, row_chunk=row_chunk, pbc=pbc)
 
 
 def build_neighbors_cell(x, box, cutoff, capacity, dims, cell_capacity,
@@ -139,6 +188,12 @@ def max_displacement_sq(ref_x, x, box, pbc=(True, True, True)):
     the skin list (nbrs.ref_x) and the short list (short.ref_x)."""
     dd = min_image(x - ref_x, box, pbc)
     return (dd * dd).sum(dim=1).max()
+
+
+def needs_rebuild(nbrs: NeighborList, x, box, skin, pbc=(True, True, True)):
+    """True (a bool tensor on the device) when any atom moved more than
+    skin/2 since the list was built."""
+    return max_displacement_sq(nbrs.ref_x, x, box, pbc) > (0.5 * skin) ** 2
 
 
 def estimate_capacity(box, cutoff, n, headroom=1.25, minimum=8):

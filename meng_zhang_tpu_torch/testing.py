@@ -17,10 +17,16 @@ random weights drawn from a seed:
     (modified, modified, linear) in the ANNA style, e_base -4473.0075,
     e_scale 1, and 17 global ADP parameters chosen to hold bcc-Fe.
 
+`with_elements` gives either ANNP more elements whose networks are small
+perturbations of the first's (`synthetic_fe_potential_multi`,
+`synthetic_ni_potential_multi`).
+
 Kernel cost does not depend on the weight values, and both packages
 evaluate the same numbers from them.
 """
 from __future__ import annotations
+
+import dataclasses
 
 import numpy as np
 
@@ -296,6 +302,50 @@ def synthetic_ni_potential(seed=0, npsf=3, nnod=24, rc_bohr=RC_NI_BOHR,
         cut=6.5, flagsym=SYM_BEHLER, norm_row0=norm_row0,
         norm_row1=norm_row1, norm_style="minmax", e_scale=1.0, e_shift=0.0,
         e_atom=0.0, networks=(net,), sym_coerad=coerad, sym_coeang=coeang)
+
+
+# the extra elements of the multi-element potentials: (symbol, mass)
+EXTRA_ELEMENTS = {"Fe": (("Cr", 51.996), ("Mn", 54.938)),
+                  "Ni": (("Cu", 63.546), ("Co", 58.933))}
+# an extra element's network: element 1's, each weight times
+# 1 + W_REL N(0, 1) and each bias plus B_ABS N(0, 1)
+W_REL, B_ABS = 0.02, 0.01
+
+
+def with_elements(pot: AnnpPotential, ne=2, seed=1) -> AnnpPotential:
+    """`pot` with ne - 1 more elements (at most 3 in all), whose networks
+    are element 1's perturbed by W_REL and B_ABS, drawn from `seed`.
+    Descriptors and their normalisation are shared by the elements, as
+    the .ann format has it."""
+    rng = np.random.default_rng(seed)
+    net = pot.networks[0]
+    nets, names, masses = [net], [pot.elements[0]], [pot.masses[0]]
+    for name, mass in EXTRA_ELEMENTS[pot.elements[0]][:ne - 1]:
+        nets.append(NetworkParams(
+            weights=tuple(w * (1.0 + W_REL * rng.normal(size=w.shape))
+                          for w in net.weights),
+            biases=tuple(b + B_ABS * rng.normal(size=b.shape)
+                         for b in net.biases),
+            flagact=net.flagact, act_style=net.act_style))
+        names.append(name)
+        masses.append(mass)
+    return dataclasses.replace(pot, elements=tuple(names),
+                               masses=np.asarray(masses),
+                               networks=tuple(nets))
+
+
+def synthetic_fe_potential_multi(ne=2, seed=0, **kw) -> AnnpPotential:
+    """`synthetic_fe_potential(seed, **kw)` with ne elements
+    (`with_elements`: Fe, Cr, Mn). At the full fe width the two-element
+    one holds the 152,880-atom benchmark slab with types 1/2 drawn 50/50
+    at 300 K (chip_smoke.py [multi-fe])."""
+    return with_elements(synthetic_fe_potential(seed, **kw), ne)
+
+
+def synthetic_ni_potential_multi(ne=2, seed=0, **kw) -> AnnpPotential:
+    """`synthetic_ni_potential(seed, **kw)` with ne elements (Ni, Cu,
+    Co)."""
+    return with_elements(synthetic_ni_potential(seed, **kw), ne)
 
 
 E_BASE_ANNA = -4473.0075        # the shipped .anna file's e_base

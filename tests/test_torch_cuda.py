@@ -486,3 +486,94 @@ def test_cli_anna_runs_on_the_card(cuda_device, tmp_path, capsys):
     assert np.isfinite([[float(v) for v in r.split()] for r in rows]).all()
     assert kernels.g_harm.launches == 23
     assert kernels.force_harm.launches == 0
+
+
+# multi-element and thin-box paths: every kernel through the per-row network
+# select and the image-extended partner table
+MULTI_KERNELS = {"harmonic": ("g_harm", "force_harm"),
+                 "matrix": ("g_cos", "force_cos"), "ni": ("ni_g", "ni_force")}
+
+
+def _multi_case(path, device, dtype):
+    """(make, cfg, params, kw, rc, scene, thin scene) for one path: a
+    two-element potential, a thermal periodic box and a thin box (the
+    1 x 4 x 4-cell bcc or fcc box) with its image shifts, both typed
+    50/50."""
+    from meng_zhang_tpu_torch.geometry.lattice import bcc, fcc
+    from meng_zhang_tpu_torch.models import annp
+    from meng_zhang_tpu_torch.testing import (synthetic_fe_potential_multi,
+                                              synthetic_ni_potential_multi)
+    rng = np.random.default_rng(4)
+    if path == "ni":
+        pot, kw, make = synthetic_ni_potential_multi(2), dict(k_short=32), \
+            fn.FusedNi
+        x, box = thermal_fcc(4, seed=2, disp=0.08)
+        xt, bt = fcc([1, 4, 4], 3.52)
+    else:
+        pot, kw, make = synthetic_fe_potential_multi(2), dict(
+            k_short=128, angular=path), fa.FusedAnnp
+        x, box = thermal_bcc(5, seed=2, disp=0.08)
+        xt, bt = bcc([1, 4, 4])
+    xt = xt + rng.normal(scale=0.03, size=xt.shape)
+    cfg, params = make_annp(pot, dtype, device)
+    rc = annp.descriptor_cutoff(cfg, params)
+    shifts, pbc_eff = annp.image_shift_table(bt, rc + 0.3, (True,) * 3)
+
+    def t(a):
+        return torch.as_tensor(a, dtype=dtype, device=device)
+    el = torch.as_tensor(rng.integers(0, 2, len(x)), device=device)
+    el_t = torch.as_tensor(rng.integers(0, 2, len(xt)), device=device)
+    return (make, cfg, params, kw, rc, (t(x), t(box), el),
+            (t(xt), t(bt), el_t, torch.as_tensor(shifts, device=device),
+             pbc_eff))
+
+
+def _multi_outputs(make, cfg, params, kw, rc, scene, thin, plain):
+    """The evaluator with elems on the periodic box, then over the thin
+    box's image-extended table: E, F, W of each."""
+    import dataclasses
+    from meng_zhang_tpu_torch.system.cell import image_table
+    from meng_zhang_tpu_torch.system.neighbors import build_neighbors_images
+    x, box, el = scene
+    nbrs = build_neighbors_n2(x, box, rc + 0.3, 128)
+    out = list(make(cfg, params, plain=plain, elems=el, **kw).energy_forces(
+        x, box, nbrs.idx))
+    xt, bt, el_t, shifts, pbc_eff = thin
+    ev = make(dataclasses.replace(cfg, pbc=pbc_eff), params, plain=plain,
+              **kw)
+    nb = build_neighbors_images(xt, bt, shifts, rc + 0.3, 192, pbc_eff)
+    x_ext = image_table(xt, bt, shifts)
+    sl = fa.compact_short(xt, bt, nb.idx, rc + 0.3, kw["k_short"], pbc_eff,
+                          x_ext=x_ext)
+    assert not bool(nb.overflow) and not bool(sl.overflow)
+    out += ev.energy_forces_short(xt, bt, sl, elems=el_t, x_ext=x_ext)
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("path", list(MULTI_KERNELS))
+def test_multi_element_and_images_match_plain(cuda_device, path, dtype):
+    """Each kernel pair through the per-row network select (two elements)
+    and over an image-extended partner table (a thin box, self-image
+    lanes included) against the plain path on the card. f64: E, F and W
+    within 1e-10 of their largest |value| (the kernels' 1e-12 carried
+    through the network and the tallies). f32 against f64: F within
+    chip_smoke.py's evaluator bound (EVAL_REL / NI_EVAL_REL max_dF, 1e-3
+    and 2e-4 of max|F|) and E within 1e-5 of |E| (dE_per_atom)."""
+    case = _multi_case(path, cuda_device, dtype)
+    kernels.reset_launch_counts()
+    got = _multi_outputs(*case, plain=False)
+    assert all(getattr(kernels, k).launches == 2
+               for k in MULTI_KERNELS[path])
+    ref = _multi_outputs(*_multi_case(path, cuda_device, torch.float64),
+                         plain=True)
+    if dtype == torch.float64:
+        tols = (1e-10,) * 6
+    else:
+        f_tol = 2e-4 if path == "ni" else 1e-3
+        tols = (1e-5, f_tol, None) * 2
+    for a, b, tol in zip(got, ref, tols):
+        assert torch.isfinite(a).all()
+        if tol is not None:
+            assert rel_max(a.double().cpu(), b.cpu()) <= tol

@@ -33,7 +33,7 @@ import torch
 import meng_zhang_tpu_torch
 from meng_zhang_tpu_torch import profiling, run, tools
 from meng_zhang_tpu_torch.geometry import lattice, screw, stgb
-from meng_zhang_tpu_torch.io import dump, lammps_data, potential
+from meng_zhang_tpu_torch.io import dump, lammps_data, native, potential
 from meng_zhang_tpu_torch.md import checkpoint, integrate, minimize, simulation
 from meng_zhang_tpu_torch.models import anna_adp, annp, descriptors, mlp
 from meng_zhang_tpu_torch.ops import fused_annp, fused_ni, kernels
@@ -62,6 +62,28 @@ cfg, params = anna_adp.make_anna(
     torch.float64, device="cpu")
 e, f, w = anna_adp.energy_forces_virial(cfg, params, x, box, nbrs.idx)
 assert torch.isfinite(f).all() and f.shape == (16, 3)
+from meng_zhang_tpu_torch.testing import (synthetic_fe_potential_multi,
+                                          synthetic_ni_potential_multi,
+                                          with_elements)
+from meng_zhang_tpu_torch.models.annp import (energy_forces_virial,
+                                              energy_forces_virial_images,
+                                              image_shift_table)
+from meng_zhang_tpu_torch.system.neighbors import (
+    build_neighbors_cell_rowsweep, build_neighbors_images, needs_rebuild)
+cfg, params = annp.make_annp(
+    synthetic_fe_potential_multi(2, npsf=4, ntsf=5, nnod=6, cut=4.0),
+    torch.float64, device="cpu")
+el = torch.arange(16) % 2
+e, f, w = fused_annp.FusedAnnp(cfg, params, k_short=16,
+                               elems=el).energy_forces(x, box, nbrs.idx)
+e, f, w = energy_forces_virial(cfg, params, x, box, nbrs.idx, el)
+assert torch.isfinite(f).all() and not bool(needs_rebuild(nbrs, x, box, 1.0))
+shifts, pbc_eff = image_shift_table(np.array([2.8553, 9.0, 9.0]), 4.5,
+                                    (True,) * 3)
+assert shifts.shape == (5, 3) and pbc_eff == (False, True, True)
+assert callable(build_neighbors_cell_rowsweep) and callable(
+    build_neighbors_images) and callable(energy_forces_virial_images)
+assert len(synthetic_ni_potential_multi(2).networks) == 2
 bad = sorted(m for m in sys.modules if m == "jax" or m.startswith("jax.")
              or m == "meng_zhang_tpu" or m.startswith("meng_zhang_tpu."))
 assert not bad, bad

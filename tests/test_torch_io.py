@@ -261,3 +261,48 @@ def test_tools_cli_matches_jax(argv, tmp_path, capsys):
     err = capsys.readouterr().err.splitlines()
     assert err[0].split()[0] == err[1].split()[0]
     assert os.path.getsize(mine) > 1000
+
+
+@pytest.mark.parametrize("velocities", [True, False], ids=["v", "no_v"])
+def test_native_reader_matches_python_and_jax(velocities, tmp_path,
+                                              monkeypatch):
+    """The port's ctypes binding of native/mzt_native.cpp (built with g++
+    into meng_zhang_tpu_torch/_build/) reads what the pure-Python reader
+    reads, and what the JAX package's binding (meng_zhang_tpu/io/native.py)
+    reads through the library built from the same source; read_data takes
+    it."""
+    import shutil
+    from meng_zhang_tpu.io import native as j_native
+    from meng_zhang_tpu_torch.io import native
+    if shutil.which("g++") is None:
+        pytest.skip("needs g++ to build the native reader")
+    path = str(tmp_path / "scene.dat")
+    lammps_data.write_data(path, lammps_data.LammpsData(
+        **_data(seed=3, n=211, velocities=velocities)), comment="scene")
+    lib = native.build()
+    assert lib.startswith(os.path.join(os.path.dirname(tools.__file__),
+                                       "_build"))
+    got = native.read_data_native(path)
+    assert got is not None
+    # the JAX binding loads native/libmzt.so beside its package: give it a
+    # package directory whose native/ holds the same library
+    (tmp_path / "native").mkdir()
+    shutil.copy(lib, tmp_path / "native" / "libmzt.so")
+    monkeypatch.setattr(j_native, "__file__",
+                        str(tmp_path / "pkg" / "io" / "native.py"))
+    monkeypatch.setattr(j_native, "_TRIED", False)
+    monkeypatch.setattr(j_native, "_LIB", None)
+    _assert_same(got, j_native.read_data_native(path))
+    py = lammps_data.read_data_python(path)
+    fast = lammps_data.read_data(path)
+    _assert_same(fast, py)
+    x, types, v, masses, lo, hi, n_types = got
+    np.testing.assert_array_equal(x - lo, py.x)
+    np.testing.assert_array_equal(types, py.types)
+    assert (v is None) == (not velocities) and n_types == py.n_types
+    np.testing.assert_array_equal(masses, py.masses)
+    # a file it cannot parse: None, and read_data's Python path raises
+    bad = tmp_path / "missing.dat"
+    assert native.read_data_native(str(bad)) is None
+    with pytest.raises(FileNotFoundError):
+        lammps_data.read_data(str(bad))

@@ -89,3 +89,61 @@ def test_estimate_capacity():
     for cut in (4.5, 7.7):
         assert tn.estimate_capacity(box, cut, 500) == \
             jn.estimate_capacity(box, cut, 500)
+
+
+@pytest.mark.parametrize("pbc", PBCS)
+def test_rowsweep_matches_jax(pbc):
+    """build_neighbors_cell_rowsweep under the JAX name and signature: the
+    JAX row sweep's rows and flags, and build_neighbors_cell's, which it
+    is; the Simulator's nbr_method="rowsweep" builds the same list."""
+    x, box = perturbed_bcc((5, 6, 5), seed=2, disp=0.1)
+    dims = tn.cell_grid_dims(box, 4.5)
+    xj, bj = jnp.asarray(x), jnp.asarray(box)
+    for cap, cell_cap in ((40, 24), (20, 24), (40, 4)):
+        want = jn.build_neighbors_cell_rowsweep(xj, bj, 4.5, cap, dims,
+                                                cell_cap, row_chunk=64,
+                                                pbc=pbc)
+        got = tn.build_neighbors_cell_rowsweep(t64(x), t64(box), 4.5, cap,
+                                               dims, cell_cap, row_chunk=64,
+                                               pbc=pbc)
+        cell = tn.build_neighbors_cell(t64(x), t64(box), 4.5, cap, dims,
+                                       cell_cap, pbc=pbc)
+        assert bool(got.overflow) == bool(want.overflow) \
+            == bool(cell.overflow)
+        if not bool(want.overflow):
+            np.testing.assert_array_equal(got.idx.numpy(),
+                                          np.asarray(want.idx))
+        assert torch.equal(got.idx, cell.idx)
+    with pytest.raises(NotImplementedError):
+        tn.build_neighbors_cell_rowsweep(t64(x), t64(box), 4.5, 40, dims, 24,
+                                         with_rev=True)
+    from meng_zhang_tpu_torch.md.simulation import MDConfig, Simulator
+    sims = [Simulator(None, torch.ones(len(x), dtype=torch.float64),
+                      MDConfig(dt=0.001, cutoff=4.0, skin=0.5, capacity=40,
+                               nbr_method=m, cell_dims=dims,
+                               cell_capacity=24, pbc=pbc))
+            for m in ("rowsweep", "cell")]
+    a, b = (s.build_nbrs(t64(x), t64(box)) for s in sims)
+    assert torch.equal(a.idx, b.idx) and not bool(a.overflow)
+
+
+@pytest.mark.parametrize("pbc", PBCS)
+def test_needs_rebuild_matches_jax(pbc):
+    """True exactly when some atom moved more than skin/2 since the build,
+    on both sides of the threshold, as the JAX function; a periodic image
+    of the reference position does not count on a periodic axis."""
+    x, box = perturbed_bcc(3, seed=4)
+    skin = 0.8
+    nt = tn.build_neighbors_n2(t64(x), t64(box), 4.5, 40, pbc=pbc)
+    nj = jn.build_neighbors_n2(jnp.asarray(x), jnp.asarray(box), 4.5, 40,
+                               pbc=pbc)
+    for move, rebuild in ((0.5 * skin * (1 - 1e-6), False),
+                          (0.5 * skin * (1 + 1e-6), True)):
+        x1 = x.copy()
+        x1[7, 1] += move
+        x1[3, 1] += box[1]               # y is periodic in both layouts
+        got = tn.needs_rebuild(nt, t64(x1), t64(box), skin, pbc)
+        want = jn.needs_rebuild(nj, jnp.asarray(x1), jnp.asarray(box), skin,
+                                pbc)
+        assert isinstance(got, torch.Tensor)
+        assert bool(got) == bool(want) == rebuild

@@ -22,7 +22,8 @@ The stiff synthetic ni potential is the exception for Press: its pair
 terms cancel to ~1e-6 of their magnitude (tr W is -0.12 eV in f64 on the
 perfect 108-atom lattice, while each package's f32 tally reads noise of
 ~0.3 eV there, ~150 bar on its 1,177 A^3 box), so its rows hold Press
-within 300 bar. Dump columns: positions within 1e-5 A, c_pe within 2e-3 eV
+within 300 bar. The two-element BP run, where the JAX CLI takes its plain
+route, holds PotEng within PE_ATOL_PLAIN (derived there). Dump columns: positions within 1e-5 A, c_pe within 2e-3 eV
 (four f32 ULPs at |e_i| ~ 4.5e3 eV), c_stress within 1e-4 of its largest
 |value|. A restart on the CPU continues an unbroken run bit for bit.
 """
@@ -45,6 +46,7 @@ from meng_zhang_tpu_torch import run
 from meng_zhang_tpu_torch.io.lammps_data import LammpsData, write_data
 from meng_zhang_tpu_torch.io.potential import write_ann
 from meng_zhang_tpu_torch.md import simulation as tsim
+from meng_zhang_tpu_torch.testing import thermal_fcc, with_elements
 from meng_zhang_tpu_torch.units import BOLTZ, MVV2E
 from torch_port_util import perturbed_bcc, reduced_ni_potential, \
     reduced_potential
@@ -54,6 +56,11 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 ROW_TOL = {"Temp": (1e-5, 1e-3), "KinEng": (1e-5, 1e-4),
            "Volume": (1e-6, 1e-3)}
 PE_ATOL = 2e-3
+# The JAX CLI's plain route for a multi-element BP potential sums the f32
+# per-atom energies of the skin list in one reduction: at |PotEng| ~ 8e3 eV
+# (108 ni atoms) each of its ~100 adds rounds by up to half an ULP, 2.4e-4
+# eV, 0.026 eV in the worst case
+PE_ATOL_PLAIN = 0.03
 PRESS_RTOL, PRESS_RTOL_STRAIN, PRESS_ATOL = 1e-4, 1e-3, 0.05
 PRESS_ATOL_NI = 300.0
 X_ATOL, PE_AT_ATOL, STRESS_RTOL = 1e-5, 2e-3, 1e-4
@@ -124,14 +131,15 @@ def _jax(argv):
     return _run(jrun.main, argv)
 
 
-def _close_rows(got, want, press_rtol=PRESS_RTOL, press_atol=PRESS_ATOL):
+def _close_rows(got, want, press_rtol=PRESS_RTOL, press_atol=PRESS_ATOL,
+                pe_atol=PE_ATOL):
     assert got.shape == want.shape
     np.testing.assert_array_equal(got[:, 0], want[:, 0])
     for col, name in ((1, "Temp"), (3, "KinEng"), (5, "Volume")):
         rtol, atol = ROW_TOL[name]
         np.testing.assert_allclose(got[:, col], want[:, col], rtol=rtol,
                                    atol=atol, err_msg=name)
-    np.testing.assert_allclose(got[:, 2], want[:, 2], rtol=0, atol=PE_ATOL)
+    np.testing.assert_allclose(got[:, 2], want[:, 2], rtol=0, atol=pe_atol)
     p_tol = press_rtol * np.abs(want[:, 4]).max() + press_atol
     np.testing.assert_allclose(got[:, 4], want[:, 4], rtol=0, atol=p_tol)
 
@@ -169,6 +177,62 @@ def test_ni_cli_matches_jax(files):
     _close_rows(got, want, PRESS_RTOL_STRAIN, PRESS_ATOL_NI)
     assert "short-neighbor repack width 16" in gerr
     assert _log_lines(gerr) == _log_lines(werr)
+
+
+@pytest.fixture(scope="module")
+def typed(tmp_path_factory):
+    """Two-element .ann files (testing.with_elements) and typed data files
+    (types 1/2 drawn 50/50 from a seed, no Masses section: each atom takes
+    its element's mass from the potential)."""
+    d = tmp_path_factory.mktemp("typed")
+    out = {}
+    for kind, pot, (x, box) in (
+            ("fe", with_elements(reduced_potential(cut=4.0), 2),
+             perturbed_bcc(4, seed=9, disp=0.1)),
+            ("ni", with_elements(reduced_ni_potential(), 2),
+             thermal_fcc(3, seed=9, disp=0.08))):
+        out[kind] = str(d / f"{kind}2.ann")
+        write_ann(out[kind], pot)
+        types = np.random.default_rng(1).integers(1, 3, len(x))
+        out[kind + "_data"] = str(d / f"{kind}2.dat")
+        write_data(out[kind + "_data"], LammpsData(
+            x=x, types=types.astype(np.int32), box_lo=np.zeros(3),
+            box_hi=box, n_types=2))
+    return out
+
+
+TWO_ELEMENT = {
+    "fe-npt": ("fe", ["--ensemble", "npt", "--couple", "y", "--boundary",
+                      "m p m", "--skin", "1.0", "--capacity", "64",
+                      "--steps", "20", "--thermo", "10"]),
+    "ni-nvt": ("ni", ["--ensemble", "nvt", "--temp", "600", "--skin", "1.0",
+                      "--steps", "10", "--thermo", "5"]),
+}
+
+
+@pytest.mark.parametrize("case", list(TWO_ELEMENT))
+def test_two_element_cli_matches_jax(typed, case):
+    """A two-element .ann on a typed data file: each atom's network by its
+    type. Chebyshev on the fused engine (FusedAnnp(elems) against
+    PallasAnnp(elems)); BP through the chunked functions with elems, where
+    the JAX CLI runs the plain energy_forces_virial on the skin list (its
+    strain virial: Press within the chunked path's bounds; PotEng within
+    PE_ATOL_PLAIN)."""
+    kind, extra = TWO_ELEMENT[case]
+    argv = ["--data", typed[kind + "_data"], "--potential", typed[kind]] \
+        + extra
+    got, _, gerr = _port(argv)
+    want, _, werr = _jax(argv)
+    if kind == "fe":
+        _close_rows(got, want)
+    else:
+        _close_rows(got, want, PRESS_RTOL_STRAIN, PRESS_ATOL_NI,
+                    PE_ATOL_PLAIN)
+    assert "elements=('Fe', 'Cr')" in gerr or "elements=('Ni', 'Cu')" in gerr
+    # the port logs its repack width where the JAX CLI's plain route has
+    # none
+    assert [ln for ln in _log_lines(gerr)
+            if not ln.startswith("short-neighbor")] == _log_lines(werr)
 
 
 def test_boundary_letters_parse_alike(files):
@@ -301,14 +365,22 @@ def test_cli_refusals(files, tmp_path):
     with pytest.raises(SystemExit, match="--dump-peratom needs --dump"):
         run.main(base + ["--potential", files["fe"], "--dump-peratom"],
                  device="cpu")
+    # a two-element potential runs (test_two_element_cli_matches_jax), but
+    # a data file with more types than elements stops, as in the JAX CLI
     two = reduced_potential(cut=4.0)
     two = type(two)(**{**two.__dict__, "elements": ("Fe", "Cr"),
                        "masses": np.array([55.847, 51.996]),
                        "networks": two.networks * 2})
     j_write_ann(str(tmp_path / "two.ann"), two)
-    with pytest.raises(SystemExit, match="2-element"):
-        run.main(base + ["--potential", str(tmp_path / "two.ann")],
-                 device="cpu")
+    x, box = perturbed_bcc(4, seed=9, disp=0.15)
+    three = str(tmp_path / "three.dat")
+    write_data(three, LammpsData(x=x, types=np.arange(len(x)) % 3 + 1,
+                                 box_lo=np.zeros(3), box_hi=box, n_types=3))
+    for main, kw in ((run.main, {"device": "cpu"}), (jrun.main, {})):
+        with pytest.raises(SystemExit, match="3 atom types but the "
+                           "potential defines only 2 elements"):
+            main(["--data", three, "--potential", str(tmp_path / "two.ann"),
+                  "--steps", "10"], **kw)
     if not torch.cuda.is_available():
         with pytest.raises(SystemExit, match="no CUDA device"):
             run.main(base + ["--potential", files["fe"]])
