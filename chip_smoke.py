@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Bring-up smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
 
-Drives `meng_zhang_tpu_torch` -- never JAX -- through its four main paths,
-then through its user-facing run path (`python -m meng_zhang_tpu_torch`,
+Drives `meng_zhang_tpu_torch` -- never JAX -- through its four main paths
+and the sharded slab driver on each model family, then through its
+user-facing run path (`python -m meng_zhang_tpu_torch`,
 called in-process as `run.main(argv)`):
 
   * fe Chebyshev ANNP on the reference benchmark scene: the 152,880-atom
@@ -124,6 +125,32 @@ The multi-element and thin-box paths, each fatal on failure, by tag:
     [multi-fe] types and the two-element .ann: 20 NPT steps with per-atom
     dumps, c_pe summing to PotEng.
 
+The sharded slab driver (parallel/domain.py: ShardedMD over SHARD_D = 4
+shards in this process, every per-shard tensor [4, ...], so each kernel
+launches once a step for all shards), each fatal on failure, by tag:
+
+  * [shard-fe] (after [rowsweep]): ShardedMD(FrameShortModel(FusedAnnp))
+    on the fe scene: distribute in f32 against phase 4's f64 plain path
+    (EVAL_REL); the four fe kernels against their plain versions on the
+    frame planes [4 cc, 128] (the cos pair on every fourth row); on the
+    slab x < SHARD_SLAB_X in f64 the sharded kernel path against one
+    device, and AnnpFrameModel (both angular paths, the skin rows at full
+    width) against FrameShortModel (SHARD_REL64); halo_b 16 trips
+    OVF_COVERAGE; SHARD_BLOCKS NPT blocks (migrate_b SHARD_MIGRATE_B; a
+    migrate and rebuild forced after the first block if none ran) from
+    phase 5's start: T against a single-device run over the first
+    SHARD_T_STEPS steps within `shard_t_bound`, one launch a step of each
+    harmonic kernel, gid a permutation; its rate beside phase 5's;
+  * [shard-ni] (after phase 11): FrameShortModel(FusedNi) on the thermal ni
+    box (periodic x: the ring's seam halos are unwrapped) against phase
+    10's f64 plain path, in f64 against one device, ni_g / ni_force on the
+    frame planes, the coverage trip, then SHARD_BLOCKS NVT blocks from the
+    perfect lattice as phase 11;
+  * [shard-anna] (after phase 14): AnnaFrameModel(fast=True) on the thermal
+    ANNA box against phase 13's f64 fast path (ANNA_EVAL_REL), g_harm on
+    the frame planes [4 cc, 96], SHARD_ANNA_BLOCKS NVE blocks from the
+    perfect lattice with halo_b SHARD_ANNA_HALO_B (drift printed).
+
 Each kernel's record carries its least time on the card (`bound_ms`, the
 larger of the FLOPs its function needs over the f32 peak and its bytes
 over the memory rate, counted from this run's inputs) and `library_ms` null: no single PyTorch
@@ -132,7 +159,7 @@ ANNA-shape figures (`anna_shape`, `anna_ms`, `anna_plain_ms`,
 `anna_bound_ms`, `anna_bound_by`, `anna_max_abs_err`, and `anna_launches`
 from phase 14). Its `launches` add the new paths' runs ([multi-fe]'s and
 [rowsweep]'s Simulators, [multi-ni]'s, [thin-box]'s Simulator and FIRE,
-[cli-multi]) to the main paths'. Prints the kernels' JSON record on
+[cli-multi], the three [shard-*] runs) to the main paths'. Prints the kernels' JSON record on
 the line before the last, and as the last line
 {"ok": true, "device": {...}}. Run from the repository root:
 `python3 chip_smoke.py`.
@@ -210,6 +237,30 @@ THIN_W_OVER_PLAIN = 2.0
 # of the fe potential through the plain path on a CPU, the blind forces
 # differ by 6.8 % of max|F|, 68x the max_dF bound, and f32 by 1.8e-5.)
 BLIND_OVER_ERR, BLIND_OVER_BOUND = 100.0, 10.0
+
+# the sharded slab driver (parallel/domain.py), one card
+SHARD_D = 4                    # shards on the one card
+SHARD_BLOCKS = 10              # [shard-fe], [shard-ni] blocks
+SHARD_ANNA_BLOCKS = 5          # [shard-anna] NVE blocks
+SHARD_T_STEPS = 20             # steps held against the single-device run
+SHARD_MIGRATE_B = 512          # rows merged at each slab boundary at a
+                               # rebuild of [shard-fe]'s run
+SHARD_SLAB_X = 92.0            # [shard-fe]'s f64 slab: the atoms below it (A)
+# [shard-anna]'s NVE run from the perfect lattice: bc 8,192 rows, 5.12 of
+# its (100) planes (1,600 atoms, 1.428 A apart). The derived 6,808 rows
+# (4.26 planes) leave the plane that ends the frame 5.71 A from the plane
+# that ends the centre rows, 0.16 A beyond rlist 5.555 A, and thermal
+# motion trips the coverage proof at the first rebuild (on an H100 at
+# 700 W, 25 steps from 300 K velocities); one plane more leaves 1.59 A.
+SHARD_ANNA_HALO_B = 16384
+# f64 sharded kernel path against the f64 single-device kernel path on the
+# same atoms: the same pair terms summed in another order (lanes sorted by
+# frame row instead of atom id, the D frames' virials added), so only
+# rounding separates them: ~1e-14 of each output's scale (the matrix-vs-
+# harmonic comparison above reads 3e-14 on the full scene); 1e-9 leaves
+# 1e5x, and a lost or doubled pair moves F by ~1e-2 of max|F|.
+SHARD_REL64 = 1e-9
+
 
 # Kernel vs plain, per output, as a fraction of the output's max |value|.
 # f32: the longest per-lane sums run over ~400 terms, whose worst-case
@@ -685,11 +736,13 @@ def phase_kernels(x, box, cfg32, p32):
 
 
 def phase_evaluator(x, box, cfg32, p32, cfg64, p64, sl, angular="harmonic",
-                    elems=None, pot=None, tag=None):
+                    elems=None, pot=None, tag=None, ref_out=None):
     """Kernel path in f32 against the plain path in f64, same short list;
     on the harmonic path then the f64 kernel path against the autograd
     model on a small box. elems: the atoms' elements (a multi-element
-    potential `pot`; the small box then takes types 50/50 from SEED)."""
+    potential `pot`; the small box then takes types 50/50 from SEED).
+    ref_out: a list that receives the f64 plain path's (E, F, W) and the
+    virial's scale, for [shard-fe]'s gates."""
     from meng_zhang_tpu_torch.models import annp
     from meng_zhang_tpu_torch.ops import fused_annp as fa
     from meng_zhang_tpu_torch.system.neighbors import build_neighbors_n2
@@ -725,6 +778,8 @@ def phase_evaluator(x, box, cfg32, p32, cfg64, p64, sl, angular="harmonic",
         f" {float(f64.abs().max()):.4e} eV/A; virial pressure "
         f"{float(torch.trace(w64)) / 3 / vol * 1.6021765e6:.1f} bar")
     got = eval_gates(tag, EVAL_REL, (e32, f32, w32), (e64, f64, w64), w_abs)
+    if ref_out is not None:
+        ref_out.extend((e64, f64, w64, w_abs))
     if angular != "harmonic":
         return got
 
@@ -1134,10 +1189,11 @@ def phase_ni_kernels(x, box, cfg32, p32, sl):
     return records
 
 
-def phase_ni_evaluator(x, box, cfg32, p32, cfg64, p64, sl):
+def phase_ni_evaluator(x, box, cfg32, p32, cfg64, p64, sl, ref_out):
     """FusedNi through the kernels in f32 against the plain path in f64,
     same short list; then the f64 kernel path against the autograd model
-    on a 256-atom periodic thermal box."""
+    on a 256-atom periodic thermal box. ref_out: a list that receives the
+    f64 plain path's (E, F, W) and the virial's scale ([shard-ni])."""
     from meng_zhang_tpu_torch.models import annp
     from meng_zhang_tpu_torch.ops import fused_annp as fa
     from meng_zhang_tpu_torch.ops import fused_ni as fn
@@ -1167,6 +1223,8 @@ def phase_ni_evaluator(x, box, cfg32, p32, cfg64, p64, sl):
         f" pressure {float(torch.trace(w64)) / 3 / vol * 1.6021765e6:.1f} bar")
     got = eval_gates("ni-evaluator", NI_EVAL_REL, (e32, f32, w32),
                      (e64, f64, w64), w_abs)
+    ref_out.extend((e64, f64, w64, w_abs))
+    del dd, fj
 
     xs, bs = thermal_fcc(4, seed=SEED, disp=NI_DISP, a=NI_A)
     xs = torch.tensor(xs, dtype=torch.float64, device=dev)
@@ -1263,7 +1321,7 @@ def phase_ni_main_path(dev, cfg32, p32, mass, card):
     log(f"[ni-main] {aps:.1f} atom-steps/s over the last {RATE_BLOCKS} "
         f"blocks ({window:.3f} s) on {card}; peak device memory "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
-    return launches
+    return launches, aps
 
 
 def phase_ni_profile(dev, cfg32, p32, mass, card):
@@ -1359,7 +1417,8 @@ def phase_anna_eval(box_lists, cfg32, p32, cfg64, p64):
     """make_anna_fast_fns' force_fn through g_harm in f32 against the same
     path in f64 on g_harm's plain version on the thermal box; then the f64
     fast path through the kernel against the reference-shaped
-    energy_forces_virial on a 432-atom box."""
+    energy_forces_virial on a 432-atom box. Returns the f64 plain path's
+    (E, F, W) on the thermal box ([shard-anna])."""
     from meng_zhang_tpu_torch.models import anna_adp as A
     from meng_zhang_tpu_torch.system.neighbors import build_neighbors_n2
     from meng_zhang_tpu_torch.testing import thermal_bcc
@@ -1394,7 +1453,8 @@ def phase_anna_eval(box_lists, cfg32, p32, cfg64, p64):
             f"{ANNA_EVAL_REL[key]:.0e} x {scale[key]:.4e})")
         check(val <= bound_abs, f"anna-eval {key} {val:.3e} over "
               f"{bound_abs:.3e}")
-    del f32_fn, f64_fn, e32, f32, w32, e64, f64, w64, x64, box64
+    ref = (e64, f64, w64)
+    del f32_fn, f64_fn, e32, f32, w32, x64, box64
 
     xs, bs = thermal_bcc(6, seed=SEED, disp=ANNA_DISP)
     xs = torch.tensor(xs, dtype=torch.float64, device=dev)
@@ -1416,7 +1476,7 @@ def phase_anna_eval(box_lists, cfg32, p32, cfg64, p64):
     check(de <= ANNA_REF["E_rtol"] and df <= ANNA_REF["F_atol"]
           and dw <= ANNA_REF["W_atol"],
           "anna: the fast path disagrees with the reference-shaped path")
-    return got
+    return ref
 
 
 def anna_simulator(dev, cfg32, p32, mass):
@@ -1493,7 +1553,7 @@ def phase_anna_md(dev, cfg32, p32, mass, card):
     log(f"[anna-md] {aps:.1f} atom-steps/s over the last {RATE_BLOCKS} "
         f"blocks ({window:.3f} s) on {card}; peak device memory "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
-    return launches["g_harm"]
+    return launches["g_harm"], aps
 
 
 def phase_anna_profile(dev, cfg32, p32, mass, card):
@@ -2326,6 +2386,490 @@ def phase_cli_multi(card, tmp, types):
     return {k: launches[k] for k in ("g_harm", "force_harm")}
 
 
+def shard_config(n, cut, skin, capacity, cell_capacity, **kw):
+    from meng_zhang_tpu_torch.parallel.domain import ShardConfig
+    return ShardConfig(n_devices=SHARD_D, c_loc=n // SHARD_D, cutoff=cut,
+                       skin=skin, dt=0.001, capacity=capacity,
+                       cell_capacity=cell_capacity, **kw)
+
+
+def shard_outputs(st, order):
+    """(PE shift-free, F [N, 3] in the original atom order, W)."""
+    return (st.pe.sum(), st.f_loc.reshape(-1, 3)[torch.argsort(order)],
+            st.virial)
+
+
+def shard_rel64(tag, what, got, want):
+    """(E, F, W) of the f64 sharded path against the f64 single-device
+    path, each difference within SHARD_REL64 of the output's scale."""
+    (e, f, w), (e0, f0, w0) = got, want
+    errs = {"E": abs(float(e) - float(e0)) / abs(float(e0)),
+            "F": rel_err(f, f0)[1], "W": rel_err(w, w0)[1]}
+    log(f"[{tag}] {what}: rel dE {errs['E']:.3e}, max dF / max|F| "
+        f"{errs['F']:.3e}, max dW / max|W| {errs['W']:.3e} (bound "
+        f"{SHARD_REL64:.0e})")
+    check(max(errs.values()) <= SHARD_REL64, f"{tag}: {what} disagree")
+
+
+def shard_planes(md, st, idx, pbc):
+    """The dx planes [D*cc, K] of every shard's centre rows over the rows
+    idx [D, cc, K], as the driver's evaluation gathers them."""
+    from meng_zhang_tpu_torch.ops import frames
+    x_ext = md._frame(st.x_loc, st.halo_l, st.halo_r)
+    off, cc = md._short_geom()
+    sidx, _ = frames.frame_tables(idx, x_ext.shape[1], off, cc)
+    return frames.frame_planes(x_ext[:, off:off + cc], x_ext, st.box, sidx,
+                               pbc)
+
+
+def shard_kernel_checks(tag, planes32, cases):
+    """Each case (name, kernel, plain version, outputs, bounds by dtype)
+    on the frame planes in f32 and f64, the kernel against its plain
+    version; then the kernel's f32 time on them. kernel/plain take
+    (planes, dtype)."""
+    p, k = planes32[0].shape
+    for dtype in (torch.float32, torch.float64):
+        pl = [t.to(dtype) for t in planes32]
+        for name, kern, plain, outs, bounds in cases:
+            compare(f"{tag} {'f32' if dtype == torch.float32 else 'f64'}",
+                    f"{name} frame planes [{p}, {k}]", outs, kern(pl, dtype),
+                    plain(pl, dtype), bounds[dtype])
+    for name, kern, _, _, _ in cases:
+        ms = cuda_ms(lambda: kern(planes32, torch.float32), 5)
+        log(f"[{tag}] {name} f32 on the [{p}, {k}] frame planes: {ms:.3f} "
+            "ms (median of 5, CUDA events)")
+
+
+def fe_kernel_cases(npsf, ntsf, rc, p, dev):
+    from meng_zhang_tpu_torch.ops import fused_annp as fa
+    from meng_zhang_tpu_torch.ops import kernels
+    rng = np.random.default_rng(SEED)
+    dedg_np = np.zeros((p, fa.NSF_PAD))
+    dedg_np[:, :npsf + ntsf] = rng.normal(size=(p, npsf + ntsf))
+    b_np = np.zeros((p, fa.AB_PAD))
+    b_np[:, :ntsf * ntsf + 1] = rng.normal(size=(p, ntsf * ntsf + 1))
+
+    made = {}
+
+    def co(a, pl, dtype):
+        """The first rows of a coefficient table, one for each plane row,
+        on the card (copied once, outside the timed launches)."""
+        key = (id(a), pl[0].shape[0], dtype)
+        if key not in made:
+            made[key] = torch.tensor(a[:pl[0].shape[0]], dtype=dtype,
+                                     device=dev)
+        return made[key]
+
+    harm = [("g_harm", lambda pl, dt: kernels.g_harm(*pl, npsf, ntsf, rc),
+             lambda pl, dt: fa.g_harm_plain(*pl, npsf, ntsf, rc),
+             ("g_raw", "A"), REL_BOUND),
+            ("force_harm",
+             lambda pl, dt: kernels.force_harm(*pl, co(dedg_np, pl, dt),
+                                               co(b_np, pl, dt), npsf, ntsf, rc),
+             lambda pl, dt: fa.force_harm_plain(*pl, co(dedg_np, pl, dt),
+                                                co(b_np, pl, dt), npsf, ntsf, rc),
+             ("fjx", "fjy", "fjz"), REL_BOUND)]
+    cos = [("g_cos",
+            lambda pl, dt: (kernels.g_cos(*pl, npsf, ntsf, rc),),
+            lambda pl, dt: (fa.g_cos_plain(*pl, npsf, ntsf, rc),),
+            ("g",), {d: b["g_cos"] for d, b in COS_REL_BOUND.items()}),
+           ("force_cos",
+            lambda pl, dt: kernels.force_cos(*pl, co(dedg_np, pl, dt), npsf,
+                                             ntsf, rc),
+            lambda pl, dt: fa.force_cos_plain(*pl, co(dedg_np, pl, dt), npsf,
+                                              ntsf, rc),
+            ("fjx", "fjy", "fjz"),
+            {d: b["force_cos"] for d, b in COS_REL_BOUND.items()})]
+    return harm, cos
+
+
+def shard_t_bound(t_ref, rel_f, f_max, mass, steps, v_rms):
+    """|dT| bound after `steps` steps between two f32 runs from one start
+    whose evaluations are each within rel_f * f_max of the f64 forces (the
+    evaluator gates): the velocities differ by at most dv = 2 rel_f f_max
+    steps dt / (m MVV2E) an atom, and T = m v^2 / (3 kB) per atom moves by
+    at most 2 dv / v_rms of itself (to first order)."""
+    from meng_zhang_tpu_torch.units import MVV2E
+    dv = 2.0 * rel_f * f_max * steps * 0.001 / (mass * MVV2E)
+    return 2.0 * t_ref * dv / v_rms
+
+
+def shard_md(tag, md, x, v, n_blocks, names, card, sim_run, rel_f,
+             rate_ref, mass, migrate=False, thermo_every=THERMO_EVERY):
+    """distribute + n_blocks of the sharded run from (x, v); sim_run():
+    the single-device Simulator's Thermo over the first SHARD_T_STEPS
+    steps from the same start. Gates: finite thermo, no overflow or
+    unsafe, >= 1 rebuild (one is forced after the first block when the
+    run flags none, after a migrate with `migrate`), each kernel in
+    `names` launched once a step (and once by distribute), no other
+    kernel and no plain version, T against the single-device run within
+    shard_t_bound. Returns the launches."""
+    from meng_zhang_tpu_torch.ops import kernels
+    all_names = ("g_harm", "force_harm", "g_cos", "force_cos", "ni_g",
+                 "ni_force")
+    n = x.shape[0]
+    th_ref = sim_run()
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    with plain_calls() as plain:
+        t0 = time.time()
+        st, _ = md.distribute(x, v)
+        torch.cuda.synchronize()
+        log(f"[{tag}] distribute {time.time() - t0:.2f} s: halo_b "
+            f"{md.cfg.halo_b}, bc {md.cfg.bc}, cc {md.cfg.cc} "
+            f"({md.cfg.cc / md.cfg.c_loc:.3f} x C), K {md.cfg.capacity}, "
+            f"frame {md.frame_wx:.3f} A, cells {md.frame_dims}")
+        rows, block_s, rebuilds, migrated = [], [], 0, 0
+        for blk in range(n_blocks):
+            t0 = time.time()
+            st, th = md.run(st, 1)
+            torch.cuda.synchronize()
+            block_s.append(time.time() - t0)
+            rebuilds += md.rebuild_count
+            migrated += md.migrated
+            if blk == 0 and rebuilds == 0:
+                if migrate:
+                    st = md.migrate(st)
+                    migrated += md.migrated
+                st = md.rebuild(st)       # drive the rebuild path once
+                rebuilds += 1
+            row = [float(c[-1]) for c in th]
+            rows.append(row)
+            log(f"[{tag}] step {int(row[0]):4d} T {row[1]:8.3f} K  PE "
+                f"{row[2]:.6f} eV  P {row[4]:9.2f} bar  conserved "
+                f"{row[6]:.6e}  {block_s[-1] * 1e3:.1f} ms")
+    launches = {k: getattr(kernels, k).launches for k in all_names}
+    steps = n_blocks * thermo_every
+    check(not plain, f"{tag}: plain versions ran on the card: {plain}")
+    check(all(np.isfinite(r).all() for r in rows), f"{tag}: non-finite "
+          "thermo")
+    check(not bool(st.overflow.any()), f"{tag}: overflow flags "
+          f"{st.overflow.tolist()}")
+    check(not bool(st.unsafe.any()), f"{tag}: unsafe latch set")
+    check(rebuilds >= 1, f"{tag}: no rebuild ran")
+    for k in all_names:
+        want = steps + 1 if k in names else 0
+        check(launches[k] == want, f"{tag}: {k} launched {launches[k]} "
+              f"times, expected {want} (one a step for all {SHARD_D} "
+              "shards, and one at distribute)")
+    gid = np.sort(st.gid.reshape(-1).cpu().numpy())
+    check(np.array_equal(gid, np.arange(n)), f"{tag}: gid not a "
+          "permutation")
+    # T against the single-device run over the first SHARD_T_STEPS steps
+    n_cmp = SHARD_T_STEPS // thermo_every
+    f_max = float(st.f_loc.abs().max())
+    v_rms = float(st.v_loc.double().pow(2).mean().sqrt()) * math.sqrt(3.0)
+    for i in range(n_cmp):
+        t_ref = float(th_ref.temp[i])
+        bnd = shard_t_bound(t_ref, rel_f, f_max, mass, (i + 1) * thermo_every,
+                            v_rms)
+        dt_ = abs(rows[i][1] - t_ref)
+        log(f"[{tag}] step {(i + 1) * thermo_every}: T {rows[i][1]:.6f} K "
+            f"against the single-device {t_ref:.6f} K: |dT| {dt_:.3e} K "
+            f"(bound {bnd:.3e} K)")
+        check(dt_ <= bnd, f"{tag}: T off the single-device run")
+    drift = rows[-1][6] - rows[0][6]
+    log(f"[{tag}] conserved-quantity drift {drift:+.6e} eV over steps "
+        f"{int(rows[0][0])}-{int(rows[-1][0])} (printed, not gated)")
+    rate_blocks = min(RATE_BLOCKS, n_blocks - 2)
+    window = sum(block_s[-rate_blocks:])
+    aps = n * rate_blocks * thermo_every / window
+    log(f"[{tag}] {steps} steps, {rebuilds} rebuilds, {migrated} atoms "
+        f"migrated between shards, launches "
+        f"{ {k: v for k, v in launches.items() if v} }")
+    log(f"[{tag}] {aps:.1f} atom-steps/s over the last {rate_blocks} blocks "
+        f"({window:.3f} s), the single-device Simulator's {rate_ref:.1f} in "
+        f"this run, on {card}; peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    return {k: v for k, v in launches.items() if v}
+
+
+def shard_coverage(tag, md, x):
+    """An undersized halo (bc of 8 rows) must trip OVF_COVERAGE."""
+    import dataclasses
+    from meng_zhang_tpu_torch.parallel import domain as D
+    md.cfg = dataclasses.replace(md.cfg, halo_b=16)
+    st, _ = md.distribute(x)
+    ovf = st.overflow.tolist()
+    log(f"[{tag}] halo_b 16: overflow flags {ovf} (OVF_COVERAGE "
+        f"{D.OVF_COVERAGE})")
+    check(all(o & D.OVF_COVERAGE for o in ovf), f"{tag}: an undersized halo "
+          "passed the coverage proof")
+
+
+def phase_shard_fe(x, box, cfg32, p32, cfg64, p64, mass, card, ref,
+                   main_rate):
+    """The 1-D slab driver on the fe main path's scene at the shipped
+    width: ShardedMD(FrameShortModel(FusedAnnp)) over SHARD_D shards on the
+    card. (a) distribute in f32 against the f64 plain single-device path
+    at the same x (phase 4's EVAL_REL); (b) on the slab x < SHARD_SLAB_X
+    in f64, the sharded kernel path against the single-device kernel path
+    (SHARD_REL64), and AnnpFrameModel on both angular paths (the skin
+    rows at full width) against FrameShortModel; (c) the four fe kernels
+    against their plain versions on the frame planes; (d) an undersized
+    halo trips the coverage proof; (e) SHARD_BLOCKS NPT blocks (migrate_b
+    SHARD_MIGRATE_B) from the main path's start."""
+    from meng_zhang_tpu_torch.md.simulation import create_velocities
+    from meng_zhang_tpu_torch.ops import fused_annp as fa
+    from meng_zhang_tpu_torch.parallel import domain as D
+    tag = "shard-fe"
+    t_phase = time.time()
+    dev = x.device
+    n = x.shape[0]
+
+    def cfg_of(n_at, **kw):
+        return shard_config(n_at, cfg32.cut, SKIN, CAPACITY, CELL_CAPACITY,
+                            pbc=PBC, **kw)
+
+    def short_model(cfg, p, **kw):
+        return D.FrameShortModel(fa.FusedAnnp(cfg, p, k_short=K_SHORT,
+                                              short_delta=SHORT_DELTA, **kw))
+
+    # (a) f32 sharded against the f64 plain single-device evaluation
+    md = D.ShardedMD(short_model(cfg32, p32), mass, box, cfg_of(n),
+                     device=dev)
+    st, order = md.distribute(x)
+    check(not bool(st.overflow.any()), f"{tag}: overflow at distribute "
+          f"{st.overflow.tolist()}")
+    e64, f64, w64, w_abs = ref
+    eval_gates(tag, EVAL_REL, shard_outputs(st, order), (e64, f64, w64),
+               w_abs)
+    planes = shard_planes(md, st, st.short.sidx, PBC)
+    del st, md, e64, f64, w64
+
+    # (c) the kernels on the frame planes
+    harm, cos = fe_kernel_cases(cfg32.npsf, cfg32.ntsf, cfg32.cut,
+                                planes[0].shape[0], dev)
+    shard_kernel_checks(tag, planes, harm)
+    shard_kernel_checks(tag, [t[::4].contiguous() for t in planes], cos)
+    del planes
+
+    # (b) f64 on a slab cut from the scene
+    keep = torch.nonzero(x[:, 0] < SHARD_SLAB_X).reshape(-1)
+    keep = keep[:keep.shape[0] // SHARD_D * SHARD_D]
+    xs = x[keep].double()
+    box64 = box.double()
+    ns = xs.shape[0]
+    from meng_zhang_tpu_torch.system.neighbors import build_neighbors_cell
+    mcfg = md_config(cfg64)
+    nb = build_neighbors_cell(xs, box64, cfg64.cut + SKIN, CAPACITY,
+                              mcfg.cell_dims, CELL_CAPACITY, pbc=PBC)
+    want = fa.FusedAnnp(cfg64, p64, k_short=K_SHORT).energy_forces(
+        xs, box64, nb.idx)
+    del nb
+    md = D.ShardedMD(short_model(cfg64, p64), mass, box64, cfg_of(ns),
+                     device=dev)
+    st, order = md.distribute(xs)
+    check(not bool(st.overflow.any()), f"{tag}: slab overflow")
+    shard_rel64(tag, f"{ns}-atom slab, f64 FrameShortModel vs one device",
+                shard_outputs(st, order), want)
+    short_out = shard_outputs(st, order)
+    del st
+    for angular in ("harmonic", "matrix"):
+        mda = D.ShardedMD(D.AnnpFrameModel(fa.FusedAnnp(cfg64, p64,
+                                                        angular=angular)),
+                          mass, box64, cfg_of(ns), device=dev)
+        st, order = mda.distribute(xs)
+        check(not bool(st.overflow.any()), f"{tag}: AnnpFrameModel overflow")
+        shard_rel64(tag, f"f64 AnnpFrameModel ({angular}, K {CAPACITY}) vs "
+                    "FrameShortModel", shard_outputs(st, order), short_out)
+        del st, mda
+    # (d) the coverage proof
+    shard_coverage(tag, md, xs)
+    del md, xs, want, short_out
+
+    # (e) NPT from the main path's start
+    masses = torch.full((n,), mass, dtype=torch.float32, device=dev)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED)
+    v0 = create_velocities(gen, masses, 300.0, torch.float32)
+    mcfg = md_config(cfg32)
+
+    def sim_run():
+        sim = fe_simulator(x, cfg32, p32, mass, "harmonic")
+        s = sim.init_state(x, box, v=v0)
+        return sim.run(s, SHARD_T_STEPS // THERMO_EVERY)[1]
+
+    md = D.ShardedMD(short_model(cfg32, p32), mass, box, cfg_of(
+        n, ensemble="npt", t_target=300.0, tau_t=mcfg.tau_t,
+        p_target=mcfg.p_target, p_couple=COUPLE, tau_p=mcfg.tau_p,
+        thermo_every=THERMO_EVERY, migrate_b=SHARD_MIGRATE_B), device=dev)
+    launches = shard_md(tag, md, x, v0, SHARD_BLOCKS,
+                        ("g_harm", "force_harm"), card, sim_run,
+                        EVAL_REL["max_dF"], main_rate, mass, migrate=True)
+    log(f"[{tag}] phase {time.time() - t_phase:.1f} s")
+    return launches
+
+
+def phase_shard_ni(dev, x, box, cfg32, p32, cfg64, p64, mass, card, ref,
+                   ni_rate):
+    """The 1-D slab driver on the ni scene (periodic x: the ring's seam
+    halos are unwrapped): ShardedMD(FrameShortModel(FusedNi)) over SHARD_D
+    shards. (a) distribute on the thermal box in f32 against the f64 plain
+    single-device path (NI_EVAL_REL), and in f64 against the f64
+    single-device kernel path (SHARD_REL64); (b) ni_g and ni_force against
+    their plain versions on the frame planes; (c) an undersized halo trips
+    the coverage proof; (d) SHARD_BLOCKS NVT blocks from the perfect
+    lattice, as the ni main path."""
+    from meng_zhang_tpu_torch.md.simulation import create_velocities
+    from meng_zhang_tpu_torch.ops import fused_ni as fn
+    from meng_zhang_tpu_torch.ops import kernels
+    from meng_zhang_tpu_torch.parallel import domain as D
+    from meng_zhang_tpu_torch.system.neighbors import build_neighbors_cell
+    from meng_zhang_tpu_torch.testing import thermal_fcc
+    tag = "shard-ni"
+    t_phase = time.time()
+    n = x.shape[0]
+    pbc = (True,) * 3
+    rc = fn.FusedNi(cfg32, p32).rc
+
+    def model(cfg, p):
+        return D.FrameShortModel(fn.FusedNi(cfg, p, k_short=NI_KS,
+                                            short_delta=NI_DELTA))
+
+    def cfg_of(**kw):
+        return shard_config(n, rc, NI_SKIN, NI_CAPACITY, NI_CELL_CAPACITY,
+                            stale_factor=0.5, **kw)
+
+    md = D.ShardedMD(model(cfg32, p32), mass, box, cfg_of(), device=dev)
+    st, order = md.distribute(x)
+    check(not bool(st.overflow.any()), f"{tag}: overflow at distribute")
+    e64, f64, w64, w_abs = ref
+    eval_gates(tag, NI_EVAL_REL, shard_outputs(st, order), (e64, f64, w64),
+               w_abs)
+    planes = shard_planes(md, st, st.short.sidx, pbc)
+    del st, md, e64, f64, w64
+    table = fn.ni_table(p32["coerad"], p32["coeang"])
+    nsf = cfg32.npsf + cfg32.ntsf
+    dedg_np = np.zeros((planes[0].shape[0], fn.NSF_SUB))
+    dedg_np[:, :nsf] = np.random.default_rng(SEED).normal(
+        size=(planes[0].shape[0], nsf))
+    dedgs = {dt: torch.tensor(dedg_np, dtype=dt, device=dev)
+             for dt in (torch.float32, torch.float64)}
+
+    def dedg(dt):
+        return dedgs[dt]
+
+    shard_kernel_checks(tag, planes, [
+        ("ni_g", lambda pl, dt: (kernels.ni_g(*pl, table),),
+         lambda pl, dt: (fn.ni_g_plain(*pl, table),), ("g",), NI_REL_BOUND),
+        ("ni_force", lambda pl, dt: kernels.ni_force(*pl, dedg(dt), table),
+         lambda pl, dt: fn.ni_force_plain(*pl, dedg(dt), table),
+         ("fjx", "fjy", "fjz"), NI_REL_BOUND)])
+    del planes
+
+    x64, box64 = x.double(), box.double()
+    ev64 = fn.FusedNi(cfg64, p64, k_short=NI_KS, short_delta=NI_DELTA)
+    nb = build_neighbors_cell(x64, box64, rc + NI_SKIN, NI_CAPACITY,
+                              ni_md_config(rc, box.cpu().numpy()).cell_dims,
+                              NI_CELL_CAPACITY)
+    want = ev64.energy_forces(x64, box64, nb.idx)
+    del nb
+    md = D.ShardedMD(model(cfg64, p64), mass, box64, cfg_of(), device=dev)
+    st, order = md.distribute(x64)
+    shard_rel64(tag, "f64 FrameShortModel vs one device",
+                shard_outputs(st, order), want)
+    del st, want
+    shard_coverage(tag, md, x64)
+    del md, x64
+
+    x0 = torch.tensor(thermal_fcc(NI_CELLS, disp=0.0, a=NI_A)[0],
+                      dtype=torch.float32, device=dev)
+    masses = torch.full((n,), mass, dtype=torch.float32, device=dev)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED)
+    v0 = create_velocities(gen, masses, NI_T_INIT, torch.float32)
+
+    def sim_run():
+        sim, xx, bb, _ = ni_simulator(dev, cfg32, p32, mass)
+        s = sim.init_state(xx, bb, v=v0)
+        return sim.run(s, SHARD_T_STEPS // NI_THERMO_EVERY)[1]
+
+    md = D.ShardedMD(model(cfg32, p32), mass, box, cfg_of(
+        ensemble="nvt", t_target=NI_T, tau_t=0.1,
+        thermo_every=NI_THERMO_EVERY), device=dev)
+    launches = shard_md(tag, md, x0, v0, SHARD_BLOCKS, ("ni_g", "ni_force"),
+                        card, sim_run, NI_EVAL_REL["max_dF"], ni_rate, mass,
+                        thermo_every=NI_THERMO_EVERY)
+    log(f"[{tag}] phase {time.time() - t_phase:.1f} s")
+    return launches
+
+
+def phase_shard_anna(dev, box_lists, cfg32, p32, mass, card, ref,
+                     anna_rate):
+    """The 1-D slab driver on the ANNA scene: ShardedMD(AnnaFrameModel(
+    fast=True)) over SHARD_D shards, the skin rows at full width. (a)
+    distribute on the thermal box in f32 against make_anna_fast_fns in f64
+    (g_harm's plain version) on one device (ANNA_EVAL_REL); (b) g_harm
+    against its plain version on the frame planes; (c) SHARD_ANNA_BLOCKS
+    NVE blocks from the ANNA main path's start (the perfect lattice, its
+    velocities) with halo_b SHARD_ANNA_HALO_B, drift printed, not gated.
+    (The thermal box's 0.08 A displacements heat the NVE run past
+    1,200 K.)"""
+    from meng_zhang_tpu_torch.md.simulation import create_velocities
+    from meng_zhang_tpu_torch.ops import fused_annp as fa
+    from meng_zhang_tpu_torch.ops import kernels
+    from meng_zhang_tpu_torch.parallel import domain as D
+    tag = "shard-anna"
+    t_phase = time.time()
+    x, box, _, _ = box_lists
+    n = x.shape[0]
+    pbc = (True,) * 3
+
+    def cfg_of(**kw):
+        return shard_config(n, cfg32.cut, ANNA_SKIN, ANNA_CAPACITY,
+                            ANNA_CELL_CAPACITY, stale_factor=0.5, **kw)
+
+    model = D.AnnaFrameModel(cfg32, p32, fast=True)
+    md = D.ShardedMD(model, mass, box, cfg_of(), device=dev)
+    st, order = md.distribute(x)
+    check(not bool(st.overflow.any()), f"{tag}: overflow at distribute")
+    e64, f64, w64 = ref
+    e32, f32, w32 = shard_outputs(st, order)
+    got = {"dE_per_atom": abs(float(e32) - float(e64)) / n,
+           "max_dF": float((f32.double() - f64).abs().max()),
+           "max_dW": float((w32.double() - w64).abs().max()),
+           "sum_F": float(f32.double().sum(0).abs().max())}
+    scale = {"dE_per_atom": abs(float(e64)) / n,
+             "max_dF": float(f64.abs().max()),
+             "max_dW": float(w64.abs().max()),
+             "sum_F": n * float(f64.pow(2).mean().sqrt())}
+    for key, val in got.items():
+        bound_abs = ANNA_EVAL_REL[key] * scale[key]
+        log(f"[{tag}] {key} {val:.3e} (bound {bound_abs:.3e} = "
+            f"{ANNA_EVAL_REL[key]:.0e} x {scale[key]:.4e})")
+        check(val <= bound_abs, f"{tag} {key} {val:.3e} over "
+              f"{bound_abs:.3e}")
+    planes = shard_planes(md, st, st.idx, pbc)
+    del st, md, e32, f32, w32
+    npsf, ntsf, rc = cfg32.npsf, cfg32.ntsf, cfg32.cut
+    shard_kernel_checks(tag, planes, [
+        ("g_harm", lambda pl, dt: kernels.g_harm(*pl, npsf, ntsf, rc),
+         lambda pl, dt: fa.g_harm_plain(*pl, npsf, ntsf, rc),
+         ("g_raw", "A"), REL_BOUND)])
+    del planes
+
+    masses = torch.full((n,), mass, dtype=torch.float32, device=dev)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED)
+    v0 = create_velocities(gen, masses, ANNA_T, torch.float32)
+
+    def sim_run():
+        sim, xx, bb = anna_simulator(dev, cfg32, p32, mass)
+        s = sim.init_state(xx, bb, v=v0)
+        return sim.run(s, SHARD_T_STEPS // ANNA_EVERY)[1]
+
+    x0 = anna_simulator(dev, cfg32, p32, mass)[1]
+    md = D.ShardedMD(model, mass, box, cfg_of(
+        thermo_every=ANNA_EVERY, halo_b=SHARD_ANNA_HALO_B), device=dev)
+    launches = shard_md(tag, md, x0, v0, SHARD_ANNA_BLOCKS, ("g_harm",),
+                        card, sim_run, ANNA_EVAL_REL["max_dF"], anna_rate,
+                        mass, thermo_every=ANNA_EVERY)
+    log(f"[{tag}] phase {time.time() - t_phase:.1f} s")
+    return launches
+
+
 def main():
     try:
         name, card = phase_device()
@@ -2334,7 +2878,8 @@ def main():
         x, box = scene(dev)
         cfg32, p32, cfg64, p64, mass = model(dev)
         records, sl = phase_kernels(x, box, cfg32, p32)
-        phase_evaluator(x, box, cfg32, p32, cfg64, p64, sl)
+        fe_ref = []
+        phase_evaluator(x, box, cfg32, p32, cfg64, p64, sl, ref_out=fe_ref)
         launches, *main_rate = phase_main_path(x, box, cfg32, p32, mass,
                                                card)
         phase_evaluator(x, box, cfg32, p32, cfg64, p64, sl, angular="matrix")
@@ -2345,22 +2890,34 @@ def main():
         # launches of the new paths' runs, added to the records' counts
         extra = {"multi-fe": multi_launches,
                  "rowsweep": phase_rowsweep(x, box, cfg32, p32, mass, card)}
+        extra["shard-fe"] = phase_shard_fe(x, box, cfg32, p32, cfg64, p64,
+                                           mass, card, fe_ref, main_rate[0])
+        del fe_ref
         fe = (x, box, cfg32, p32, mass)
         del x, box, sl, cfg64, p64
         cfg32, p32, cfg64, p64, mass = ni_model(dev)
         x, box, sl = ni_thermal_scene(dev, cfg32, p32)
         records += phase_ni_kernels(x, box, cfg32, p32, sl)
-        phase_ni_evaluator(x, box, cfg32, p32, cfg64, p64, sl)
-        del x, box, sl
-        launches.update(phase_ni_main_path(dev, cfg32, p32, mass, card))
+        ni_ref = []
+        phase_ni_evaluator(x, box, cfg32, p32, cfg64, p64, sl, ni_ref)
+        ni_launches, ni_rate = phase_ni_main_path(dev, cfg32, p32, mass,
+                                                  card)
+        launches.update(ni_launches)
+        extra["shard-ni"] = phase_shard_ni(dev, x, box, cfg32, p32, cfg64,
+                                           p64, mass, card, ni_ref, ni_rate)
+        del x, box, sl, ni_ref
         ni = (dev, cfg32, p32, mass, card)
         extra["multi-ni"] = phase_multi_ni(dev, card)
         t_anna = time.time()
         cfg32, p32, cfg64, p64, mass = anna_model(dev)
         anna, box_lists = phase_anna_kernel(dev, cfg32, p32)
-        phase_anna_eval(box_lists, cfg32, p32, cfg64, p64)
-        del box_lists
-        anna["anna_launches"] = phase_anna_md(dev, cfg32, p32, mass, card)
+        anna_ref = phase_anna_eval(box_lists, cfg32, p32, cfg64, p64)
+        anna["anna_launches"], anna_rate = phase_anna_md(dev, cfg32, p32,
+                                                         mass, card)
+        extra["shard-anna"] = phase_shard_anna(dev, box_lists, cfg32, p32,
+                                               mass, card, anna_ref,
+                                               anna_rate)
+        del box_lists, anna_ref
         log(f"[anna-md] phases anna-kernel, anna-eval and anna-md took "
             f"{time.time() - t_anna:.1f} s")
         anna_prof = (dev, cfg32, p32, mass, card)

@@ -71,6 +71,11 @@ def _load():
     return lib
 
 
+def available() -> bool:
+    """True when the native reader is built and loaded (JAX :50)."""
+    return _load() is not None
+
+
 def read_data_native(path: str):
     """(x [N, 3], types [N] int32, v [N, 3] or None, masses [n_types] or
     None, box_lo [3], box_hi [3], n_types), the tuple of the JAX package's

@@ -119,6 +119,12 @@ def langevin_ou(v, masses, generator, t_target, damp, dt):
     return c1 * v + math.sqrt(1.0 - c1 * c1) * sigma * noise
 
 
+class BarostatState(NamedTuple):
+    """MTK barostat variables (counterpart of the JAX `BarostatState`)."""
+    v_eps: torch.Tensor   # [3] per-axis strain rates (1/ps)
+    nhc: NHCState         # the barostat's own thermostat chain
+
+
 def npt_baro_masses(n_atoms, t_target, tau_p, dtype, device="cuda"):
     """MTK barostat mass W = (N+1) kB T tau_p^2 (per coupled axis)."""
     return torch.tensor((n_atoms + 1) * BOLTZ * t_target * tau_p * tau_p,

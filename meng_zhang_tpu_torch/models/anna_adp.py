@@ -7,9 +7,11 @@ Counterpart of meng_zhang_tpu/models/anna_adp.py: `AnnaConfig`, `make_anna`
 (:214-242), `_center_pair_force`, `energy_forces`, `energy_forces_virial`,
 `_ef_impl` (:245-373) and the fast path `_pair_force_planes`,
 `_force_r_shared`, `_fields_from_planes`, `_FIELD_ORDER`,
-`_force_from_planes`, `AnnaShort`, `make_anna_fast_fns` (:403-662). The
-sharded-frame functions (:671-877) belong to `parallel/*` and are not
-ported.
+`_force_from_planes`, `AnnaShort`, `make_anna_fast_fns` (:403-662), and
+the device-frame functions of the sharded drivers `_frame_planes`,
+`energy_forces_frame_fast` and `energy_forces_frame` (:671-877), each also
+batched over a leading shard axis (`energy_forces_frames_fast`,
+`energy_forces_frames`: one g_harm launch for all shards).
 
 The network does not output energy. Per atom it maps the raw Chebyshev
 descriptors to two local ADP parameters (d2, q2); energy and forces come
@@ -58,6 +60,7 @@ import torch
 
 from ..io.potential import AnnaPotential
 from ..ops import fused_annp as fa
+from ..ops import frames
 from ..ops import kernels
 from ..system.cell import min_image
 from ..system.neighbors import _compact_rows
@@ -500,13 +503,15 @@ def _fields_from_planes(cfg, gp, dxx, dxy, dxz, lp_c):
     return e_at, torch.stack([f[k] for k in _FIELD_ORDER])
 
 
-def _force_from_planes(cfg, gp, dxx, dxy, dxz, idx, ftab, own, want_virial):
+def _force_from_planes(cfg, gp, dxx, dxy, dxz, idx, ftab, own, want_virial,
+                       vrow=None):
     """Newton-off pair forces of C rows from their displacement planes:
     both the i- and the j-centered terms, partner fields gathered
     (lal_anna_adp.cu:642-804), the r-only terms computed once. ftab
     [16, N + 1] packs _FIELD_ORDER (column N is the filler's: zeros); own
     [12, C] the rows' own fields; idx [C, K] uses N as its sentinel.
-    Returns (fx, fy, fz [C], virial [3, 3] or None)."""
+    Returns (fx, fy, fz [C], virial [3, 3] or None); vrow [C] (0/1)
+    weights the rows of the virial, default all."""
     rc = cfg.cut
     hc = gp[12]
     n = ftab.shape[1] - 1
@@ -530,7 +535,8 @@ def _force_from_planes(cfg, gp, dxx, dxy, dxz, idx, ftab, own, want_virial):
     f = [c.sum(dim=1) for c in fp]
     if not want_virial:
         return f[0], f[1], f[2], None
-    dx = (dxx, dxy, dxz)
+    dx = (dxx, dxy, dxz) if vrow is None else \
+        tuple(d * vrow[:, None] for d in (dxx, dxy, dxz))
     wv = torch.stack([torch.stack([0.5 * (dx[a] * fp[b]).sum()
                                    for b in range(3)]) for a in range(3)])
     return f[0], f[1], f[2], wv
@@ -611,3 +617,116 @@ def make_anna_fast_fns(cfg: AnnaConfig, params, k_short=64, delta=0.3,
         return e, f, torch.zeros((3, 3), dtype=x.dtype, device=x.device)
 
     return force_fn, force_fn_light, short_build
+
+
+# ------------------------------------------------------- device frames
+def _frame_planes(xc, x_src, box, idx, pbc):
+    """Displacement planes [cc, K] x3 of centre rows xc against the frame
+    x_src (JAX :671, without its padding of the rows to 8)."""
+    return _planes(xc, x_src, box, idx, pbc)
+
+
+def energy_forces_frames_fast(cfg: AnnaConfig, params, xc, x_src, box, idx,
+                              off, vslice, want_virial=False, plain=False):
+    """The fast path on D device frames at once: xc [D, cc, 3] centre rows,
+    x_src [D, M, 3] frames (centre row t at frame row off + t), idx [D,
+    cc, K] frame indices (sentinel M), vslice (lo, hi) the local rows.
+
+    One [D*cc, K] set of dx planes goes through phase 1 (one g_harm
+    launch), the fields and energies of every centre row, then the
+    newton-off pair forces with the partner fields gathered from the
+    centre rows' table: a lane whose partner is not a centre row of its
+    frame (frame-edge rows, whose forces the drivers discard) is masked,
+    so the reference's 12 ghost fields need no exchange. Returns (eat [D,
+    cc] without e_base, forces [D, cc, 3]) and with want_virial W [3, 3]
+    over the vslice rows of every frame. plain=True takes g_harm's plain
+    version on any device."""
+    d, cc, k = idx.shape
+    if k > kernels.MAX_K:
+        raise ValueError(f"K = {k} > MAX_K = {kernels.MAX_K}, the widest "
+                         "row g_harm takes")
+    gp = _gp(params)
+    sidx, ctr = frames.frame_tables(idx, x_src.shape[1], off, cc)
+    planes = frames.frame_planes(xc, x_src, box, sidx, cfg.pbc)
+    e_at, fcols = _fields_from_planes(
+        cfg, gp, *planes, _phase1(cfg, params, planes, plain=plain))
+    nr = d * cc
+    ftab = torch.nn.functional.pad(fcols, (0, 1, 0, 16 - len(_FIELD_ORDER)))
+    ic = torch.where(ctr >= 0, ctr, nr)
+    vrow = None
+    if want_virial:
+        t = torch.arange(cc, device=xc.device)
+        vrow = ((t >= vslice[0]) & (t < vslice[1])).to(xc.dtype).repeat(d)
+    fx, fy, fz, wv = _force_from_planes(cfg, gp, *planes, ic, ftab, fcols,
+                                        want_virial, vrow)
+    f = torch.stack([fx, fy, fz], dim=1).view(d, cc, 3)
+    if not want_virial:
+        return e_at.view(d, cc), f
+    return e_at.view(d, cc), f, 0.5 * (wv + wv.T)
+
+
+def energy_forces_frame_fast(cfg: AnnaConfig, params, xc, x_src, box, idx,
+                             off, vslice, want_virial=False, plain=False):
+    """One frame of energy_forces_frames_fast: (eat [cc], forces [cc, 3][,
+    W]). The JAX function's eat includes e_base."""
+    out = energy_forces_frames_fast(cfg, params, xc[None], x_src[None], box,
+                                    idx[None], off, vslice, want_virial,
+                                    plain)
+    return (out[0][0], out[1][0]) + out[2:]
+
+
+def energy_forces_frames(cfg: AnnaConfig, params, xc, x_src, box, idx, off,
+                         vslice, want_virial=False, chunk=ROW_CHUNK):
+    """The reference-shaped two-phase evaluation on D device frames (the
+    halo-recompute form of the reference's energy kernel -> 12-field
+    forward_comm -> force kernel): (d2, q2), the ADP fields and energies
+    of every centre row from frame positions, then the newton-off pair
+    force of the local rows vslice, partner fields read through the
+    frame -> centre-row map. Arguments as energy_forces_frames_fast.
+    Returns (eat [D, cc] without e_base, forces [D, cc, 3] with the rows
+    outside vslice zero, W [3, 3] over the local rows or None)."""
+    d, cc, k = idx.shape
+    gp = _gp(params)
+    rc = cfg.cut
+    sidx, ctr = frames.frame_tables(idx, x_src.shape[1], off, cc)
+    xf, src = xc.reshape(-1, 3), x_src.reshape(-1, 3)
+    lp = local_params(cfg, params, xf, box, sidx, chunk=chunk, x_src=src)
+    e_at, rho, mu, lam = atom_energies_fields(
+        dataclasses.replace(cfg, e_base=0.0), params, xf, box, sidx, lp,
+        chunk=chunk, x_src=src)
+    lo, hi = vslice
+    rows = (torch.arange(d, device=xc.device)[:, None] * cc
+            + torch.arange(lo, hi, device=xc.device)[None, :]).reshape(-1)
+    src_pad = torch.cat([src, src.new_zeros(1, 3)])
+    forces = xf.new_zeros(d * cc, 3)
+    w = xf.new_zeros(3, 3)
+    for i0 in range(0, rows.shape[0], chunk):
+        rr = rows[i0:i0 + chunk]
+        t = ctr[rr]
+        dx = min_image(xf[rr][:, None, :] - src_pad[sidx[rr]], box, cfg.pbc)
+        rsq = (dx * dx).sum(dim=-1)
+        m = (t >= 0) & (rsq < rc * rc)
+        r = torch.sqrt(torch.where(m, rsq, 1.0))
+        t_c = t.clamp(min=0)
+        g_self = _center_pair_force(gp, rho[rr][:, None], mu[rr][:, None, :],
+                                    lam[rr][:, None], lp[rr, 0:1],
+                                    lp[rr, 1:2], dx, r, rc)
+        g_nbr = _center_pair_force(gp, rho[t_c], mu[t_c], lam[t_c],
+                                   lp[t_c, 0], lp[t_c, 1], -dx, r, rc)
+        f_pair = torch.where(m[..., None], g_nbr - g_self, 0.0)
+        forces[rr] = f_pair.sum(dim=1)
+        if want_virial:
+            w = w + 0.5 * torch.einsum("nka,nkb->ab", dx * m[..., None],
+                                       f_pair)
+    return (e_at.view(d, cc), forces.view(d, cc, 3),
+            0.5 * (w + w.T) if want_virial else None)
+
+
+def energy_forces_frame(cfg: AnnaConfig, params, xc, x_src, box, idx, off,
+                        vslice, want_virial=False, chunk=ROW_CHUNK):
+    """One frame of energy_forces_frames: (eat [cc], forces [cc, 3], W or
+    None). The JAX function's eat includes e_base."""
+    e, f, w = energy_forces_frames(cfg, params, xc[None], x_src[None], box,
+                                   idx[None], off, vslice, want_virial,
+                                   chunk)
+    return e[0], f[0], w

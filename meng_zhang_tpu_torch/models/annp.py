@@ -26,6 +26,14 @@ Thin periodic boxes: `image_shift_table` (:566) and
 evaluators over the image-extended partner table (ops/fused_annp.py), not
 through autodiff.
 
+Device frames (parallel/domain.py's `XlaFrameModel`):
+`energy_forces_virial_frame` (:407) and its batched form over a leading
+shard axis, on the fused evaluators' frame path (`ops/frames.py`):
+the JAX function differentiates the summed centre-row energies; the frame
+delivery gives every centre row the same forces.
+
+Single-atom functions: `atom_energy` (:111) and `raw_nn_energy` (:126).
+
 Energy bookkeeping: E_i = e_scale * nn(G_i) + e_shift. fe: e_shift
 includes e_atom. ni: the network's output is in Hartree and e_scale is
 NI_HARTREE_EV = CFFORCE / CFLENGTH, so E is in eV and -dE/dx reproduces
@@ -45,6 +53,7 @@ from ..system.cell import image_table, min_image
 from ..units import CFFORCE, CFLENGTH
 from ..ops import fused_annp as fa
 from ..ops import fused_ni as fn
+from ..ops import frames
 from ..ops import kernels
 from ..system.neighbors import _compact_rows
 from .descriptors import behler_g, chebyshev_g
@@ -183,6 +192,21 @@ def _atom_energies_dx(cfg, params, dx, mask, elems):
     return cfg.e_scale * out + cfg.e_shift
 
 
+def atom_energy(cfg: AnnpConfig, params, dx, mask, elem):
+    """Energy of one atom (e_shift included) from its neighbor
+    displacements dx [K, 3] and mask [K], through the network of element
+    `elem`."""
+    el = torch.as_tensor(elem, device=dx.device).reshape(1)
+    return _atom_energies_dx(cfg, params, dx[None], mask[None], el)[0]
+
+
+def raw_nn_energy(cfg: AnnpConfig, params, dx, mask, elem=0):
+    """The network's unscaled output for one atom: the reference's evdwl
+    before e_scale and e_shift (fe), its raw Hartree value (ni)."""
+    cfg0 = dataclasses.replace(cfg, e_shift=0.0)
+    return atom_energy(cfg0, params, dx, mask, elem) / cfg.e_scale
+
+
 def energy(cfg: AnnpConfig, params, x, box, nbr_idx, elems=None):
     return atom_energies(cfg, params, x, box, nbr_idx, elems).sum()
 
@@ -259,24 +283,30 @@ def fused_evaluator(cfg: AnnpConfig, params):
     return ev
 
 
-def _short_list(ev, cfg, params, x, box, nbr_idx, x_ext=None):
+def _too_wide(ev, cfg):
+    limit = "NI_MAX_K" if cfg.descriptor == SYM_BEHLER else "MAX_K"
+    return ValueError(
+        f"a neighbor row holds more than {ev.k_short} partners within the "
+        f"descriptor cutoff: the kernels take at most {limit} = "
+        f"{ev.k_short} slots a row (ops/kernels.py)")
+
+
+def _short_list(ev, cfg, params, x, box, nbr_idx, x_ext=None, rc_scale=1.0):
     """nbr_idx rows as the evaluator's ShortList. Rows no wider than the
     kernels take (ev.k_short: 256 fe, 32 BP) are evaluated as they are,
     exactly as the JAX functions evaluate any row; wider rows are compacted
-    to that width at the descriptor cutoff, and a row with more partners
-    inside it than the kernels take raises (one host read per call, on
-    this path only). x_ext: the image-extended table the rows index."""
+    to that width at rc_scale times the descriptor cutoff, and a row with
+    more partners inside it than the kernels take raises (one host read
+    per call, on this path only). x_ext: the image-extended table the rows
+    index."""
     if nbr_idx.shape[1] <= ev.k_short:
         return fa.ShortList(nbr_idx, x, torch.zeros(
             (), dtype=torch.bool, device=x.device))
-    sl = fa.compact_short(x, box, nbr_idx, descriptor_cutoff(cfg, params),
+    sl = fa.compact_short(x, box, nbr_idx,
+                          rc_scale * descriptor_cutoff(cfg, params),
                           ev.k_short, cfg.pbc, x_ext=x_ext)
     if bool(sl.overflow):
-        limit = "NI_MAX_K" if cfg.descriptor == SYM_BEHLER else "MAX_K"
-        raise ValueError(
-            f"a neighbor row holds more than {ev.k_short} partners within "
-            f"the descriptor cutoff: the kernels take at most {limit} = "
-            f"{ev.k_short} slots a row (ops/kernels.py)")
+        raise _too_wide(ev, cfg)
     return sl
 
 
@@ -294,13 +324,27 @@ def _evaluate(cfg, params, x, box, nbr_idx, shift, want_virial, elems):
 
 def energy_chunked(cfg: AnnpConfig, params, x, box, nbr_idx, elems=None,
                    chunk=256, eps=None, shift=True):
-    """Total energy (n * e_shift included unless shift=False). The strain
-    argument eps of the JAX function is not ported: the virial comes from
-    energy_forces_virial_chunked."""
-    if eps is not None:
-        raise NotImplementedError("energy_chunked(eps=...) is not ported; "
-                                  "energy_forces_virial_chunked returns W")
-    return _evaluate(cfg, params, x, box, nbr_idx, shift, False, elems)[0]
+    """Total energy (n * e_shift included unless shift=False). eps [3, 3]
+    strains every pair displacement, dx -> dx (I + eps), as the JAX
+    function's strain argument does; here it is a value, not a variable to
+    differentiate (the virial comes from energy_forces_virial_chunked).
+    Rows wider than the kernels take are compacted at the descriptor
+    cutoff grown by 1 / (1 - |eps|), which keeps every pair the strain can
+    bring inside it."""
+    if eps is None:
+        return _evaluate(cfg, params, x, box, nbr_idx, shift, False,
+                         elems)[0]
+    eps = torch.as_tensor(eps, dtype=x.dtype, device=x.device)
+    norm = float(torch.linalg.matrix_norm(eps))
+    if norm >= 0.5:
+        raise ValueError(f"strain |eps| = {norm} is not small")
+    ev = fused_evaluator(cfg, params)
+    sl = _short_list(ev, cfg, params, x, box, nbr_idx,
+                     rc_scale=1.0 / (1.0 - norm))
+    dd = fa.pair_dx_planes(x, box, sl.sidx, cfg.pbc)
+    dd = [dd[a] + sum(dd[b] * eps[b, a] for b in range(3)) for a in range(3)]
+    e = ev._eval_fj(*dd, _elems(elems, x))[0].sum()
+    return e + x.shape[0] * cfg.e_shift if shift else e
 
 
 def energy_forces_chunked(cfg: AnnpConfig, params, x, box, nbr_idx,
@@ -360,6 +404,55 @@ def energy_forces_virial_images(cfg: AnnpConfig, params, x, box, nbr_idx,
     sl = _short_list(ev, cfg, params, x, box, nbr_idx, x_ext)
     return ev.energy_forces_short(x, box, sl, want_virial=True, shift=shift,
                                   elems=_elems(elems, x), x_ext=x_ext)
+
+
+def energy_forces_virial_frames(cfg: AnnpConfig, params, x_src, box, idx,
+                                off, vslice, chunk=512, k_short=None):
+    """D device frames at once (fe and ni), on the fused evaluator's frame
+    path: x_src [D, M, 3] the frames, centre rows at frame rows [off, off
+    + cc); idx [D, cc, K] their neighbor rows (frame indices, sentinel M);
+    vslice (lo, hi) the local centre rows, over which W is tallied.
+
+    Returns (eat [D, cc] shift-free, forces [D, cc, 3], W [3, 3] summed
+    over the frames). Every centre row's force is -d(sum of the centre
+    rows' energies)/dx, the JAX function's gradient; only rows whose
+    partners are all centre rows (the local ones) are physical. k_short <
+    K compacts the rows to k_short at the descriptor cutoff first, and a
+    row over it NaN-poisons eat and forces, as in JAX; rows still wider
+    than the kernels take are compacted to their width, and a row over
+    that raises. `chunk` only keeps the JAX signature."""
+    ev = fused_evaluator(cfg, params)
+    d, cc, k = idx.shape
+    rc = descriptor_cutoff(cfg, params)
+    poison = None
+    if k_short is not None and k_short < k:
+        idx, counts = frames.compact_frames(x_src, box, idx, off, cc, rc,
+                                        k_short, cfg.pbc)
+        poison = (counts > k_short).any()
+        k = k_short
+    if k > ev.k_short:
+        idx, counts = frames.compact_frames(x_src, box, idx, off, cc, rc,
+                                        ev.k_short, cfg.pbc)
+        if bool((counts > ev.k_short).any()):
+            raise _too_wide(ev, cfg)
+    eat, f, w = frames.evaluate_frames(ev._eval_fj, x_src[:, off:off + cc],
+                                   x_src, box, idx, off, cc, cfg.pbc, True,
+                                   vslice)
+    if poison is not None:
+        nan = torch.full((), float("nan"), dtype=f.dtype, device=f.device)
+        eat, f = torch.where(poison, nan, eat), torch.where(poison, nan, f)
+    return eat, f, w
+
+
+def energy_forces_virial_frame(cfg: AnnpConfig, params, x_src, box, idx,
+                               off, vslice, chunk=512, k_short=None):
+    """One frame of energy_forces_virial_frames: x_src [M, 3], idx [cc,
+    K]. Returns (eat [cc] shift-free, forces [cc, 3], W [3, 3]); the JAX
+    function's eat includes e_shift."""
+    eat, f, w = energy_forces_virial_frames(cfg, params, x_src[None], box,
+                                            idx[None], off, vslice, chunk,
+                                            k_short)
+    return eat[0], f[0], w
 
 
 class ShortRows(NamedTuple):

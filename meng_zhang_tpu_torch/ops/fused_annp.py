@@ -30,21 +30,9 @@ of its angular paths:
 virial, poisoning) are shared with the BP evaluator (ops/fused_ni.py), as
 `PairTableOps` (:623) is shared with `PallasNi` in the JAX package.
 
-Thin periodic boxes (models/annp.py `image_shift_table`): the partner table
-may be the image-extended table x_ext = (x[None] + shifts * box).reshape(-1,
-3) [R*n, 3] instead of the centres x [n, 3]. Rows then index x_ext, the
-filler sentinel is R*n, dx runs with the thin axes' periodicity off, and
-delivery adds each lane's Fj to the real atom sidx % n, so that a lane whose
-partner is an image of its own centre nets to zero, as the JAX package's
-autodiff through x_ext gives it.
-
-The Chebyshev angular descriptors are G_n = 1/2 sum_{j!=k} T_n((cos_jk+1)/2)
-fc_j fc_k. The cos-matrix path evaluates them as written, over the row's
-[K, K] pair matrix (the reference CUDA's own j < k loops). The harmonic path
-rewrites them through the spherical-harmonic addition theorem as
-G_n = 1/2 (sum_l c_nl S_l - F2) with S_l = sum_m A_lm^2,
-A_lm = sum_j fc_j Y_lm(u_j) and F2 = sum_j fc_j^2; its per-pair work is the
-real-harmonic ladder up to L = ntsf - 1. Both give the same G_n.
+Device frames (the sharded drivers, parallel/domain.py): both evaluators
+take the frame methods of ops/frames.py (`FrameOps`), as `PairTableOps`
+carries them in the JAX package.
 """
 from __future__ import annotations
 
@@ -57,6 +45,7 @@ import torch
 from ..io.potential import ActivationStyle
 from ..models.mlp import _FE_A, _FE_B, _FE_C
 from . import kernels
+from .frames import FrameOps
 
 NSF_PAD = 128    # g_raw / dedg_rad row width
 AB_PAD = 384     # A / B row width: 361 harmonics for L = 18; B col 361 is 2q
@@ -555,7 +544,7 @@ def evaluate_pairs(eval_fj, x, box, sidx, bad, pbc, e_shift, shift,
     return out
 
 
-class FusedAnnp:
+class FusedAnnp(FrameOps):
     """Per-step evaluator: gather -> descriptor kernel -> MLP + VJP -> force
     kernel -> index_add delivery.
 
@@ -605,6 +594,10 @@ class FusedAnnp:
         self.nets = element_networks(params)
         self.elems = None if elems is None else torch.as_tensor(elems,
                                                                 device=dev)
+
+    @property
+    def short_rc(self):
+        return self.cfg.cut
 
     def compact_short(self, x, box, nbr_idx):
         return compact_short(x, box, nbr_idx, self.cfg.cut + self.short_delta,

@@ -5,7 +5,8 @@ Counterpart of meng_zhang_tpu/ops/pallas_ni.py:
   * `ni_g_plain` / `ni_force_plain`: plain PyTorch versions of the two TPU
     kernels `_ni_g_kernel` (:126) and `_ni_force_kernel` (:170). Their CUDA
     kernels live in csrc/ni_bp.cu and are launched through ops/kernels.py;
-  * `FusedNi`, the counterpart of `PallasNi` (:298): refresh-static short
+  * `FusedNi`, the counterpart of `PallasNi` (:298), with the frame methods
+    of the sharded drivers (`frames.FrameOps`): refresh-static short
     list at the descriptor cutoff + short_delta, gather, G2/G4 descriptors,
     the min-max-normalised MLP and its hand VJP, per-pair forces, and the
     `index_add_` delivery shared with ops/fused_annp.py. `PallasNi` is
@@ -34,6 +35,7 @@ import torch
 from ..units import CFLENGTH
 from . import fused_annp as fa
 from . import kernels
+from .frames import FrameOps
 
 NSF_SUB = 32      # g / dedg row width (nsf = 27 in the shipped potential)
 
@@ -218,7 +220,7 @@ def ni_force_plain(dxx, dxy, dxz, dedg, table: NiTable):
             (coeff - acc1) * uz - acc2z)
 
 
-class FusedNi:
+class FusedNi(FrameOps):
     """Per-step BP evaluator: gather -> ni_g -> min-max MLP + VJP ->
     ni_force -> index_add delivery.
 

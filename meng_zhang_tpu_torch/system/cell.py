@@ -1,5 +1,5 @@
-"""Orthogonal simulation cell (counterpart of meng_zhang_tpu/system/cell.py,
-`min_image`), and the image-extended position table of thin periodic boxes
+"""Orthogonal simulation cell (counterpart of meng_zhang_tpu/system/cell.py:
+`min_image`, `wrap`, `pair_displacements`, `volume`), and the image-extended position table of thin periodic boxes
 (built inline in the JAX package: models/annp.py:619,
 md/simulation.py:209-210)."""
 from __future__ import annotations
@@ -25,6 +25,22 @@ def min_image(dx, box, pbc=(True, True, True)):
             c = c - box[d] * torch.round(c / box[d])
         cols.append(c)
     return torch.stack(cols, dim=-1)
+
+
+def wrap(x, box):
+    """Positions wrapped into [0, box) on every axis."""
+    box = box.to(x.dtype)
+    return x - box * torch.floor(x / box)
+
+
+def pair_displacements(x, idx, box):
+    """dx[i, s] = min_image(x[i] - x[idx[i, s]]), every axis periodic (the
+    reference's sign convention x_i - x_j). idx must index rows of x."""
+    return min_image(x[:, None, :] - x[idx], box)
+
+
+def volume(box):
+    return box[0] * box[1] * box[2]
 
 
 def image_table(x, box, shifts):

@@ -138,10 +138,14 @@ def test_evaluator_built_once(case):
                           else kernels.NI_MAX_K)
     other = dict(c["params"])
     assert annp.fused_evaluator(c["cfg"], other) is not ev
-    with pytest.raises(NotImplementedError):
-        annp.energy_chunked(c["cfg"], c["params"], t64(c["x"]),
-                            t64(c["box"]), c["idx"],
-                            eps=torch.zeros(3, 3, dtype=torch.float64))
+    # the strain argument is ported (tests/test_torch_names.py holds it
+    # against JAX): a zero strain gives the unstrained energy
+    e_eps = annp.energy_chunked(c["cfg"], c["params"], t64(c["x"]),
+                                t64(c["box"]), c["idx"],
+                                eps=torch.zeros(3, 3, dtype=torch.float64))
+    e = annp.energy_chunked(c["cfg"], c["params"], t64(c["x"]),
+                            t64(c["box"]), c["idx"])
+    np.testing.assert_allclose(float(e_eps), float(e), rtol=1e-14)
 
 
 def test_bp_rows_beyond_kernel_width_raise():

@@ -577,3 +577,78 @@ def test_multi_element_and_images_match_plain(cuda_device, path, dtype):
         assert torch.isfinite(a).all()
         if tol is not None:
             assert rel_max(a.double().cpu(), b.cpu()) <= tol
+
+
+def _shard_case(path, device, plain=False, n_dev=2, ensemble="nve"):
+    """A sharded slab (periodic; fe: the 1,200-atom 24 x 5 x 5-cell bcc
+    slab of tests/test_multichip.py at the shipped width, ni: a 1,024-atom
+    fcc slab) served by the frame short list of one fused evaluator in
+    f64; returns (ShardedMD, x, v)."""
+    from meng_zhang_tpu_torch.models.annp import descriptor_cutoff
+    from meng_zhang_tpu_torch.parallel import domain as D
+    if path == "fe":
+        pot, mass = synthetic_fe_potential(0), 55.845
+        x, box = thermal_bcc((24, 5, 5), seed=4, disp=0.05)
+    else:
+        pot, mass = synthetic_ni_potential(0), 58.6934
+        x, box = thermal_fcc((16, 4, 4), seed=4, disp=0.05)
+    cfg, params = make_annp(pot, torch.float64, device)
+    make = fa.FusedAnnp if path == "fe" else fn.FusedNi
+    ev = make(cfg, params, k_short=128 if path == "fe" else 32,
+              short_delta=0.3, plain=plain)
+    scfg = D.ShardConfig(n_devices=n_dev, c_loc=len(x) // n_dev,
+                         cutoff=descriptor_cutoff(cfg, params), skin=0.5,
+                         dt=0.001, ensemble=ensemble, t_target=300.0,
+                         thermo_every=3)
+    v = np.random.default_rng(1).normal(scale=3.0, size=x.shape)
+    v -= v.mean(axis=0)
+    md = D.ShardedMD(D.FrameShortModel(ev), mass, box, scfg, device=device)
+    as_t = (lambda a: torch.as_tensor(a, dtype=torch.float64, device=device))
+    return md, as_t(x), as_t(v)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("path", ["fe", "ni"])
+def test_frame_short_kernels_match_plain(cuda_device, path):
+    """distribute() of 4 shards through the kernels against the plain
+    path on the card, in f64: every shard's frame in one launch of each
+    kernel; forces, PE and W within 1e-10 of their scale (the kernels'
+    1e-12 carried through the networks)."""
+    names = ("g_harm", "force_harm") if path == "fe" else ("ni_g",
+                                                           "ni_force")
+    kernels.reset_launch_counts()
+    md, x, _ = _shard_case(path, cuda_device, n_dev=4)
+    st, _ = md.distribute(x)
+    for name in names:
+        assert getattr(kernels, name).launches == 1, name
+    md0, x0, _ = _shard_case(path, cuda_device, plain=True, n_dev=4)
+    st0, _ = md0.distribute(x0)
+    assert not bool(st.overflow.any()) and torch.isfinite(st.f_loc).all()
+    assert rel_max(st.f_loc.cpu(), st0.f_loc.cpu()) <= 1e-10
+    assert rel_max(st.virial.cpu(), st0.virial.cpu()) <= 1e-10
+    assert abs(float(st.pe.sum() - st0.pe.sum())) <= 1e-10 * abs(
+        float(st0.pe.sum()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("path", ["fe", "ni"])
+def test_sharded_steps_on_card_match_cpu(cuda_device, path):
+    """Two NVT blocks of 3 steps on 2 shards on the card (the kernels)
+    against the same on the CPU (their plain versions), in f64: thermo
+    rtol 1e-10, positions within 1e-10 A; one launch of each kernel a
+    step."""
+    out = []
+    for dev in (cuda_device, "cpu"):
+        kernels.reset_launch_counts()
+        md, x, v = _shard_case(path, dev, ensemble="nvt")
+        st, _ = md.distribute(x, v)
+        st, th = md.run(st, 2)
+        if dev != "cpu":
+            name = "force_harm" if path == "fe" else "ni_force"
+            assert getattr(kernels, name).launches == 1 + 6
+        assert not bool(st.overflow.any()) and not bool(st.unsafe.any())
+        out.append((md.gather_positions(st).cpu(), th))
+    (x1, th1), (x2, th2) = out
+    assert float((x1 - x2).abs().max()) <= 1e-10
+    for a, b in zip(th1[1:], th2[1:]):
+        np.testing.assert_allclose(a.cpu().numpy(), b.numpy(), rtol=1e-10)

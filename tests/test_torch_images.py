@@ -12,7 +12,11 @@ package and against its own evaluation of the explicitly replicated box.
     W are 1/R of the replicated box's, F that of its first copy;
   * a few NVE steps of `Simulator(image_shifts=...)` against the JAX
     Simulator with the same shifts;
-  * the thin-box error of `init_state` names this package's functions.
+  * the thin-box error of `init_state` names this package's functions;
+  * FIRE (`fire_relax`) on a thin screw-dislocation cell through the image
+    route against FIRE on its z-replicated box from the same start: equal
+    iterate counts, positions to 1e-10 A (in exact arithmetic the two are
+    the same iteration: FIRE's norms and powers scale with the copies).
 
 Tolerances (f64), as tests/test_torch_chunked.py: energy rtol 1e-10,
 forces atol 1e-9 eV/A, virial within 1e-9 of max |W|; neighbor rows
@@ -32,6 +36,8 @@ from meng_zhang_tpu.md import simulation as JS
 from meng_zhang_tpu.models import annp as jannp
 from meng_zhang_tpu.system.neighbors import build_neighbors_n2 as jax_n2
 from meng_zhang_tpu_torch.geometry.lattice import bcc, fcc
+from meng_zhang_tpu_torch.geometry.screw import make_screw_dislocation
+from meng_zhang_tpu_torch.md.minimize import fire_relax
 from meng_zhang_tpu_torch.md import simulation as S
 from meng_zhang_tpu_torch.models import annp
 from meng_zhang_tpu_torch.system.neighbors import (build_neighbors_images,
@@ -242,3 +248,40 @@ def test_thin_box_refusals():
         S.Simulator(sim.force_fn, sim.masses, mc,
                     short_build=lambda xx, bb, nb: None,
                     image_shifts=np.zeros((1, 3), np.int64))
+
+
+def test_fire_image_route_matches_replicated_box():
+    """A 270-atom screw-dislocation cell one Burgers vector thick (pbc F F
+    T, wrapped into [0, b) along z as the image route needs), relaxed by
+    fire_relax through 5 explicit z-images and, from the same start, as
+    its 5-fold z-replica through the ordinary path."""
+    d = make_screw_dislocation(num_lattice=(5, 9, 0.5), with_dislocation=True)
+    x, box = d.x.copy(), d.box_hi - d.box_lo
+    x[:, 2] %= box[2]
+    n, pbc, rlist, rep = len(x), (False, False, True), 4.0 + SKIN, 5
+    pot = reduced_potential(cut=4.0)
+    shifts, pbc_eff = annp.image_shift_table(box, rlist, pbc)
+    assert len(shifts) == rep
+    cfg, params = annp.make_annp(pot, torch.float64, device="cpu",
+                                 pbc=pbc_eff)
+    cfg_r, params_r = annp.make_annp(pot, torch.float64, device="cpu",
+                                     pbc=pbc)
+    sh = torch.as_tensor(shifts)
+    x_img, s_img = fire_relax(
+        lambda xx, bb, idx: annp.energy_forces_virial_images(
+            cfg, params, xx, bb, idx, sh, shift=False)[:2],
+        lambda xx, bb: build_neighbors_images(xx, bb, sh, rlist, 64,
+                                              pbc_eff),
+        t64(x), t64(box), f_tol=0.1)
+    x_rep = np.concatenate([x + [0.0, 0.0, k * box[2]] for k in range(rep)])
+    x_r, s_r = fire_relax(
+        lambda xx, bb, idx: annp.energy_forces_chunked(
+            cfg_r, params_r, xx, bb, idx, shift=False),
+        lambda xx, bb: build_neighbors_n2(xx, bb, rlist, 64, pbc),
+        t64(x_rep), t64(box * [1.0, 1.0, rep]), f_tol=0.1)
+    assert int(s_img.n_iter) == int(s_r.n_iter) > 0
+    assert float(s_img.fmax) <= 0.1
+    np.testing.assert_allclose(float(s_r.pe) / rep, float(s_img.pe),
+                               rtol=1e-10)
+    np.testing.assert_allclose(x_img.numpy(), x_r[:n].numpy(), rtol=0,
+                               atol=1e-10)

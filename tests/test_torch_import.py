@@ -20,6 +20,7 @@ from meng_zhang_tpu_torch.geometry import lattice
 from meng_zhang_tpu_torch.io import potential
 from meng_zhang_tpu_torch.md import integrate
 from meng_zhang_tpu_torch.models import anna_adp, annp
+from meng_zhang_tpu_torch.parallel import domain, mesh
 from meng_zhang_tpu_torch.testing import (synthetic_anna_potential,
                                           synthetic_fe_potential,
                                           synthetic_ni_potential)
@@ -84,6 +85,25 @@ assert shifts.shape == (5, 3) and pbc_eff == (False, True, True)
 assert callable(build_neighbors_cell_rowsweep) and callable(
     build_neighbors_images) and callable(energy_forces_virial_images)
 assert len(synthetic_ni_potential_multi(2).networks) == 2
+from meng_zhang_tpu_torch.ops import frames
+from meng_zhang_tpu_torch.parallel import domain, mesh
+from meng_zhang_tpu_torch.system.cell import pair_displacements, volume, wrap
+from meng_zhang_tpu_torch.md.integrate import BarostatState
+from meng_zhang_tpu_torch.models.annp import (atom_energy, raw_nn_energy,
+                                              energy_forces_virial_frame)
+from meng_zhang_tpu_torch.models.anna_adp import (
+    _frame_planes, energy_forces_frame, energy_forces_frame_fast)
+assert isinstance(native.available(), bool) and callable(atom_energy)
+assert float(volume(box)) == 729.0 and callable(raw_nn_energy)
+assert float(wrap(x - 9.0, box).min()) >= 0.0
+assert pair_displacements(x, nbrs.idx.clamp(max=15), box).shape == (16, 16, 3)
+assert BarostatState._fields == ("v_eps", "nhc")
+for name in ("AnnpFrameModel", "FrameShortModel", "XlaFrameModel",
+             "AnnaFrameModel", "ShardConfig", "ShardedMD", "ShardState",
+             "FrameShort"):
+    assert hasattr(domain, name), name
+assert domain.OVF_COVERAGE == 4 and callable(frames.evaluate_frames)
+assert mesh.ShardMesh(4, "cpu").psum(torch.ones(4, 2)).tolist() == [4.0, 4.0]
 bad = sorted(m for m in sys.modules if m == "jax" or m.startswith("jax.")
              or m == "meng_zhang_tpu" or m.startswith("meng_zhang_tpu."))
 assert not bad, bad
@@ -170,14 +190,15 @@ def test_copies_equal_jax_package(make):
 
 def test_entry_points_default_to_the_card():
     """make_annp, make_anna, both params_from_numpy, the md/integrate.py
-    helpers and the CLI's run.main put their tensors on the card unless
+    helpers, the CLI's run.main and the sharded driver (ShardedMD,
+    ShardMesh) put their tensors on the card unless
     the caller names another device; on a torch without CUDA a call
     without a device raises instead of handing back CPU tensors (run.main:
     tests/test_torch_run.py)."""
     for fn in (annp.make_annp, annp.params_from_numpy, anna_adp.make_anna,
                anna_adp.params_from_numpy, integrate.nhc_masses,
                integrate.npt_baro_masses, integrate.NHCState.zeros,
-               run.main):
+               run.main, domain.ShardedMD, mesh.ShardMesh):
         assert inspect.signature(fn).parameters["device"].default == "cuda"
     if torch.cuda.is_available():
         return
