@@ -2,9 +2,9 @@
 """Bring-up smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
 
 Drives `meng_zhang_tpu_torch` -- never JAX -- through its four main paths
-and the sharded slab driver on each model family, then through its
-user-facing run path (`python -m meng_zhang_tpu_torch`,
-called in-process as `run.main(argv)`):
+and the sharded drivers (slabs, columns, bricks) on each model family, then
+through its user-facing run path (`python -m meng_zhang_tpu_torch`, called
+in-process as `run.main(argv)`):
 
   * fe Chebyshev ANNP on the reference benchmark scene: the 152,880-atom
     bcc-Fe slab (box 184 x 85.659 x 112.5 A, `boundary m p m`, positions
@@ -151,6 +151,26 @@ launches once a step for all shards), each fatal on failure, by tag:
     the frame planes [4 cc, 96], SHARD_ANNA_BLOCKS NVE blocks from the
     perfect lattice with halo_b SHARD_ANNA_HALO_B (drift printed).
 
+The 2-D and 3-D grid drivers (parallel/domain2d.py, domain3d.py:
+ShardedMD2D on a (2, 2) grid of columns, ShardedMD3D on a (2, 2, 2) grid
+of bricks, on the same in-process mesh; every frame row is a centre), each
+fatal on failure, by tag:
+
+  * [shard2d-fe] (after [shard-fe]): [shard-fe]'s checks through
+    ShardedMD2D(FrameShortModel(FusedAnnp)), `boundary m p m`; its
+    coverage trip moves a row of shard 0 from outside its y-high send set
+    into that face band, which must latch OVF_COVERAGE at the rebuild;
+  * [shard3d-fe] (after [shard2d-fe]): one evaluation, no MD:
+    ShardedMD3D(FrameShortModel(FusedAnnp)) on the fe scene, x and z not
+    periodic, distribute in f32 against phase 4's f64 plain path, and
+    g_harm / force_harm on the bricks' frame planes;
+  * [shard3d-ni] (after [shard-ni]): [shard-ni]'s checks through
+    ShardedMD3D(FrameShortModel(FusedNi)), without the slab halo's
+    coverage trip;
+  * [shard2d-anna] (after [shard-anna]): [shard-anna]'s checks through
+    ShardedMD2D(AnnaFrameModel(fast=True)), the NVE run from the perfect
+    lattice on the derived send-table capacities.
+
 Each kernel's record carries its least time on the card (`bound_ms`, the
 larger of the FLOPs its function needs over the f32 peak and its bytes
 over the memory rate, counted from this run's inputs) and `library_ms` null: no single PyTorch
@@ -159,7 +179,7 @@ ANNA-shape figures (`anna_shape`, `anna_ms`, `anna_plain_ms`,
 `anna_bound_ms`, `anna_bound_by`, `anna_max_abs_err`, and `anna_launches`
 from phase 14). Its `launches` add the new paths' runs ([multi-fe]'s and
 [rowsweep]'s Simulators, [multi-ni]'s, [thin-box]'s Simulator and FIRE,
-[cli-multi], the three [shard-*] runs) to the main paths'. Prints the kernels' JSON record on
+[cli-multi], the seven sharded runs) to the main paths'. Prints the kernels' JSON record on
 the line before the last, and as the last line
 {"ok": true, "device": {...}}. Run from the repository root:
 `python3 chip_smoke.py`.
@@ -238,14 +258,16 @@ THIN_W_OVER_PLAIN = 2.0
 # differ by 6.8 % of max|F|, 68x the max_dF bound, and f32 by 1.8e-5.)
 BLIND_OVER_ERR, BLIND_OVER_BOUND = 100.0, 10.0
 
-# the sharded slab driver (parallel/domain.py), one card
-SHARD_D = 4                    # shards on the one card
-SHARD_BLOCKS = 10              # [shard-fe], [shard-ni] blocks
-SHARD_ANNA_BLOCKS = 5          # [shard-anna] NVE blocks
+# the sharded drivers (parallel/domain.py, domain2d.py, domain3d.py), one
+# card
+SHARD_D = 4                    # slabs on the one card
+SHARD_BLOCKS = 10              # [shard-fe], [shard-ni] and their grids' blocks
+SHARD_ANNA_BLOCKS = 5          # [shard-anna], [shard2d-anna] NVE blocks
 SHARD_T_STEPS = 20             # steps held against the single-device run
 SHARD_MIGRATE_B = 512          # rows merged at each slab boundary at a
                                # rebuild of [shard-fe]'s run
-SHARD_SLAB_X = 92.0            # [shard-fe]'s f64 slab: the atoms below it (A)
+SHARD_SLAB_X = 92.0            # [shard(2d)-fe]'s f64 slab: the atoms below
+                               # it (A)
 # [shard-anna]'s NVE run from the perfect lattice: bc 8,192 rows, 5.12 of
 # its (100) planes (1,600 atoms, 1.428 A apart). The derived 6,808 rows
 # (4.26 planes) leave the plane that ends the frame 5.71 A from the plane
@@ -2386,11 +2408,47 @@ def phase_cli_multi(card, tmp, types):
     return {k: launches[k] for k in ("g_harm", "force_harm")}
 
 
-def shard_config(n, cut, skin, capacity, cell_capacity, **kw):
+def shard_config(n, cut, skin, capacity, cell_capacity, mesh=None, **kw):
+    """The driver's config: ShardConfig of SHARD_D slabs, or with `mesh`
+    Shard2DConfig / Shard3DConfig of that grid."""
     from meng_zhang_tpu_torch.parallel.domain import ShardConfig
-    return ShardConfig(n_devices=SHARD_D, c_loc=n // SHARD_D, cutoff=cut,
-                       skin=skin, dt=0.001, capacity=capacity,
-                       cell_capacity=cell_capacity, **kw)
+    from meng_zhang_tpu_torch.parallel.domain2d import Shard2DConfig
+    from meng_zhang_tpu_torch.parallel.domain3d import Shard3DConfig
+    make, d = ShardConfig, SHARD_D
+    if mesh is not None:
+        make = Shard2DConfig if len(mesh) == 2 else Shard3DConfig
+        d, kw = int(np.prod(mesh)), dict(kw, mesh_shape=mesh)
+    return make(n_devices=d, c_loc=n // d, cutoff=cut, skin=skin, dt=0.001,
+                capacity=capacity, cell_capacity=cell_capacity, **kw)
+
+
+def shard_driver(model, mass, box, cfg, dev):
+    """ShardedMD, ShardedMD2D or ShardedMD3D, by the config's mesh."""
+    from meng_zhang_tpu_torch.parallel import domain, domain2d, domain3d
+    mesh = getattr(cfg, "mesh_shape", ())
+    make = {0: domain.ShardedMD, 2: domain2d.ShardedMD2D,
+            3: domain3d.ShardedMD3D}[len(mesh)]
+    return make(model, mass, box, cfg, device=dev)
+
+
+def shard_geometry(md):
+    """One line of the layout's rows: the rows a shard evaluates against
+    its own C, and D times them against N."""
+    c = md.cfg
+    if hasattr(md, "n_frame"):
+        rows = md.n_frame
+        frame = (md.wx_frame, md.wy_frame) + (
+            (md.wz_frame,) if md.k == 3 else ())
+        head = (f"mesh {md.shape}, send tables {'/'.join(map(str, md.caps))}"
+                f" rows, frame rows {rows}, frame "
+                f"{'x'.join(f'{w:.3f}' for w in frame)} A")
+    else:
+        rows = c.cc
+        head = (f"halo_b {c.halo_b}, bc {c.bc}, cc {rows}, frame "
+                f"{md.frame_wx:.3f} A")
+    ratio = c.n_devices * rows / md.n
+    return (f"{head} ({rows / c.c_loc:.3f} x C, {ratio:.3f} x N rows), K "
+            f"{c.capacity}, cells {md.frame_dims}")
 
 
 def shard_outputs(st, order):
@@ -2434,6 +2492,7 @@ def shard_kernel_checks(tag, planes32, cases):
             compare(f"{tag} {'f32' if dtype == torch.float32 else 'f64'}",
                     f"{name} frame planes [{p}, {k}]", outs, kern(pl, dtype),
                     plain(pl, dtype), bounds[dtype])
+        del pl
     for name, kern, _, _, _ in cases:
         ms = cuda_ms(lambda: kern(planes32, torch.float32), 5)
         log(f"[{tag}] {name} f32 on the [{p}, {k}] frame planes: {ms:.3f} "
@@ -2516,10 +2575,8 @@ def shard_md(tag, md, x, v, n_blocks, names, card, sim_run, rel_f,
         t0 = time.time()
         st, _ = md.distribute(x, v)
         torch.cuda.synchronize()
-        log(f"[{tag}] distribute {time.time() - t0:.2f} s: halo_b "
-            f"{md.cfg.halo_b}, bc {md.cfg.bc}, cc {md.cfg.cc} "
-            f"({md.cfg.cc / md.cfg.c_loc:.3f} x C), K {md.cfg.capacity}, "
-            f"frame {md.frame_wx:.3f} A, cells {md.frame_dims}")
+        log(f"[{tag}] distribute {time.time() - t0:.2f} s: "
+            f"{shard_geometry(md)}")
         rows, block_s, rebuilds, migrated = [], [], 0, 0
         for blk in range(n_blocks):
             t0 = time.time()
@@ -2551,8 +2608,8 @@ def shard_md(tag, md, x, v, n_blocks, names, card, sim_run, rel_f,
     for k in all_names:
         want = steps + 1 if k in names else 0
         check(launches[k] == want, f"{tag}: {k} launched {launches[k]} "
-              f"times, expected {want} (one a step for all {SHARD_D} "
-              "shards, and one at distribute)")
+              f"times, expected {want} (one a step for all "
+              f"{md.cfg.n_devices} shards, and one at distribute)")
     gid = np.sort(st.gid.reshape(-1).cpu().numpy())
     check(np.array_equal(gid, np.arange(n)), f"{tag}: gid not a "
           "permutation")
@@ -2586,7 +2643,7 @@ def shard_md(tag, md, x, v, n_blocks, names, card, sim_run, rel_f,
 
 
 def shard_coverage(tag, md, x):
-    """An undersized halo (bc of 8 rows) must trip OVF_COVERAGE."""
+    """An undersized slab halo (bc of 8 rows) must trip OVF_COVERAGE."""
     import dataclasses
     from meng_zhang_tpu_torch.parallel import domain as D
     md.cfg = dataclasses.replace(md.cfg, halo_b=16)
@@ -2598,38 +2655,71 @@ def shard_coverage(tag, md, x):
           "passed the coverage proof")
 
 
+def grid_coverage(tag, md, x):
+    """A grid driver's coverage trip (tests/test_multichip2d.py:149-177):
+    an own row of shard 0 outside its y-high send set, moved 0.1 A inside
+    that face, must latch OVF_COVERAGE on shard 0 at the next rebuild."""
+    from meng_zhang_tpu_torch.parallel import domain as D
+    st, _ = md.distribute(x)
+    check(not bool(st.overflow.any()), f"{tag}: overflow before the trip")
+    yhi = float(md.yb_frac[0, 1]) * float(st.box[1])
+    outside = torch.nonzero(st.x_loc[0, :, 1] < yhi - md.w_send - 0.5)
+    check(outside.numel() > 0, f"{tag}: shard 0 has no row outside its "
+          "y-high send set")
+    x_loc = st.x_loc.clone()
+    x_loc[0, int(outside[0, 0]), 1] = yhi - 0.1
+    ovf = md.rebuild(st._replace(x_loc=x_loc)).overflow.tolist()
+    log(f"[{tag}] a row of shard 0 moved into its y-high face band: overflow"
+        f" flags {ovf} (OVF_COVERAGE {D.OVF_COVERAGE}; "
+        f"{outside.shape[0]} of its {md.cfg.c_loc} rows outside the send "
+        "set)")
+    check(ovf[0] & D.OVF_COVERAGE, f"{tag}: the teleported row passed the "
+          "coverage proof")
+
+
+# the layouts of the sharded tags: [shard-*] SHARD_D slabs, [shard2d-*] a
+# (2, 2) grid of columns, [shard3d-*] a (2, 2, 2) grid of bricks
+SHARD_MESH = {"1d": None, "2d": (2, 2), "3d": (2, 2, 2)}
+SHARD_TAG = {"1d": "shard", "2d": "shard2d", "3d": "shard3d"}
+
+
 def phase_shard_fe(x, box, cfg32, p32, cfg64, p64, mass, card, ref,
-                   main_rate):
-    """The 1-D slab driver on the fe main path's scene at the shipped
-    width: ShardedMD(FrameShortModel(FusedAnnp)) over SHARD_D shards on the
+                   main_rate, layout="1d"):
+    """A sharded driver on the fe main path's scene at the shipped width:
+    FrameShortModel(FusedAnnp) over SHARD_D slabs (layout "1d",
+    [shard-fe]) or a (2, 2) grid of columns ("2d", [shard2d-fe]) on the
     card. (a) distribute in f32 against the f64 plain single-device path
     at the same x (phase 4's EVAL_REL); (b) on the slab x < SHARD_SLAB_X
     in f64, the sharded kernel path against the single-device kernel path
     (SHARD_REL64), and AnnpFrameModel on both angular paths (the skin
     rows at full width) against FrameShortModel; (c) the four fe kernels
-    against their plain versions on the frame planes; (d) an undersized
-    halo trips the coverage proof; (e) SHARD_BLOCKS NPT blocks (migrate_b
-    SHARD_MIGRATE_B) from the main path's start."""
+    against their plain versions on the frame planes; (d) the coverage
+    trip (an undersized slab halo; on the grid a row teleported into a
+    face band); (e) SHARD_BLOCKS NPT blocks (migrate_b SHARD_MIGRATE_B)
+    from the main path's start."""
     from meng_zhang_tpu_torch.md.simulation import create_velocities
     from meng_zhang_tpu_torch.ops import fused_annp as fa
     from meng_zhang_tpu_torch.parallel import domain as D
-    tag = "shard-fe"
+    tag = f"{SHARD_TAG[layout]}-fe"
     t_phase = time.time()
     dev = x.device
     n = x.shape[0]
 
-    def cfg_of(n_at, **kw):
-        return shard_config(n_at, cfg32.cut, SKIN, CAPACITY, CELL_CAPACITY,
-                            pbc=PBC, **kw)
+    def md_of(model, bx, n_at, **kw):
+        return shard_driver(model, mass, bx, shard_config(
+            n_at, cfg32.cut, SKIN, CAPACITY, CELL_CAPACITY,
+            mesh=SHARD_MESH[layout], pbc=PBC, **kw), dev)
 
     def short_model(cfg, p, **kw):
         return D.FrameShortModel(fa.FusedAnnp(cfg, p, k_short=K_SHORT,
                                               short_delta=SHORT_DELTA, **kw))
 
     # (a) f32 sharded against the f64 plain single-device evaluation
-    md = D.ShardedMD(short_model(cfg32, p32), mass, box, cfg_of(n),
-                     device=dev)
+    md = md_of(short_model(cfg32, p32), box, n)
+    t0 = time.time()
     st, order = md.distribute(x)
+    torch.cuda.synchronize()
+    log(f"[{tag}] distribute {time.time() - t0:.2f} s: {shard_geometry(md)}")
     check(not bool(st.overflow.any()), f"{tag}: overflow at distribute "
           f"{st.overflow.tolist()}")
     e64, f64, w64, w_abs = ref
@@ -2647,7 +2737,8 @@ def phase_shard_fe(x, box, cfg32, p32, cfg64, p64, mass, card, ref,
 
     # (b) f64 on a slab cut from the scene
     keep = torch.nonzero(x[:, 0] < SHARD_SLAB_X).reshape(-1)
-    keep = keep[:keep.shape[0] // SHARD_D * SHARD_D]
+    d = SHARD_D if layout == "1d" else int(np.prod(SHARD_MESH[layout]))
+    keep = keep[:keep.shape[0] // d * d]
     xs = x[keep].double()
     box64 = box.double()
     ns = xs.shape[0]
@@ -2658,8 +2749,7 @@ def phase_shard_fe(x, box, cfg32, p32, cfg64, p64, mass, card, ref,
     want = fa.FusedAnnp(cfg64, p64, k_short=K_SHORT).energy_forces(
         xs, box64, nb.idx)
     del nb
-    md = D.ShardedMD(short_model(cfg64, p64), mass, box64, cfg_of(ns),
-                     device=dev)
+    md = md_of(short_model(cfg64, p64), box64, ns)
     st, order = md.distribute(xs)
     check(not bool(st.overflow.any()), f"{tag}: slab overflow")
     shard_rel64(tag, f"{ns}-atom slab, f64 FrameShortModel vs one device",
@@ -2667,16 +2757,16 @@ def phase_shard_fe(x, box, cfg32, p32, cfg64, p64, mass, card, ref,
     short_out = shard_outputs(st, order)
     del st
     for angular in ("harmonic", "matrix"):
-        mda = D.ShardedMD(D.AnnpFrameModel(fa.FusedAnnp(cfg64, p64,
-                                                        angular=angular)),
-                          mass, box64, cfg_of(ns), device=dev)
+        mda = md_of(D.AnnpFrameModel(fa.FusedAnnp(cfg64, p64,
+                                                  angular=angular)),
+                    box64, ns)
         st, order = mda.distribute(xs)
         check(not bool(st.overflow.any()), f"{tag}: AnnpFrameModel overflow")
         shard_rel64(tag, f"f64 AnnpFrameModel ({angular}, K {CAPACITY}) vs "
                     "FrameShortModel", shard_outputs(st, order), short_out)
         del st, mda
     # (d) the coverage proof
-    shard_coverage(tag, md, xs)
+    (shard_coverage if layout == "1d" else grid_coverage)(tag, md, xs)
     del md, xs, want, short_out
 
     # (e) NPT from the main path's start
@@ -2691,10 +2781,10 @@ def phase_shard_fe(x, box, cfg32, p32, cfg64, p64, mass, card, ref,
         s = sim.init_state(x, box, v=v0)
         return sim.run(s, SHARD_T_STEPS // THERMO_EVERY)[1]
 
-    md = D.ShardedMD(short_model(cfg32, p32), mass, box, cfg_of(
-        n, ensemble="npt", t_target=300.0, tau_t=mcfg.tau_t,
-        p_target=mcfg.p_target, p_couple=COUPLE, tau_p=mcfg.tau_p,
-        thermo_every=THERMO_EVERY, migrate_b=SHARD_MIGRATE_B), device=dev)
+    md = md_of(short_model(cfg32, p32), box, n, ensemble="npt",
+               t_target=300.0, tau_t=mcfg.tau_t, p_target=mcfg.p_target,
+               p_couple=COUPLE, tau_p=mcfg.tau_p, thermo_every=THERMO_EVERY,
+               migrate_b=SHARD_MIGRATE_B)
     launches = shard_md(tag, md, x, v0, SHARD_BLOCKS,
                         ("g_harm", "force_harm"), card, sim_run,
                         EVAL_REL["max_dF"], main_rate, mass, migrate=True)
@@ -2702,23 +2792,75 @@ def phase_shard_fe(x, box, cfg32, p32, cfg64, p64, mass, card, ref,
     return launches
 
 
+def phase_shard3d_fe(x, box, cfg32, p32, mass, ref):
+    """The 3-D driver on the fe scene, one evaluation ([shard3d-fe]):
+    ShardedMD3D(FrameShortModel(FusedAnnp)) on a (2, 2, 2) grid of bricks,
+    x and z not periodic. distribute in f32 against the f64 plain
+    single-device path (EVAL_REL); g_harm and force_harm against their
+    plain versions on the bricks' frame planes; the time of one
+    evaluation of all eight frames. Returns distribute's launches."""
+    from meng_zhang_tpu_torch.ops import fused_annp as fa
+    from meng_zhang_tpu_torch.ops import kernels
+    from meng_zhang_tpu_torch.parallel import domain as D
+    tag = "shard3d-fe"
+    t_phase = time.time()
+    dev = x.device
+    md = shard_driver(
+        D.FrameShortModel(fa.FusedAnnp(cfg32, p32, k_short=K_SHORT,
+                                       short_delta=SHORT_DELTA)),
+        mass, box, shard_config(x.shape[0], cfg32.cut, SKIN, CAPACITY,
+                                CELL_CAPACITY, mesh=SHARD_MESH["3d"],
+                                pbc=PBC), dev)
+    kernels.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    with plain_calls() as plain:
+        t0 = time.time()
+        st, order = md.distribute(x)
+        torch.cuda.synchronize()
+    launches = {k: getattr(kernels, k).launches for k in ("g_harm",
+                                                          "force_harm")}
+    log(f"[{tag}] distribute {time.time() - t0:.2f} s: {shard_geometry(md)};"
+        f" skin rows {tuple(st.idx.shape)} "
+        f"({st.idx.numel() * st.idx.element_size() / 2**30:.2f} GiB), peak "
+        f"device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    check(not plain, f"{tag}: plain versions ran on the card: {plain}")
+    check(launches == {"g_harm": 1, "force_harm": 1}, f"{tag}: launches "
+          f"{launches}, expected one of each harmonic kernel")
+    check(not bool(st.overflow.any()), f"{tag}: overflow at distribute "
+          f"{st.overflow.tolist()}")
+    e64, f64, w64, w_abs = ref
+    eval_gates(tag, EVAL_REL, shard_outputs(st, order), (e64, f64, w64),
+               w_abs)
+    ms = cuda_ms(lambda: md.refill_forces(st), 3)
+    log(f"[{tag}] one evaluation of the {md.cfg.n_devices} frames: {ms:.2f} "
+        "ms (median of 3, CUDA events)")
+    planes = shard_planes(md, st, st.short.sidx, PBC)
+    del st, md, e64, f64, w64
+    harm, _ = fe_kernel_cases(cfg32.npsf, cfg32.ntsf, cfg32.cut,
+                              planes[0].shape[0], dev)
+    shard_kernel_checks(tag, planes, harm)
+    log(f"[{tag}] phase {time.time() - t_phase:.1f} s")
+    return launches
+
+
 def phase_shard_ni(dev, x, box, cfg32, p32, cfg64, p64, mass, card, ref,
-                   ni_rate):
-    """The 1-D slab driver on the ni scene (periodic x: the ring's seam
-    halos are unwrapped): ShardedMD(FrameShortModel(FusedNi)) over SHARD_D
-    shards. (a) distribute on the thermal box in f32 against the f64 plain
+                   ni_rate, layout="1d"):
+    """A sharded driver on the ni scene (periodic: the seam's halos take
+    their +-L shift): FrameShortModel(FusedNi) over SHARD_D slabs ("1d",
+    [shard-ni]) or a (2, 2, 2) grid of bricks ("3d", [shard3d-ni]). (a)
+    distribute on the thermal box in f32 against the f64 plain
     single-device path (NI_EVAL_REL), and in f64 against the f64
     single-device kernel path (SHARD_REL64); (b) ni_g and ni_force against
-    their plain versions on the frame planes; (c) an undersized halo trips
-    the coverage proof; (d) SHARD_BLOCKS NVT blocks from the perfect
-    lattice, as the ni main path."""
+    their plain versions on the frame planes; (c) on slabs, an undersized
+    halo trips the coverage proof; (d) SHARD_BLOCKS NVT blocks from the
+    perfect lattice, as the ni main path."""
     from meng_zhang_tpu_torch.md.simulation import create_velocities
     from meng_zhang_tpu_torch.ops import fused_ni as fn
     from meng_zhang_tpu_torch.ops import kernels
     from meng_zhang_tpu_torch.parallel import domain as D
     from meng_zhang_tpu_torch.system.neighbors import build_neighbors_cell
     from meng_zhang_tpu_torch.testing import thermal_fcc
-    tag = "shard-ni"
+    tag = f"{SHARD_TAG[layout]}-ni"
     t_phase = time.time()
     n = x.shape[0]
     pbc = (True,) * 3
@@ -2728,12 +2870,16 @@ def phase_shard_ni(dev, x, box, cfg32, p32, cfg64, p64, mass, card, ref,
         return D.FrameShortModel(fn.FusedNi(cfg, p, k_short=NI_KS,
                                             short_delta=NI_DELTA))
 
-    def cfg_of(**kw):
-        return shard_config(n, rc, NI_SKIN, NI_CAPACITY, NI_CELL_CAPACITY,
-                            stale_factor=0.5, **kw)
+    def md_of(mdl, bx, **kw):
+        return shard_driver(mdl, mass, bx, shard_config(
+            n, rc, NI_SKIN, NI_CAPACITY, NI_CELL_CAPACITY,
+            mesh=SHARD_MESH[layout], stale_factor=0.5, **kw), dev)
 
-    md = D.ShardedMD(model(cfg32, p32), mass, box, cfg_of(), device=dev)
+    md = md_of(model(cfg32, p32), box)
+    t0 = time.time()
     st, order = md.distribute(x)
+    torch.cuda.synchronize()
+    log(f"[{tag}] distribute {time.time() - t0:.2f} s: {shard_geometry(md)}")
     check(not bool(st.overflow.any()), f"{tag}: overflow at distribute")
     e64, f64, w64, w_abs = ref
     eval_gates(tag, NI_EVAL_REL, shard_outputs(st, order), (e64, f64, w64),
@@ -2757,7 +2903,7 @@ def phase_shard_ni(dev, x, box, cfg32, p32, cfg64, p64, mass, card, ref,
         ("ni_force", lambda pl, dt: kernels.ni_force(*pl, dedg(dt), table),
          lambda pl, dt: fn.ni_force_plain(*pl, dedg(dt), table),
          ("fjx", "fjy", "fjz"), NI_REL_BOUND)])
-    del planes
+    del planes, dedgs
 
     x64, box64 = x.double(), box.double()
     ev64 = fn.FusedNi(cfg64, p64, k_short=NI_KS, short_delta=NI_DELTA)
@@ -2766,12 +2912,13 @@ def phase_shard_ni(dev, x, box, cfg32, p32, cfg64, p64, mass, card, ref,
                               NI_CELL_CAPACITY)
     want = ev64.energy_forces(x64, box64, nb.idx)
     del nb
-    md = D.ShardedMD(model(cfg64, p64), mass, box64, cfg_of(), device=dev)
+    md = md_of(model(cfg64, p64), box64)
     st, order = md.distribute(x64)
     shard_rel64(tag, "f64 FrameShortModel vs one device",
                 shard_outputs(st, order), want)
     del st, want
-    shard_coverage(tag, md, x64)
+    if layout == "1d":
+        shard_coverage(tag, md, x64)
     del md, x64
 
     x0 = torch.tensor(thermal_fcc(NI_CELLS, disp=0.0, a=NI_A)[0],
@@ -2786,9 +2933,8 @@ def phase_shard_ni(dev, x, box, cfg32, p32, cfg64, p64, mass, card, ref,
         s = sim.init_state(xx, bb, v=v0)
         return sim.run(s, SHARD_T_STEPS // NI_THERMO_EVERY)[1]
 
-    md = D.ShardedMD(model(cfg32, p32), mass, box, cfg_of(
-        ensemble="nvt", t_target=NI_T, tau_t=0.1,
-        thermo_every=NI_THERMO_EVERY), device=dev)
+    md = md_of(model(cfg32, p32), box, ensemble="nvt", t_target=NI_T,
+               tau_t=0.1, thermo_every=NI_THERMO_EVERY)
     launches = shard_md(tag, md, x0, v0, SHARD_BLOCKS, ("ni_g", "ni_force"),
                         card, sim_run, NI_EVAL_REL["max_dF"], ni_rate, mass,
                         thermo_every=NI_THERMO_EVERY)
@@ -2797,33 +2943,38 @@ def phase_shard_ni(dev, x, box, cfg32, p32, cfg64, p64, mass, card, ref,
 
 
 def phase_shard_anna(dev, box_lists, cfg32, p32, mass, card, ref,
-                     anna_rate):
-    """The 1-D slab driver on the ANNA scene: ShardedMD(AnnaFrameModel(
-    fast=True)) over SHARD_D shards, the skin rows at full width. (a)
-    distribute on the thermal box in f32 against make_anna_fast_fns in f64
-    (g_harm's plain version) on one device (ANNA_EVAL_REL); (b) g_harm
-    against its plain version on the frame planes; (c) SHARD_ANNA_BLOCKS
-    NVE blocks from the ANNA main path's start (the perfect lattice, its
-    velocities) with halo_b SHARD_ANNA_HALO_B, drift printed, not gated.
-    (The thermal box's 0.08 A displacements heat the NVE run past
-    1,200 K.)"""
+                     anna_rate, layout="1d"):
+    """A sharded driver on the ANNA scene, AnnaFrameModel(fast=True) on
+    the skin rows at full width: SHARD_D slabs ("1d", [shard-anna]) or a
+    (2, 2) grid of columns ("2d", [shard2d-anna]). (a) distribute on the
+    thermal box in f32 against make_anna_fast_fns in f64 (g_harm's plain
+    version) on one device (ANNA_EVAL_REL); (b) g_harm against its plain
+    version on the frame planes; (c) SHARD_ANNA_BLOCKS NVE blocks from the
+    ANNA main path's start (the perfect lattice, its velocities), drift
+    printed, not gated: the slabs with halo_b SHARD_ANNA_HALO_B, the grid
+    with its derived send-table capacities. (The thermal box's 0.08 A
+    displacements heat the NVE run past 1,200 K.)"""
     from meng_zhang_tpu_torch.md.simulation import create_velocities
     from meng_zhang_tpu_torch.ops import fused_annp as fa
     from meng_zhang_tpu_torch.ops import kernels
     from meng_zhang_tpu_torch.parallel import domain as D
-    tag = "shard-anna"
+    tag = f"{SHARD_TAG[layout]}-anna"
     t_phase = time.time()
     x, box, _, _ = box_lists
     n = x.shape[0]
     pbc = (True,) * 3
 
-    def cfg_of(**kw):
-        return shard_config(n, cfg32.cut, ANNA_SKIN, ANNA_CAPACITY,
-                            ANNA_CELL_CAPACITY, stale_factor=0.5, **kw)
+    def md_of(**kw):
+        return shard_driver(model, mass, box, shard_config(
+            n, cfg32.cut, ANNA_SKIN, ANNA_CAPACITY, ANNA_CELL_CAPACITY,
+            mesh=SHARD_MESH[layout], stale_factor=0.5, **kw), dev)
 
     model = D.AnnaFrameModel(cfg32, p32, fast=True)
-    md = D.ShardedMD(model, mass, box, cfg_of(), device=dev)
+    md = md_of()
+    t0 = time.time()
     st, order = md.distribute(x)
+    torch.cuda.synchronize()
+    log(f"[{tag}] distribute {time.time() - t0:.2f} s: {shard_geometry(md)}")
     check(not bool(st.overflow.any()), f"{tag}: overflow at distribute")
     e64, f64, w64 = ref
     e32, f32, w32 = shard_outputs(st, order)
@@ -2861,8 +3012,8 @@ def phase_shard_anna(dev, box_lists, cfg32, p32, mass, card, ref,
         return sim.run(s, SHARD_T_STEPS // ANNA_EVERY)[1]
 
     x0 = anna_simulator(dev, cfg32, p32, mass)[1]
-    md = D.ShardedMD(model, mass, box, cfg_of(
-        thermo_every=ANNA_EVERY, halo_b=SHARD_ANNA_HALO_B), device=dev)
+    halo = {"halo_b": SHARD_ANNA_HALO_B} if layout == "1d" else {}
+    md = md_of(thermo_every=ANNA_EVERY, **halo)
     launches = shard_md(tag, md, x0, v0, SHARD_ANNA_BLOCKS, ("g_harm",),
                         card, sim_run, ANNA_EVAL_REL["max_dF"], anna_rate,
                         mass, thermo_every=ANNA_EVERY)
@@ -2892,6 +3043,11 @@ def main():
                  "rowsweep": phase_rowsweep(x, box, cfg32, p32, mass, card)}
         extra["shard-fe"] = phase_shard_fe(x, box, cfg32, p32, cfg64, p64,
                                            mass, card, fe_ref, main_rate[0])
+        extra["shard2d-fe"] = phase_shard_fe(x, box, cfg32, p32, cfg64, p64,
+                                             mass, card, fe_ref,
+                                             main_rate[0], layout="2d")
+        extra["shard3d-fe"] = phase_shard3d_fe(x, box, cfg32, p32, mass,
+                                               fe_ref)
         del fe_ref
         fe = (x, box, cfg32, p32, mass)
         del x, box, sl, cfg64, p64
@@ -2905,6 +3061,9 @@ def main():
         launches.update(ni_launches)
         extra["shard-ni"] = phase_shard_ni(dev, x, box, cfg32, p32, cfg64,
                                            p64, mass, card, ni_ref, ni_rate)
+        extra["shard3d-ni"] = phase_shard_ni(dev, x, box, cfg32, p32, cfg64,
+                                             p64, mass, card, ni_ref,
+                                             ni_rate, layout="3d")
         del x, box, sl, ni_ref
         ni = (dev, cfg32, p32, mass, card)
         extra["multi-ni"] = phase_multi_ni(dev, card)
@@ -2917,6 +3076,9 @@ def main():
         extra["shard-anna"] = phase_shard_anna(dev, box_lists, cfg32, p32,
                                                mass, card, anna_ref,
                                                anna_rate)
+        extra["shard2d-anna"] = phase_shard_anna(dev, box_lists, cfg32, p32,
+                                                 mass, card, anna_ref,
+                                                 anna_rate, layout="2d")
         del box_lists, anna_ref
         log(f"[anna-md] phases anna-kernel, anna-eval and anna-md took "
             f"{time.time() - t_anna:.1f} s")

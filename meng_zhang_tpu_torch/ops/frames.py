@@ -50,9 +50,10 @@ def frame_planes(xc, x_src, box, sidx, pbc):
 
 
 def compact_frames(x_src, box, idx, off, cc, rc, ks, pbc):
-    """Each centre row's skin entries idx [D, cc, K] within rc, ascending
-    frame indices padded with M to ks columns: (sidx [D, cc, ks], counts
-    [D, cc] of the entries within rc)."""
+    """Each centre row's skin entries idx [D, cc, K] within rc, in the
+    skin row's order (ascending frame indices on slabs, ascending atom ids
+    on the 2-D and 3-D grids), padded with M to ks columns: (sidx [D, cc,
+    ks], counts [D, cc] of the entries within rc)."""
     d, m = x_src.shape[:2]
     k = idx.shape[2]
     sidx_f, _ = frame_tables(idx, m, off, cc)
@@ -60,8 +61,10 @@ def compact_frames(x_src, box, idx, off, cc, rc, ks, pbc):
     rsq = dx * dx + dy * dy + dz * dz
     # filler lanes lie at 2*box + 10 per axis, beyond any rc
     mask = (rsq < rc * rc) & (rsq > 1.0e-12)
-    key = torch.where(mask, idx.reshape(-1, k), m)
-    key = torch.sort(key, dim=1).values[:, :ks]
+    # the kept entries first, in their order (a stable partition)
+    keep = torch.sort((~mask).to(torch.int32), dim=1, stable=True).indices
+    key = torch.where(torch.gather(mask, 1, keep),
+                      torch.gather(idx.reshape(-1, k), 1, keep), m)[:, :ks]
     if key.shape[1] < ks:
         key = torch.nn.functional.pad(key, (0, ks - key.shape[1]), value=m)
     return key.view(d, cc, ks), mask.sum(dim=1).view(d, cc)
@@ -124,7 +127,8 @@ class FrameOps:
 
     def compact_short_frames(self, x_src, box, idx, off, cc):
         """The short rows of D frames at short_rc + short_delta: (sidx [D,
-        cc, Ks] frame indices ascending, sentinel M; overflow [D] bool).
+        cc, Ks] frame indices in the skin rows' order, sentinel M; overflow
+        [D] bool).
 
         Ks = min(k_short, K). A frame overflows when a row keeps more than
         Ks entries, or when its centre rows' kept pairs are not symmetric

@@ -229,6 +229,74 @@ def _tensor(a, device, dtype=None):
     return torch.as_tensor(a, device=device, dtype=dtype)
 
 
+def migrate_round(pay, gid, axis, bm, ship_up, ship_down, first, last,
+                  periodic, length):
+    """One bounded edge-block exchange along `axis` (the LAMMPS exchange()
+    analogue; JAX `_migrate_body` of the 1-D driver, :748, and
+    `_migrate_round` of the 2-D and 3-D ones): pay [D, C, 9] (x, v, f) and
+    gid [D, C] of every shard, rows sorted by the axis coordinate. At every
+    boundary the bm top rows of the lower shard and the bm bottom rows of
+    the upper one are merged by that coordinate, in the lower shard's
+    coordinate patch, and split again, each shard keeping the half nearest
+    it: counts stay equal, an atom moves at most bm rows a call, and one
+    that crosses the periodic seam gets one exact +-length shift.
+
+    ship_up / ship_down move each shard's block to its upper / lower
+    neighbour along the axis (ring calls of the mesh); first / last [D]
+    bool mark the shards at the axis's two ends, which exchange nothing
+    across a non-periodic end. Returns (pay, gid, atoms received [D])."""
+    c = pay.shape[1]
+    dev = pay.device
+    top, bot = pay[:, c - bm:], pay[:, :bm]
+    gtop, gbot = gid[:, c - bm:], gid[:, :bm]
+    recv_top, grecv_top = ship_up(top), ship_up(gtop)      # lower's top
+    recv_bot, grecv_bot = ship_down(bot), ship_down(gbot)  # upper's bottom
+
+    def merge(t_pay, t_gid, b_pay, b_gid, s):
+        """Sort the 2 bm union [top of the lower shard ++ bottom of the
+        upper shard] by the coordinate in the lower shard's patch (the
+        upper side is offset by s [D] at the seam); an atom that changes
+        sides takes one exact s shift."""
+        key = torch.cat([t_pay[..., axis], b_pay[..., axis] - s[:, None]],
+                        dim=1)
+        srcs = torch.cat([torch.zeros(bm, dtype=torch.int64, device=dev),
+                          torch.ones(bm, dtype=torch.int64, device=dev)])
+        order = torch.argsort(key, dim=1, stable=True)
+        vals = torch.gather(torch.cat([t_pay, b_pay], dim=1), 1,
+                            order[..., None].expand(-1, -1, 9))
+        gids = torch.gather(torch.cat([t_gid, b_gid], dim=1), 1, order)
+        src = srcs[order]
+        dest = (torch.arange(2 * bm, device=dev) >= bm).to(torch.int64)
+        vals = vals.clone()
+        vals[..., axis] = vals[..., axis] + s[:, None] * (dest - src).to(
+            vals.dtype)
+        return vals, gids, src
+
+    zero = torch.zeros(first.shape[0], dtype=pay.dtype, device=dev)
+    if periodic:
+        s_r = torch.where(last, -length, zero)       # my upper side
+        s_l = torch.where(first, -length, zero)      # my lower side
+    else:
+        s_r = s_l = zero
+    mr, gr, src_r = merge(top, gtop, recv_bot, grecv_bot, s_r)
+    ml, gl, src_l = merge(recv_top, grecv_top, bot, gbot, s_l)
+    new_top, new_gtop = mr[:, :bm], gr[:, :bm]
+    new_bot, new_gbot = ml[:, bm:], gl[:, bm:]
+    in_r = src_r[:, :bm].sum(dim=1)            # the upper's atoms now mine
+    in_l = (1 - src_l[:, bm:]).sum(dim=1)      # the lower's atoms now mine
+    if not periodic:
+        # no wrap: the outermost faces exchange nothing
+        new_top = torch.where(last[:, None, None], top, new_top)
+        new_gtop = torch.where(last[:, None], gtop, new_gtop)
+        new_bot = torch.where(first[:, None, None], bot, new_bot)
+        new_gbot = torch.where(first[:, None], gbot, new_gbot)
+        in_r = torch.where(last, 0, in_r)
+        in_l = torch.where(first, 0, in_l)
+    return (torch.cat([new_bot, pay[:, bm:c - bm], new_top], dim=1),
+            torch.cat([new_gbot, gid[:, bm:c - bm], new_gtop], dim=1),
+            in_l + in_r)
+
+
 class ShardedMD:
     """Spatially sharded MD driver (1-D slabs along x) over a shard mesh.
 
@@ -421,6 +489,10 @@ class ShardedMD:
         """Rows of a frame, the skin lists' sentinel (layout hook)."""
         return self.cfg.c_ext
 
+    def _own_rows(self):
+        """[lo, hi) of the own rows among the centre rows (layout hook)."""
+        return self.cfg.bc, self.cfg.bc + self.cfg.c_loc
+
     # ---------- frame helpers ----------
     def _frame(self, x, hl, hr):
         return torch.cat([hl, x, hr], dim=1)               # [D, C_ext, 3]
@@ -428,11 +500,10 @@ class ShardedMD:
     def _force_local(self, x, hl, hr, box, idx, short=None):
         """(pe [D] shift-free, f [D, C, 3] of the own rows, W [3, 3] summed
         over the shards): one evaluation of every shard's frame."""
-        cfg = self.cfg
         x_ext = self._frame(x, hl, hr)
         off, cc = self._short_geom()
         xc = x_ext[:, off:off + cc]
-        sl = (cfg.bc, cfg.bc + cfg.c_loc)
+        sl = self._own_rows()
         if short is not None:
             eat, forces, w = self.model.eval_short(xc, x_ext, box, short.sidx,
                                                    cc, off, sl, True)
@@ -446,7 +517,7 @@ class ShardedMD:
         return (self.mesh.ring_shift(x_loc[:, -b:], 1),
                 self.mesh.ring_shift(x_loc[:, :b], -1))
 
-    # the two layout hooks a 2-D driver overrides --------------------
+    # the two layout hooks the 2-D and 3-D drivers override -----------
     def _exchange_and_force(self, st: ShardState, x, box):
         """Refresh the halos from x and evaluate. Returns (halo updates for
         st._replace, pe, f, W)."""
@@ -653,76 +724,26 @@ class ShardedMD:
     def migrate(self, st: ShardState) -> ShardState:
         """Move boundary-crossing atoms to the ring neighbour (JAX
         `_migrate_body`, :748): every shard's rows are sorted by x (their
-        payloads with them), then at every slab boundary the migrate_b top
-        rows of the left shard and bottom rows of the right shard are
-        merged by x, in the left shard's coordinate patch, and split again,
-        each shard keeping the half nearest it. Counts stay equal, an atom
-        moves at most migrate_b rows a call, and an atom that crosses the
-        periodic seam gets one exact +-L shift. The neighbor tables are
-        stale afterwards: run() follows every migrate with rebuild().
-        Tallies self.migrated."""
-        cfg = self.cfg
-        C, D, Bm = cfg.c_loc, cfg.n_devices, cfg.migrate_b
-        dev = self.device
+        payloads with them), then `migrate_round` exchanges the migrate_b
+        edge rows at every slab boundary. The neighbor tables are stale
+        afterwards: run() follows every migrate with rebuild(). Tallies
+        self.migrated."""
+        D = self.cfg.n_devices
         pay = torch.cat([st.x_loc, st.v_loc, st.f_loc], dim=2)   # [D, C, 9]
         perm = torch.argsort(st.x_loc[..., 0], dim=1, stable=True)
         pay = torch.gather(pay, 1, perm[..., None].expand(-1, -1, 9))
         gid = torch.gather(st.gid, 1, perm)
-        top, bot = pay[:, C - Bm:], pay[:, :Bm]
-        gtop, gbot = gid[:, C - Bm:], gid[:, :Bm]
+        ar = torch.arange(D, device=self.device)
         sh = self.mesh.ring_shift
-        recv_top, grecv_top = sh(top, 1), sh(gtop, 1)      # left nbr's top
-        recv_bot, grecv_bot = sh(bot, -1), sh(gbot, -1)    # right nbr's bottom
-
-        def merge(t_pay, t_gid, b_pay, b_gid, s):
-            """Sort the 2 Bm union [top of the left shard ++ bottom of the
-            right shard] by x in the left shard's patch (the right side is
-            offset by s [D] at the seam); an atom that changes sides takes
-            one exact s shift."""
-            key = torch.cat([t_pay[..., 0], b_pay[..., 0] - s[:, None]],
-                            dim=1)
-            srcs = torch.cat([torch.zeros(Bm, dtype=torch.int64, device=dev),
-                              torch.ones(Bm, dtype=torch.int64, device=dev)])
-            order = torch.argsort(key, dim=1, stable=True)
-            vals = torch.gather(torch.cat([t_pay, b_pay], dim=1), 1,
-                                order[..., None].expand(-1, -1, 9))
-            gids = torch.gather(torch.cat([t_gid, b_gid], dim=1), 1, order)
-            src = srcs[order]
-            dest = (torch.arange(2 * Bm, device=dev) >= Bm).to(torch.int64)
-            vals = vals.clone()
-            vals[..., 0] = vals[..., 0] + s[:, None] * (dest - src).to(
-                vals.dtype)
-            return vals, gids, src
-
-        ar = torch.arange(D, device=dev)
-        zero = torch.zeros(D, dtype=pay.dtype, device=dev)
-        if cfg.pbc[0]:
-            s_r = torch.where(ar == D - 1, -st.box[0], zero)  # my right side
-            s_l = torch.where(ar == 0, -st.box[0], zero)      # my left side
-        else:
-            s_r = s_l = zero
-        mr, gr, src_r = merge(top, gtop, recv_bot, grecv_bot, s_r)
-        ml, gl, src_l = merge(recv_top, grecv_top, bot, gbot, s_l)
-        new_top, new_gtop = mr[:, :Bm], gr[:, :Bm]
-        new_bot, new_gbot = ml[:, Bm:], gl[:, Bm:]
-        in_r = src_r[:, :Bm].sum(dim=1)            # right nbr's atoms now mine
-        in_l = (1 - src_l[:, Bm:]).sum(dim=1)      # left nbr's atoms now mine
-        if not cfg.pbc[0]:
-            # no ring wrap: the outermost slab faces exchange nothing
-            last, first = (ar == D - 1), (ar == 0)
-            new_top = torch.where(last[:, None, None], top, new_top)
-            new_gtop = torch.where(last[:, None], gtop, new_gtop)
-            new_bot = torch.where(first[:, None, None], bot, new_bot)
-            new_gbot = torch.where(first[:, None], gbot, new_gbot)
-            in_r = torch.where(last, 0, in_r)
-            in_l = torch.where(first, 0, in_l)
-        full = torch.cat([new_bot, pay[:, Bm:C - Bm], new_top], dim=1)
-        gid2 = torch.cat([new_gbot, gid[:, Bm:C - Bm], new_gtop], dim=1)
-        x2 = full[..., 0:3].contiguous()
+        pay, gid, n_in = migrate_round(
+            pay, gid, 0, self.cfg.migrate_b, lambda t: sh(t, 1),
+            lambda t: sh(t, -1), ar == 0, ar == D - 1, self.cfg.pbc[0],
+            st.box[0])
+        x2 = pay[..., 0:3].contiguous()
         hl, hr = self._halo_refresh(x2)
-        self.migrated += int(self.mesh.psum(in_l + in_r))
-        return st._replace(x_loc=x2, v_loc=full[..., 3:6].contiguous(),
-                           f_loc=full[..., 6:9].contiguous(), gid=gid2,
+        self.migrated += int(self.mesh.psum(n_in))
+        return st._replace(x_loc=x2, v_loc=pay[..., 3:6].contiguous(),
+                           f_loc=pay[..., 6:9].contiguous(), gid=gid,
                            halo_l=hl, halo_r=hr, ref_loc=x2)
 
     # ---------- thermostat / barostat pieces (on global sums) ----------

@@ -652,3 +652,82 @@ def test_sharded_steps_on_card_match_cpu(cuda_device, path):
     assert float((x1 - x2).abs().max()) <= 1e-10
     for a, b in zip(th1[1:], th2[1:]):
         np.testing.assert_allclose(a.cpu().numpy(), b.numpy(), rtol=1e-10)
+
+
+def _grid_case(layout, device, plain=False):
+    """The 2-D driver on a (2, 2) mesh over a 1,728-atom bcc box of the
+    shipped fe width ("2d-fe"), or the 3-D driver on a (2, 2, 2) mesh over
+    an 864-atom fcc box of the shipped ni width ("3d-ni"), each through
+    the frame short list of its fused evaluator in f64, NVT; returns
+    (driver, x, v)."""
+    from meng_zhang_tpu_torch.models.annp import descriptor_cutoff
+    from meng_zhang_tpu_torch.parallel import domain as D
+    from meng_zhang_tpu_torch.parallel import domain2d as D2
+    from meng_zhang_tpu_torch.parallel import domain3d as D3
+    if layout == "2d-fe":
+        pot, mass = synthetic_fe_potential(0), 55.845
+        x, box = thermal_bcc((12, 12, 6), seed=4, disp=0.05)
+        make, mesh, driver = D2.Shard2DConfig, (2, 2), D2.ShardedMD2D
+    else:
+        pot, mass = synthetic_ni_potential(0), 58.6934
+        x, box = thermal_fcc((6, 6, 6), seed=4, disp=0.05)
+        make, mesh, driver = D3.Shard3DConfig, (2, 2, 2), D3.ShardedMD3D
+    cfg, params = make_annp(pot, torch.float64, device)
+    ev = (fa.FusedAnnp if layout == "2d-fe" else fn.FusedNi)(
+        cfg, params, k_short=128 if layout == "2d-fe" else 32,
+        short_delta=0.3, plain=plain)
+    d = int(np.prod(mesh))
+    scfg = make(n_devices=d, mesh_shape=mesh, c_loc=len(x) // d,
+                cutoff=descriptor_cutoff(cfg, params), skin=0.5, dt=0.001,
+                ensemble="nvt", t_target=300.0, thermo_every=3)
+    v = np.random.default_rng(1).normal(scale=3.0, size=x.shape)
+    v -= v.mean(axis=0)
+    md = driver(D.FrameShortModel(ev), mass, box, scfg, device=device)
+    as_t = (lambda a: torch.as_tensor(a, dtype=torch.float64, device=device))
+    return md, as_t(x), as_t(v)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["2d-fe", "3d-ni"])
+def test_grid_drivers_on_card_match_cpu(cuda_device, layout):
+    """distribute and two NVT blocks of 3 steps of the 2-D and 3-D drivers
+    on the card (the kernels) against the same on the CPU (their plain
+    versions), in f64: the first plans equal, thermo rtol 1e-10, positions
+    within 1e-10 A; one launch of each kernel a step for all shards."""
+    name = "force_harm" if layout == "2d-fe" else "ni_force"
+    out = []
+    for dev in (cuda_device, "cpu"):
+        kernels.reset_launch_counts()
+        md, x, v = _grid_case(layout, dev)
+        st, _ = md.distribute(x, v)
+        plan = [t.cpu() for t in st.plan]
+        st, th = md.run(st, 2)
+        if dev != "cpu":
+            assert getattr(kernels, name).launches == 1 + 6
+        assert not bool(st.overflow.any()) and not bool(st.unsafe.any())
+        out.append((plan, md.gather_positions(st).cpu(), th))
+    (p1, x1, th1), (p2, x2, th2) = out
+    for a, b in zip(p1, p2):
+        assert torch.equal(a, b)
+    assert float((x1 - x2).abs().max()) <= 1e-10
+    for a, b in zip(th1[1:], th2[1:]):
+        np.testing.assert_allclose(a.cpu().numpy(), b.numpy(), rtol=1e-10)
+
+
+@pytest.mark.cuda
+def test_grid_frame_evaluation_kernels_match_plain(cuda_device):
+    """The (2, 2) fe frame evaluation at distribute through the kernels
+    against the plain path on the card, in f64: every shard's frame, all
+    its rows centres, in one launch of each kernel; forces, PE and W
+    within 1e-10 of their scale."""
+    kernels.reset_launch_counts()
+    md, x, _ = _grid_case("2d-fe", cuda_device)
+    st, _ = md.distribute(x)
+    assert kernels.g_harm.launches == 1 and kernels.force_harm.launches == 1
+    md0, x0, _ = _grid_case("2d-fe", cuda_device, plain=True)
+    st0, _ = md0.distribute(x0)
+    assert not bool(st.overflow.any()) and torch.isfinite(st.f_loc).all()
+    assert rel_max(st.f_loc.cpu(), st0.f_loc.cpu()) <= 1e-10
+    assert rel_max(st.virial.cpu(), st0.virial.cpu()) <= 1e-10
+    assert abs(float(st.pe.sum() - st0.pe.sum())) <= 1e-10 * abs(
+        float(st0.pe.sum()))

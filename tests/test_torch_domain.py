@@ -37,7 +37,6 @@ from meng_zhang_tpu.ops.pallas_annp import PallasAnnp
 from meng_zhang_tpu.ops.pallas_ni import PallasNi
 from meng_zhang_tpu.parallel import domain as JD
 from meng_zhang_tpu.system import neighbors as JN
-from meng_zhang_tpu_torch.md.simulation import MDConfig, Simulator
 from meng_zhang_tpu_torch.models import anna_adp as A
 from meng_zhang_tpu_torch.models import annp
 from meng_zhang_tpu_torch.ops import fused_annp as fa
@@ -47,21 +46,13 @@ from meng_zhang_tpu_torch.system.neighbors import (build_neighbors_cell,
                                                    build_neighbors_n2)
 from meng_zhang_tpu_torch.testing import synthetic_anna_potential, thermal_fcc
 from meng_zhang_tpu_torch.units import MASS_FE
-from torch_port_util import (perturbed_bcc, reduced_ni_potential,
-                             reduced_potential, rel_max, t64)
+from torch_port_util import (chunked_simulator, perturbed_bcc,
+                             reduced_ni_potential, reduced_potential,
+                             rel_max, t64, thermal_velocities)
 
 M_NI = 58.6934
 SKIN = 0.5
 MPM = (False, True, False)
-
-
-def _v0(n, t, mass, seed):
-    """Velocities at temperature t without drift (numpy)."""
-    from meng_zhang_tpu_torch.units import BOLTZ, MVV2E
-    v = np.random.default_rng(seed).normal(size=(n, 3))
-    v -= v.mean(axis=0)
-    t_now = mass * MVV2E * (v * v).sum() / ((3 * n - 3) * BOLTZ)
-    return v * np.sqrt(t / t_now)
 
 
 @functools.cache
@@ -222,15 +213,8 @@ def test_undersized_halo_trips_coverage_proof(n_dev):
 # ------------------------------------------------------------ dynamics
 def _simulator(cfg, params, x, box, ensemble, thermo_every=5,
                mass=MASS_FE, **kw):
-    def force_fn(xx, bb, nbrs):
-        return annp.energy_forces_virial_chunked(cfg, params, xx, bb,
-                                                 nbrs.idx, shift=False)
-    mcfg = MDConfig(dt=0.001, cutoff=annp.descriptor_cutoff(cfg, params),
-                    skin=kw.pop("skin", SKIN), capacity=64, nbr_method="n2",
-                    ensemble=ensemble, thermo_every=thermo_every,
-                    pbc=cfg.pbc, **kw)
-    return Simulator(force_fn, torch.full((len(x),), mass,
-                                          dtype=torch.float64), mcfg)
+    return chunked_simulator(cfg, params, len(x), ensemble, mass,
+                             thermo_every, **kw)
 
 
 NPT = {"p_target": (0.0,) * 3, "p_couple": (False, True, False),
@@ -246,7 +230,7 @@ NPT = {"p_target": (0.0,) * 3, "p_couple": (False, True, False),
 def test_thermo_matches_simulator(ensemble, kw, pbc):
     x, box, cfg, params, _, _ = _fe(pbc)
     n = len(x)
-    v0 = _v0(n, 50.0, MASS_FE, 7)
+    v0 = thermal_velocities(n, 50.0, MASS_FE, 7)
     sim = _simulator(cfg, params, x, box, ensemble, **kw)
     s1 = sim.init_state(t64(x), t64(box), v=t64(v0))
     s1, th1 = sim.run(s1, 4)
@@ -273,7 +257,7 @@ def test_inrun_rebuild_matches_simulator():
     single-device track."""
     x, box, cfg, params, _, _ = _ni()
     n = len(x)
-    v0 = _v0(n, 600.0, M_NI, 3)
+    v0 = thermal_velocities(n, 600.0, M_NI, 3)
     rc = annp.descriptor_cutoff(cfg, params)
     sim = _simulator(cfg, params, x, box, "nve", thermo_every=4, skin=0.3,
                      mass=M_NI)
@@ -296,7 +280,7 @@ def test_block_by_block_equals_one_run():
     every block boundary exactly as one run(st, n) does."""
     x, box, cfg, params, _, _ = _fe()
     n = len(x)
-    v0 = t64(_v0(n, 300.0, MASS_FE, 8))
+    v0 = t64(thermal_velocities(n, 300.0, MASS_FE, 8))
     md = D.ShardedMD(_adapter("short", cfg, params), MASS_FE, box,
                      _scfg(n, 4, 4.0, thermo_every=3), device="cpu")
     st1, th1 = md.run(md.distribute(t64(x), v0)[0], 4)
@@ -315,7 +299,7 @@ def test_block_by_block_equals_one_run():
 def test_migrate_matches_jax(pbc):
     x, box, cfg, params, jcfg, jparams = _fe(pbc)
     n = len(x)
-    v0 = _v0(n, 50.0, MASS_FE, 5)
+    v0 = thermal_velocities(n, 50.0, MASS_FE, 5)
     kw = dict(halo_b=112, capacity=48, migrate_b=16, pbc=pbc)
     jmd = JD.ShardedMD(JD.XlaFrameModel(jcfg, jparams, chunk=128), MASS_FE,
                        box, _scfg_j(n, 4, 4.0, **kw))
@@ -353,7 +337,8 @@ def test_redistribute_keeps_thermostat():
     md = D.ShardedMD(D.XlaFrameModel(cfg, params), MASS_FE, box,
                      _scfg(n, 4, 4.0, ensemble="nvt", t_target=50.0,
                            thermo_every=3), device="cpu")
-    st, _ = md.distribute(t64(x), t64(_v0(n, 50.0, MASS_FE, 2)))
+    st, _ = md.distribute(t64(x),
+                          t64(thermal_velocities(n, 50.0, MASS_FE, 2)))
     st, th = md.run(st, 1)
     st2, order2 = md.redistribute(st)
     assert torch.equal(st2.nhc.v_xi, st.nhc.v_xi) and int(st2.step) == 3
@@ -394,7 +379,7 @@ def test_end_to_end_matches_jax(kind):
         mass = M_NI if kind == "short-ni" else MASS_FE
         kw = dict(capacity=48)
     n = len(x)
-    v0 = _v0(n, 100.0, mass, 1)
+    v0 = thermal_velocities(n, 100.0, mass, 1)
     kw.update(ensemble="nvt", t_target=100.0, thermo_every=2)
     md = D.ShardedMD(model, mass, box, _scfg(n, 2, cut, **kw), device="cpu")
     st, _ = md.distribute(t64(x), t64(v0))

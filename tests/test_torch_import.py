@@ -20,7 +20,7 @@ from meng_zhang_tpu_torch.geometry import lattice
 from meng_zhang_tpu_torch.io import potential
 from meng_zhang_tpu_torch.md import integrate
 from meng_zhang_tpu_torch.models import anna_adp, annp
-from meng_zhang_tpu_torch.parallel import domain, mesh
+from meng_zhang_tpu_torch.parallel import domain, domain2d, domain3d, mesh
 from meng_zhang_tpu_torch.testing import (synthetic_anna_potential,
                                           synthetic_fe_potential,
                                           synthetic_ni_potential)
@@ -104,6 +104,17 @@ for name in ("AnnpFrameModel", "FrameShortModel", "XlaFrameModel",
     assert hasattr(domain, name), name
 assert domain.OVF_COVERAGE == 4 and callable(frames.evaluate_frames)
 assert mesh.ShardMesh(4, "cpu").psum(torch.ones(4, 2)).tolist() == [4.0, 4.0]
+from meng_zhang_tpu_torch.parallel import domain2d, domain3d
+for mod, names in ((domain2d, ("plan_park_sites", "Plan2D", "Shard2DConfig",
+                               "ShardedMD2D")),
+                   (domain3d, ("Plan3D", "Shard3DConfig", "ShardedMD3D"))):
+    for name in names:
+        assert hasattr(mod, name), name
+t = torch.arange(8).view(4, 2)
+assert torch.equal(mesh.ShardMesh(4, "cpu").ppermute(
+    t, [(i, (i + 1) % 4) for i in range(4)]), mesh.ShardMesh(
+    4, "cpu").ring_shift(t, 1))
+assert domain2d.plan_park_sites(10, 5.0, 8.0, 8.0, 3.0, 8)[1].shape == (10, 3)
 bad = sorted(m for m in sys.modules if m == "jax" or m.startswith("jax.")
              or m == "meng_zhang_tpu" or m.startswith("meng_zhang_tpu."))
 assert not bad, bad
@@ -190,26 +201,38 @@ def test_copies_equal_jax_package(make):
 
 def test_entry_points_default_to_the_card():
     """make_annp, make_anna, both params_from_numpy, the md/integrate.py
-    helpers, the CLI's run.main and the sharded driver (ShardedMD,
-    ShardMesh) put their tensors on the card unless
-    the caller names another device; on a torch without CUDA a call
+    helpers, the CLI's run.main and the sharded drivers (ShardedMD,
+    ShardedMD2D, ShardedMD3D, ShardMesh) put their tensors on the card
+    unless the caller names another device; on a torch without CUDA a call
     without a device raises instead of handing back CPU tensors (run.main:
     tests/test_torch_run.py)."""
     for fn in (annp.make_annp, annp.params_from_numpy, anna_adp.make_anna,
                anna_adp.params_from_numpy, integrate.nhc_masses,
                integrate.npt_baro_masses, integrate.NHCState.zeros,
-               run.main, domain.ShardedMD, mesh.ShardMesh):
+               run.main, domain.ShardedMD, domain2d.ShardedMD2D,
+               domain3d.ShardedMD3D, mesh.ShardMesh):
         assert inspect.signature(fn).parameters["device"].default == "cuda"
     if torch.cuda.is_available():
         return
     pot = synthetic_fe_potential(0, npsf=4, ntsf=5, nnod=6, cut=4.0)
+    model = domain.XlaFrameModel(*annp.make_annp(pot, torch.float64,
+                                                 device="cpu"))
     calls = (lambda: annp.make_annp(pot, torch.float64),
              lambda: anna_adp.make_anna(synthetic_anna_potential(0),
                                         torch.float64),
              lambda: integrate.nhc_masses(30, 300.0, 0.1, 3, torch.float64),
              lambda: integrate.npt_baro_masses(10, 300.0, 1.0,
                                                torch.float64),
-             lambda: integrate.NHCState.zeros(3, torch.float64))
+             lambda: integrate.NHCState.zeros(3, torch.float64),
+             lambda: mesh.ShardMesh(4),
+             lambda: domain2d.ShardedMD2D(
+                 model, 55.845, np.ones(3) * 20,
+                 domain2d.Shard2DConfig(n_devices=4, c_loc=8, cutoff=4.0,
+                                        skin=0.5, dt=0.001)),
+             lambda: domain3d.ShardedMD3D(
+                 model, 55.845, np.ones(3) * 20,
+                 domain3d.Shard3DConfig(n_devices=8, c_loc=8, cutoff=4.0,
+                                        skin=0.5, dt=0.001)))
     for call in calls:
         with pytest.raises((AssertionError, RuntimeError)):
             call()

@@ -115,3 +115,46 @@ def ni_short_planes(rc_s, ks, n_cells=3, seed=0, disp=0.1):
     planes = [a.numpy() for a in fa.pair_dx_planes(t64(x), t64(box), sidx,
                                                    (True, True, True))]
     return planes, sidx.numpy() == len(x)
+
+
+def thermal_velocities(n, t, mass, seed):
+    """Velocities [n, 3] (numpy, A/ps) at temperature t without drift."""
+    from meng_zhang_tpu_torch.units import BOLTZ, MVV2E
+    v = np.random.default_rng(seed).normal(size=(n, 3))
+    v -= v.mean(axis=0)
+    t_now = mass * MVV2E * (v * v).sum() / ((3 * n - 3) * BOLTZ)
+    return v * np.sqrt(t / t_now)
+
+
+def chunked_simulator(cfg, params, n, ensemble, mass, thermo_every=5,
+                      skin=0.5, **kw):
+    """The port's single-device Simulator of n atoms on the chunked
+    functions (shift-free energies, n2 skin list of 64), in f64 on the CPU:
+    the reference of the sharded drivers' runs."""
+    from meng_zhang_tpu_torch.md.simulation import MDConfig, Simulator
+    from meng_zhang_tpu_torch.models import annp
+
+    def force_fn(xx, bb, nbrs):
+        return annp.energy_forces_virial_chunked(cfg, params, xx, bb,
+                                                 nbrs.idx, shift=False)
+    mcfg = MDConfig(dt=0.001, cutoff=annp.descriptor_cutoff(cfg, params),
+                    skin=skin, capacity=64, nbr_method="n2",
+                    ensemble=ensemble, thermo_every=thermo_every,
+                    pbc=cfg.pbc, **kw)
+    return Simulator(force_fn, torch.full((n,), mass, dtype=torch.float64),
+                     mcfg)
+
+
+def same_halos_and_rows(st, jst, box, pbc):
+    """A grid driver's state against the JAX driver's: the halos equal up
+    to its seam shifts (the port keeps the positions as sent), and each
+    skin row holds the same entries (the port's by ascending atom id,
+    JAX's by frame row)."""
+    for got, want in ((st.halo_l, jst.halo_l), (st.halo_r, jst.halo_r)):
+        d = got.numpy() - np.asarray(want)
+        for a in range(3):
+            if pbc[a]:
+                d[..., a] -= box[a] * np.round(d[..., a] / box[a])
+        assert np.abs(d).max() <= 1e-12
+    np.testing.assert_array_equal(np.sort(st.idx.numpy(), axis=-1),
+                                  np.sort(np.asarray(jst.idx), axis=-1))
