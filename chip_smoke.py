@@ -151,6 +151,33 @@ launches once a step for all shards), each fatal on failure, by tag:
     the frame planes [4 cc, 96], SHARD_ANNA_BLOCKS NVE blocks from the
     perfect lattice with halo_b SHARD_ANNA_HALO_B (drift printed).
 
+The drivers across processes (parallel/launch.py: `spawn` starts the
+ranks, each holding D / W shards of `ShardMesh(group=...)`; every rank
+builds the same driver from the same host data through
+`launch.run_sharded`, and each run is held against the same run in this
+process), each fatal on failure, by tag, added after [shard3d-fe]:
+
+  * [dist] / [dist-fe] / [dist3d-ni]: one launch of DIST_WORLD gloo ranks
+    on the one card (the P2P blocks and the collectives through host
+    memory): [shard-fe]'s 4-slab NPT run from phase 5's start, one slab
+    a rank, DIST_BLOCKS blocks, then a migrate and a rebuild; one f64
+    evaluation of [shard-fe]'s slab x < SHARD_SLAB_X (forces within
+    DIST_REL64 of max|F| of the in-process one); [shard3d-ni]'s (2, 2, 2)
+    NVT run from the perfect lattice, two bricks a rank, DIST_NI_BLOCKS
+    blocks, then a three-round migrate and a rebuild. T and PE at every
+    block and the final positions against the in-process run within
+    bounds derived from the evaluator gates (dist_compare: the f32 runs
+    differ by index_add_'s atomics and the ranks' order of the virial
+    sum), each rank's launches once a step of the path's kernels, the
+    replicated state (box, chains, virial, flags) bitwise equal on every
+    rank (checked in the ranks); prints each rank's start and run seconds and
+    peak device memory, and the rates against the in-process runs;
+  * [dist-nccl]: an NCCL group of one rank holding [dist-fe]'s 4 slabs
+    (the collectives through NCCL), one block against the same block in
+    this process; with two or more visible cards, [dist-fe]'s run on
+    NCCL with one rank a card on 4 (or 2) cards; with one card it prints
+    that the check across cards did not run.
+
 The 2-D and 3-D grid drivers (parallel/domain2d.py, domain3d.py:
 ShardedMD2D on a (2, 2) grid of columns, ShardedMD3D on a (2, 2, 2) grid
 of bricks, on the same in-process mesh; every frame row is a centre), each
@@ -179,8 +206,9 @@ ANNA-shape figures (`anna_shape`, `anna_ms`, `anna_plain_ms`,
 `anna_bound_ms`, `anna_bound_by`, `anna_max_abs_err`, and `anna_launches`
 from phase 14). Its `launches` add the new paths' runs ([multi-fe]'s and
 [rowsweep]'s Simulators, [multi-ni]'s, [thin-box]'s Simulator and FIRE,
-[cli-multi], the seven sharded runs) to the main paths'. Prints the kernels' JSON record on
-the line before the last, and as the last line
+[cli-multi], the seven sharded runs, the ranks' and the in-process
+references' runs of the across-process tags) to the main paths'. Prints
+the kernels' JSON record on the line before the last, and as the last line
 {"ok": true, "device": {...}}. Run from the repository root:
 `python3 chip_smoke.py`.
 """
@@ -282,6 +310,19 @@ SHARD_ANNA_HALO_B = 16384
 # harmonic comparison above reads 3e-14 on the full scene); 1e-9 leaves
 # 1e5x, and a lost or doubled pair moves F by ~1e-2 of max|F|.
 SHARD_REL64 = 1e-9
+# the sharded drivers across processes (parallel/launch.py): gloo ranks on
+# the one card, the NCCL backend at one rank (and across cards when the
+# machine has several)
+DIST_WORLD = 4                 # [dist-fe], [dist3d-ni]: ranks on the card
+DIST_BLOCKS = 3                # [dist-fe] NPT blocks
+DIST_NI_BLOCKS = 2             # [dist3d-ni] NVT blocks
+DIST_TIMEOUT = 600.0           # s, a launch's limit
+# f64 forces of the ranks against the in-process evaluation of the same
+# frames: the same kernel launches on the same local frames; only the
+# order of index_add_'s atomic Fj adds differs, ~1e-16 of max|F| a row's
+# few hundred terms; 1e-12 leaves 1e3x over that, and a lost or doubled
+# halo row moves F by ~1e-2 of max|F|.
+DIST_REL64 = 1e-12
 
 
 # Kernel vs plain, per output, as a fraction of the output's max |value|.
@@ -3021,6 +3062,286 @@ def phase_shard_anna(dev, box_lists, cfg32, p32, mass, card, ref,
     return launches
 
 
+# ------------------------------------------------- across processes
+def shard_x_bound(rel_f, f_max, mass, steps, extent):
+    """max |dx| bound after `steps` steps between two f32 runs from one
+    start whose evaluations are each within rel_f * f_max of the f64 forces
+    (the evaluator gates): the accelerations differ by at most da = 2 rel_f
+    f_max / (m MVV2E), so the positions by da (steps dt)^2 / 2 (to first
+    order); and each step rounds a position in f32 at most twice (the drift
+    and the wrap or the barostat's scaling), which may leave the two runs
+    up to one ulp of the box's largest edge apart each time."""
+    from meng_zhang_tpu_torch.units import MVV2E
+    t = steps * 0.001
+    da = 2.0 * rel_f * f_max / (mass * MVV2E)
+    return 0.5 * da * t * t + 2 * steps * float(np.spacing(np.float32(extent)))
+
+
+def dist_compare(tag, got, want, spec, rel):
+    """A run over the process group against the same run in this process
+    (launch.run_sharded's results for spec): finite thermo, no overflow or
+    unsafe, and at every block T within shard_t_bound and PE within 2
+    rel["dE_per_atom"] |PE| + N max|F| shard_x_bound (each run's f32 PE
+    within the evaluator gate of the f64 energy at its own positions, and
+    those positions apart by at most the x bound), and the final positions
+    (nearest image on the periodic axes) within shard_x_bound: the two f32
+    runs differ by rounding alone (index_add_'s atomics deliver the Fj in
+    another order on every run, and the virial adds the ranks' partial sums
+    in rank order), each within the evaluator gates' rel["max_dF"] of the
+    f64 forces, so they differ by at most the bounds that hold two such
+    runs apart. Rebuilds and migrated atoms are printed."""
+    for out, who in ((got, "ranks"), (want, "in process")):
+        check(all(np.isfinite(c).all() for c in out["thermo"].values()),
+              f"{tag}: non-finite thermo ({who})")
+        check(not out["overflow"].any() and not out["unsafe"].any(),
+              f"{tag}: overflow {out['overflow'].tolist()} unsafe "
+              f"{out['unsafe'].tolist()} ({who})")
+    rel_f, mass, every = rel["max_dF"], spec.mass, spec.cfg.thermo_every
+    n = want["x"].shape[0]
+    extent = float(want["box"].max())
+    f_max = float(np.abs(want["f"]).max())
+    v_rms = float(np.sqrt((want["v"] ** 2).mean() * 3.0))
+    for i, (t_got, t_ref) in enumerate(zip(got["thermo"]["temp"],
+                                           want["thermo"]["temp"])):
+        steps = (i + 1) * every
+        bnd = shard_t_bound(t_ref, rel_f, f_max, mass, steps, v_rms)
+        pe_ref = want["thermo"]["pe"][i]
+        d_pe = got["thermo"]["pe"][i] - pe_ref
+        pe_bnd = (2.0 * rel["dE_per_atom"] * abs(pe_ref) + n * f_max
+                  * shard_x_bound(rel_f, f_max, mass, steps, extent))
+        log(f"[{tag}] block {i + 1}: T {t_got:.6f} K against {t_ref:.6f} K "
+            f"in process: |dT| {abs(t_got - t_ref):.3e} K (bound {bnd:.3e} "
+            f"K); dPE {d_pe:+.3e} eV (bound {pe_bnd:.3e} eV)")
+        check(abs(t_got - t_ref) <= bnd, f"{tag}: T off the in-process run")
+        check(abs(d_pe) <= pe_bnd, f"{tag}: PE off the in-process run")
+    d = got["x"] - want["x"]
+    per = np.asarray(spec.pbc)
+    d[:, per] -= want["box"][per] * np.rint(d[:, per] / want["box"][per])
+    dx = float(np.abs(d).max())
+    x_bnd = shard_x_bound(rel_f, f_max, mass, len(want["block_s"]) * every,
+                          extent)
+    log(f"[{tag}] max |dx| {dx:.3e} A (bound {x_bnd:.3e} A); rebuilds "
+        f"{got['rebuild_count']} / {want['rebuild_count']}, migrated "
+        f"{got['migrated']} / {want['migrated']} (ranks / in process)")
+    check(dx <= x_bnd, f"{tag}: positions off the in-process run")
+
+
+def dist_launches(tag, out, want):
+    """Each rank's launches against `want` {kernel: count} (every other
+    kernel 0): every rank launches each kernel once a step for its own
+    shards."""
+    names = ("g_harm", "force_harm", "g_cos", "force_cos", "ni_g",
+             "ni_force")
+    for r, got in enumerate(out.launches):
+        exp = {k: want.get(k, 0) for k in names}
+        check(got == exp, f"{tag}: rank {r} launches {got}, expected {exp}")
+
+
+def dist_rate(tag, got, want, n, thermo_every, card):
+    """Rank 0's blocks after the first (the first warms the caches)
+    against the in-process run's."""
+    blocks = got["block_s"]
+    steps = thermo_every * max(len(blocks) - 1, 1)
+    rates = [n * steps / (sum(out["block_s"][1:]) or out["block_s"][0])
+             for out in (got, want)]
+    log(f"[{tag}] {rates[0]:.1f} atom-steps/s over {steps} steps (rank 0's "
+        f"clock), in process {rates[1]:.1f}, on {card}; distribute "
+        f"{got['distribute_s']:.2f} s (in process "
+        f"{want['distribute_s']:.2f}), blocks "
+        f"{', '.join(f'{b:.3f}' for b in got['block_s'])} s (in process "
+        f"{', '.join(f'{b:.3f}' for b in want['block_s'])})")
+
+
+def dist_launch_line(tag, out, wall, card):
+    """The launch's wall, each rank's start and run seconds and peak
+    device memory."""
+    log(f"[{tag}] {len(out.launches)} ranks on {card}: launch wall {wall:.1f}"
+        f" s; a rank's start (spawn to the group's first barrier) "
+        f"{', '.join(f'{s[0]:.1f}' for s in out.seconds)} s, run "
+        f"{', '.join(f'{s[1]:.1f}' for s in out.seconds)} s; peak device "
+        f"memory {', '.join(f'{b / 2**30:.2f}' for b in out.peak_bytes)} "
+        "GiB")
+
+
+def dist_fe_specs(x, box, cfg32, mass):
+    """[shard-fe]'s run from the main path's start (4 slabs, y-coupled
+    NPT, f32, FrameShortModel(FusedAnnp), migrate_b SHARD_MIGRATE_B) for
+    DIST_BLOCKS blocks, then a migrate and a rebuild; and one f64
+    evaluation of the slab x < SHARD_SLAB_X."""
+    import dataclasses
+    from meng_zhang_tpu_torch.md.simulation import create_velocities
+    from meng_zhang_tpu_torch.parallel import launch
+    dev = x.device
+    n = x.shape[0]
+    masses = torch.full((n,), mass, dtype=torch.float32, device=dev)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED)
+    v0 = create_velocities(gen, masses, 300.0, torch.float32)
+    mcfg = md_config(cfg32)
+    cfg = shard_config(n, cfg32.cut, SKIN, CAPACITY, CELL_CAPACITY, pbc=PBC,
+                       ensemble="npt", t_target=300.0, tau_t=mcfg.tau_t,
+                       p_target=mcfg.p_target, p_couple=COUPLE,
+                       tau_p=mcfg.tau_p, thermo_every=THERMO_EVERY,
+                       migrate_b=SHARD_MIGRATE_B)
+    spec = launch.ShardRun(
+        cfg=cfg, pot=_potential(), x=x.cpu().numpy(), box=box.cpu().numpy(),
+        mass=mass, v=v0.cpu().numpy(), dtype="float32", pbc=PBC,
+        k_short=K_SHORT, short_delta=SHORT_DELTA, n_blocks=DIST_BLOCKS,
+        migrate_rebuild=True, device=dev.type)
+    keep = torch.nonzero(x[:, 0] < SHARD_SLAB_X).reshape(-1)
+    keep = keep[:keep.shape[0] // SHARD_D * SHARD_D]
+    spec64 = dataclasses.replace(
+        spec, cfg=shard_config(keep.shape[0], cfg32.cut, SKIN, CAPACITY,
+                               CELL_CAPACITY, pbc=PBC),
+        x=x[keep].double().cpu().numpy(), box=box.double().cpu().numpy(),
+        v=None, dtype="float64", n_blocks=0, migrate_rebuild=False)
+    return spec, spec64
+
+
+def dist_ni_spec(dev):
+    """[shard3d-ni]'s run: the (2, 2, 2) grid of bricks on the 256,000-atom
+    ni scene, NVT from the perfect lattice, DIST_NI_BLOCKS blocks, then a
+    migrate (three rounds) and a rebuild."""
+    from meng_zhang_tpu_torch.md.simulation import create_velocities
+    from meng_zhang_tpu_torch.ops import fused_ni as fn
+    from meng_zhang_tpu_torch.parallel import launch
+    from meng_zhang_tpu_torch.testing import (synthetic_ni_potential,
+                                              thermal_fcc)
+    cfg32, p32, _, _, mass = ni_model(dev)
+    x0, box = thermal_fcc(NI_CELLS, disp=0.0, a=NI_A)
+    n = x0.shape[0]
+    masses = torch.full((n,), mass, dtype=torch.float32, device=dev)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED)
+    v0 = create_velocities(gen, masses, NI_T_INIT, torch.float32)
+    cfg = shard_config(n, fn.FusedNi(cfg32, p32).rc, NI_SKIN, NI_CAPACITY,
+                       NI_CELL_CAPACITY, mesh=SHARD_MESH["3d"],
+                       stale_factor=0.5, ensemble="nvt", t_target=NI_T,
+                       tau_t=0.1, thermo_every=NI_THERMO_EVERY)
+    return launch.ShardRun(
+        cfg=cfg, pot=synthetic_ni_potential(0), x=x0.astype(np.float32),
+        box=np.asarray(box, np.float32), mass=mass, v=v0.cpu().numpy(),
+        dtype="float32", k_short=NI_KS, short_delta=NI_DELTA,
+        n_blocks=DIST_NI_BLOCKS, migrate_rebuild=True,
+        device=dev.type)
+
+
+def phase_dist(x, box, cfg32, mass, card):
+    """The drivers across processes on DIST_WORLD gloo ranks on the one
+    card, in one launch ([dist-fe] and [dist3d-ni]; the ranks' P2P blocks
+    through host memory): [shard-fe]'s run and f64 slab (dist_fe_specs),
+    one slab a rank, and [shard3d-ni]'s run (dist_ni_spec), two bricks a
+    rank, each held against the same run in this process (dist_compare;
+    the slab's f64 forces within DIST_REL64 of max|F|), each rank's
+    launches once a step of each of the path's kernels. Returns ({tag:
+    launches of the ranks and of the in-process runs}, the fe spec)."""
+    from meng_zhang_tpu_torch.ops import kernels
+    from meng_zhang_tpu_torch.parallel import launch
+    t_phase = time.time()
+    spec, spec64 = dist_fe_specs(x, box, cfg32, mass)
+    spec_ni = dist_ni_spec(x.device)
+    kernels.reset_launch_counts()
+    t0 = time.time()
+    want, want64, want_ni = (launch.run_sharded(s, distributed=False)
+                             for s in (spec, spec64, spec_ni))
+    ref = {k: getattr(kernels, k).launches for k in ("g_harm", "force_harm",
+                                                     "ni_g", "ni_force")}
+    log(f"[dist] in process: the three runs {time.time() - t0:.1f} s")
+    t0 = time.time()
+    out = launch.spawn(launch.run_each, DIST_WORLD, "gloo", x.device.type,
+                       ([spec, spec64, spec_ni],), DIST_TIMEOUT)
+    dist_launch_line("dist", out, time.time() - t0, card)
+    got, got64, got_ni = out.result
+    steps = DIST_BLOCKS * THERMO_EVERY
+    ni_steps = DIST_NI_BLOCKS * NI_THERMO_EVERY
+    dist_launches("dist", out, {"g_harm": steps + 2, "force_harm": steps + 2,
+                                "ni_g": ni_steps + 1,
+                                "ni_force": ni_steps + 1})
+    ranks = {k: sum(r[k] for r in out.launches) for k in ref}
+
+    tag = "dist-fe"
+    log(f"[{tag}] {got['n_local']} slab a rank")
+    dist_compare(tag, got, want, spec, EVAL_REL)
+    f_scale = float(np.abs(want64["f"]).max())
+    errs = {"F": float(np.abs(got64["f"] - want64["f"]).max()) / f_scale,
+            "E": abs(got64["pe"] - want64["pe"]) / abs(want64["pe"]),
+            "W": float(np.abs(got64["virial"] - want64["virial"]).max())
+            / float(np.abs(want64["virial"]).max())}
+    log(f"[{tag}] {spec64.x.shape[0]}-atom slab in f64 across the ranks "
+        f"against in process: max dF / max|F| {errs['F']:.3e} (bound "
+        f"{DIST_REL64:.0e}), rel dE {errs['E']:.3e}, max dW / max|W| "
+        f"{errs['W']:.3e}")
+    check(errs["F"] <= DIST_REL64, f"{tag}: f64 forces across the ranks "
+          "differ from the in-process evaluation")
+    dist_rate(tag, got, want, spec.x.shape[0], THERMO_EVERY, card)
+    fe = {k: ranks[k] + ref[k] for k in ("g_harm", "force_harm")}
+    log(f"[{tag}] launches (ranks and in process) {fe}")
+
+    tag = "dist3d-ni"
+    log(f"[{tag}] {got_ni['n_local']} bricks a rank")
+    dist_compare(tag, got_ni, want_ni, spec_ni, NI_EVAL_REL)
+    dist_rate(tag, got_ni, want_ni, spec_ni.x.shape[0], NI_THERMO_EVERY,
+              card)
+    ni = {k: ranks[k] + ref[k] for k in ("ni_g", "ni_force")}
+    log(f"[{tag}] launches (ranks and in process) {ni}; [dist] phase "
+        f"{time.time() - t_phase:.1f} s")
+    return {"dist-fe": fe, "dist3d-ni": ni}, spec
+
+
+def phase_dist_nccl(spec, card):
+    """The NCCL backend ([dist-nccl]): a group of one rank holding all 4
+    slabs (the collectives through NCCL, every pair local), one block of
+    [dist-fe]'s run against the same block in this process; with two or
+    more visible cards, [dist-fe]'s run with one rank a card on 4 (or 2)
+    cards against the in-process run. NCCL refuses two ranks of one
+    communicator on one card."""
+    import dataclasses
+    from meng_zhang_tpu_torch.ops import kernels
+    from meng_zhang_tpu_torch.parallel import launch
+    tag = "dist-nccl"
+    t_phase = time.time()
+    spec1 = dataclasses.replace(spec, n_blocks=1, migrate_rebuild=False)
+    kernels.reset_launch_counts()
+    want = launch.run_sharded(spec1, distributed=False)
+    ref = {k: getattr(kernels, k).launches for k in ("g_harm",
+                                                     "force_harm")}
+    t0 = time.time()
+    out = launch.spawn(launch.run_sharded, 1, "nccl", spec.device, (spec1,),
+                       DIST_TIMEOUT)
+    dist_launch_line(tag, out, time.time() - t0, card)
+    log(f"[{tag}] one NCCL rank, {out.result['n_local']} slabs")
+    dist_compare(tag, out.result, want, spec1, EVAL_REL)
+    dist_launches(tag, out, {"g_harm": THERMO_EVERY + 1,
+                             "force_harm": THERMO_EVERY + 1})
+    dist_rate(tag, out.result, want, spec.x.shape[0], THERMO_EVERY, card)
+    launches = {k: ref[k] + out.launches[0][k] for k in ref}
+    count = torch.cuda.device_count()
+    if count < 2:
+        log(f"[{tag}] across cards: not run, {count} visible card")
+    else:
+        world = 4 if count >= 4 else 2
+        kernels.reset_launch_counts()
+        want = launch.run_sharded(spec, distributed=False)
+        for k in launches:
+            launches[k] += getattr(kernels, k).launches
+        t0 = time.time()
+        out = launch.spawn(launch.run_sharded, world, "nccl", spec.device,
+                           (spec,), DIST_TIMEOUT)
+        sub = f"{tag} {world} cards"
+        dist_launch_line(sub, out, time.time() - t0, card)
+        dist_compare(sub, out.result, want, spec, EVAL_REL)
+        steps = DIST_BLOCKS * THERMO_EVERY
+        dist_launches(sub, out, {"g_harm": steps + 1,
+                                 "force_harm": steps + 1})
+        dist_rate(sub, out.result, want, spec.x.shape[0], THERMO_EVERY,
+                  card)
+        for k in launches:
+            launches[k] += sum(r[k] for r in out.launches)
+    log(f"[{tag}] launches (ranks and in process) {launches}; phase "
+        f"{time.time() - t_phase:.1f} s")
+    return launches
+
+
 def main():
     try:
         name, card = phase_device()
@@ -3048,6 +3369,10 @@ def main():
                                              main_rate[0], layout="2d")
         extra["shard3d-fe"] = phase_shard3d_fe(x, box, cfg32, p32, mass,
                                                fe_ref)
+        dist_counts, dist_spec = phase_dist(x, box, cfg32, mass, card)
+        extra.update(dist_counts)
+        extra["dist-nccl"] = phase_dist_nccl(dist_spec, card)
+        del dist_spec
         del fe_ref
         fe = (x, box, cfg32, p32, mass)
         del x, box, sl, cfg64, p64

@@ -28,6 +28,14 @@ kernel launches once a step, not D times).
     kinetic energy and the virial); NPT scales every shard's positions and
     the one box.
 
+Over a process group (ShardMesh(group=...), parallel/launch.py) each rank
+holds its L = D / W consecutive shards: the per-shard leaves of the state
+are [L, ...], every rank plans from the whole scene as every JAX program
+sees the same host arrays, the shard ids that decide edges and
+neighbours are global (`mesh.shard_ids`), and the rebuild decision, the
+tallies, `flags`, `gather_positions` and `redistribute` read global
+values, the same on every rank.
+
 Energies are shift-free throughout (no e_shift / e_base), as in the
 single-device Simulator; `model.e_shift` is there for readers who add
 n * e_shift.
@@ -58,7 +66,8 @@ class FrameShort(NamedTuple):
 
 class ShardState(NamedTuple):
     """Sharded MD state: leaves with a leading [D] axis hold one row per
-    shard; the rest are shared."""
+    shard (this rank's L shards over a process group); the rest are
+    shared, bitwise equal on every rank."""
     x_loc: torch.Tensor      # [D, C, 3]
     v_loc: torch.Tensor      # [D, C, 3]
     f_loc: torch.Tensor      # [D, C, 3]
@@ -453,26 +462,29 @@ class ShardedMD:
         self._constants(x.dtype)
 
         D, C, B = cfg.n_devices, cfg.c_loc, cfg.halo_b
-        d_idx = torch.arange(D, device=dev)
+        mesh = self.mesh
+        L = mesh.n_local
+        d_idx = mesh.shard_ids
         ids_l = (d_idx[:, None] * C - B + torch.arange(B, device=dev)) % n
         ids_r = (d_idx[:, None] * C + C + torch.arange(B, device=dev)) % n
-        x_l = xs.reshape(D, C, 3)
+        x_l = mesh.local(xs.reshape(D, C, 3))
         dtype = x.dtype
         st = ShardState(
-            x_loc=x_l, v_loc=vs.reshape(D, C, 3), f_loc=torch.zeros_like(x_l),
-            gid=order.reshape(D, C), halo_l=xs[ids_l], halo_r=xs[ids_r],
-            idx=torch.zeros((D, cfg.cc, cfg.capacity), dtype=torch.int64,
+            x_loc=x_l, v_loc=mesh.local(vs.reshape(D, C, 3)),
+            f_loc=torch.zeros_like(x_l), gid=mesh.local(order.reshape(D, C)),
+            halo_l=xs[ids_l], halo_r=xs[ids_r],
+            idx=torch.zeros((L, cfg.cc, cfg.capacity), dtype=torch.int64,
                             device=dev),
-            ref_loc=x_l, pe=torch.zeros(D, dtype=dtype, device=dev),
+            ref_loc=x_l, pe=torch.zeros(L, dtype=dtype, device=dev),
             box=_tensor(box_np, dev, dtype),
             virial=torch.zeros((3, 3), dtype=dtype, device=dev),
             nhc=I.NHCState.zeros(cfg.nhc_len, dtype, dev),
             v_eps=torch.zeros(3, dtype=dtype, device=dev),
             baro_nhc=I.NHCState.zeros(cfg.pchain, dtype, dev),
             step=torch.zeros((), dtype=torch.int64, device=dev),
-            stale=torch.zeros(D, dtype=torch.bool, device=dev),
-            unsafe=torch.zeros(D, dtype=torch.bool, device=dev),
-            overflow=torch.zeros(D, dtype=torch.int32, device=dev))
+            stale=torch.zeros(L, dtype=torch.bool, device=dev),
+            unsafe=torch.zeros(L, dtype=torch.bool, device=dev),
+            overflow=torch.zeros(L, dtype=torch.int32, device=dev))
         st = self.rebuild(st)
         st = self.refill_forces(st)
         return st, order
@@ -499,7 +511,8 @@ class ShardedMD:
 
     def _force_local(self, x, hl, hr, box, idx, short=None):
         """(pe [D] shift-free, f [D, C, 3] of the own rows, W [3, 3] summed
-        over the shards): one evaluation of every shard's frame."""
+        over all the shards): one evaluation of every local shard's
+        frame."""
         x_ext = self._frame(x, hl, hr)
         off, cc = self._short_geom()
         xc = x_ext[:, off:off + cc]
@@ -510,7 +523,9 @@ class ShardedMD:
         else:
             eat, forces, w = self.model.eval(xc, x_ext, box, idx, off, sl,
                                              True)
-        return eat[:, sl[0]:sl[1]].sum(dim=1), forces[:, sl[0]:sl[1]], w
+        # w sums this rank's frames: psum adds the ranks' in rank order
+        return (eat[:, sl[0]:sl[1]].sum(dim=1), forces[:, sl[0]:sl[1]],
+                self.mesh.psum(w[None]))
 
     def _halo_refresh(self, x_loc):
         b = self.cfg.halo_b
@@ -542,9 +557,10 @@ class ShardedMD:
 
     # ---------- rebuild: per-shard build + coverage proof ----------
     def _valid_rows(self, i):
-        """Frame rows [lo, hi) of shard i that hold real neighbours: with x
-        not periodic, the first shard's left halo and the last shard's
-        right halo are the box's far end and are parked."""
+        """Frame rows [lo, hi) of shard i (a global id) that hold real
+        neighbours: with x not periodic, the first shard's left halo and
+        the last shard's right halo are the box's far end and are
+        parked."""
         cfg = self.cfg
         lo, hi = 0, cfg.c_ext
         if not cfg.pbc[0]:
@@ -555,8 +571,9 @@ class ShardedMD:
         return lo, hi
 
     def _build_shard(self, i, x, hl, hr, box):
-        """Shard i's skin rows of its centre rows [cc, K] (frame indices,
-        sentinel C_ext) and its neighbor-overflow and out-of-frame flags."""
+        """Shard i's (a global id) skin rows of its centre rows [cc, K]
+        (frame indices, sentinel C_ext) and its neighbor-overflow and
+        out-of-frame flags."""
         cfg = self.cfg
         D, B, bc = cfg.n_devices, cfg.halo_b, cfg.bc
         if cfg.pbc[0]:
@@ -600,7 +617,8 @@ class ShardedMD:
         D, C, B, bc = cfg.n_devices, cfg.c_loc, cfg.halo_b, cfg.bc
         rl = cfg.rlist
         xx = x[..., 0]
-        big = torch.full((D,), 1e30, dtype=x.dtype, device=x.device)
+        big = torch.full((x.shape[0],), 1e30, dtype=x.dtype,
+                         device=x.device)
         loc_min, loc_max = xx.min(dim=1).values, xx.max(dim=1).values
         L = box[0]
 
@@ -620,13 +638,16 @@ class ShardedMD:
             s = xx[:, lo_r:hi_r]
             return s.min(dim=1).values, s.max(dim=1).values
 
+        # the gathered [D] values are indexed by global shard ids, the
+        # result is a row a local shard (ar)
         g = self.mesh.all_gather
-        ar = torch.arange(D, device=x.device)
+        ar = self.mesh.shard_ids
+        every = torch.arange(D, device=x.device)
         if D == 2:
             # both halos come from the same neighbour: its non-frame and
             # non-centre rows are the single mid blocks [B, C-B), [bc, C-bc)
             o = 1 - ar
-            bad = torch.zeros(D, dtype=torch.bool, device=x.device)
+            bad = torch.zeros(ar.shape[0], dtype=torch.bool, device=x.device)
             for (b0, b1), (a_lo, a_hi) in (((B, C - B), (ctr_lo, ctr_hi)),
                                            ((bc, C - bc), (loc_min, loc_max))):
                 s = seg(b0, b1)
@@ -646,12 +667,13 @@ class ShardedMD:
         lo_g, hi_g = g(loc_min), g(loc_max)
         il, ir = (ar - 1) % D, (ar + 1) % D
         if cfg.pbc[0]:
-            far = (ar[None, :] != il[:, None]) & (ar[None, :] != ar[:, None]) \
-                & (ar[None, :] != ir[:, None])
+            far = (every[None, :] != il[:, None]) \
+                & (every[None, :] != ar[:, None]) \
+                & (every[None, :] != ir[:, None])
         else:
-            far = (ar[None, :] < ar[:, None] - 1) | (ar[None, :] > ar[:, None]
-                                                     + 1)
-        bad = torch.zeros(D, dtype=torch.bool, device=x.device)
+            far = (every[None, :] < ar[:, None] - 1) \
+                | (every[None, :] > ar[:, None] + 1)
+        bad = torch.zeros(ar.shape[0], dtype=torch.bool, device=x.device)
         for pb, pa, a_lo, a_hi, nonempty in (
                 (pb_b, pa_b, ctr_lo, ctr_hi, C > B),
                 (pb_c, pa_c, loc_min, loc_max, C > bc)):
@@ -671,13 +693,12 @@ class ShardedMD:
         return bad
 
     def _rebuild_body(self, st: ShardState) -> ShardState:
-        cfg = self.cfg
         off, cc = self._short_geom()
-        D = cfg.n_devices
         idxs, nbr_ovf, frame_ovf, ctr_lo, ctr_hi = [], [], [], [], []
-        for i in range(D):
+        for j in range(self.mesh.n_local):
+            i = self.mesh.first + j                   # the global shard id
             idx_c, ovf, oof, x_ext = self._build_shard(
-                i, st.x_loc[i], st.halo_l[i], st.halo_r[i], st.box)
+                i, st.x_loc[j], st.halo_l[j], st.halo_r[j], st.box)
             idxs.append(idx_c)
             nbr_ovf.append(ovf)
             frame_ovf.append(oof)
@@ -688,7 +709,7 @@ class ShardedMD:
             ctr_hi.append(x_ext[c0:c1, 0].max())
         bad_cover = self._coverage(st.x_loc, torch.stack(ctr_lo),
                                    torch.stack(ctr_hi), st.box)
-        zero = torch.zeros(D, dtype=torch.int32, device=self.device)
+        zero = torch.zeros_like(st.overflow)
         ovf = (st.overflow
                | torch.where(torch.stack(nbr_ovf), OVF_NEIGHBOR, zero)
                | torch.where(torch.stack(frame_ovf), OVF_FRAME, zero)
@@ -733,7 +754,7 @@ class ShardedMD:
         perm = torch.argsort(st.x_loc[..., 0], dim=1, stable=True)
         pay = torch.gather(pay, 1, perm[..., None].expand(-1, -1, 9))
         gid = torch.gather(st.gid, 1, perm)
-        ar = torch.arange(D, device=self.device)
+        ar = self.mesh.shard_ids
         sh = self.mesh.ring_shift
         pay, gid, n_in = migrate_round(
             pay, gid, 0, self.cfg.migrate_b, lambda t: sh(t, 1),
@@ -880,7 +901,8 @@ class ShardedMD:
                 st = self.refresh_short(st)
             st, th = run1(st)
             thermos.append(th)
-            if bool(st.stale.any()):
+            # a global read: a rebuild's collectives need every rank
+            if self.mesh.any(st.stale):
                 if self.cfg.migrate_b:
                     st = self.migrate(st)
                 st = self.rebuild(st)
@@ -888,23 +910,32 @@ class ShardedMD:
         return st, Thermo(*(torch.cat(c) for c in zip(*thermos)))
 
     # ---------- convenience ----------
+    def flags(self, st: ShardState):
+        """(overflow [D] int32, unsafe [D] bool) of every shard, the same
+        on every rank."""
+        return self.mesh.all_gather(st.overflow), \
+            self.mesh.all_gather(st.unsafe)
+
     def gather_positions(self, st: ShardState, order=None):
         """Positions back in the original atom order, [N, 3], from the
-        state's gid rows (which follow migration); `order` is accepted and
-        ignored, as in JAX."""
-        inv = torch.argsort(st.gid.reshape(-1))
-        return st.x_loc.reshape(-1, 3)[inv]
+        state's gid rows (which follow migration), on every rank; `order`
+        is accepted and ignored, as in JAX."""
+        g = self.mesh.all_gather
+        inv = torch.argsort(g(st.gid).reshape(-1))
+        return g(st.x_loc).reshape(-1, 3)[inv]
 
     def redistribute(self, st: ShardState, order=None):
         """Sort the atoms into slabs anew (for diffusive scenes when the
         coverage proof starts to fail; cfg.migrate_b keeps up in-run).
         Thermostat and barostat state carry over; sticky flags are kept."""
-        inv = torch.argsort(st.gid.reshape(-1))
-        x = st.x_loc.reshape(-1, 3)[inv]
-        v = st.v_loc.reshape(-1, 3)[inv]
+        g = self.mesh.all_gather
+        inv = torch.argsort(g(st.gid).reshape(-1))
+        x = g(st.x_loc).reshape(-1, 3)[inv]
+        v = g(st.v_loc).reshape(-1, 3)[inv]
+        overflow, unsafe = self.flags(st)
         st2, order2 = self.distribute(x, v, box=st.box)
         st2 = st2._replace(
             nhc=st.nhc, v_eps=st.v_eps, baro_nhc=st.baro_nhc, step=st.step,
-            unsafe=st2.unsafe | st.unsafe.any(),
-            overflow=st2.overflow | st.overflow.max())
+            unsafe=st2.unsafe | unsafe.any(),
+            overflow=st2.overflow | overflow.max())
         return st2, order2

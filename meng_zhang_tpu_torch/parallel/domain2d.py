@@ -57,7 +57,10 @@ The integrator, thermostat, barostat, thermo, `run`, `gather_positions` and
 `redistribute` are ShardedMD's: the layout lives behind its hooks
 (`_frame`, `_short_geom`, `_frame_rows`, `_own_rows`,
 `_exchange_and_force`, `_rebuild_body`). Each step runs one batched
-evaluation of all D frames; a rebuild runs D cell-list builds.
+evaluation of all D frames; a rebuild runs D cell-list builds. Over a
+process group every rank plans from the whole scene on the host (the same
+numbers on every rank) and holds its L shards' rows: `_grid_np` is the
+global grid, `_pos` the local shards' grid positions.
 """
 from __future__ import annotations
 
@@ -164,8 +167,9 @@ class StagedMD(ShardedMD):
         self.k = len(shape)
         grid = np.stack(np.unravel_index(np.arange(cfg.n_devices), shape),
                         axis=1)
-        self._grid_np = grid
-        self._pos = torch.as_tensor(grid, device=self.device)   # [D, k]
+        self._grid_np = grid                                    # [D, k]
+        self._pos = torch.as_tensor(self.mesh.local(grid),
+                                    device=self.device)         # [L, k]
         self._perms = {(a, s): self._perm(a, s) for a in range(self.k)
                        for s in (1, -1)}
 
@@ -352,39 +356,41 @@ class StagedMD(ShardedMD):
         cfg = self.cfg
 
         D, C, dtype = cfg.n_devices, cfg.c_loc, x.dtype
+        mesh = self.mesh
+        L = mesh.n_local
         order = torch.as_tensor(order, device=dev)
         xs = x[order]
         vs = _tensor(v, dev, dtype)[order] if v is not None \
             else torch.zeros_like(xs)
-        x_l = xs.reshape(D, C, 3)
-        tables = {name: torch.full((D, self.caps[i // 2]), -1,
+        x_l = mesh.local(xs.reshape(D, C, 3))
+        tables = {name: torch.full((L, self.caps[i // 2]), -1,
                                    dtype=torch.int64, device=dev)
                   for i, name in enumerate(_SEND[:2 * self.k])}
-        valids = {name: torch.zeros((D, C + 2 * sum(self.caps[:i + 1])),
+        valids = {name: torch.zeros((L, C + 2 * sum(self.caps[:i + 1])),
                                     dtype=torch.bool, device=dev)
                   for i, name in enumerate(_VALID[:self.k - 1])}
         plan0 = self.plan_type(
             **tables, **valids,
-            padm=torch.ones((D, self.n_frame), dtype=torch.bool, device=dev),
-            cov=torch.zeros(D, dtype=torch.bool, device=dev))
-        hshape = (D, sum(self.caps), 3)
+            padm=torch.ones((L, self.n_frame), dtype=torch.bool, device=dev),
+            cov=torch.zeros(L, dtype=torch.bool, device=dev))
+        hshape = (L, sum(self.caps), 3)
         st = ShardState(
-            x_loc=x_l, v_loc=vs.reshape(D, C, 3), f_loc=torch.zeros_like(x_l),
-            gid=order.reshape(D, C),
+            x_loc=x_l, v_loc=mesh.local(vs.reshape(D, C, 3)),
+            f_loc=torch.zeros_like(x_l), gid=mesh.local(order.reshape(D, C)),
             halo_l=torch.zeros(hshape, dtype=dtype, device=dev),
             halo_r=torch.zeros(hshape, dtype=dtype, device=dev),
-            idx=torch.zeros((D, self.n_frame, cfg.capacity),
+            idx=torch.zeros((L, self.n_frame, cfg.capacity),
                             dtype=torch.int64, device=dev),
-            ref_loc=x_l, pe=torch.zeros(D, dtype=dtype, device=dev),
+            ref_loc=x_l, pe=torch.zeros(L, dtype=dtype, device=dev),
             box=_tensor(box_np, dev, dtype),
             virial=torch.zeros((3, 3), dtype=dtype, device=dev),
             nhc=I.NHCState.zeros(cfg.nhc_len, dtype, dev),
             v_eps=torch.zeros(3, dtype=dtype, device=dev),
             baro_nhc=I.NHCState.zeros(cfg.pchain, dtype, dev),
             step=torch.zeros((), dtype=torch.int64, device=dev),
-            stale=torch.zeros(D, dtype=torch.bool, device=dev),
-            unsafe=torch.zeros(D, dtype=torch.bool, device=dev),
-            overflow=torch.zeros(D, dtype=torch.int32, device=dev),
+            stale=torch.zeros(L, dtype=torch.bool, device=dev),
+            unsafe=torch.zeros(L, dtype=torch.bool, device=dev),
+            overflow=torch.zeros(L, dtype=torch.int32, device=dev),
             plan=plan0)
         st = self.rebuild(st)           # replans, exchanges, builds
         st = self.refill_forces(st)
@@ -402,7 +408,8 @@ class StagedMD(ShardedMD):
         return out
 
     def _bounds(self, box, dtype):
-        """(lo, hi) [D, k]: every shard's rectangle at the current box."""
+        """(lo, hi) [L, k]: every local shard's rectangle at the current
+        box."""
         lo, hi = [], []
         for a, frac in enumerate(self.b_frac):
             b = torch.as_tensor(frac, dtype=dtype, device=self.device) \
@@ -492,14 +499,14 @@ class StagedMD(ShardedMD):
         halos as sent serve the check and the membership; the shifts make
         the frame contiguous for the build."""
         cfg = self.cfg
-        D, C = cfg.n_devices, cfg.c_loc
+        L, C = self.mesh.n_local, cfg.c_loc
         need = [(cfg.pbc[a] | (self._pos[:, a] < self.shape[a] - 1),
                  cfg.pbc[a] | (self._pos[:, a] > 0)) for a in range(self.k)]
 
         # (a) retroactive coverage: every row of a round's input frame now
         # within w_need of the face was in that face's old send set
         old = st.plan
-        bad = torch.zeros(D, dtype=torch.bool, device=x.device)
+        bad = torch.zeros(L, dtype=torch.bool, device=x.device)
         f, o = x, 0
         for a, (t_hi, t_lo) in enumerate(self._tables(old)):
             if a:
@@ -524,8 +531,8 @@ class StagedMD(ShardedMD):
         # atom ids
         f = f_raw = x
         g = st.gid
-        fv = torch.ones((D, C), dtype=torch.bool, device=x.device)
-        plan_ovf = torch.zeros(D, dtype=torch.bool, device=x.device)
+        fv = torch.ones((L, C), dtype=torch.bool, device=x.device)
+        plan_ovf = torch.zeros(L, dtype=torch.bool, device=x.device)
         fields, lows, highs = {}, [], []
         for a in range(self.k):
             col = f[..., a]
@@ -551,7 +558,7 @@ class StagedMD(ShardedMD):
             if a < self.k - 1:
                 fields[_VALID[a]] = fv
         plan = self.plan_type(**fields, padm=~fv,
-                              cov=torch.ones(D, dtype=torch.bool,
+                              cov=torch.ones(L, dtype=torch.bool,
                                              device=x.device))
         return (plan, torch.cat(lows, dim=1), torch.cat(highs, dim=1), f, g,
                 bad, plan_ovf)
@@ -559,7 +566,6 @@ class StagedMD(ShardedMD):
     # ---------- rebuild: replan + exchange + per-shard builds ----------
     def _rebuild_body(self, st: ShardState) -> ShardState:
         cfg = self.cfg
-        D = cfg.n_devices
         x, box = st.x_loc, st.box
         dtype = x.dtype
         lo, hi = self._bounds(box, dtype)
@@ -567,7 +573,8 @@ class StagedMD(ShardedMD):
             st, x, box, lo, hi)
 
         # (b) containment on axes with shards two grid steps apart
-        bad_frame = torch.zeros(D, dtype=torch.bool, device=x.device)
+        bad_frame = torch.zeros(x.shape[0], dtype=torch.bool,
+                                device=x.device)
         for a, m in enumerate(self.m_contain):
             if m is not None:
                 bad_frame = bad_frame | (
@@ -595,7 +602,7 @@ class StagedMD(ShardedMD):
                               + ([box[2:3]] if self.k == 2 else []))
         fpbc = (False, False, cfg.pbc[2] if self.k == 2 else False)
         idxs, nbr_ovf = [], []
-        for d in range(D):
+        for d in range(x.shape[0]):
             if self.frame_dims is not None:
                 nl = build_neighbors_cell(xs[d], frame_box, cfg.rlist,
                                           cfg.capacity, self.frame_dims,
@@ -613,7 +620,7 @@ class StagedMD(ShardedMD):
         key = torch.gather(gid, 1, idx.clamp(max=rows - 1).flatten(1))
         key = torch.where(idx < rows, key.view_as(idx), self.n)
         idx = torch.gather(idx, 2, torch.sort(key, dim=2).indices)
-        zero = torch.zeros(D, dtype=torch.int32, device=x.device)
+        zero = torch.zeros_like(st.overflow)
         ovf = (st.overflow
                | torch.where(torch.stack(nbr_ovf), OVF_NEIGHBOR, zero)
                | torch.where(out_of_frame | bad_frame, OVF_FRAME, zero)
@@ -633,7 +640,7 @@ class StagedMD(ShardedMD):
         cfg = self.cfg
         pay = torch.cat([st.x_loc, st.v_loc, st.f_loc], dim=2)   # [D, C, 9]
         gid = st.gid
-        n_in = torch.zeros(cfg.n_devices, dtype=torch.int64,
+        n_in = torch.zeros(self.mesh.n_local, dtype=torch.int64,
                            device=self.device)
         for a in range(self.k):
             perm = torch.argsort(pay[..., a], dim=1, stable=True)

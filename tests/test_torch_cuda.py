@@ -19,6 +19,8 @@ The cos kernels' f32 bounds are chip_smoke.py's COS_REL_BOUND, derived
 there. The delivered forces of a kernel path sum to zero up to rounding:
 chip_smoke.py's EVAL_REL["sum_F"], 1e-6 N rms|F|.
 """
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -731,3 +733,34 @@ def test_grid_frame_evaluation_kernels_match_plain(cuda_device):
     assert rel_max(st.virial.cpu(), st0.virial.cpu()) <= 1e-10
     assert abs(float(st.pe.sum() - st0.pe.sum())) <= 1e-10 * abs(
         float(st0.pe.sum()))
+
+
+@pytest.mark.cuda
+def test_grid_evaluation_on_two_gloo_ranks_matches_cpu(cuda_device):
+    """The (2, 2) fe frame evaluation at distribute on 2 gloo ranks on the
+    card (two shards a rank, the kernels; P2P blocks through host memory)
+    against the in-process run on the CPU (the plain versions), in f64:
+    forces, PE and W within 1e-10 of their scale; one launch of each
+    harmonic kernel a rank."""
+    from meng_zhang_tpu_torch.models.annp import descriptor_cutoff
+    from meng_zhang_tpu_torch.parallel import launch
+    from meng_zhang_tpu_torch.parallel.domain2d import Shard2DConfig
+    pot = synthetic_fe_potential(0)
+    x, box = thermal_bcc((12, 12, 6), seed=4, disp=0.05)
+    rc = descriptor_cutoff(*make_annp(pot, torch.float64, "cpu"))
+    cfg = Shard2DConfig(n_devices=4, mesh_shape=(2, 2), c_loc=len(x) // 4,
+                        cutoff=rc, skin=0.5, dt=0.001)
+    spec = launch.ShardRun(cfg=cfg, pot=pot, x=x, box=np.asarray(box),
+                           mass=55.845, k_short=128, short_delta=0.3,
+                           device="cpu")
+    want = launch.run_sharded(spec, distributed=False)
+    out = launch.spawn(launch.run_sharded, 2, "gloo", "cuda",
+                       (dataclasses.replace(spec, device="cuda"),), 300.0)
+    got = out.result
+    assert (got["world"], got["n_local"]) == (2, 2)
+    for launches in out.launches:
+        assert (launches["g_harm"], launches["force_harm"]) == (1, 1)
+    assert not got["overflow"].any() and np.isfinite(got["f"]).all()
+    assert rel_max(got["f"], want["f"]) <= 1e-10
+    assert rel_max(got["virial"], want["virial"]) <= 1e-10
+    assert abs(got["pe"] - want["pe"]) <= 1e-10 * abs(want["pe"])

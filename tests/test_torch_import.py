@@ -115,6 +115,9 @@ assert torch.equal(mesh.ShardMesh(4, "cpu").ppermute(
     t, [(i, (i + 1) % 4) for i in range(4)]), mesh.ShardMesh(
     4, "cpu").ring_shift(t, 1))
 assert domain2d.plan_park_sites(10, 5.0, 8.0, 8.0, 3.0, 8)[1].shape == (10, 3)
+from meng_zhang_tpu_torch.parallel import launch
+assert callable(launch.init_mesh) and callable(launch.spawn)
+assert mesh.ShardMesh(4, "cpu").n_local == 4
 bad = sorted(m for m in sys.modules if m == "jax" or m.startswith("jax.")
              or m == "meng_zhang_tpu" or m.startswith("meng_zhang_tpu."))
 assert not bad, bad
