@@ -198,6 +198,33 @@ fatal on failure, by tag:
     ShardedMD2D(AnnaFrameModel(fast=True)), the NVE run from the perfect
     lattice on the derived send-table capacities.
 
+The scale configurations (meng_zhang_tpu_torch/scripts/: BASELINE.json
+configs 3-5 at their full atom counts, the timed steps cut), each fatal on
+failure, by tag, after the run path and before the profiles:
+
+  * [disloc-core]: `scripts/disloc_core.py` in full (config 4: the
+    30,096-atom screw-dislocation scene, FIRE with the boundary shell
+    frozen in passes on fresh skin lists, then one evaluation on a fresh
+    list at the relaxed positions for the per-atom tallies and their
+    dump): that evaluation's fmax within f_tol, the per-atom virials
+    summing to the virial, the frozen shell unmoved, g_harm / force_harm
+    once an evaluation;
+  * [scale-500k]: `scripts/scale_demo.py --config 500k` (config 3:
+    500,094 atoms, three-axis NPT) with SCALE_500K_STEPS timed steps after
+    the 10 warm-up blocks: no overflow, no `unsafe` latch in the timed
+    window, finite thermo, the box moved on all three axes, one launch an
+    evaluation; g_harm / force_harm against their plain versions on
+    SCALE_SLICE short rows, and their times on the full [500094, 128];
+  * [scale-2m]: `--config 2m` (config 5's scene: the 1,964,085-atom STGB
+    bicrystal, its overlap prune timed; FIRE <= 100 iterations, the
+    warm-up, SCALE_2M_STEPS timed NVE steps): the same gates, the kernels
+    against their plain versions on two slices (one through the grain
+    boundary at x = STGB_PLANE_X) and timed on [1964085, 128], the peak
+    memory of a skin-list build, a compaction and an evaluation, and one
+    f32 evaluation of the relaxed scene against one f64 evaluation under
+    EVAL_REL. Each prints its atoms, peak memory, wall and rate with the
+    card's name and power limit.
+
 Each kernel's record carries its least time on the card (`bound_ms`, the
 larger of the FLOPs its function needs over the f32 peak and its bytes
 over the memory rate, counted from this run's inputs) and `library_ms` null: no single PyTorch
@@ -207,7 +234,10 @@ ANNA-shape figures (`anna_shape`, `anna_ms`, `anna_plain_ms`,
 from phase 14). Its `launches` add the new paths' runs ([multi-fe]'s and
 [rowsweep]'s Simulators, [multi-ni]'s, [thin-box]'s Simulator and FIRE,
 [cli-multi], the seven sharded runs, the ranks' and the in-process
-references' runs of the across-process tags) to the main paths'. Prints
+references' runs of the across-process tags, [disloc-core], [scale-500k]
+and [scale-2m]) to the main paths'; g_harm's and force_harm's also carry
+their times and bounds on the scale scenes (`scale_500k_ms`,
+`scale_500k_bound_ms`, `scale_500k_bound_by`, and the same for `2m`). Prints
 the kernels' JSON record on the line before the last, and as the last line
 {"ok": true, "device": {...}}. Run from the repository root:
 `python3 chip_smoke.py`.
@@ -323,6 +353,12 @@ DIST_TIMEOUT = 600.0           # s, a launch's limit
 # few hundred terms; 1e-12 leaves 1e3x over that, and a lost or doubled
 # halo row moves F by ~1e-2 of max|F|.
 DIST_REL64 = 1e-12
+# the scale configurations (meng_zhang_tpu_torch/scripts/): full atom
+# counts, the timed steps cut
+SCALE_500K_STEPS = 100     # NPT steps after the warm-up (the script's 200)
+SCALE_2M_STEPS = 50        # NVE steps after the warm-up (the script's 100)
+SCALE_SLICE = 20000        # short rows of each kernel-vs-plain check
+STGB_PLANE_X = 230.0       # A, the 2m scene's middle grain boundary
 
 
 # Kernel vs plain, per output, as a fraction of the output's max |value|.
@@ -3342,6 +3378,285 @@ def phase_dist_nccl(spec, card):
     return launches
 
 
+# ------------------------------------------------- scale configurations
+def scale_script(tag, module, argv):
+    """module.main(argv) (meng_zhang_tpu_torch/scripts/) on the card in
+    this process, its JSON line echoed: (the run it returns, the kernels'
+    launches counted from 0, wall seconds). No plain version may run."""
+    from meng_zhang_tpu_torch.ops import kernels
+    out = io.StringIO()
+    kernels.reset_launch_counts()
+    t0 = time.time()
+    try:
+        with plain_calls() as plain, contextlib.redirect_stdout(out):
+            run = module.main(argv)
+    except (SystemExit, RuntimeError) as e:
+        raise SmokeFailure(f"{tag}: {module.__name__}.main failed: {e}")
+    wall = time.time() - t0
+    for line in out.getvalue().splitlines():
+        log(f"[{tag}] {line}")
+    check(not plain, f"{tag}: plain versions ran on the card: {plain}")
+    launches = {k: getattr(kernels, k).launches
+                for k in ("g_harm", "force_harm", "g_cos", "force_cos",
+                          "ni_g", "ni_force")}
+    log(f"[{tag}] {wall:.2f} s in {module.__name__}.main; launches "
+        f"{launches}")
+    return run, launches, wall
+
+
+def scale_gates(tag, rec, launches, evaluations, wall, card):
+    """A scale run's gates: no overflow, no `unsafe` latch in the timed
+    window, finite thermo, and g_harm / force_harm once an evaluation and
+    no other kernel; prints the phase's atoms, peak memory, wall and
+    rate."""
+    check(not rec["overflow"], f"{tag}: neighbor overflow")
+    check(not rec["unsafe"], f"{tag}: unsafe (dangerous-build) latch set in "
+          "the timed window")
+    check(all(math.isfinite(rec[k]) for k in (
+        "temp_K", "press_bar", "pe_eV", "vol_A3", "drift_eV")),
+        f"{tag}: non-finite thermo")
+    for name, count in launches.items():
+        want = evaluations if name in ("g_harm", "force_harm") else 0
+        check(count == want, f"{tag}: {name} launched {count} times, "
+              f"expected {want}")
+    log(f"[{tag}] {rec['atoms']} atoms: {rec['steps']} timed steps "
+        f"{rec['atom_steps_per_s']:.1f} atom-steps/s ({rec['wall_s']:.3f} s"
+        f" timed), T {rec['temp_K']:.2f} K, P {rec['press_bar']:.1f} bar, "
+        f"NVE/NPT drift {rec['drift_eV']:.4f} eV (printed, not gated), "
+        f"{rec['rebuilds']} rebuilds; peak device memory "
+        f"{rec['peak_mem_gib']:.3f} GiB (by stage: "
+        + ", ".join(f"{k} {v:.3f}" for k, v in
+                    rec["peak_mem_gib_by_stage"].items())
+        + f"); phase wall {wall:.1f} s on {card}")
+
+
+def rows_planes(x, box, sidx, rows, pbc):
+    """dx planes [len(rows), K] of the short rows of atoms `rows`."""
+    from meng_zhang_tpu_torch.ops import fused_annp as fa
+    return fa.pair_dx_planes(x[rows], box, sidx[rows], pbc, x_ext=x)
+
+
+def scale_kernel_times(tag, planes, cfg):
+    """g_harm and force_harm on the full scene's [N, 128] short planes:
+    median ms of 5 (CUDA events; force_harm's coefficient tables drawn on
+    the card) and the bound from this run's pairs. Outside the launch
+    counts."""
+    from meng_zhang_tpu_torch.ops import fused_annp as fa
+    from meng_zhang_tpu_torch.ops import kernels
+    npsf, ntsf, rc = cfg.npsf, cfg.ntsf, cfg.cut
+    p, k = planes[0].shape
+    gen = torch.Generator(device=planes[0].device).manual_seed(SEED)
+    dedg = torch.zeros((p, fa.NSF_PAD), device=planes[0].device)
+    dedg[:, :npsf + ntsf] = torch.randn((p, npsf + ntsf), generator=gen,
+                                        device=planes[0].device)
+    b = torch.zeros((p, fa.AB_PAD), device=planes[0].device)
+    b[:, :ntsf * ntsf + 1] = torch.randn((p, ntsf * ntsf + 1),
+                                         generator=gen,
+                                         device=planes[0].device)
+    lanes, pairs = fe_counts(planes, rc)
+    out = {}
+    for name, fn in (("g_harm", lambda: kernels.g_harm(*planes, npsf, ntsf,
+                                                       rc)),
+                     ("force_harm", lambda: kernels.force_harm(
+                         *planes, dedg, b, npsf, ntsf, rc))):
+        ms = cuda_ms(fn, 5)
+        b_ms, b_by = bound(fe_flops(name, lanes, pairs, npsf, ntsf),
+                           fe_bytes(name, p, k, 4))
+        out[name] = (ms, b_ms, b_by)
+        log(f"[{tag}] {name} f32 on the scene's [{p}, {k}] short planes: "
+            f"{ms:.3f} ms (median of 5, CUDA events; bound {b_ms:.3f} ms, "
+            f"{b_by}; {lanes:.4e} lanes in the cutoff)")
+    return out
+
+
+def phase_scale_500k(card):
+    """Config 3 through `scripts/scale_demo.py --config 500k` at its full
+    500,094 atoms, SCALE_500K_STEPS timed NPT steps after the warm-up: the
+    scale gates, the box moved on all three axes, g_harm / force_harm
+    against their plain versions on the first SCALE_SLICE short rows, and
+    their times on the full scene."""
+    from meng_zhang_tpu_torch.scripts import scale_demo
+    tag = "scale-500k"
+    run, launches, wall = scale_script(
+        tag, scale_demo, ["--config", "500k", "--steps",
+                          str(SCALE_500K_STEPS)])
+    rec, st = run.record, run.state
+    c = scale_demo.CONFIGS["500k"]
+    steps = run.sim.cfg.thermo_every * scale_demo.WARMUP_BLOCKS + rec["steps"]
+    scale_gates(tag, rec, launches, 1 + steps, wall, card)
+    b0, b1 = run.box.tolist(), st.box.tolist()
+    log(f"[{tag}] box {b0} -> {b1} (p_couple {c['couple']})")
+    check(all(u != v for u, v in zip(b0, b1)),
+          f"{tag}: the barostat left an axis of the box unmoved")
+    pbc = tuple(run.evaluator.pbc)
+    cfg = run.evaluator.cfg
+    rows = torch.arange(SCALE_SLICE, device=st.x.device)
+    shard_kernel_checks(tag, rows_planes(st.x, st.box, st.short.sidx, rows,
+                                         pbc),
+                        fe_kernel_cases(cfg.npsf, cfg.ntsf, cfg.cut,
+                                        SCALE_SLICE, st.x.device)[0])
+    planes = rows_planes(st.x, st.box, st.short.sidx,
+                         torch.arange(rec["atoms"], device=st.x.device), pbc)
+    times = scale_kernel_times(tag, planes, cfg)
+    return {k: launches[k] for k in ("g_harm", "force_harm")}, times
+
+
+class _Timed:
+    """Wraps module.name to add each call's seconds to .seconds."""
+
+    def __init__(self, module, name):
+        self.module, self.name = module, name
+        self.fn, self.seconds = getattr(module, name), 0.0
+
+    def __enter__(self):
+        def timed_call(*a, **kw):
+            t0 = time.time()
+            try:
+                return self.fn(*a, **kw)
+            finally:
+                self.seconds += time.time() - t0
+        setattr(self.module, self.name, timed_call)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.module, self.name, self.fn)
+
+
+def phase_scale_2m(card):
+    """Config 5's scene through `scripts/scale_demo.py --config 2m` at its
+    full 1,964,085 atoms: the STGB build (its overlap prune timed), FIRE
+    (<= 100 iterations), the warm-up, SCALE_2M_STEPS timed NVE steps; the
+    scale gates, g_harm / force_harm against their plain versions on two
+    slices of SCALE_SLICE short rows (the first atoms, and the atoms
+    nearest the grain boundary at x = STGB_PLANE_X), their times on the
+    full scene, the peak memory of one skin-list build, one compaction and
+    one evaluation, and one f32 evaluation of the relaxed scene against
+    one f64 evaluation (the evaluator gates, EVAL_REL)."""
+    from meng_zhang_tpu_torch.geometry import stgb
+    from meng_zhang_tpu_torch.models.annp import make_annp
+    from meng_zhang_tpu_torch.ops import fused_annp as fa
+    from meng_zhang_tpu_torch.scripts import scale_demo
+    tag = "scale-2m"
+    with _Timed(stgb, "_prune_overlaps") as prune:
+        run, launches, wall = scale_script(
+            tag, scale_demo, ["--config", "2m", "--steps",
+                              str(SCALE_2M_STEPS)])
+    rec, st, sim, ev = run.record, run.state, run.sim, run.evaluator
+    n = rec["atoms"]
+    log(f"[{tag}] scene built in {rec['scene_s']:.3f} s, its overlap prune "
+        f"{prune.seconds:.3f} s (host); FIRE {rec['fire_iters']} iterations"
+        f" in {rec['fire_s']:.2f} s, fmax {rec['fire_fmax']:.4e} eV/A; init"
+        f" {rec['init_s']:.2f} s; warm-up {rec['warmup_s']:.2f} s")
+    evaluations = rec["fire_iters"] + 1 + 1 + \
+        sim.cfg.thermo_every * scale_demo.WARMUP_BLOCKS + rec["steps"]
+    scale_gates(tag, rec, launches, evaluations, wall, card)
+    pbc, cfg, dev = tuple(ev.pbc), ev.cfg, st.x.device
+    cases = fe_kernel_cases(cfg.npsf, cfg.ntsf, cfg.cut, SCALE_SLICE, dev)[0]
+    near = torch.argsort((st.x[:, 0] - STGB_PLANE_X).abs())[:SCALE_SLICE]
+    log(f"[{tag}] boundary slice: x in [{float(st.x[near, 0].min()):.3f}, "
+        f"{float(st.x[near, 0].max()):.3f}] A")
+    for what, rows in (("first rows", torch.arange(SCALE_SLICE, device=dev)),
+                       ("boundary rows", near)):
+        log(f"[{tag}] kernels vs plain on the {what}")
+        shard_kernel_checks(tag, rows_planes(st.x, st.box, st.short.sidx,
+                                             rows, pbc), cases)
+    planes = rows_planes(st.x, st.box, st.short.sidx,
+                         torch.arange(n, device=dev), pbc)
+    times = scale_kernel_times(tag, planes, cfg)
+    del planes, cases, near
+    x, box = run.x_start, run.box
+    del run, st
+
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    peaks = {}
+    for what, fn in (("skin-list build", lambda: sim.build_nbrs(x, box)),
+                     ("compaction", lambda: ev.compact_short(x, box,
+                                                             nb.idx)),
+                     ("evaluation", lambda: ev.energy_forces_short(
+                         x, box, sl, want_virial=False))):
+        torch.cuda.reset_peak_memory_stats()
+        out = fn()
+        torch.cuda.synchronize()
+        peaks[what] = (torch.cuda.max_memory_allocated() - base) / 2**30
+        base = torch.cuda.memory_allocated()
+        if what == "skin-list build":
+            nb = out
+        elif what == "compaction":
+            sl = out
+        del out
+    log(f"[{tag}] peak memory above what was held before, GiB: "
+        + ", ".join(f"{k} {v:.3f}" for k, v in peaks.items())
+        + f" (skin list and short list held: {base / 2**30:.3f} GiB)")
+    del nb
+
+    cfg64, p64 = make_annp(_potential(), torch.float64, dev)
+    ev64 = fa.FusedAnnp(cfg64, p64, k_short=ev.k_short,
+                        short_delta=ev.short_delta)
+    dd = fa.pair_dx_planes(x, box, sl.sidx, pbc)
+    fj = ev._eval_fj(*dd)[1]
+    w_abs = max(float((da.double() * fb.double()).abs().sum())
+                for da in dd for fb in fj)
+    del dd, fj
+    out32 = ev.energy_forces_short(x, box, sl)
+    x64 = x.double()
+    out64 = ev64.energy_forces_short(x64, box.double(),
+                                     fa.ShortList(sl.sidx, x64, sl.overflow))
+    torch.cuda.synchronize()
+    check(bool(torch.isfinite(out32[1]).all()), f"{tag}: non-finite f32 "
+          "forces on the relaxed scene")
+    log(f"[{tag}] relaxed scene, f32 kernels vs f64 kernels: E/N f64 "
+        f"{float(out64[0]) / n + cfg64.e_shift:.9f} eV, max|F| "
+        f"{float(out64[1].abs().max()):.4e} eV/A")
+    eval_gates(tag, EVAL_REL, out32, out64, w_abs)
+    return {k: launches[k] for k in ("g_harm", "force_harm")}, times
+
+
+def phase_disloc_core(card, tmp):
+    """Config 4 through `scripts/disloc_core.py` in full (30,096 atoms,
+    FIRE with the shell frozen in passes of <= 400 iterations on a fresh
+    skin list each, then one evaluation on a fresh list at the relaxed
+    positions for the fmax and the per-atom tallies and their dump): that
+    fmax within f_tol, the per-atom virials summing to the virial, the
+    frozen shell exactly where it started, g_harm / force_harm once an
+    evaluation."""
+    from meng_zhang_tpu_torch.scripts import disloc_core
+    tag = "disloc-core"
+    run, launches, wall = scale_script(
+        tag, disloc_core, ["--dump", os.path.join(tmp, "core.lammpstrj"),
+                           "--out", os.path.join(tmp, "core.json")])
+    rec = run.record
+    f_tol = disloc_core.FIRE["f_tol"]
+    evals = rec["fire_iters"] + rec["fire_passes"]
+    log(f"[{tag}] {rec['atoms']} atoms ({rec['frozen_atoms']} frozen): FIRE"
+        f" {rec['fire_iters']} iterations in {rec['fire_passes']} passes, "
+        f"{rec['fire_s']:.3f} s ({rec['atoms'] * evals / rec['fire_s']:.1f} "
+        f"atom-evaluations/s), largest move in a pass "
+        f"{rec['fire_max_disp_A']:.3f} A ({rec['fire_last_pass_disp_A']:.3f}"
+        f" in the last; half-skin {disloc_core.SKIN / 2} A), fmax on a fresh"
+        f" list {rec['fmax_eV_A']:.4e} eV/A (f_tol {f_tol}), PE "
+        f"{rec['pe_eV']:.6f} eV, core excess "
+        f"{rec['core_excess_eV']:.4f} eV over {rec['core_atoms_r10']} atoms"
+        f" (max {rec['core_max_excess_eV']:.4f}); peak device memory "
+        f"{rec['peak_mem_gib']:.3f} GiB; phase wall {wall:.1f} s on {card}")
+    check(rec["fmax_eV_A"] <= f_tol, f"{tag}: fmax on a fresh list at the "
+          f"relaxed positions {rec['fmax_eV_A']:.4e} over f_tol {f_tol}")
+    check(rec["vatom_sum_matches_virial"], f"{tag}: the per-atom virials do "
+          "not sum to the virial")
+    shell = run.types == 2
+    x0 = run.x0.astype(np.float32).astype(np.float64)    # the run's f32 start
+    check(bool(np.array_equal(run.x[shell], x0[shell])),
+          f"{tag}: frozen shell atoms moved")
+    for name, count in launches.items():
+        want = rec["fire_iters"] + rec["fire_passes"] + 1 \
+            if name in ("g_harm", "force_harm") else 0
+        check(count == want, f"{tag}: {name} launched {count} times, "
+              f"expected {want}")
+    check(bool(np.isfinite(run.eatom).all() and np.isfinite(run.vatom).all()),
+          f"{tag}: non-finite per-atom tallies")
+    return {k: launches[k] for k in ("g_harm", "force_harm")}
+
+
 def main():
     try:
         name, card = phase_device()
@@ -3418,9 +3733,13 @@ def main():
                             "cli-multi": phase_cli_multi(card, tmp, types),
                             "cli-anna": {"g_harm": phase_cli_anna(
                                 card, tmp, paths)}}
+            extra["disloc-core"] = phase_disloc_core(card, tmp)
         log(f"[smoke] run-path launches {cli_launches}")
         for key in ("thin-box", "cli-multi"):
             extra[key] = cli_launches[key]
+        scale = {}
+        extra["scale-500k"], scale["500k"] = phase_scale_500k(card)
+        extra["scale-2m"], scale["2m"] = phase_scale_2m(card)
         phase_profile(*fe, card)
         phase_profile(*fe, card, angular="matrix")
         del fe
@@ -3439,6 +3758,11 @@ def main():
             d.get(r["name"], 0) for d in extra.values())
         if r["name"] == "g_harm":
             r.update(anna)
+        for cfg, times in scale.items():
+            if r["name"] in times:
+                ms, b_ms, b_by = times[r["name"]]
+                r.update({f"scale_{cfg}_ms": ms, f"scale_{cfg}_bound_ms": b_ms,
+                          f"scale_{cfg}_bound_by": b_by})
     log(f"[smoke] wall {time.time() - T_START:.1f} s")
     print(json.dumps({"kernels": records}))
     print(json.dumps({"ok": True, "device": {

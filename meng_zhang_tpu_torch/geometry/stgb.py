@@ -54,7 +54,12 @@ def _prune_overlaps(x_keep, x_cand, r_min, box):
     """Drop candidates within r_min of any kept atom (periodic).
 
     Only atoms near the two boundary planes (x = Lx and, periodically,
-    x = 0/2Lx) can overlap, so the pair check is restricted there.
+    x = 0/2Lx) can overlap, so the pair check is restricted there. The kept
+    atoms there are binned into cells of edge > r_min, and each candidate is
+    checked against the kept atoms of its 27 surrounding cells: a pair closer
+    than r_min lies in neighbouring cells, and every checked pair's distance
+    is computed as the all-pairs check of the JAX package computes it, so the
+    pruned set is the same, in time linear in the atoms near the planes.
     """
     lx = box[0] / 2.0
     margin = r_min + 1.0
@@ -63,11 +68,35 @@ def _prune_overlaps(x_keep, x_cand, r_min, box):
     near_plane_k = (np.abs(x_keep[:, 0] - lx) < margin) \
         | (x_keep[:, 0] < margin) | (x_keep[:, 0] > box[0] - margin)
     ck = x_keep[near_plane_k]
-    drop = np.zeros(len(x_cand), dtype=bool)
     cand_idx = np.nonzero(near_plane_c)[0]
-    for i0 in range(0, len(cand_idx), 512):
-        sel = cand_idx[i0:i0 + 512]
-        d = x_cand[sel][:, None, :] - ck[None, :, :]
-        d -= box * np.round(d / box)
-        drop[sel] = np.any(np.sum(d * d, axis=-1) < r_min * r_min, axis=1)
+    drop = np.zeros(len(x_cand), dtype=bool)
+    # cells of edge >= r_min (1 + 1e-6), so rounding cannot carry a pair
+    # closer than r_min two cells apart; an axis of fewer than 3 cells is
+    # one cell, so that no stencil visits a cell twice
+    dims = np.floor(box / (r_min * (1.0 + 1e-6))).astype(np.int64)
+    dims = np.where(dims >= 3, dims, 1)
+
+    def cells(p):
+        s = p / box
+        return np.minimum(np.floor((s - np.floor(s)) * dims).astype(np.int64),
+                          dims - 1)
+
+    def flat(c):
+        return (c[:, 0] * dims[1] + c[:, 1]) * dims[2] + c[:, 2]
+
+    kid = flat(cells(ck))
+    order = np.argsort(kid, kind="stable")
+    start = np.searchsorted(kid[order], np.arange(int(np.prod(dims)) + 1))
+    xc = x_cand[cand_idx]
+    c3 = cells(xc)
+    steps = [np.arange(-1, 2) if d >= 3 else np.zeros(1, np.int64)
+             for d in dims]
+    for off in np.stack(np.meshgrid(*steps, indexing="ij"), -1).reshape(-1, 3):
+        nb = flat((c3 + off) % dims)
+        lo, cnt = start[nb], start[nb + 1] - start[nb]
+        for j in range(int(cnt.max(initial=0))):
+            m = np.nonzero(cnt > j)[0]
+            d = xc[m] - ck[order[lo[m] + j]]
+            d -= box * np.round(d / box)
+            drop[cand_idx[m[np.sum(d * d, axis=-1) < r_min * r_min]]] = True
     return x_cand[~drop]

@@ -192,7 +192,9 @@ def compact_short(x, box, nbr_idx, rc_s, ks, pbc, row_chunk=16384,
         mask = (rsq < rc_s * rc_s) & (rsq > 1.0e-12)
         overflow = overflow | (mask.sum(dim=1) > ks).any()
         key = torch.where(mask, idx_c, torch.full_like(idx_c, n))
-        key = torch.sort(key, dim=1).values[:, :ks]
+        # a copy of the first ks columns, so that the chunk's sorted
+        # [row_chunk, K] keys are freed (_compact_rows, system/neighbors.py)
+        key = torch.sort(key, dim=1).values[:, :ks].contiguous()
         if key.shape[1] < ks:
             key = torch.cat([key, torch.full((key.shape[0], ks - key.shape[1]),
                                              n, dtype=key.dtype,

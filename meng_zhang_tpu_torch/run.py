@@ -52,6 +52,17 @@ def log(*a):
     print(*a, file=sys.stderr, flush=True)
 
 
+def resolve_device(device="cuda"):
+    """The run's torch.device: the card unless `device` names another (None
+    is the card); exits when the card is asked for and there is none."""
+    import torch
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        sys.exit("error: no CUDA device; main(argv, device='cpu') runs on "
+                 "the CPU")
+    return dev
+
+
 def build_parser():
     ap = argparse.ArgumentParser(
         prog="meng_zhang_tpu_torch",
@@ -139,10 +150,7 @@ def main(argv=None, device="cuda"):
     from .models import anna_adp, annp
     from .system.neighbors import cell_grid_dims
 
-    dev = torch.device(device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        sys.exit("error: no CUDA device; main(argv, device='cpu') runs on "
-                 "the CPU")
+    dev = resolve_device(device)
     if args.profile:
         profiling.enable()
 

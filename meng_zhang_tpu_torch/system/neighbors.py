@@ -34,7 +34,11 @@ class NeighborList(NamedTuple):
 
 def _compact_rows(within, cand, capacity, n):
     """Pack the True entries of `within` [R, C] into ascending [R, capacity]
-    rows padded with n; also returns the per-row true counts."""
+    rows padded with n; also returns the per-row true counts. The rows are
+    a copy: a view would hold the sorted [R, C] keys alive, C / capacity
+    times the rows' size, for as long as the caller keeps the chunk (the
+    cell build of the 1,964,085-atom config-5 scene held ~20 GiB of them
+    until its final cat)."""
     keys = torch.where(within, cand, torch.full_like(cand, n))
     keys = torch.sort(keys, dim=1).values
     counts = within.sum(dim=1)
@@ -42,7 +46,7 @@ def _compact_rows(within, cand, capacity, n):
         keys = torch.cat([keys, torch.full(
             (keys.shape[0], capacity - keys.shape[1]), n, dtype=keys.dtype,
             device=keys.device)], dim=1)
-    return keys[:, :capacity], counts
+    return keys[:, :capacity].contiguous(), counts
 
 
 # rows of an all-pairs build at a time: [2048, M, 3] displacements, 2.2 GB

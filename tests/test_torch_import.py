@@ -118,6 +118,10 @@ assert domain2d.plan_park_sites(10, 5.0, 8.0, 8.0, 3.0, 8)[1].shape == (10, 3)
 from meng_zhang_tpu_torch.parallel import launch
 assert callable(launch.init_mesh) and callable(launch.spawn)
 assert mesh.ShardMesh(4, "cpu").n_local == 4
+from meng_zhang_tpu_torch.scripts import disloc_core, scale_demo
+assert scale_demo.md_config("2m", 6.5, np.array([460.0, 325.0, 212.0])
+                            ).cell_dims == (63, 44, 29)
+assert callable(disloc_core.main) and callable(scale_demo.main)
 bad = sorted(m for m in sys.modules if m == "jax" or m.startswith("jax.")
              or m == "meng_zhang_tpu" or m.startswith("meng_zhang_tpu."))
 assert not bad, bad

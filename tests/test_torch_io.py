@@ -235,17 +235,29 @@ def test_screw_matches_jax(kw):
             j_screw.screw_displacement(x, np.array([5.0, 5.0]), 2.47, eps))
 
 
-@pytest.mark.parametrize("overlap", [None, 1.2], ids=["raw", "pruned"])
-def test_stgb_matches_jax(overlap):
-    length = (12.0, 14.0, 10.0)
+@pytest.mark.parametrize("length,overlap", [
+    ((12.0, 14.0, 10.0), None), ((12.0, 14.0, 10.0), 1.2),
+    ((27.6, 39.0, 25.44), 2.3)], ids=["raw", "pruned", "two-planes"])
+def test_stgb_matches_jax(length, overlap):
+    """The generator and the cell-binned overlap prune against the JAX
+    package's all-pairs prune; "two-planes" is the 2m configuration's scene
+    (scripts/scale_demo.py) at 0.12 of its size, where the prune removes
+    atoms at both boundary planes, x = Lx and x = 0 / 2 Lx."""
     got = stgb.make_stgb(length_box=length, delete_overlap=overlap)
     _assert_same(got, j_stgb.make_stgb(length_box=length,
                                        delete_overlap=overlap))
     x1 = got.x[got.types == 1]
-    x2 = got.x[got.types == 2]
+    x2 = x1.copy()
+    x2[:, 0] = 2.0 * length[0] - x2[:, 0]
     box = got.box
-    np.testing.assert_array_equal(stgb._prune_overlaps(x1, x2, 2.0, box),
-                                  j_stgb._prune_overlaps(x1, x2, 2.0, box))
+    for r_min in (2.0, overlap or 2.0):
+        kept = stgb._prune_overlaps(x1, x2, r_min, box)
+        np.testing.assert_array_equal(
+            kept, j_stgb._prune_overlaps(x1, x2, r_min, box))
+    if overlap == 2.3:
+        gone = x2[~(x2[:, None, :] == kept[None, :, :]).all(-1).any(1)]
+        mid = np.abs(gone[:, 0] - length[0]) < 1.0
+        assert mid.sum() > 0 and (~mid).sum() > 0
 
 
 @pytest.mark.parametrize("argv", [

@@ -97,34 +97,40 @@ def test_langevin_ou_uses_generator():
     np.testing.assert_allclose(got.numpy(), want, rtol=1e-13, atol=1e-14)
 
 
-def _configs(ensemble, pbc):
+def _configs(ensemble, pbc, couple=(False, False, False)):
     common = dict(dt=0.001, cutoff=CUT, skin=0.8, capacity=64,
                   nbr_method="n2", ensemble=ensemble, t_target=300.0,
                   tau_t=0.05, p_target=(0.0,) * 3, tau_p=0.5,
-                  thermo_every=5, pbc=pbc, short_every=5, short_skin=0.4)
-    couple = (False, True, False) if ensemble == "npt" else (False,) * 3
-    return (JS.MDConfig(p_couple=couple, **common),
-            S.MDConfig(p_couple=couple, **common))
+                  thermo_every=5, pbc=pbc, short_every=5, short_skin=0.4,
+                  p_couple=couple)
+    return JS.MDConfig(**common), S.MDConfig(**common)
 
 
-@pytest.mark.parametrize("ensemble,pbc,angular", [
-    ("nve", (True, True, True), "harmonic"),
-    ("nvt", (True, True, True), "harmonic"),
-    ("npt", (False, True, False), "harmonic"),
-    ("npt", (False, True, False), "matrix"),
-], ids=["nve-pbc0", "nvt-pbc1", "npt-pbc2", "npt-pbc2-matrix"])
-def test_trajectory_matches_jax(ensemble, pbc, angular):
+Y, XYZ = (False, True, False), (True, True, True)
+
+
+@pytest.mark.parametrize("ensemble,pbc,couple,angular", [
+    ("nve", (True, True, True), (False,) * 3, "harmonic"),
+    ("nvt", (True, True, True), (False,) * 3, "harmonic"),
+    ("npt", (False, True, False), Y, "harmonic"),
+    ("npt", (False, True, False), Y, "matrix"),
+    ("npt", (True, True, True), XYZ, "harmonic"),
+    ("npt", (True, True, True), XYZ, "matrix"),
+], ids=["nve-pbc0", "nvt-pbc1", "npt-pbc2", "npt-pbc2-matrix", "npt-xyz",
+        "npt-xyz-matrix"])
+def test_trajectory_matches_jax(ensemble, pbc, couple, angular):
     """10 steps (two thermo blocks, two short-list refreshes) of both
     Simulators on the short path, through the harmonic or the cos-matrix
-    evaluator; the NPT runs are the benchmark's layout: `boundary m p m`
-    with a y-coupled barostat."""
+    evaluator; the NPT runs are the benchmark's layout, `boundary m p m`
+    with a y-coupled barostat, and config 3's (scripts/scale_demo.py
+    --config 500k), fully periodic with all three axes coupled."""
     pot = reduced_potential(cut=CUT)
     x, box = perturbed_bcc((4, 5, 4), seed=3, disp=0.08)
     n = len(x)
     rng = np.random.default_rng(4)
     v = rng.normal(scale=4.0, size=(n, 3))
     v -= v.mean(0)
-    jcfg, jmc = _configs(ensemble, pbc)
+    jcfg, jmc = _configs(ensemble, pbc, couple)
 
     jc, jp = jax_make_annp(pot, dtype=jnp.float64, pbc=pbc)
     pk = PallasAnnp(jc, jp, k_short=KS, short_delta=0.4, angular=angular)
@@ -158,8 +164,9 @@ def test_trajectory_matches_jax(ensemble, pbc, angular):
     for flag in ("overflow", "stale", "unsafe"):
         assert bool(getattr(st, flag)) == bool(getattr(js, flag))
     assert not bool(st.unsafe) and not bool(st.overflow)
-    if ensemble == "npt":
-        assert float(st.box[1]) != box[1]          # the barostat moved y
+    if ensemble == "npt":                      # the barostat moved the
+        for d in range(3):                     # coupled axes alone
+            assert (float(st.box[d]) != box[d]) == couple[d]
         np.testing.assert_allclose(st.v_eps.numpy(), _np(js.v_eps),
                                    rtol=1e-8, atol=1e-14)
 

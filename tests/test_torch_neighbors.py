@@ -147,3 +147,23 @@ def test_needs_rebuild_matches_jax(pbc):
                                 pbc)
         assert isinstance(got, torch.Tensor)
         assert bool(got) == bool(want) == rebuild
+
+
+@pytest.mark.parametrize("capacity", [12, 80], ids=["narrower", "wider"])
+def test_compact_rows_copies_out_of_the_sorted_keys(capacity):
+    """The packed rows equal the JAX package's and own storage of their own
+    size: a view into the sorted [R, C] keys kept each chunk's whole sort
+    alive until the cell build's final cat (~20 GiB on the 1,964,085-atom
+    config-5 scene)."""
+    rng = np.random.default_rng(5)
+    r, c, n = 64, 48, 1000
+    within = rng.random((r, c)) < 0.2
+    cand = rng.integers(0, n, (r, c))
+    got, cnt = tn._compact_rows(torch.as_tensor(within),
+                                torch.as_tensor(cand), capacity, n)
+    want, wcnt = jn._compact_rows(jnp.asarray(within), jnp.asarray(cand),
+                                  capacity, n)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    np.testing.assert_array_equal(cnt.numpy(), np.asarray(wcnt))
+    assert got.untyped_storage().nbytes() == r * capacity * 8
+
