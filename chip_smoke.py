@@ -225,6 +225,42 @@ failure, by tag, after the run path and before the profiles:
     EVAL_REL. Each prints its atoms, peak memory, wall and rate with the
     card's name and power limit.
 
+The other run scripts (meng_zhang_tpu_torch/scripts/, each main(argv)
+through `scale_script`: launches counted from 0, no plain version on the
+card), each fatal on failure, by tag, after [scale-2m]:
+
+  * [script-profile-2m]: `profile_2m.py` on [scale-2m]'s FIRE-relaxed
+    positions (passed through main's `scene`, no second FIRE): each
+    phase's time and peak memory;
+  * [script-model-ni] / [script-model-anna]: `model_bench.py --model ni |
+    anna` at the full scenes, `--backend kernels` for
+    SCRIPT_MODEL_STEPS["kernels"] timed steps and `chunked` for
+    SCRIPT_MODEL_STEPS["chunked"]: no overflow, no `unsafe` latch, finite
+    thermo, the path's kernels once an evaluation and no other, and their
+    rate ratio;
+  * [script-profile-fe] / [script-profile-ni]: `profile_bench.py` and
+    `profile_ni.py` in full. Each profile's kernels launch as often as it
+    counts their calls, and its chained phases give energy_forces_short's
+    E (and W) exactly and its forces within the f32 rounding of the
+    delivery's atomic adds (chained_gate);
+  * [script-sharded-small]: `sharded_demo.py --scene small` for
+    SCRIPT_SHARDED_SMALL_STEPS NPT steps on 4 slabs and its single-device
+    reference: T and PE over the first SCRIPT_PARITY_STEPS steps within
+    shard_t_bound and sharded_pe_bound, the run-long statistics printed;
+    [script-sharded-100k]: `--scene 100k` (8 slabs, 30 steps);
+    [script-sharded2d]: `sharded2d_demo.py` (12,672 atoms on a (2, 4)
+    grid, its own t = 0 parity limits, 20 NVE steps): no overflow, no
+    `unsafe` latch (slabs), finite thermo, g_harm / force_harm once an
+    evaluation of each run;
+  * [script-halo]: `halo_fraction.py` at 2,000,000 atoms (planning only,
+    no launch): every row planned or refused with a reason, the 8-shard
+    layouts planned, and the rows at --cells SCRIPT_HALO_CPU_CELLS equal
+    to the same planning on the CPU.
+
+Every phase of a script also holds its path's kernels against their
+plain versions (f32 and f64, the bounds above) on SCALE_SLICE rows of its
+own planes (the final state's short rows, or the frames' compacted rows).
+
 Each kernel's record carries its least time on the card (`bound_ms`, the
 larger of the FLOPs its function needs over the f32 peak and its bytes
 over the memory rate, counted from this run's inputs) and `library_ms` null: no single PyTorch
@@ -234,8 +270,8 @@ ANNA-shape figures (`anna_shape`, `anna_ms`, `anna_plain_ms`,
 from phase 14). Its `launches` add the new paths' runs ([multi-fe]'s and
 [rowsweep]'s Simulators, [multi-ni]'s, [thin-box]'s Simulator and FIRE,
 [cli-multi], the seven sharded runs, the ranks' and the in-process
-references' runs of the across-process tags, [disloc-core], [scale-500k]
-and [scale-2m]) to the main paths'; g_harm's and force_harm's also carry
+references' runs of the across-process tags, [disloc-core], [scale-500k],
+[scale-2m] and the [script-*] runs) to the main paths'; g_harm's and force_harm's also carry
 their times and bounds on the scale scenes (`scale_500k_ms`,
 `scale_500k_bound_ms`, `scale_500k_bound_by`, and the same for `2m`). Prints
 the kernels' JSON record on the line before the last, and as the last line
@@ -359,6 +395,12 @@ SCALE_500K_STEPS = 100     # NPT steps after the warm-up (the script's 200)
 SCALE_2M_STEPS = 50        # NVE steps after the warm-up (the script's 100)
 SCALE_SLICE = 20000        # short rows of each kernel-vs-plain check
 STGB_PLANE_X = 230.0       # A, the 2m scene's middle grain boundary
+# the run scripts (meng_zhang_tpu_torch/scripts/): full scenes, steps cut
+SCRIPT_MODEL_STEPS = {"kernels": 50, "chunked": 10}   # the script's 100
+SCRIPT_SHARDED_SMALL_STEPS = 200                      # the script's 1000
+SCRIPT_PARITY_STEPS = 100      # [script-sharded-small]'s gated window
+SCRIPT_HALO_CPU_CELLS = 40     # [script-halo]'s card-vs-CPU planning
+U32 = 2.0 ** -24               # f32 unit roundoff
 
 
 # Kernel vs plain, per output, as a fraction of the output's max |value|.
@@ -2619,6 +2661,26 @@ def fe_kernel_cases(npsf, ntsf, rc, p, dev):
     return harm, cos
 
 
+def ni_kernel_cases(cfg, table, p, dev):
+    """ni_g and ni_force against their plain versions (the cases of
+    shard_kernel_checks) on [p, K] planes of the ni table `table`,
+    ni_force's dE/dG drawn from SEED."""
+    from meng_zhang_tpu_torch.ops import fused_ni as fn
+    from meng_zhang_tpu_torch.ops import kernels
+    nsf = cfg.npsf + cfg.ntsf
+    dedg_np = np.zeros((p, fn.NSF_SUB))
+    dedg_np[:, :nsf] = np.random.default_rng(SEED).normal(size=(p, nsf))
+    dedgs = {dt: torch.tensor(dedg_np, dtype=dt, device=dev)
+             for dt in (torch.float32, torch.float64)}
+    return [("ni_g", lambda pl, dt: (kernels.ni_g(*pl, table),),
+             lambda pl, dt: (fn.ni_g_plain(*pl, table),), ("g",),
+             NI_REL_BOUND),
+            ("ni_force",
+             lambda pl, dt: kernels.ni_force(*pl, dedgs[dt], table),
+             lambda pl, dt: fn.ni_force_plain(*pl, dedgs[dt], table),
+             ("fjx", "fjy", "fjz"), NI_REL_BOUND)]
+
+
 def shard_t_bound(t_ref, rel_f, f_max, mass, steps, v_rms):
     """|dT| bound after `steps` steps between two f32 runs from one start
     whose evaluations are each within rel_f * f_max of the f64 forces (the
@@ -2933,7 +2995,6 @@ def phase_shard_ni(dev, x, box, cfg32, p32, cfg64, p64, mass, card, ref,
     perfect lattice, as the ni main path."""
     from meng_zhang_tpu_torch.md.simulation import create_velocities
     from meng_zhang_tpu_torch.ops import fused_ni as fn
-    from meng_zhang_tpu_torch.ops import kernels
     from meng_zhang_tpu_torch.parallel import domain as D
     from meng_zhang_tpu_torch.system.neighbors import build_neighbors_cell
     from meng_zhang_tpu_torch.testing import thermal_fcc
@@ -2963,24 +3024,10 @@ def phase_shard_ni(dev, x, box, cfg32, p32, cfg64, p64, mass, card, ref,
                w_abs)
     planes = shard_planes(md, st, st.short.sidx, pbc)
     del st, md, e64, f64, w64
-    table = fn.ni_table(p32["coerad"], p32["coeang"])
-    nsf = cfg32.npsf + cfg32.ntsf
-    dedg_np = np.zeros((planes[0].shape[0], fn.NSF_SUB))
-    dedg_np[:, :nsf] = np.random.default_rng(SEED).normal(
-        size=(planes[0].shape[0], nsf))
-    dedgs = {dt: torch.tensor(dedg_np, dtype=dt, device=dev)
-             for dt in (torch.float32, torch.float64)}
-
-    def dedg(dt):
-        return dedgs[dt]
-
-    shard_kernel_checks(tag, planes, [
-        ("ni_g", lambda pl, dt: (kernels.ni_g(*pl, table),),
-         lambda pl, dt: (fn.ni_g_plain(*pl, table),), ("g",), NI_REL_BOUND),
-        ("ni_force", lambda pl, dt: kernels.ni_force(*pl, dedg(dt), table),
-         lambda pl, dt: fn.ni_force_plain(*pl, dedg(dt), table),
-         ("fjx", "fjy", "fjz"), NI_REL_BOUND)])
-    del planes, dedgs
+    shard_kernel_checks(tag, planes, ni_kernel_cases(
+        cfg32, fn.ni_table(p32["coerad"], p32["coeang"]),
+        planes[0].shape[0], dev))
+    del planes
 
     x64, box64 = x.double(), box.double()
     ev64 = fn.FusedNi(cfg64, p64, k_short=NI_KS, short_delta=NI_DELTA)
@@ -3379,17 +3426,18 @@ def phase_dist_nccl(spec, card):
 
 
 # ------------------------------------------------- scale configurations
-def scale_script(tag, module, argv):
-    """module.main(argv) (meng_zhang_tpu_torch/scripts/) on the card in
-    this process, its JSON line echoed: (the run it returns, the kernels'
-    launches counted from 0, wall seconds). No plain version may run."""
+def scale_script(tag, module, argv, **kw):
+    """module.main(argv, **kw) (meng_zhang_tpu_torch/scripts/) on the card
+    in this process, its JSON line echoed: (the run it returns, the
+    kernels' launches counted from 0, wall seconds). No plain version may
+    run."""
     from meng_zhang_tpu_torch.ops import kernels
     out = io.StringIO()
     kernels.reset_launch_counts()
     t0 = time.time()
     try:
         with plain_calls() as plain, contextlib.redirect_stdout(out):
-            run = module.main(argv)
+            run = module.main(argv, **kw)
     except (SystemExit, RuntimeError) as e:
         raise SmokeFailure(f"{tag}: {module.__name__}.main failed: {e}")
     wall = time.time() - t0
@@ -3609,7 +3657,8 @@ def phase_scale_2m(card):
         f"{float(out64[0]) / n + cfg64.e_shift:.9f} eV, max|F| "
         f"{float(out64[1].abs().max()):.4e} eV/A")
     eval_gates(tag, EVAL_REL, out32, out64, w_abs)
-    return {k: launches[k] for k in ("g_harm", "force_harm")}, times
+    return {k: launches[k] for k in ("g_harm", "force_harm")}, times, \
+        (x, box)
 
 
 def phase_disloc_core(card, tmp):
@@ -3655,6 +3704,335 @@ def phase_disloc_core(card, tmp):
     check(bool(np.isfinite(run.eatom).all() and np.isfinite(run.vatom).all()),
           f"{tag}: non-finite per-atom tallies")
     return {k: launches[k] for k in ("g_harm", "force_harm")}
+
+
+# ----------------------------------------------------- the run scripts
+ALL_KERNELS = ("g_harm", "force_harm", "g_cos", "force_cos", "ni_g",
+               "ni_force")
+
+
+def script_launches(tag, launches, want):
+    """Each kernel launched want[name] times and no other kernel; returns
+    the launches."""
+    for name in ALL_KERNELS:
+        check(launches[name] == want.get(name, 0),
+              f"{tag}: {name} launched {launches[name]} times, expected "
+              f"{want.get(name, 0)}")
+    return {k: v for k, v in launches.items() if v}
+
+
+def add_launches(total, got):
+    for k, v in got.items():
+        total[k] = total.get(k, 0) + v
+    return total
+
+
+def run_rows(st):
+    """The rows a Simulator state's force evaluation reads: its short
+    list's (ShortList.sidx; the chunked and ANNA short rows' .idx), else
+    the skin list's."""
+    if st.short is None:
+        return st.nbrs.idx
+    return st.short.sidx if hasattr(st.short, "sidx") else st.short.idx
+
+
+def slice_planes(x, box, rows_idx, pbc):
+    """The dx planes of the first SCALE_SLICE rows of rows_idx."""
+    rows = torch.arange(min(SCALE_SLICE, rows_idx.shape[0]), device=x.device)
+    return rows_planes(x, box, rows_idx, rows, pbc)
+
+
+def path_cases(kind, cfg, p, dev, table=None):
+    """The kernel-vs-plain cases (shard_kernel_checks) of a path's
+    kernels on [p, K] planes: "ni" ni_g and ni_force (on the ni table),
+    "fe" g_harm and force_harm, "anna" g_harm at ANNA's (npsf, ntsf,
+    rc)."""
+    if kind == "ni":
+        return ni_kernel_cases(cfg, table, p, dev)
+    harm = fe_kernel_cases(cfg.npsf, cfg.ntsf, cfg.cut, p, dev)[0]
+    return harm[:1] if kind == "anna" else harm
+
+
+def phase_script_model(card, model):
+    """`scripts/model_bench.py --model <model>` at its full scene (ni:
+    256,000 atoms NVT; anna: 128,000 atoms NVE) with both backends,
+    SCRIPT_MODEL_STEPS timed steps each: no overflow, no `unsafe` latch in
+    the timed window, finite T and PE, the path's kernels launched once an
+    evaluation and no other kernel; the kernels against their plain
+    versions on SCALE_SLICE of the run's own rows at its end."""
+    from meng_zhang_tpu_torch.ops import fused_ni as fn
+    from meng_zhang_tpu_torch.scripts import model_bench
+    tag = f"script-model-{model}"
+    names = ("ni_g", "ni_force") if model == "ni" else ("g_harm",)
+    total, rates = {}, {}
+    for backend, steps in SCRIPT_MODEL_STEPS.items():
+        run, launches, wall = scale_script(
+            tag, model_bench, ["--model", model, "--backend", backend,
+                               "--steps", str(steps)])
+        rec, st = run.record, run.state
+        check(not rec["overflow"], f"{tag} {backend}: neighbor overflow")
+        check(not rec["unsafe"], f"{tag} {backend}: unsafe latch set in the"
+              " timed window")
+        check(math.isfinite(rec["temp_K"]) and math.isfinite(rec["pe_eV"]),
+              f"{tag} {backend}: non-finite thermo")
+        add_launches(total, script_launches(
+            f"{tag} {backend}", launches,
+            {k: run.evaluations for k in names}))
+        rates[backend] = rec["atom_steps_per_s"]
+        log(f"[{tag}] {backend}: {rec['atoms']} atoms, {rec['steps']} timed "
+            f"steps {rec['atom_steps_per_s']:.1f} atom-steps/s "
+            f"({rec['wall_s']:.3f} s), T {rec['temp_K']:.2f} K, PE "
+            f"{rec['pe_eV']:.6f} eV, {rec['rebuilds']} rebuilds, "
+            f"{run.evaluations} evaluations; phase wall {wall:.1f} s on "
+            f"{card}")
+        planes = slice_planes(st.x, st.box, run_rows(st), (True,) * 3)
+        mcfg, params = run.model
+        table = fn.ni_table(params["coerad"], params["coeang"]) \
+            if model == "ni" else None
+        shard_kernel_checks(f"{tag} {backend}", planes, path_cases(
+            model, mcfg, planes[0].shape[0], st.x.device, table))
+        del run, st, planes
+    log(f"[{tag}] chunked / kernels rate: "
+        f"{rates['chunked'] / rates['kernels']:.3f}")
+    return total
+
+
+def chained_gate(tag, run):
+    """A profile's chained phases against energy_forces_short on the same
+    short list: E (and W) equal, F within the f32 rounding of the
+    delivery's atomic adds. Both compute an atom's row sum alike and then
+    add its <= K partner terms in whatever order index_add_'s atomics
+    take; reordering m additions moves a sum by at most (m - 1) u times
+    the sum of the magnitudes added, so |dF| <= 2 K u S, S the sum of the
+    |Fj| entering the atom (its row's and its partners'), u = 2^-24.
+    Returns the largest |dF|."""
+    from meng_zhang_tpu_torch.ops import fused_annp as fa
+    ev, x, box = run.evaluator, run.x, run.box
+    (e_c, f_c), (e_r, f_r) = run.chained[:2], run.ef[:2]
+    check(bool(torch.isfinite(f_c).all()), f"{tag}: non-finite forces")
+    check(float(e_c) == float(e_r), f"{tag}: chained E {float(e_c)!r} != "
+          f"energy_forces_short's {float(e_r)!r}")
+    if len(run.chained) > 2:
+        check(bool(torch.equal(run.chained[2], run.ef[2])),
+              f"{tag}: chained W differs from energy_forces_short's")
+    # the phases' short list, rebuilt as the profile built it
+    sidx = ev.compact_short(x, box, run.sim.build_nbrs(x, box).idx).sidx
+    fj = ev._eval_fj(*fa.pair_dx_planes(x, box, sidx, ev.pbc))[1]
+    mag = torch.stack([t.abs() for t in fj], -1)            # [N, K, 3]
+    del fj
+    rows = torch.arange(x.shape[0], device=x.device)[:, None]
+    target = torch.where(sidx < x.shape[0], sidx, rows).reshape(-1)
+    s = mag.sum(1).index_add_(0, target, mag.reshape(-1, 3))
+    del mag, target
+    bnd = 2.0 * sidx.shape[1] * U32 * s
+    diff = (f_c - f_r).abs()
+    worst = float((diff / bnd.clamp_min(1e-30)).max())
+    log(f"[{tag}] chained phases vs energy_forces_short: E equal, max |dF| "
+        f"{float(diff.max()):.3e} eV/A, {worst:.3e} of its bound 2 K u S "
+        f"at most (K {sidx.shape[1]})")
+    check(bool((diff <= bnd).all()), f"{tag}: chained forces off "
+          "energy_forces_short's beyond the f32 rounding of the delivery")
+    return float(diff.max())
+
+
+PROFILE_KERNELS = {"fe": ("g_harm", "force_harm"), "2m": ("g_harm",
+                   "force_harm"), "ni": ("ni_g", "ni_force")}
+
+
+def phase_script_profile(card, which, scene=None):
+    """`scripts/profile_bench.py` ("fe"), `profile_ni.py` ("ni") or
+    `profile_2m.py` ("2m", on `scene`, [scale-2m]'s relaxed positions) in
+    full: every phase timed and positive, the chained phases against
+    energy_forces_short (chained_gate), the path's two kernels launched
+    as the profile counts its calls and no other kernel, the kernels
+    against their plain versions on SCALE_SLICE of the final MD state's
+    short rows; prints the phase table (times, shares, and for 2m each
+    phase's peak memory)."""
+    from meng_zhang_tpu_torch.scripts import (profile_2m, profile_bench,
+                                              profile_ni)
+    tag = f"script-profile-{which}"
+    mod = {"fe": profile_bench, "ni": profile_ni, "2m": profile_2m}[which]
+    kw = {} if scene is None else {"scene": scene}
+    run, launches, wall = scale_script(tag, mod, [], **kw)
+    rec = run.record
+    got = script_launches(tag, launches, {k: run.kernel_calls
+                                          for k in PROFILE_KERNELS[which]})
+    check(all(math.isfinite(t) and t > 0.0 for t in rec["times_s"].values()),
+          f"{tag}: a phase without a positive time")
+    peaks = rec.get("peak_mem_gib_by_phase") or {}
+    held = rec.get("held_mem_gib_by_phase") or {}
+    for k, t in rec["times_s"].items():
+        mem = (f", peak {peaks[k]:.3f} GiB (held at start {held[k]:.3f})"
+               if k in peaks else "")
+        log(f"[{tag}] {k:14s} {t * 1e3:10.3f} ms  share of a step "
+            f"{rec['share_of_step'][k]:.4f}{mem}")
+    for k in set(peaks) - set(rec["times_s"]):
+        log(f"[{tag}] {k}: peak {peaks[k]:.3f} GiB (held at start "
+            f"{held[k]:.3f})")
+    log(f"[{tag}] {rec['atoms']} atoms: {rec['atom_steps_per_s_step']:.1f} "
+        f"atom-steps/s from the step time; phase wall {wall:.1f} s on "
+        f"{card}")
+    chained_gate(tag, run)
+    st, ev = run.state, run.evaluator
+    planes = slice_planes(st.x, st.box, st.short.sidx, ev.pbc)
+    shard_kernel_checks(tag, planes, path_cases(
+        "ni" if which == "ni" else "fe", ev.cfg, planes[0].shape[0],
+        st.x.device, getattr(ev, "table", None)))
+    return got
+
+def sharded_checks(tag, md, st, rc):
+    """The sharded run's kernels against their plain versions on
+    SCALE_SLICE rows of its frame planes, as the model compacts them
+    (XlaFrameModel: each centre row's skin row cut to k_short at rc)."""
+    from meng_zhang_tpu_torch.ops import frames
+    pbc = (True,) * 3
+    x_ext = md._frame(st.x_loc, st.halo_l, st.halo_r)
+    off, cc = md._short_geom()
+    idx, _ = frames.compact_frames(x_ext, st.box, st.idx, off, cc, rc,
+                                   md.model.k_short, pbc)
+    planes = [t[:SCALE_SLICE] for t in shard_planes(md, st, idx, pbc)]
+    shard_kernel_checks(tag, planes, path_cases(
+        "fe", md.model.mcfg, planes[0].shape[0], st.x_loc.device))
+
+
+def sharded_pe_bound(pe_ref, rel, f_max, mass, steps, extent, n):
+    """|dPE| bound after `steps` steps between two f32 runs from one start
+    whose evaluations are each within the evaluator gates of the f64 path
+    (EVAL_REL): at equal positions the two shift-free energies differ by
+    at most 2 dE_per_atom |E| (each within dE_per_atom |E| of the f64
+    one), and the positions differ by at most shard_x_bound, which moves E
+    by at most n f_max |dx| (to first order)."""
+    return (2.0 * rel["dE_per_atom"] * abs(pe_ref)
+            + n * f_max * shard_x_bound(rel["max_dF"], f_max, mass, steps,
+                                        extent))
+
+
+def phase_script_sharded(card, scene):
+    """`scripts/sharded_demo.py --scene <scene>`: small (2,016 atoms on 4
+    slabs, SCRIPT_SHARDED_SMALL_STEPS NPT steps, and its single-device
+    reference) or 100k (100,000 atoms on 8 slabs, 30 steps). No overflow,
+    no `unsafe` latch, finite thermo, g_harm / force_harm once an
+    evaluation of each run and no other kernel, the kernels against their
+    plain versions on the frame planes; for small, T and PE against the
+    single-device run over the first SCRIPT_PARITY_STEPS steps within
+    shard_t_bound and sharded_pe_bound (the run-long statistics printed,
+    not gated: f32 trajectories diverge)."""
+    from meng_zhang_tpu_torch.scripts import sharded_demo
+    from meng_zhang_tpu_torch.units import MASS_FE
+    tag = f"script-sharded-{scene}"
+    argv = ["--scene", scene]
+    if scene == "small":
+        argv += ["--steps", str(SCRIPT_SHARDED_SMALL_STEPS)]
+    run, launches, wall = scale_script(tag, sharded_demo, argv)
+    rec, st, md, th = run.record, run.state, run.md, run.thermo
+    check(not rec["overflow"], f"{tag}: overflow")
+    check(not rec["unsafe"], f"{tag}: unsafe latch set")
+    check(all(bool(torch.isfinite(c).all()) for c in th),
+          f"{tag}: non-finite thermo")
+    evals = run.evaluations * (2 if scene == "small" else 1)
+    got = script_launches(tag, launches, {"g_harm": evals,
+                                          "force_harm": evals})
+    log(f"[{tag}] {rec['atoms']} atoms on {rec['devices']} shards (halo_b "
+        f"{rec['halo_b']}, capacity {rec['capacity']}): {rec['steps']} NPT "
+        f"steps, {rec['atom_steps_per_s']:.1f} atom-steps/s over the timed "
+        f"{rec['wall_s']:.3f} s, {rec['rebuilds']} rebuilds; phase wall "
+        f"{wall:.1f} s on {card}")
+    if scene == "small":
+        ref = run.ref_thermo
+        f_max = float(st.f_loc.abs().max())
+        v_rms = float(st.v_loc.double().pow(2).mean().sqrt()) * math.sqrt(3)
+        extent = float(st.box.max())
+        for i in range(SCRIPT_PARITY_STEPS // sharded_demo.THERMO
+                       - 1):
+            steps = (i + 2) * sharded_demo.THERMO
+            t_ref, pe_ref = float(ref.temp[i + 1]), float(ref.pe[i + 1])
+            dt_ = abs(float(th.temp[i]) - t_ref)
+            dpe = abs(float(th.pe[i]) - pe_ref)
+            bt = shard_t_bound(t_ref, EVAL_REL["max_dF"], f_max, MASS_FE,
+                               steps, v_rms)
+            bp = sharded_pe_bound(pe_ref, EVAL_REL, f_max, MASS_FE, steps,
+                                  extent, rec["atoms"])
+            log(f"[{tag}] step {steps}: |dT| {dt_:.3e} K (bound {bt:.3e}),"
+                f" |dPE| {dpe:.3e} eV (bound {bp:.3e})")
+            check(dt_ <= bt and dpe <= bp, f"{tag}: step {steps} off the "
+                  "single-device run")
+        log(f"[{tag}] parity (the record's): "
+            + ", ".join(f"{k} {v:.4g}" for k, v in rec["parity"].items()))
+    sharded_checks(tag, md, st, md.model.mcfg.cut)
+    return got
+
+
+def phase_script_sharded2d(card):
+    """`scripts/sharded2d_demo.py` at its defaults (12,672 atoms on a
+    (2, 4) grid): its own t = 0 parity limits (it raises past them), 20
+    NVE steps with no overflow and finite thermo, g_harm / force_harm
+    once an evaluation (and once for the single-device reference), the
+    kernels against their plain versions on the frame planes."""
+    from meng_zhang_tpu_torch.scripts import sharded2d_demo
+    tag = "script-sharded2d"
+    run, launches, wall = scale_script(tag, sharded2d_demo, [])
+    rec, st, md = run.record, run.state, run.md
+    check(not rec["overflow"], f"{tag}: overflow")
+    check(all(bool(torch.isfinite(c).all()) for c in run.thermo),
+          f"{tag}: non-finite thermo")
+    got = script_launches(tag, launches, {
+        "g_harm": run.evaluations + 1, "force_harm": run.evaluations + 1})
+    p = rec["parity_t0"]
+    log(f"[{tag}] {rec['atoms']} atoms on {rec['mesh']}: ghost fraction "
+        f"{rec['ghost_fraction']:.3f} ({rec['ghost_rows_per_device']} rows "
+        f"a shard); t = 0 |dF|max {p['f_max_abs']:.3e} eV/A (limit "
+        f"{sharded2d_demo.F_LIMIT}), |dE| {p['e_abs']:.3e} eV (limit "
+        f"{sharded2d_demo.E_LIMIT}), |dW|max {p['w_max_abs']:.3e} eV; "
+        f"{rec['steps']} NVE steps {rec['atom_steps_per_s']:.1f} "
+        f"atom-steps/s, {rec['rebuilds']} rebuilds, unsafe "
+        f"{rec['unsafe']}; phase wall {wall:.1f} s on {card}")
+    sharded_checks(tag, md, st, md.model.mcfg.cut)
+    return got
+
+
+def phase_script_halo(card):
+    """`scripts/halo_fraction.py` at full size (2,000,000 atoms, planning
+    only: no kernel launch): every row planned or refused with a reason,
+    every 8-shard layout planned; and the rows of a run at
+    SCRIPT_HALO_CPU_CELLS equal to the same planning on the CPU."""
+    from meng_zhang_tpu_torch.scripts import halo_fraction
+    tag = "script-halo"
+    run, launches, wall = scale_script(tag, halo_fraction, [])
+    script_launches(tag, launches, {})
+    rows = run.record["rows"]
+    for r in rows:
+        log(f"[{tag}] {r['decomp']:22s} owned {r['owned']:8d} ghost "
+            f"{r['ghost_rows']} fraction {r['ghost_fraction']} {r['note']}")
+        check((r["ghost_rows"] is None) == bool(r["note"]),
+              f"{tag}: {r['decomp']}: a row neither planned nor refused")
+    check(all(r["ghost_rows"] is not None for r in rows[:4]),
+          f"{tag}: an 8-shard layout was refused")
+    argv = ["--cells", str(SCRIPT_HALO_CPU_CELLS)]
+    card_rows = scale_script(tag, halo_fraction, argv)[0].record["rows"]
+    with contextlib.redirect_stdout(io.StringIO()):
+        cpu_rows = halo_fraction.main(argv, device="cpu").record["rows"]
+    check(card_rows == cpu_rows, f"{tag}: rows at --cells "
+          f"{SCRIPT_HALO_CPU_CELLS} differ between the card and the CPU")
+    log(f"[{tag}] rows at --cells {SCRIPT_HALO_CPU_CELLS} equal to the "
+        f"CPU's; phase wall {wall:.1f} s on {card}")
+    return {}
+
+
+def phase_scripts(card, relaxed_2m):
+    """The run scripts' phases; returns their launches by tag."""
+    t0 = time.time()
+    extra = {"script-profile-2m": phase_script_profile(card, "2m",
+                                                       relaxed_2m)}
+    for model in ("ni", "anna"):
+        extra[f"script-model-{model}"] = phase_script_model(card, model)
+    for which in ("fe", "ni"):
+        extra[f"script-profile-{which}"] = phase_script_profile(card, which)
+    for scene in ("small", "100k"):
+        extra[f"script-sharded-{scene}"] = phase_script_sharded(card, scene)
+    extra["script-sharded2d"] = phase_script_sharded2d(card)
+    phase_script_halo(card)
+    log(f"[scripts] the nine script phases took {time.time() - t0:.1f} s")
+    return extra
 
 
 def main():
@@ -3739,7 +4117,9 @@ def main():
             extra[key] = cli_launches[key]
         scale = {}
         extra["scale-500k"], scale["500k"] = phase_scale_500k(card)
-        extra["scale-2m"], scale["2m"] = phase_scale_2m(card)
+        extra["scale-2m"], scale["2m"], relaxed_2m = phase_scale_2m(card)
+        extra.update(phase_scripts(card, relaxed_2m))
+        del relaxed_2m
         phase_profile(*fe, card)
         phase_profile(*fe, card, angular="matrix")
         del fe

@@ -27,8 +27,10 @@ of its angular paths:
     (:1641).
 
 `element_networks`, `mlp_eat_dedg` and `evaluate_pairs` (gather, delivery,
-virial, poisoning) are shared with the BP evaluator (ops/fused_ni.py), as
-`PairTableOps` (:623) is shared with `PallasNi` in the JAX package.
+virial, poisoning; its steps `deliver` and `pair_virial` are functions of
+their own, which the per-phase profiles time) are shared with the BP
+evaluator (ops/fused_ni.py), as `PairTableOps` (:623) is shared with
+`PallasNi` in the JAX package.
 
 Device frames (the sharded drivers, parallel/domain.py): both evaluators
 take the frame methods of ops/frames.py (`FrameOps`), as `PairTableOps`
@@ -488,6 +490,37 @@ def mlp_eat_dedg(cfg, nets, g, scale, el=None):
 VATOM_ORDER = ((0, 0), (1, 1), (2, 2), (0, 1), (0, 2), (1, 2))
 
 
+def deliver(fj, sidx, n, x_ext=None):
+    """Partner-force delivery of the per-pair Fj planes (fjx, fjy, fjz)
+    [P, K] of the rows sidx [P, K]: each row's atom gets -sum_s Fj and each
+    partner +Fj, through one index_add_ (the port's counterpart of the JAX
+    `_assemble`). Returns (forces [P, 3], the lanes' target rows [P*K]):
+    a lane's Fj goes to its partner (the real atom sidx % n when the rows
+    index the image-extended table x_ext). Filler lanes (the sentinel)
+    carry Fj exactly 0 and add it to their own row: sent to one shared
+    dump row instead, their ~2e6 atomic adds per step serialise on one
+    address."""
+    fjs = torch.stack(fj, dim=-1)                          # [P, K, 3]
+    rows = torch.arange(sidx.shape[0], device=sidx.device)[:, None]
+    if x_ext is None:
+        target = torch.where(sidx < n, sidx, rows).reshape(-1)
+    else:
+        target = torch.where(sidx < x_ext.shape[0], sidx % n,
+                             rows).reshape(-1)
+    forces = -fjs.sum(dim=1)
+    forces.index_add_(0, target, fjs.reshape(-1, 3))
+    return forces, target
+
+
+def pair_virial(dd, fj):
+    """W = -sum dx (x) Fj over the lanes of the dx planes dd and the Fj
+    planes fj, symmetrised: filler lanes and lanes beyond rc carry Fj = 0
+    exactly, so the sum needs no mask."""
+    w = torch.stack([torch.stack([-(da * fb).sum() for fb in fj])
+                     for da in dd])
+    return 0.5 * (w + w.T)
+
+
 def evaluate_pairs(eval_fj, x, box, sidx, bad, pbc, e_shift, shift,
                    want_virial=True, per_atom=False, el=None, x_ext=None):
     """One evaluation against the short rows sidx [P, K]: gather the dx
@@ -512,30 +545,14 @@ def evaluate_pairs(eval_fj, x, box, sidx, bad, pbc, e_shift, shift,
     n = x.shape[0]
     dd = pair_dx_planes(x, box, sidx, pbc, x_ext=x_ext)
     eat, fj = eval_fj(*dd, el)
-    # delivery: own row -sum_s Fj, partners +Fj through one index_add_.
-    # Filler lanes (the sentinel) carry Fj exactly 0 and add it to their
-    # own row: sent to one shared dump row instead, their ~2e6 atomic
-    # adds per step serialise on one address
-    fjs = torch.stack(fj, dim=-1)                          # [P, K, 3]
-    rows = torch.arange(sidx.shape[0], device=x.device)[:, None]
-    if x_ext is None:
-        target = torch.where(sidx < n, sidx, rows).reshape(-1)
-    else:
-        target = torch.where(sidx < x_ext.shape[0], sidx % n,
-                             rows).reshape(-1)
-    forces = -fjs.sum(dim=1)
-    forces.index_add_(0, target, fjs.reshape(-1, 3))
+    forces, target = deliver(fj, sidx, n, x_ext)
     e = eat.sum()
     if shift:
         e = e + n * e_shift
     nan = torch.full((), float("nan"), dtype=x.dtype, device=x.device)
     out = (torch.where(bad, nan, e), torch.where(bad, nan, forces))
     if want_virial:
-        # W_ab = -sum dx_a Fj_b: filler lanes and lanes beyond rc carry
-        # Fj = 0 exactly, so the sum needs no mask
-        w = torch.stack([torch.stack([-(da * fb).sum() for fb in fj])
-                         for da in dd])
-        out = out + (0.5 * (w + w.T),)
+        out = out + (pair_virial(dd, fj),)
     if per_atom:
         t = torch.stack([-0.5 * dd[a] * fj[b] for a, b in VATOM_ORDER],
                         dim=-1)                            # [P, K, 6]

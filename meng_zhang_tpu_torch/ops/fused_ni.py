@@ -269,15 +269,22 @@ class FusedNi(FrameOps):
                                 self.short_rc + self.short_delta,
                                 self.k_short, self.pbc)
 
-    def _eval_fj(self, dxx, dxy, dxz, el=None):
-        g_fn = ni_g_plain if self.plain else kernels.ni_g
-        f_fn = ni_force_plain if self.plain else kernels.ni_force
-        g = g_fn(dxx, dxy, dxz, self.table)
+    def _mlp_eat_dedg(self, g, el=None):
+        """MLP + VJP from raw descriptors g [P, 32], each row through the
+        network of its element el [P] (`PallasNi._mlp_eat_dedg`,
+        meng_zhang_tpu/ops/pallas_ni.py:339): (eat [P], dedg [P, 32], zero
+        beyond nsf, ni_force's input)."""
         # ni normalisation (G - min) * 1/(max - min)
         eat, dedg = fa.mlp_eat_dedg(
             self.cfg, self.nets, (g[:, :self.nsf] - self.shift) * self.scale,
             self.scale, el)
-        dedg = torch.nn.functional.pad(dedg, (0, NSF_SUB - self.nsf))
+        return eat, torch.nn.functional.pad(dedg, (0, NSF_SUB - self.nsf))
+
+    def _eval_fj(self, dxx, dxy, dxz, el=None):
+        g_fn = ni_g_plain if self.plain else kernels.ni_g
+        f_fn = ni_force_plain if self.plain else kernels.ni_force
+        g = g_fn(dxx, dxy, dxz, self.table)
+        eat, dedg = self._mlp_eat_dedg(g, el)
         return eat, f_fn(dxx, dxy, dxz, dedg, self.table)
 
     def energy_forces_short(self, x, box, sl: fa.ShortList, want_virial=True,

@@ -136,6 +136,20 @@ _SEND = ("sxh", "sxl", "syh", "syl", "szh", "szl")
 _VALID = ("f1v", "f2v")
 
 
+def grid_order(xh, shape):
+    """The rows of xh [n, 3] (numpy) in (slab, block[, brick]) order: a
+    stable sort by x, then by y within each of the shape[0] equal-count
+    slabs (then by z within each block), as `distribute` deals them."""
+    n = len(xh)
+    order = np.argsort(xh[:, 0], kind="stable")
+    for a in range(1, len(shape)):
+        g = n // int(np.prod(shape[:a]))
+        for o in range(0, n, g):
+            sl = order[o:o + g]
+            order[o:o + g] = sl[np.argsort(xh[sl, a], kind="stable")]
+    return order
+
+
 def _shift_col(t, a, s):
     """t [D, R, 3] with s [D] added to column a."""
     cols = list(t.unbind(-1))
@@ -345,12 +359,7 @@ class StagedMD(ShardedMD):
         box_np = self.box0 if box is None else np.asarray(
             torch.as_tensor(box).cpu(), np.float64)
         xh = x.double().cpu().numpy()
-        order = np.argsort(xh[:, 0], kind="stable")
-        for a in range(1, self.k):
-            g = n // int(np.prod(self.shape[:a]))
-            for o in range(0, n, g):
-                sl = order[o:o + g]
-                order[o:o + g] = sl[np.argsort(xh[sl, a], kind="stable")]
+        order = grid_order(xh, self.shape)
         self._plan_grid(xh[order], box_np)
         self._constants(x.dtype)
         cfg = self.cfg

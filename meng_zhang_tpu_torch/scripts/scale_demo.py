@@ -30,7 +30,6 @@ epoch's neighbor tables, and the JAX compilation cache.
 from __future__ import annotations
 
 import argparse
-import json
 import time
 from typing import Any, NamedTuple
 
@@ -38,7 +37,7 @@ import numpy as np
 import torch
 
 from ..run import log, resolve_device
-from . import device_label, peak_mem_gib
+from . import device_label, emit, peak_mem_gib
 
 # per configuration (scripts/scale_demo.py:63-100, :150): ensemble, barostat
 # coupling, skin (A), skin-list capacity, cell capacity, default steps,
@@ -269,11 +268,7 @@ def main(argv=None, device=None, *, warmup=WARMUP_BLOCKS,
         f"  on {rec['device']}")
     if rec["overflow"]:
         raise RuntimeError("neighbor/cell capacity overflow in the run")
-    if args.out:
-        with open(args.out, "w") as fh:
-            json.dump(rec, fh, indent=1)
-        log(f"wrote {args.out}")
-    print(json.dumps(rec), flush=True)
+    emit(rec, args.out)
     return ScaleRun(rec, sim, ev, st, x, box)
 
 

@@ -122,6 +122,12 @@ from meng_zhang_tpu_torch.scripts import disloc_core, scale_demo
 assert scale_demo.md_config("2m", 6.5, np.array([460.0, 325.0, 212.0])
                             ).cell_dims == (63, 44, 29)
 assert callable(disloc_core.main) and callable(scale_demo.main)
+from meng_zhang_tpu_torch.scripts import (
+    halo_fraction, model_bench, profile_2m, profile_bench, profile_ni,
+    sharded2d_demo, sharded_demo)
+for mod in (halo_fraction, model_bench, profile_2m, profile_bench,
+            profile_ni, sharded2d_demo, sharded_demo):
+    assert callable(mod.main) and callable(mod.build_parser), mod
 bad = sorted(m for m in sys.modules if m == "jax" or m.startswith("jax.")
              or m == "meng_zhang_tpu" or m.startswith("meng_zhang_tpu."))
 assert not bad, bad
@@ -243,3 +249,27 @@ def test_entry_points_default_to_the_card():
     for call in calls:
         with pytest.raises((AssertionError, RuntimeError)):
             call()
+
+
+# every script with the argv of a run (not started: without a card the
+# device is refused first)
+SCRIPT_ARGV = {
+    "scale_demo": ["--config", "500k"], "disloc_core": [],
+    "model_bench": ["--model", "ni"], "profile_bench": [],
+    "profile_ni": [], "profile_2m": [], "sharded_demo": [],
+    "sharded2d_demo": [], "halo_fraction": [],
+}
+
+
+@pytest.mark.parametrize("name", sorted(SCRIPT_ARGV))
+def test_scripts_default_to_the_card(name):
+    """Each script's main(argv, device=None) runs on the card unless the
+    caller names another device; on a torch without CUDA it exits before
+    it builds anything."""
+    import importlib
+    mod = importlib.import_module(f"meng_zhang_tpu_torch.scripts.{name}")
+    assert inspect.signature(mod.main).parameters["device"].default is None
+    if torch.cuda.is_available():
+        return
+    with pytest.raises(SystemExit, match="no CUDA device"):
+        mod.main(SCRIPT_ARGV[name])
