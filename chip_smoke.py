@@ -54,6 +54,16 @@ Phases, each fatal on failure:
       model on a 256-atom box;
   11. ni main path: init_state + 20 blocks of 5 NVT steps with the light
       (no-virial) force variant on all but each block's last step;
+  11a. [ni-wide-kernels]: the same scene on a synthetic BP potential of the
+      shipped table shape at Rc NI_WIDE_RC = 6.0 A (fcc: 86 partners within
+      6.2 A): ni_g / ni_force against their plain versions on the
+      [256000, 128] short planes in f32 and f64 (f64 held on every
+      NI_WIDE_F64_STRIDE-th row), ni_g bitwise repeatable, their times and
+      bounds; then the 10 + 22 table of testing.NI_WIDE_ANGULAR (nsf 32, 20
+      eta groups, 22 (lambda, zeta) shapes, 12 through pow) on
+      NI_POW_ROWS of those rows; [ni-wide-main]: phase 11's NVT run on that
+      potential at Ks 128 (skin capacity 128), NI_WIDE_BLOCKS blocks, its
+      gates and launch counts, the widest short row and the rate;
   12. anna-kernel: g_harm against its plain version in f32 and f64 on the
       [128000, 72] short planes of a thermal box of the ANNA scene at rc
       5.055 A (its 3-slots-a-lane instance), and its time and bound;
@@ -255,7 +265,12 @@ card), each fatal on failure, by tag, after [scale-2m]:
   * [script-halo]: `halo_fraction.py` at 2,000,000 atoms (planning only,
     no launch): every row planned or refused with a reason, the 8-shard
     layouts planned, and the rows at --cells SCRIPT_HALO_CPU_CELLS equal
-    to the same planning on the CPU.
+    to the same planning on the CPU;
+  * [script-bench]: `bench.py --steps SCRIPT_BENCH_STEPS`, the port's
+    headline run, on the 152,880-atom benchmark scene: exactly one stdout
+    line, bench.py's JSON object (metric, value, unit atom-steps/s,
+    vs_baseline = value / (0.559 x 152,880)), no overflow or `unsafe`,
+    g_harm / force_harm once an evaluation; its rate beside phase 5's.
 
 Every phase of a script also holds its path's kernels against their
 plain versions (f32 and f64, the bounds above) on SCALE_SLICE rows of its
@@ -267,11 +282,15 @@ over the memory rate, counted from this run's inputs) and `library_ms` null: no 
 call computes any of these functions. g_harm's record also carries its
 ANNA-shape figures (`anna_shape`, `anna_ms`, `anna_plain_ms`,
 `anna_bound_ms`, `anna_bound_by`, `anna_max_abs_err`, and `anna_launches`
-from phase 14). Its `launches` add the new paths' runs ([multi-fe]'s and
+from phase 14); ni_g's and ni_force's carry their [ni-wide-kernels] figures
+(`wide_shape`, `wide_ms`, `wide_plain_ms`, `wide_bound_ms`,
+`wide_bound_by`, `wide_max_abs_err`, and `wide_launches` from
+[ni-wide-main]). Its `launches` add the new paths' runs ([multi-fe]'s and
 [rowsweep]'s Simulators, [multi-ni]'s, [thin-box]'s Simulator and FIRE,
 [cli-multi], the seven sharded runs, the ranks' and the in-process
 references' runs of the across-process tags, [disloc-core], [scale-500k],
-[scale-2m] and the [script-*] runs) to the main paths'; g_harm's and force_harm's also carry
+[scale-2m], [ni-wide-main] and the [script-*] runs) to the main paths';
+g_harm's and force_harm's also carry
 their times and bounds on the scale scenes (`scale_500k_ms`,
 `scale_500k_bound_ms`, `scale_500k_bound_by`, and the same for `2m`). Prints
 the kernels' JSON record on the line before the last, and as the last line
@@ -309,6 +328,16 @@ NI_KS, NI_DELTA, NI_SHORT_EVERY, NI_THERMO_EVERY = 32, 0.2, 5, 5
 NI_T, NI_T_INIT, NI_BLOCKS = 1200.0, 600.0, 20
 NI_DISP = 0.08      # A per component, the thermal box of phases 9 and 10
 NI_POW_ROWS = 8192  # rows of that box held on the pow-route table
+# the wide ni path ([ni-wide-*]): the ni scene on a synthetic BP potential
+# of the shipped table shape at Rc 6.0 A, whose rows hold ~86-100 partners
+# within Rc + NI_DELTA (fcc: 86 within 6.2 A)
+NI_WIDE_RC = 6.0    # A
+NI_WIDE_KS, NI_WIDE_CAPACITY, NI_WIDE_CELL_CAPACITY = 128, 128, 64
+NI_WIDE_BLOCKS, NI_WIDE_RATE_BLOCKS = 10, 7
+# [ni-wide-kernels]: the f64 kernels run on every row and are held against
+# the plain versions on every 4th (the plain f64 pair loop over all
+# 256,000 rows costs ~20 s of the smoke)
+NI_WIDE_F64_STRIDE = 4
 # run path (`python -m meng_zhang_tpu_torch`, run.main in this process)
 CLI_FE_STEPS, CLI_FE_RESTART_STEPS, CLI_THERMO = 40, 20, 10
 CLI_NI_STEPS, CLI_NI_THERMO = 20, 5
@@ -400,6 +429,7 @@ SCRIPT_MODEL_STEPS = {"kernels": 50, "chunked": 10}   # the script's 100
 SCRIPT_SHARDED_SMALL_STEPS = 200                      # the script's 1000
 SCRIPT_PARITY_STEPS = 100      # [script-sharded-small]'s gated window
 SCRIPT_HALO_CPU_CELLS = 40     # [script-halo]'s card-vs-CPU planning
+SCRIPT_BENCH_STEPS = 100       # [script-bench]'s timed steps (the script's 500)
 U32 = 2.0 ** -24               # f32 unit roundoff
 
 
@@ -475,14 +505,22 @@ REF_E_RTOL = 1e-10
 #     four products): 1.9e-6 of the column's largest value, all terms being
 #     positive. The plain version adds every term twice along a 32-step q
 #     loop and then sums 32 lanes: <= 74, 4.4e-6. So <= 6.3e-6 apart.
+#     At K 128 (the wide path, ~86 partners and ~2,000 listed pairs a row,
+#     at most 8,128): a lane's sum takes <= 64 of them across the tiles,
+#     <= 79 roundings; the plain version's 128-step loop and 128-lane sum
+#     <= 266: <= 2.1e-5 apart.
 #   ni_force: a lane's four sums take <= 31 pair contributions (its
 #     partners) in any order, each a dot product over the table's (eta
 #     group, shape) weights (24 terms) times ~20 roundings of factors: <= 75,
 #     4.5e-6 of the largest sum; the plain version's q loop as much. The
 #     radial, u_p and u_q parts of Fj cancel: allow the largest Fj to sit 8x
-#     under the largest part: 7.2e-5.
-# 2e-4 leaves ~3x over ni_force's figure (30x over ni_g's); in f64 the same
-# counts at 1.1e-16 give <= 1.3e-13, and 1e-12 leaves 7x.
+#     under the largest part: 7.2e-5. At K 128 a slot's sums take <= 127
+#     contributions: <= 171 roundings a side, 2.1e-5 apart, 1.6e-4 with the
+#     same 8x (a worst case; rounding errors add at random, so the run reads
+#     far less).
+# 2e-4 leaves ~3x over ni_force's figure at K 32 (30x over ni_g's), 1.25x at
+# K 128; in f64 the same counts at 1.1e-16 give <= 3e-13, and 1e-12 leaves
+# 3x.
 NI_REL_BOUND = {torch.float32: 2e-4, torch.float64: 1e-12}
 # ni evaluator on the thermal 256,000-atom box, f32 kernel path against the
 # f64 plain path, relative to the scales of what each measures. Min-max
@@ -1171,42 +1209,63 @@ def ni_model(dev):
     return cfg32, p32, cfg64, p64, float(pot.masses[0])
 
 
-def ni_md_config(rc, box):
+def ni_sizes(wide):
+    """(Ks, skin-list capacity, cell capacity) of the ni path or, wide, of
+    the wide ni path."""
+    return ((NI_WIDE_KS, NI_WIDE_CAPACITY, NI_WIDE_CELL_CAPACITY) if wide
+            else (NI_KS, NI_CAPACITY, NI_CELL_CAPACITY))
+
+
+def ni_wide_model(dev):
+    """(cfg32, p32, mass) of the synthetic ni potential at Rc NI_WIDE_RC."""
+    from meng_zhang_tpu_torch.models.annp import make_annp
+    from meng_zhang_tpu_torch.testing import synthetic_ni_potential
+    from meng_zhang_tpu_torch.units import CFLENGTH
+    pot = synthetic_ni_potential(0, rc_bohr=NI_WIDE_RC * CFLENGTH)
+    cfg32, p32 = make_annp(pot, torch.float32, dev)
+    return cfg32, p32, float(pot.masses[0])
+
+
+def ni_md_config(rc, box, wide=False):
     from meng_zhang_tpu_torch.md.simulation import MDConfig
     from meng_zhang_tpu_torch.system.neighbors import cell_grid_dims
-    return MDConfig(dt=0.001, cutoff=rc, skin=NI_SKIN, capacity=NI_CAPACITY,
+    _, capacity, cell_capacity = ni_sizes(wide)
+    return MDConfig(dt=0.001, cutoff=rc, skin=NI_SKIN, capacity=capacity,
                     nbr_method="cell",
                     cell_dims=cell_grid_dims(np.asarray(box), rc + NI_SKIN),
-                    cell_capacity=NI_CELL_CAPACITY, ensemble="nvt",
+                    cell_capacity=cell_capacity, ensemble="nvt",
                     t_target=NI_T, tau_t=0.1, thermo_every=NI_THERMO_EVERY,
                     stale_factor=0.5, short_every=NI_SHORT_EVERY,
                     short_skin=NI_DELTA)
 
 
-def ni_thermal_scene(dev, cfg32, p32):
+def ni_thermal_scene(dev, cfg32, p32, wide=False):
     """The ni scene with Gaussian displacements of NI_DISP A per component,
-    its skin list and its short list (f32)."""
+    its skin list and its short list (f32), at the ni path's sizes or the
+    wide path's."""
     from meng_zhang_tpu_torch.ops import fused_ni as fn
     from meng_zhang_tpu_torch.system.neighbors import build_neighbors_cell
     from meng_zhang_tpu_torch.testing import thermal_fcc
+    ks, capacity, cell_capacity = ni_sizes(wide)
+    tag = "ni-wide" if wide else "ni"
     xn, bn = thermal_fcc(NI_CELLS, seed=SEED, disp=NI_DISP, a=NI_A)
     x = torch.tensor(xn, dtype=torch.float32, device=dev)
     box = torch.tensor(bn, dtype=torch.float32, device=dev)
-    ev = fn.FusedNi(cfg32, p32, k_short=NI_KS, short_delta=NI_DELTA)
-    mcfg = ni_md_config(ev.rc, bn)
+    ev = fn.FusedNi(cfg32, p32, k_short=ks, short_delta=NI_DELTA)
+    mcfg = ni_md_config(ev.rc, bn, wide)
     t0 = time.time()
-    nbrs = build_neighbors_cell(x, box, ev.rc + NI_SKIN, NI_CAPACITY,
-                                mcfg.cell_dims, NI_CELL_CAPACITY)
+    nbrs = build_neighbors_cell(x, box, ev.rc + NI_SKIN, capacity,
+                                mcfg.cell_dims, cell_capacity)
     sl = ev.compact_short(x, box, nbrs.idx)
     torch.cuda.synchronize()
     n = x.shape[0]
-    log(f"[ni] thermal scene N {n} box {bn[0]:.2f} A: skin list dims "
+    log(f"[{tag}] thermal scene N {n} box {bn[0]:.2f} A: skin list dims "
         f"{mcfg.cell_dims} overflow {bool(nbrs.overflow)} max row "
-        f"{int((nbrs.idx < n).sum(1).max())}/{NI_CAPACITY}; short list "
+        f"{int((nbrs.idx < n).sum(1).max())}/{capacity}; short list "
         f"overflow {bool(sl.overflow)} max row "
-        f"{int((sl.sidx < n).sum(1).max())}/{NI_KS} ({time.time() - t0:.2f} s)")
+        f"{int((sl.sidx < n).sum(1).max())}/{ks} ({time.time() - t0:.2f} s)")
     check(not bool(nbrs.overflow) and not bool(sl.overflow),
-          "ni: neighbor list overflow on the thermal scene")
+          f"{tag}: neighbor list overflow on the thermal scene")
     return x, box, sl
 
 
@@ -1216,10 +1275,11 @@ def ni_counts(planes, rc_a):
     kernels' work on this run's data."""
     from meng_zhang_tpu_torch.units import CFLENGTH
     lanes = legs = 0
-    eye = torch.eye(planes[0].shape[1], dtype=torch.bool,
-                    device=planes[0].device)
-    for i0 in range(0, planes[0].shape[0], 16384):
-        d = torch.stack([t[i0:i0 + 16384] for t in planes], -1).double()
+    k = planes[0].shape[1]
+    eye = torch.eye(k, dtype=torch.bool, device=planes[0].device)
+    rows = max(1, 16384 * 32 * 32 // (k * k))     # ~1.2 GiB of djk a chunk
+    for i0 in range(0, planes[0].shape[0], rows):
+        d = torch.stack([t[i0:i0 + rows] for t in planes], -1).double()
         r2 = (d * d).sum(-1)
         ina = (r2 > 1.0e-12) & (r2 * CFLENGTH ** 2 < rc_a * rc_a)
         djk = d[:, :, None, :] - d[:, None, :, :]
@@ -1255,6 +1315,69 @@ def ni_flops(name, lanes, legs, table):
     return lanes * per_lane + legs / 2 * per_pair
 
 
+def ni_plane_checks(tag, planes32, table, nsf, filler, f64_stride=1):
+    """ni_g / ni_force against their plain versions on [P, K] planes
+    (filler lanes included), with seeded random dedg, in f32 and f64 (the
+    f64 kernels on every row, held against the plain versions on every
+    f64_stride-th); ni_g run twice for equal bits; then each kernel's f32
+    time (median of 10, CUDA events), its plain version's (the comparison
+    run) and its bound from this run's lanes and legs. Returns the two
+    records."""
+    from meng_zhang_tpu_torch.ops import fused_ni as fn
+    from meng_zhang_tpu_torch.ops import kernels
+    dev = planes32[0].device
+    p, k = planes32[0].shape
+    dedg_np = np.zeros((p, fn.NSF_SUB))
+    dedg_np[:, :nsf] = np.random.default_rng(SEED).normal(size=(p, nsf))
+    counts = ni_counts(planes32, table.rc_a)
+    log(f"[{tag}] {counts[0]:.0f} lanes and {counts[1]:.0f} ordered "
+        f"legs inside {table.rc_a} Bohr")
+    records = []
+    for dtype in (torch.float32, torch.float64):
+        step = 1 if dtype == torch.float32 else f64_stride
+        planes = [t.to(dtype) for t in planes32]
+        dedg = torch.tensor(dedg_np, dtype=dtype, device=dev)
+        # the plain versions on every step-th row (rows are independent)
+        sub_planes = [t[::step].contiguous() for t in planes]
+        sub_dedg = dedg[::step].contiguous()
+        sub = f"{tag} " + ("f32" if dtype == torch.float32 else "f64")
+        cases = [
+            ("ni_g", lambda: (kernels.ni_g(*planes, table),),
+             lambda: (fn.ni_g_plain(*sub_planes, table),), ("g",), 126),
+            ("ni_force", lambda: kernels.ni_force(*planes, dedg, table),
+             lambda: fn.ni_force_plain(*sub_planes, sub_dedg, table),
+             ("fjx", "fjy", "fjz"), 170),
+        ]
+        for name, kern, plain, outs, line in cases:
+            got = kern()
+            ref, plain_ms = timed(plain)
+            worst = compare(sub, name if step == 1 else
+                            f"{name} (every {step}th row)", outs,
+                            [a[::step] for a in got], ref,
+                            NI_REL_BOUND[dtype], filler[::step])
+            if name == "ni_g":
+                # register sums in list order, then shuffles: no atomics
+                check(torch.equal(kern()[0], got[0]),
+                      f"ni_g {sub}: two runs differ in their bits")
+            del got, ref
+            if dtype != torch.float32:
+                continue
+            ms = cuda_ms(kern, 10)
+            records.append(record(
+                name, "meng_zhang_tpu_torch/ops/csrc/ni_bp.cu",
+                f"meng_zhang_tpu/ops/pallas_ni.py:{line}", worst, ms,
+                plain_ms, ni_flops(name, *counts, table),
+                p * (3 * k + fn.NSF_SUB + (3 * k if name == "ni_force"
+                                           else 0)) * 4))
+            log(f"[{tag}] {name} f32 [{p}, {k}]: kernel {ms:.3f} ms "
+                f"(median of 10, CUDA events), plain {plain_ms:.3f} ms (one "
+                f"run), bound "
+                f"{records[-1]['bound_ms']:.3f} ms "
+                f"({records[-1]['bound_by']})")
+        del planes, dedg, sub_planes, sub_dedg
+    return records
+
+
 def phase_ni_kernels(x, box, cfg32, p32, sl):
     """ni_g / ni_force against their plain versions on the thermal scene's
     [P, 32] planes (filler lanes included), with seeded random dedg."""
@@ -1269,44 +1392,7 @@ def phase_ni_kernels(x, box, cfg32, p32, sl):
     dedg_np[:, :nsf] = np.random.default_rng(SEED).normal(size=(p, nsf))
     filler = sl.sidx >= x.shape[0]
     table = fn.ni_table(p32["coerad"], p32["coeang"])
-    counts = ni_counts(planes32, table.rc_a)
-    log(f"[ni-kernels] {counts[0]:.0f} lanes and {counts[1]:.0f} ordered "
-        f"legs inside {table.rc_a} Bohr")
-    records = []
-    for dtype in (torch.float32, torch.float64):
-        planes = [t.to(dtype) for t in planes32]
-        dedg = torch.tensor(dedg_np, dtype=dtype, device=dev)
-        tag = "ni-kernels " + ("f32" if dtype == torch.float32 else "f64")
-        cases = [
-            ("ni_g", lambda: (kernels.ni_g(*planes, table),),
-             lambda: (fn.ni_g_plain(*planes, table),), ("g",), 126),
-            ("ni_force", lambda: kernels.ni_force(*planes, dedg, table),
-             lambda: fn.ni_force_plain(*planes, dedg, table),
-             ("fjx", "fjy", "fjz"), 170),
-        ]
-        for name, kern, plain, outs, line in cases:
-            got = kern()
-            ref, plain_ms = timed(plain)
-            worst = compare(tag, name, outs, got, ref, NI_REL_BOUND[dtype],
-                            filler)
-            if name == "ni_g":
-                # register sums in list order, then shuffles: no atomics
-                check(torch.equal(kern()[0], got[0]),
-                      f"ni_g {tag}: two runs differ in their bits")
-            if dtype != torch.float32:
-                continue
-            ms = cuda_ms(kern, 10)
-            records.append(record(
-                name, "meng_zhang_tpu_torch/ops/csrc/ni_bp.cu",
-                f"meng_zhang_tpu/ops/pallas_ni.py:{line}", worst, ms,
-                plain_ms, ni_flops(name, *counts, table),
-                p * (3 * k + fn.NSF_SUB + (3 * k if name == "ni_force"
-                                           else 0)) * 4))
-            log(f"[ni-kernels] {name} f32 [{p}, {k}]: kernel {ms:.3f} ms "
-                f"(median of 10, CUDA events), plain {plain_ms:.3f} ms (one "
-                f"run), bound "
-                f"{records[-1]['bound_ms']:.3f} ms "
-                f"({records[-1]['bound_by']})")
+    records = ni_plane_checks("ni-kernels", planes32, table, nsf, filler)
 
     # ni_force's pow route and a table that is no grid: zeta 3 and 6 (not
     # powers of two) and one function moved into the first eta group, which
@@ -1385,10 +1471,10 @@ def phase_ni_evaluator(x, box, cfg32, p32, cfg64, p64, sl, ref_out):
     return got
 
 
-def ni_simulator(dev, cfg32, p32, mass):
+def ni_simulator(dev, cfg32, p32, mass, wide=False):
     """(Simulator, x, box, evaluator) of the NVT main path of
     scripts/model_bench.py --model ni on the perfect lattice, the light
-    force variant wired as there."""
+    force variant wired as there; wide: at the wide path's sizes."""
     from meng_zhang_tpu_torch.md.simulation import Simulator
     from meng_zhang_tpu_torch.ops import fused_ni as fn
     from meng_zhang_tpu_torch.testing import thermal_fcc
@@ -1396,7 +1482,8 @@ def ni_simulator(dev, cfg32, p32, mass):
     x = torch.tensor(xn, dtype=torch.float32, device=dev)
     box = torch.tensor(bn, dtype=torch.float32, device=dev)
     n = x.shape[0]
-    ev = fn.FusedNi(cfg32, p32, k_short=NI_KS, short_delta=NI_DELTA)
+    ev = fn.FusedNi(cfg32, p32, k_short=ni_sizes(wide)[0],
+                    short_delta=NI_DELTA)
     w0 = torch.zeros((3, 3), dtype=torch.float32, device=dev)
 
     def force_fn(xx, bb, nb, sh):
@@ -1407,27 +1494,34 @@ def ni_simulator(dev, cfg32, p32, mass):
 
     sim = Simulator(force_fn,
                     torch.full((n,), mass, dtype=torch.float32, device=dev),
-                    ni_md_config(ev.rc, bn),
+                    ni_md_config(ev.rc, bn, wide),
                     short_build=lambda xx, bb, nb: ev.compact_short(
                         xx, bb, nb.idx),
                     force_fn_light=force_fn_light)
     return sim, x, box, ev
 
 
-def phase_ni_main_path(dev, cfg32, p32, mass, card):
-    """init_state + NI_BLOCKS blocks of the ni NVT main path."""
+def phase_ni_main_path(dev, cfg32, p32, mass, card, wide=False):
+    """init_state + NI_BLOCKS blocks of the ni NVT main path ([ni-main]);
+    wide: NI_WIDE_BLOCKS blocks of the wide path ([ni-wide-main]), rows of
+    up to NI_WIDE_KS partners on the potential at Rc NI_WIDE_RC. Returns
+    the launches and the rate."""
     from meng_zhang_tpu_torch.ops import kernels
-    sim, x, box, ev = ni_simulator(dev, cfg32, p32, mass)
+    tag = "ni-wide-main" if wide else "ni-main"
+    n_blocks, rate_blocks = ((NI_WIDE_BLOCKS, NI_WIDE_RATE_BLOCKS) if wide
+                             else (NI_BLOCKS, RATE_BLOCKS))
+    ks = ni_sizes(wide)[0]
+    sim, x, box, ev = ni_simulator(dev, cfg32, p32, mass, wide)
     n = x.shape[0]
     torch.cuda.reset_peak_memory_stats()
     kernels.reset_launch_counts()
     t0 = time.time()
     st = sim.init_state(x, box, seed=SEED, t_init=NI_T_INIT)
     torch.cuda.synchronize()
-    log(f"[ni-main] N {n}, rc {ev.rc:.4f} A, init_state "
+    log(f"[{tag}] N {n}, rc {ev.rc:.4f} A, Ks {ks}, init_state "
         f"{time.time() - t0:.2f} s")
     rebuilds, rows, block_s, srow_max = 0, [], [], 0
-    for blk in range(NI_BLOCKS):
+    for blk in range(n_blocks):
         t0 = time.time()
         st, th = sim.run(st, 1)
         torch.cuda.synchronize()
@@ -1440,29 +1534,83 @@ def phase_ni_main_path(dev, cfg32, p32, mass, card):
         rows.append(row)
         srow = int((st.short.sidx < n).sum(1).max())
         srow_max = max(srow_max, srow)
-        log(f"[ni-main] step {int(row[0]):4d} T {row[1]:8.3f} K  PE "
+        log(f"[{tag}] step {int(row[0]):4d} T {row[1]:8.3f} K  PE "
             f"{row[2]:.6f} eV  P {row[4]:10.2f} bar  conserved "
-            f"{row[6]:.6e}  short row max {srow}/{NI_KS}  "
+            f"{row[6]:.6e}  short row max {srow}/{ks}  "
             f"{block_s[-1] * 1e3:.1f} ms")
     launches = {"ni_g": kernels.ni_g.launches,
                 "ni_force": kernels.ni_force.launches}
-    steps = NI_BLOCKS * NI_THERMO_EVERY
-    check(all(np.isfinite(r).all() for r in rows), "ni: non-finite thermo")
-    check(not bool(st.overflow), "ni: neighbor overflow in the main path")
-    check(not bool(st.unsafe), "ni: unsafe (dangerous-build) latch set")
-    check(rebuilds >= 1, "ni: no skin-list rebuild ran")
+    steps = n_blocks * NI_THERMO_EVERY
+    check(all(np.isfinite(r).all() for r in rows),
+          f"{tag}: non-finite thermo")
+    check(not bool(st.overflow), f"{tag}: neighbor overflow in the main path")
+    check(not bool(st.unsafe), f"{tag}: unsafe (dangerous-build) latch set")
+    check(rebuilds >= 1, f"{tag}: no skin-list rebuild ran")
     for name, cnt in launches.items():
-        check(cnt == steps + 1, f"{name} launched {cnt} times, expected "
-              f"{steps + 1} (init + one per step, light steps included)")
-    window = sum(block_s[-RATE_BLOCKS:])
-    aps = n * RATE_BLOCKS * NI_THERMO_EVERY / window
-    log(f"[ni-main] {steps} NVT steps, {rebuilds} rebuilds, widest short row "
-        f"{srow_max}/{NI_KS}, launches {launches}, overflow "
+        check(cnt == steps + 1, f"{tag}: {name} launched {cnt} times, "
+              f"expected {steps + 1} (init + one per step, light steps "
+              "included)")
+    window = sum(block_s[-rate_blocks:])
+    aps = n * rate_blocks * NI_THERMO_EVERY / window
+    log(f"[{tag}] {steps} NVT steps, {rebuilds} rebuilds, widest short row "
+        f"{srow_max}/{ks}, launches {launches}, overflow "
         f"{bool(st.overflow)} unsafe {bool(st.unsafe)}")
-    log(f"[ni-main] {aps:.1f} atom-steps/s over the last {RATE_BLOCKS} "
+    log(f"[{tag}] {aps:.1f} atom-steps/s over the last {rate_blocks} "
         f"blocks ({window:.3f} s) on {card}; peak device memory "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     return launches, aps
+
+
+def phase_ni_wide_kernels(dev, cfg32, p32):
+    """[ni-wide-kernels]: ni_g / ni_force against their plain versions on
+    the [P, NI_WIDE_KS] short planes of the thermal ni scene on the
+    potential at Rc NI_WIDE_RC (filler lanes included) in f32 and f64 (the
+    f64 plain versions on every NI_WIDE_F64_STRIDE-th row), their times
+    and bounds; then, on its first
+    NI_POW_ROWS rows, the 10 + 22 table of testing.NI_WIDE_ANGULAR (nsf 32,
+    20 eta groups, 22 shapes, 12 of them through pow). Returns the wide
+    figures of each kernel's record."""
+    from meng_zhang_tpu_torch.ops import fused_annp as fa
+    from meng_zhang_tpu_torch.ops import fused_ni as fn
+    from meng_zhang_tpu_torch.ops import kernels
+    from meng_zhang_tpu_torch.testing import (NI_WIDE_ANGULAR,
+                                              NI_WIDE_RAD_ETAS,
+                                              synthetic_ni_potential)
+    from meng_zhang_tpu_torch.units import CFLENGTH
+    x, box, sl = ni_thermal_scene(dev, cfg32, p32, wide=True)
+    planes32 = fa.pair_dx_planes(x, box, sl.sidx, cfg32.pbc)
+    p, k = planes32[0].shape
+    filler = sl.sidx >= x.shape[0]
+    table = fn.ni_table(p32["coerad"], p32["coeang"])
+    records = ni_plane_checks("ni-wide-kernels", planes32, table,
+                              cfg32.npsf + cfg32.ntsf, filler,
+                              NI_WIDE_F64_STRIDE)
+
+    pot = synthetic_ni_potential(0, npsf=10, rc_bohr=NI_WIDE_RC * CFLENGTH,
+                                 ang=NI_WIDE_ANGULAR,
+                                 rad_etas=NI_WIDE_RAD_ETAS)
+    wide = fn.ni_table(pot.sym_coerad, pot.sym_coeang)
+    rows = slice(0, NI_POW_ROWS)
+    dedg_np = np.random.default_rng(SEED).normal(size=(NI_POW_ROWS,
+                                                       fn.NSF_SUB))
+    for dtype in (torch.float32, torch.float64):
+        planes = [t[rows].to(dtype).contiguous() for t in planes32]
+        dedg = torch.tensor(dedg_np, dtype=dtype, device=dev)
+        tag = "ni-wide-kernels 10+22 table " + (
+            "f32" if dtype == torch.float32 else "f64")
+        compare(tag, f"ni_g [{NI_POW_ROWS}, {k}]", ("g",),
+                (kernels.ni_g(*planes, wide),),
+                (fn.ni_g_plain(*planes, wide),), NI_REL_BOUND[dtype])
+        compare(tag, f"ni_force [{NI_POW_ROWS}, {k}]", ("fjx", "fjy", "fjz"),
+                kernels.ni_force(*planes, dedg, wide),
+                fn.ni_force_plain(*planes, dedg, wide), NI_REL_BOUND[dtype],
+                filler[rows])
+    return {r["name"]: {"wide_shape": [p, k], "wide_ms": r["ms"],
+                        "wide_plain_ms": r["plain_ms"],
+                        "wide_bound_ms": r["bound_ms"],
+                        "wide_bound_by": r["bound_by"],
+                        "wide_max_abs_err": r["max_abs_err"]}
+            for r in records}
 
 
 def phase_ni_profile(dev, cfg32, p32, mass, card):
@@ -3426,13 +3574,13 @@ def phase_dist_nccl(spec, card):
 
 
 # ------------------------------------------------- scale configurations
-def scale_script(tag, module, argv, **kw):
+def scale_script(tag, module, argv, stdout=None, **kw):
     """module.main(argv, **kw) (meng_zhang_tpu_torch/scripts/) on the card
-    in this process, its JSON line echoed: (the run it returns, the
-    kernels' launches counted from 0, wall seconds). No plain version may
-    run."""
+    in this process, its JSON line echoed (and kept in `stdout`, a
+    StringIO, when given): (the run it returns, the kernels' launches
+    counted from 0, wall seconds). No plain version may run."""
     from meng_zhang_tpu_torch.ops import kernels
-    out = io.StringIO()
+    out = io.StringIO() if stdout is None else stdout
     kernels.reset_launch_counts()
     t0 = time.time()
     try:
@@ -4018,7 +4166,56 @@ def phase_script_halo(card):
     return {}
 
 
-def phase_scripts(card, relaxed_2m):
+def phase_script_bench(card, fe_rate):
+    """`scripts/bench.py --steps SCRIPT_BENCH_STEPS` on the benchmark scene
+    (the committed minimized npz, no minimize): exactly one stdout line,
+    a JSON object with bench.py's four keys, unit atom-steps/s, a positive
+    value and vs_baseline = value / (0.559 x 152,880) to its three
+    decimals; no overflow and no `unsafe` latch; g_harm / force_harm once
+    an evaluation and no other kernel, and against their plain versions on
+    SCALE_SLICE of the final state's short rows. Prints its rate beside
+    [main]'s."""
+    from meng_zhang_tpu_torch.scripts import bench
+    tag = "script-bench"
+    out = io.StringIO()
+    run, launches, wall = scale_script(
+        tag, bench, ["--steps", str(SCRIPT_BENCH_STEPS)], stdout=out)
+    lines = [line for line in out.getvalue().splitlines() if line.strip()]
+    check(len(lines) == 1, f"{tag}: {len(lines)} stdout lines, expected 1")
+    try:
+        rec = json.loads(lines[0])
+    except ValueError as e:
+        raise SmokeFailure(f"{tag}: stdout is no JSON line ({e})")
+    check(isinstance(rec, dict) and set(rec) == {
+        "metric", "value", "unit", "vs_baseline"},
+        f"{tag}: keys {sorted(rec) if isinstance(rec, dict) else rec}")
+    check(rec["unit"] == "atom-steps/s", f"{tag}: unit {rec['unit']!r}")
+    check(math.isfinite(rec["value"]) and rec["value"] > 0,
+          f"{tag}: value {rec['value']}")
+    check(rec["vs_baseline"] == round(rec["value"] / bench.BASELINE_APS, 3),
+          f"{tag}: vs_baseline {rec['vs_baseline']} is not value / "
+          f"{bench.BASELINE_APS:.0f}")
+    check(rec["metric"].startswith(f"reference {bench.REF_ATOMS}-atom") and
+          run.minimized is None, f"{tag}: not the committed scene "
+          f"({rec['metric']})")
+    st = run.state
+    check(not bool(st.overflow), f"{tag}: neighbor overflow")
+    check(not bool(st.unsafe), f"{tag}: unsafe (dangerous-build) latch set")
+    got = script_launches(tag, launches, {"g_harm": run.evaluations,
+                                          "force_harm": run.evaluations})
+    ev = run.evaluator
+    planes = slice_planes(st.x, st.box, st.short.sidx, ev.pbc)
+    shard_kernel_checks(tag, planes, path_cases("fe", ev.cfg,
+                                                planes[0].shape[0],
+                                                st.x.device))
+    log(f"[{tag}] {rec['value']:.1f} atom-steps/s over {SCRIPT_BENCH_STEPS} "
+        f"NPT steps ({run.rebuilds} rebuilds), vs_baseline "
+        f"{rec['vs_baseline']}, beside [main]'s {fe_rate:.1f} "
+        f"({rec['value'] / fe_rate:.3f}x); phase wall {wall:.1f} s on {card}")
+    return got
+
+
+def phase_scripts(card, relaxed_2m, fe_rate):
     """The run scripts' phases; returns their launches by tag."""
     t0 = time.time()
     extra = {"script-profile-2m": phase_script_profile(card, "2m",
@@ -4031,13 +4228,14 @@ def phase_scripts(card, relaxed_2m):
         extra[f"script-sharded-{scene}"] = phase_script_sharded(card, scene)
     extra["script-sharded2d"] = phase_script_sharded2d(card)
     phase_script_halo(card)
-    log(f"[scripts] the nine script phases took {time.time() - t0:.1f} s")
+    extra["script-bench"] = phase_script_bench(card, fe_rate)
+    log(f"[scripts] the ten script phases took {time.time() - t0:.1f} s")
     return extra
 
 
 def main():
     try:
-        name, card = phase_device()
+        kind, card = phase_device()
         phase_build()
         dev = torch.device("cuda", 0)
         x, box = scene(dev)
@@ -4084,6 +4282,14 @@ def main():
                                              ni_rate, layout="3d")
         del x, box, sl, ni_ref
         ni = (dev, cfg32, p32, mass, card)
+        cfg_w, p_w, mass_w = ni_wide_model(dev)
+        ni_wide = phase_ni_wide_kernels(dev, cfg_w, p_w)
+        extra["ni-wide-main"], wide_rate = phase_ni_main_path(
+            dev, cfg_w, p_w, mass_w, card, wide=True)
+        log(f"[ni-wide-main] rate {wide_rate / ni_rate:.3f}x [ni-main]'s")
+        for kname, fig in ni_wide.items():
+            fig["wide_launches"] = extra["ni-wide-main"][kname]
+        del cfg_w, p_w
         extra["multi-ni"] = phase_multi_ni(dev, card)
         t_anna = time.time()
         cfg32, p32, cfg64, p64, mass = anna_model(dev)
@@ -4118,7 +4324,7 @@ def main():
         scale = {}
         extra["scale-500k"], scale["500k"] = phase_scale_500k(card)
         extra["scale-2m"], scale["2m"], relaxed_2m = phase_scale_2m(card)
-        extra.update(phase_scripts(card, relaxed_2m))
+        extra.update(phase_scripts(card, relaxed_2m, main_rate[0]))
         del relaxed_2m
         phase_profile(*fe, card)
         phase_profile(*fe, card, angular="matrix")
@@ -4138,6 +4344,7 @@ def main():
             d.get(r["name"], 0) for d in extra.values())
         if r["name"] == "g_harm":
             r.update(anna)
+        r.update(ni_wide.get(r["name"], {}))
         for cfg, times in scale.items():
             if r["name"] in times:
                 ms, b_ms, b_by = times[r["name"]]
@@ -4146,7 +4353,7 @@ def main():
     log(f"[smoke] wall {time.time() - T_START:.1f} s")
     print(json.dumps({"kernels": records}))
     print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": name,
+        "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}))
     return 0
 

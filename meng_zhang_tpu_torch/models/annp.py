@@ -293,12 +293,12 @@ def _too_wide(ev, cfg):
 
 def _short_list(ev, cfg, params, x, box, nbr_idx, x_ext=None, rc_scale=1.0):
     """nbr_idx rows as the evaluator's ShortList. Rows no wider than the
-    kernels take (ev.k_short: 256 fe, 32 BP) are evaluated as they are,
-    exactly as the JAX functions evaluate any row; wider rows are compacted
-    to that width at rc_scale times the descriptor cutoff, and a row with
-    more partners inside it than the kernels take raises (one host read
-    per call, on this path only). x_ext: the image-extended table the rows
-    index."""
+    kernels take (ev.k_short: MAX_K = 256 fe, NI_MAX_K = 256 BP) are
+    evaluated as they are, exactly as the JAX functions evaluate any row;
+    wider rows are compacted to that width at rc_scale times the
+    descriptor cutoff, and a row with more partners inside it than the
+    kernels take raises (one host read per call, on this path only).
+    x_ext: the image-extended table the rows index."""
     if nbr_idx.shape[1] <= ev.k_short:
         return fa.ShortList(nbr_idx, x, torch.zeros(
             (), dtype=torch.bool, device=x.device))

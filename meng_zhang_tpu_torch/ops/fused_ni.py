@@ -75,7 +75,10 @@ def ni_table(coerad, coeang) -> NiTable:
 def _pow_zeta(f1, zeta):
     """(f1^zeta, zeta * f1^(zeta-1)) by repeated squaring when zeta is a
     power of two (every zeta of the shipped table), by pow otherwise; the
-    products run in the TPU kernel's order (`_pow_zeta`, :79)."""
+    products run in the TPU kernel's order (`_pow_zeta`, :79). The pow
+    route gives 0 for both where f1 <= 0, as the BP definition skips those
+    terms (descriptors.behler_g): rounding can leave 1 + lambda cos a few
+    ulps below 0, which a fractional zeta would turn into NaN."""
     zi = int(zeta)
     if zeta == zi and zi > 0 and (zi & (zi - 1)) == 0:
         p, fzm = f1, None
@@ -83,7 +86,11 @@ def _pow_zeta(f1, zeta):
             fzm = p if fzm is None else fzm * p
             p = p * p
         return p, zeta * (torch.ones_like(f1) if fzm is None else fzm)
-    return f1 ** zeta, zeta * f1 ** (zeta - 1.0)
+    pos = f1 > 0.0
+    fb = torch.where(pos, f1, torch.ones_like(f1))
+    zero = torch.zeros_like(f1)
+    return (torch.where(pos, fb ** zeta, zero),
+            torch.where(pos, zeta * fb ** (zeta - 1.0), zero))
 
 
 def _ni_geometry(dxx, dxy, dxz, rc_a):
@@ -224,8 +231,9 @@ class FusedNi(FrameOps):
     """Per-step BP evaluator: gather -> ni_g -> min-max MLP + VJP ->
     ni_force -> index_add delivery.
 
-    k_short: short-list width Ks (32 on the ni path: fcc has 18 partners
-    within rc + 0.2 = 4.10 A). short_delta: the inner skin of the
+    k_short: short-list width Ks, at most kernels.NI_MAX_K = 256 (32 on
+    the ni path: fcc has 18 partners within rc + 0.2 = 4.10 A; 128 at
+    Rc 6.0 A, 86 partners within 6.2 A). short_delta: the inner skin of the
     refresh-static short list. plain=True runs the plain PyTorch versions
     of the two kernels on any device (the f64 reference on the card); with
     plain=False the kernel wrappers run, which launch the CUDA kernels for
@@ -240,6 +248,9 @@ class FusedNi(FrameOps):
 
     def __init__(self, cfg, params, k_short=32, short_delta=0.3,
                  plain=False, elems=None):
+        if not 1 <= k_short <= kernels.NI_MAX_K:
+            raise ValueError(f"k_short {k_short} outside the kernels' [1, "
+                             f"NI_MAX_K = {kernels.NI_MAX_K}]")
         self.cfg = cfg
         self.nets = fa.element_networks(params)
         self.k_short = k_short

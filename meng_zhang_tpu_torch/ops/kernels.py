@@ -43,7 +43,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "--split-compile", "0")
 MAX_K = 256          # fe kernels: <= 8 slots a lane (g_harm), 8 warps a row
 COS_MAX_T = 32       # cos kernels: one compiled instance per ntsf up to it
-NI_MAX_K = 32        # ni kernels: one warp per row, one lane per slot
+NI_MAX_K = 256       # ni kernels: one warp per row, <= 8 slots a lane
 
 
 def _nvcc():
@@ -308,25 +308,27 @@ class ForceCos:
 
 
 # ---------------------------------------------------------------- ni
-_NI_MAX_RAD, _NI_MAX_ANG = 8, 32
-# ni_force: eta groups, distinct (lambda, zeta) shapes, groups x shapes
-_NI_MAX_GROUP, _NI_MAX_SHAPE, _NI_MAX_SLOT = 16, 16, 128
+# NiCfg's arrays: any table of nsf = nrad + nang <= 32 (fused_ni.NSF_SUB)
+# fits, as in the TPU kernels; eta groups, distinct (lambda, zeta) shapes
+# and their (group, shape) entries are each at most nang
+_NI_MAX = 32
 
 
 def _ni_cfg_type(real):
     """ctypes mirror of NiCfg<T> (csrc/ni_bp.cu)."""
-    ci, cd = ctypes.c_int, ctypes.c_double
+    ci, cd, cu = ctypes.c_int, ctypes.c_double, ctypes.c_uint32
     return type(f"NiCfg_{real.__name__}", (ctypes.Structure,), {"_fields_": [
         ("nrad", ci), ("nang", ci), ("rc_a", cd),
-        ("rad_eta", cd * _NI_MAX_RAD), ("rad_rc", cd * _NI_MAX_RAD),
-        ("eta", real * _NI_MAX_ANG), ("lam", real * _NI_MAX_ANG),
-        ("zeta", real * _NI_MAX_ANG), ("coef", real * _NI_MAX_ANG),
-        ("col", ci * _NI_MAX_ANG), ("zlog2", ci * _NI_MAX_ANG),
-        ("first", ci * _NI_MAX_ANG), ("ngroup", ci), ("nshape", ci),
-        ("grp_eta", real * _NI_MAX_GROUP), ("sh_lam", real * _NI_MAX_SHAPE),
-        ("sh_zeta", real * _NI_MAX_SHAPE), ("sh_adv", ci * _NI_MAX_SHAPE),
-        ("sh_new", ci * _NI_MAX_SHAPE), ("grp", ci * _NI_MAX_ANG),
-        ("shp", ci * _NI_MAX_ANG)]})
+        ("rad_eta", cd * _NI_MAX), ("rad_rc", cd * _NI_MAX),
+        ("eta", real * _NI_MAX), ("lam", real * _NI_MAX),
+        ("zeta", real * _NI_MAX), ("coef", real * _NI_MAX),
+        ("col", ci * _NI_MAX), ("zlog2", ci * _NI_MAX),
+        ("first", ci * _NI_MAX), ("ngroup", ci), ("nshape", ci),
+        ("nent", ci), ("grp_eta", real * _NI_MAX),
+        ("grp_mask", cu * _NI_MAX), ("grp_off", ci * _NI_MAX),
+        ("sh_lam", real * _NI_MAX), ("sh_zeta", real * _NI_MAX),
+        ("sh_adv", ci * _NI_MAX), ("sh_new", ci * _NI_MAX),
+        ("ent", ci * _NI_MAX)]})
 
 
 _NI_CFG = {"f32": _ni_cfg_type(ctypes.c_float),
@@ -346,34 +348,36 @@ def _ni_cfg(table, suffix):
 
     Beside the per-function arrays that ni_g reads, it lists the table's
     structure for ni_force: the eta groups, the distinct (lambda, zeta)
-    shapes sorted by lambda then zeta, and each function's group and shape.
+    shapes sorted by lambda then zeta, and the (group, shape) entries that
+    occur, group-major then by shape (each group's shapes as the bits of
+    grp_mask, its first entry grp_off; each function's entry ent).
     Power-of-two zetas of one lambda share a squaring chain: sh_new starts
     it, sh_adv counts the squarings from the shape before (-1: through
-    pow)."""
+    pow). Raises where the TPU kernels refuse the table: more than NSF_SUB
+    functions, or angular columns that do not follow the radial ones
+    (ni_table itself refuses more than one angular cutoff)."""
     fns = [(gi, eta, fi == 0, lam, zeta, col)
            for gi, (eta, group) in enumerate(table.ang)
            for fi, (lam, zeta, col) in enumerate(group)]
-    shapes = sorted({(lam, zeta) for _, _, _, lam, zeta, _ in fns})
-    if len(table.rad) > _NI_MAX_RAD or len(fns) > _NI_MAX_ANG:
-        raise ValueError(f"{len(table.rad)} radial / {len(fns)} angular "
-                         f"functions exceed the kernels' {_NI_MAX_RAD} / "
-                         f"{_NI_MAX_ANG}")
-    if len(table.ang) > _NI_MAX_GROUP or len(shapes) > _NI_MAX_SHAPE \
-            or len(table.ang) * len(shapes) > _NI_MAX_SLOT:
-        raise ValueError(f"{len(table.ang)} eta groups x {len(shapes)} "
-                         f"(lambda, zeta) shapes exceed the kernels' "
-                         f"{_NI_MAX_GROUP} x {_NI_MAX_SHAPE} (at most "
-                         f"{_NI_MAX_SLOT} together)")
+    if len(table.rad) + len(fns) > _NI_MAX:
+        raise ValueError(f"{len(table.rad)} radial + {len(fns)} angular "
+                         f"functions exceed the kernels' {_NI_MAX}")
     if sorted(f[-1] for f in fns) != list(range(
             len(table.rad), len(table.rad) + len(fns))):
         raise ValueError("angular columns must follow the radial ones")
+    shapes = sorted({(lam, zeta) for _, _, _, lam, zeta, _ in fns})
+    entries = sorted({(gi, shapes.index((lam, zeta)))
+                      for gi, _, _, lam, zeta, _ in fns})
     c = _NI_CFG[suffix]()
     c.nrad, c.nang, c.rc_a = len(table.rad), len(fns), table.rc_a
-    c.ngroup, c.nshape = len(table.ang), len(shapes)
+    c.ngroup, c.nshape, c.nent = len(table.ang), len(shapes), len(entries)
     for i, (eta, rc) in enumerate(table.rad):
         c.rad_eta[i], c.rad_rc[i] = eta, rc
     for gi, (eta, _) in enumerate(table.ang):
         c.grp_eta[gi] = eta
+        mine = [e for e, (g, _) in enumerate(entries) if g == gi]
+        c.grp_off[gi] = mine[0]
+        c.grp_mask[gi] = sum(1 << entries[e][1] for e in mine)
     chain = None                   # (lambda, log2 zeta) of the running chain
     for si, (lam, zeta) in enumerate(shapes):
         level = _zeta_log2(zeta)
@@ -390,7 +394,7 @@ def _ni_cfg(table, suffix):
         c.coef[f] = 2.0 ** (1.0 - zeta)
         c.col[f], c.first[f] = col, int(first)
         c.zlog2[f] = _zeta_log2(zeta)
-        c.grp[f], c.shp[f] = gi, shapes.index((lam, zeta))
+        c.ent[f] = entries.index((gi, shapes.index((lam, zeta))))
     return c
 
 

@@ -42,6 +42,20 @@ NI_ETAS = (0.01, 0.02, 0.05)  # the shipped radial etas
 # 1, 2, 4, 16, ending with (0.05, 1, 16) as the shipped table does
 NI_ANGULAR = tuple((eta, lam, zeta) for eta in NI_ETAS for lam in (-1.0, 1.0)
                    for zeta in (1.0, 2.0, 4.0, 16.0))
+# A BP table at the kernels' full reach, nsf = 10 + 22 = 32: ten radial
+# etas, and 22 angular rows at 20 distinct etas (the first two hold two
+# functions each) over 22 distinct (lambda, zeta) shapes, lambda -1 and +1
+# x zeta 1, 1.5, 2, 3, 4, 5, 6, 8, 10, 12, 16: the power-of-two zetas'
+# squaring chains broken by pow shapes, more shapes than ni_force holds at
+# once, and eta groups of one or two shapes each
+NI_WIDE_RAD_ETAS = tuple(np.geomspace(0.004, 0.2, 10).tolist())
+_NI_WIDE_ETAS = np.geomspace(0.002, 0.1, 20).tolist()
+NI_WIDE_ANGULAR = tuple(
+    (eta, lam, zeta) for eta, (lam, zeta) in zip(
+        _NI_WIDE_ETAS[:2] + _NI_WIDE_ETAS,
+        [(lam, zeta) for lam in (-1.0, 1.0)
+         for zeta in (1.0, 1.5, 2.0, 3.0, 4.0, 5.0, 6.0, 8.0, 10.0, 12.0,
+                      16.0)]))
 
 
 def _chebyshev_g_np(x, box, npsf, ntsf, rc, rows=None):
@@ -221,16 +235,18 @@ def thermal_fcc(cells, seed=0, disp=0.08, a=3.52):
 
 
 def synthetic_ni_potential(seed=0, npsf=3, nnod=24, rc_bohr=RC_NI_BOHR,
-                           ang=NI_ANGULAR, w_out=2.0) -> AnnpPotential:
+                           ang=NI_ANGULAR, w_out=2.0,
+                           rad_etas=NI_ETAS) -> AnnpPotential:
     """A Behler-Parrinello ANNP of the shipped ni shape with seeded random
     weights.
 
-    Coefficient tables: radial rows (eta, 0, Rc) for the first npsf of the
-    shipped etas (0.01, 0.02, 0.05); angular rows (eta, lambda, zeta, Rc)
-    from `ang` (ntsf = len(ang)). No test pins the shipped angular etas, so
-    the default table reuses the radial three: 3 eta groups x lambda -1, +1
-    x zeta 1, 2, 4, 16 = 24 rows, ending with (0.05, 1, 16, 7.3699319) as
-    the shipped file does. rc_bohr is every row's Rc (7.3699319 Bohr =
+    Coefficient tables: radial rows (eta, 0, Rc) for the first npsf of
+    rad_etas (default the shipped 0.01, 0.02, 0.05; NI_WIDE_RAD_ETAS and
+    NI_WIDE_ANGULAR give a table of 32 functions); angular rows (eta,
+    lambda, zeta, Rc) from `ang` (ntsf = len(ang)). No test pins the
+    shipped angular etas, so the default table reuses the radial three: 3
+    eta groups x lambda -1, +1 x zeta 1, 2, 4, 16 = 24 rows, ending with
+    (0.05, 1, 16, 7.3699319) as the shipped file does. rc_bohr is every row's Rc (7.3699319 Bohr =
     3.90 A); the header cutoff stays the shipped 6.5 A.
 
     Normalisation is min-max, (G - min) / (max - min), with min and max
@@ -271,7 +287,7 @@ def synthetic_ni_potential(seed=0, npsf=3, nnod=24, rc_bohr=RC_NI_BOHR,
     on a box displaced by 0.08 A per component.
     """
     rng = np.random.default_rng(seed)
-    coerad = np.array([(eta, 0.0, rc_bohr) for eta in NI_ETAS[:npsf]])
+    coerad = np.array([(eta, 0.0, rc_bohr) for eta in rad_etas[:npsf]])
     coeang = np.array([(eta, lam, zeta, rc_bohr) for eta, lam, zeta in ang])
     x, box = thermal_fcc(4, seed=12345, disp=0.2)
     g = _behler_g_np(x, box, coerad, coeang)
@@ -282,11 +298,13 @@ def synthetic_ni_potential(seed=0, npsf=3, nnod=24, rc_bohr=RC_NI_BOHR,
     g0n = (g0 - norm_row0) / (norm_row1 - norm_row0)
     (w1, w2, w3), (b1, b2, b3) = _paired_wells(rng, g0n, nnod, 8.0)
     # cohesion unit: c solves phi'(r1) = 0, phi''(r1) = 1, phi''(r2) = 0
-    # (as many conditions as radial functions)
+    # (as many conditions as radial functions, on the first three at most)
     (s1, c1), (_, c2) = (_radial_derivs(coerad, r * CFLENGTH)
                          for r in (3.52 / np.sqrt(2.0), 3.52))
-    c = np.linalg.solve(np.stack([s1, c1, c2])[:npsf],
-                        np.array([0.0, 1.0, 0.0])[:npsf])
+    m = min(npsf, 3)
+    c = np.zeros(npsf)
+    c[:m] = np.linalg.solve(np.stack([s1, c1, c2])[:m, :m],
+                            np.array([0.0, 1.0, 0.0])[:m])
     a = c * (norm_row1 - norm_row0)[:npsf]
     w1[-2:] = 0.0
     w1[-2, :npsf] = a

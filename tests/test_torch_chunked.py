@@ -149,29 +149,41 @@ def test_evaluator_built_once(case):
 
 
 def test_bp_rows_beyond_kernel_width_raise():
-    """A compressed fcc box puts 42 partners inside the descriptor cutoff:
-    more than the ni kernels' NI_MAX_K = 32 slots. The BP functions raise
-    an error that names the limit instead of evaluating a clipped row; a
-    wide skin list whose rows fit after compaction evaluates exactly."""
+    """A compressed fcc box puts 42 partners inside the descriptor cutoff,
+    more than one warp's 32 lanes: the BP functions evaluate those rows as
+    the JAX functions do. A box compressed further puts more than the ni
+    kernels' NI_MAX_K = 256 slots inside it: the BP functions raise an
+    error that names the limit instead of evaluating a clipped row; a wide
+    skin list whose rows fit after compaction evaluates exactly."""
     pot = reduced_ni_potential()
     cfg, params = annp.make_annp(pot, torch.float64, device="cpu")
+    jcfg, jparams = jannp.make_annp(pot, dtype=jnp.float64)
     rc = annp.descriptor_cutoff(cfg, params)
     x, box = thermal_fcc(4, seed=1, disp=0.02)
     dense = (t64(x * 0.6), t64(box * 0.6))
     nb = build_neighbors_n2(*dense, rc + 0.5, 96)
-    assert int((nb.idx < len(x)).sum(1).max()) > kernels.NI_MAX_K
-    with pytest.raises(ValueError, match="NI_MAX_K = 32"):
-        annp.energy_forces_chunked(cfg, params, *dense, nb.idx)
-    idx_s, ovf = annp.compact_neighbor_rows(*dense, nb.idx, rc, 48)
+    assert not bool(nb.overflow)
+    assert 32 < int((nb.idx < len(x)).sum(1).max()) <= kernels.NI_MAX_K
+    _check(annp.energy_forces_virial_chunked(cfg, params, *dense, nb.idx),
+           jannp.energy_forces_virial_chunked(
+               jcfg, jparams, jnp.asarray(x * 0.6), jnp.asarray(box * 0.6),
+               jnp.asarray(nb.idx.numpy())))
+    xd, bd = thermal_fcc(7, seed=1, disp=0.02)
+    denser = (t64(xd * 0.3), t64(bd * 0.3))
+    nb = build_neighbors_n2(*denser, rc + 0.5, 640)
+    assert not bool(nb.overflow)
+    assert int((nb.idx < len(xd)).sum(1).max()) > kernels.NI_MAX_K
+    with pytest.raises(ValueError, match="NI_MAX_K = 256"):
+        annp.energy_forces_chunked(cfg, params, *denser, nb.idx)
+    idx_s, ovf = annp.compact_neighbor_rows(*denser, nb.idx, rc, 384)
     assert not bool(ovf)
-    with pytest.raises(ValueError, match="NI_MAX_K = 32"):
-        annp.energy_forces_virial_chunked(cfg, params, *dense, idx_s)
-    # the unstrained box: 12 partners a row, the 96-wide list is compacted
-    wide = build_neighbors_n2(t64(x), t64(box), rc + 2.0, 96)
+    with pytest.raises(ValueError, match="NI_MAX_K = 256"):
+        annp.energy_forces_virial_chunked(cfg, params, *denser, idx_s)
+    # the unstrained box: 12 partners a row, the 300-wide list is compacted
+    wide = build_neighbors_n2(t64(x), t64(box), rc + 2.0, 300)
     assert wide.idx.shape[1] > kernels.NI_MAX_K
-    jcfg, jparams = jannp.make_annp(pot, dtype=jnp.float64)
     want = jannp.energy_forces_virial_chunked(
         jcfg, jparams, jnp.asarray(x), jnp.asarray(box),
-        jnp.asarray(wide.idx.numpy()))
+        jnp.asarray(wide.idx.numpy()), chunk=32)
     _check(annp.energy_forces_virial_chunked(cfg, params, t64(x), t64(box),
                                              wide.idx), want)

@@ -12,9 +12,13 @@ Tolerance (f64): the kernels run the plain versions' recurrences per lane
 to a few hundred ulps of its largest value: max |diff| <= 1e-12 of max
 |value|. In f32 the harmonic kernels' bound is chip_smoke.py's REL_BOUND,
 1e-4, derived there; the ni kernels' longest per-lane sums run over ~30
-pair terms (ni_force: a lane's partners; ni_g: <= 16 listed pairs a lane)
-and the G4 columns then sum 32 lanes: 1e-4 of max |value| leaves a wide
-margin over the ~1e-6 that f32 rounding of those sums gives.
+pair terms at K 32 (ni_force: a lane's partners; ni_g: <= 16 listed pairs a
+lane) and the G4 columns then sum 32 lanes: 1e-4 of max |value| leaves a
+wide margin over the ~1e-6 that f32 rounding of those sums gives. At K 128
+and 256 (the wide cases) a slot's sums take up to 255 partners and a
+lane's G4 sums up to ~1,000 listed pairs: their worst-case linear growth
+(~6e-5) nears the bound, but the roundings add at random and read ~1e-6
+on the card (chip_smoke.py's [ni-wide-kernels]).
 The cos kernels' f32 bounds are chip_smoke.py's COS_REL_BOUND, derived
 there. The delivered forces of a kernel path sum to zero up to rounding:
 chip_smoke.py's EVAL_REL["sum_F"], 1e-6 N rms|F|.
@@ -30,7 +34,8 @@ from meng_zhang_tpu_torch.ops import fused_ni as fn
 from meng_zhang_tpu_torch.models.annp import make_annp
 from meng_zhang_tpu_torch.ops import kernels
 from meng_zhang_tpu_torch.system.neighbors import build_neighbors_n2
-from meng_zhang_tpu_torch.testing import (synthetic_fe_potential,
+from meng_zhang_tpu_torch.testing import (NI_WIDE_ANGULAR, NI_WIDE_RAD_ETAS,
+                                          synthetic_fe_potential,
                                           synthetic_ni_potential,
                                           thermal_bcc, thermal_fcc)
 from meng_zhang_tpu_torch.units import CFLENGTH
@@ -198,15 +203,34 @@ def _ni_case(width):
     """(planes [P, Ks] numpy, filler mask, potential) on a perturbed fcc box
     with a vacancy: reduced width at Ks 16, the shipped width at Ks 32 or,
     for "k17", 17 of its lanes, some of them filler (a K that leaves lanes of
-    the warp idle)."""
-    pot = reduced_ni_potential() if width == "reduced" \
-        else synthetic_ni_potential(0)
-    ks = 16 if width == "reduced" else 32
+    the warp idle). "wide": Rc 6.0 A at Ks 128 (~86 partners a row, 4 slots
+    a lane), "k70" 70 of its lanes, "k256" its lanes spread over 256 by a
+    seeded permutation, filler between them (8 slots a lane); "table": the
+    10 + 22 table of testing.NI_WIDE_ANGULAR at Rc 6.0 A, Ks 128."""
+    if width in ("wide", "k70", "k256", "table"):
+        pot = synthetic_ni_potential(0, rc_bohr=6.0 * CFLENGTH) \
+            if width != "table" else synthetic_ni_potential(
+                0, npsf=10, rc_bohr=6.0 * CFLENGTH, ang=NI_WIDE_ANGULAR,
+                rad_etas=NI_WIDE_RAD_ETAS)
+        ks = 128
+    else:
+        pot = reduced_ni_potential() if width == "reduced" \
+            else synthetic_ni_potential(0)
+        ks = 16 if width == "reduced" else 32
     rc_s = float(pot.sym_coeang[0, 3]) / CFLENGTH + 0.2
-    planes, filler = ni_short_planes(rc_s, ks, n_cells=4, seed=2)
-    if width == "k17":
-        planes = [np.ascontiguousarray(a[:, 4:21]) for a in planes]
-        filler = np.ascontiguousarray(filler[:, 4:21])
+    planes, filler = ni_short_planes(rc_s, ks, n_cells=4, seed=2,
+                                     capacity=160)
+    if width in ("k17", "k70"):
+        lanes = slice(4, 21) if width == "k17" else slice(40, 110)
+        planes = [np.ascontiguousarray(a[:, lanes]) for a in planes]
+        filler = np.ascontiguousarray(filler[:, lanes])
+    if width == "k256":
+        pad = planes[0].max()
+        perm = np.random.default_rng(256).permutation(256)
+        planes = [np.ascontiguousarray(np.concatenate(
+            [a, np.full_like(a, pad)], 1)[:, perm]) for a in planes]
+        filler = np.ascontiguousarray(np.concatenate(
+            [filler, np.ones_like(filler)], 1)[:, perm])
     return planes, filler, pot
 
 
@@ -224,14 +248,16 @@ def _odd_coeang(pot):
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
 @pytest.mark.parametrize("width", ["reduced", "full", "reduced-odd",
-                                   "full-odd", "k17"])
+                                   "full-odd", "k17", "wide", "wide-odd",
+                                   "k70", "k256", "table"])
 def test_ni_kernels_match_plain(cuda_device, width, dtype):
     """Both ni kernels against their plain versions, on the potential's
     table or (-odd) one with zetas 3 and 6. Rows 0-2 are cut down to 0, 1
     and 2 lanes (no candidate pair, none, one), and row 3 holds Ks lanes
     inside the angular cutoff in random directions: the longest pair list,
-    496 candidates at Ks 32. The padding-free box also has rows of its
-    usual ~12 partners, and "k17" runs with K = 17."""
+    496 candidates at Ks 32, 8,128 (16 tiles) at Ks 128, 32,640 at 256.
+    The padding-free box also has rows of its usual partners (~12, ~86 at
+    Rc 6.0 A), "k17" runs with K = 17 and "k70" with K = 70."""
     width, _, odd = width.partition("-")
     planes, filler, pot = _ni_case(width)
     _thin_rows(planes, filler, (0, 1, 2))
@@ -299,8 +325,9 @@ def test_g_cos_every_ntsf_instance(cuda_device, dtype):
 def test_ni_wrappers_refuse_bad_inputs(cuda_device):
     pot = reduced_ni_potential()
     table = fn.ni_table(pot.sym_coerad, pot.sym_coeang)
-    wide = [torch.zeros(8, 40, device=cuda_device) for _ in range(3)]
-    with pytest.raises(ValueError):                 # K above one warp
+    wide = [torch.zeros(8, kernels.NI_MAX_K + 1, device=cuda_device)
+            for _ in range(3)]
+    with pytest.raises(ValueError):                 # K above NI_MAX_K
         kernels.ni_g(*wide, table)
     with pytest.raises(ValueError):
         kernels.ni_force(*wide, torch.zeros(8, fn.NSF_SUB,

@@ -123,9 +123,9 @@ assert scale_demo.md_config("2m", 6.5, np.array([460.0, 325.0, 212.0])
                             ).cell_dims == (63, 44, 29)
 assert callable(disloc_core.main) and callable(scale_demo.main)
 from meng_zhang_tpu_torch.scripts import (
-    halo_fraction, model_bench, profile_2m, profile_bench, profile_ni,
+    bench, halo_fraction, model_bench, profile_2m, profile_bench, profile_ni,
     sharded2d_demo, sharded_demo)
-for mod in (halo_fraction, model_bench, profile_2m, profile_bench,
+for mod in (bench, halo_fraction, model_bench, profile_2m, profile_bench,
             profile_ni, sharded2d_demo, sharded_demo):
     assert callable(mod.main) and callable(mod.build_parser), mod
 bad = sorted(m for m in sys.modules if m == "jax" or m.startswith("jax.")
@@ -257,7 +257,7 @@ SCRIPT_ARGV = {
     "scale_demo": ["--config", "500k"], "disloc_core": [],
     "model_bench": ["--model", "ni"], "profile_bench": [],
     "profile_ni": [], "profile_2m": [], "sharded_demo": [],
-    "sharded2d_demo": [], "halo_fraction": [],
+    "sharded2d_demo": [], "halo_fraction": [], "bench": [],
 }
 
 

@@ -3,9 +3,11 @@ unordered pair of a row once, checked on the CPU in f64 with Python mirrors
 of the kernels' index arithmetic (the kernels themselves run only on the
 card, tests/test_torch_cuda.py):
 
-  * csrc/ni_bp.cu `list_pairs`: candidate t of a row with n compacted lanes
-    is the pair (j, j + d mod n), d = t / n + 1, j = t mod n, with t / n
-    taken as (t * (65536 / n + 1)) >> 16;
+  * csrc/ni_bp.cu `list_pairs`: candidate t of a row with n compacted slots
+    (n <= 256) is the pair (j, j + d mod n), d = t / n + 1, j = t mod n,
+    with t / n taken as the high word of t * ceil(2^32 / n) (`div_magic`);
+    the candidates go 32 a round into tiles of at most 512 listed pairs,
+    a tile closed when it could not take another round;
   * csrc/annp_cos.cu: thread j of a row with n_act active lanes takes
     k = j + d mod n_act for d = 1 .. n_act / 2, the half step d = n_act / 2
     only for j < n_act / 2 when n_act is even;
@@ -25,12 +27,20 @@ from meng_zhang_tpu_torch.units import CFLENGTH
 from torch_port_util import ni_short_planes, reduced_ni_potential, t64
 
 
+TILE = 512              # ni_bp.cu kTile
+
+
+def div_magic(n):
+    """ni_bp.cu div_magic: ceil(2^32 / n) as a 32-bit word (n > 1)."""
+    return 0xFFFFFFFF // n + 1 if n > 1 else 0
+
+
 def ni_pair_map(n):
-    """list_pairs' candidates for n compacted lanes: [(t, d - 1, j, k)]."""
-    inv_n = 65536 // max(n, 1) + 1
+    """list_pairs' candidates for n compacted slots: [(t, d - 1, j, k)]."""
+    magic = div_magic(n)
     out = []
     for t in range(n * (n - 1) // 2):
-        dd = (t * inv_n) >> 16
+        dd = (t * magic) >> 32
         j = t - dd * n
         k = j + dd + 1
         if k >= n:
@@ -39,13 +49,52 @@ def ni_pair_map(n):
     return out
 
 
-@pytest.mark.parametrize("n", range(33))
+def ni_pair_tiles(n_cand, admit):
+    """The tiles that list_pairs fills, as the kernels' tile loop calls it:
+    [[admitted candidate t, ...], ...]; admit(t) says whether candidate t's
+    third leg lies inside the cutoff."""
+    tiles, cand = [], 0
+    while True:                         # do { ... } while (cand < n_cand)
+        tile = []
+        while cand < n_cand and len(tile) <= TILE - 32:
+            tile += [t for t in range(cand, min(cand + 32, n_cand))
+                     if admit(t)]
+            cand += 32
+        tiles.append(tile)
+        if cand >= n_cand:
+            return tiles
+
+
+@pytest.mark.parametrize("n", list(range(33)) + [33, 63, 64, 65, 86, 100,
+                                                 127, 128, 129, 200, 255,
+                                                 256])
 def test_ni_pair_map_visits_each_pair_once(n):
     pairs = ni_pair_map(n)
     assert all(dd == t // n for t, dd, _, _ in pairs)
     assert all(0 <= j < n and 0 <= k < n and j != k for _, _, j, k in pairs)
     seen = sorted((min(j, k), max(j, k)) for _, _, j, k in pairs)
     assert seen == [(j, k) for j in range(n) for k in range(j + 1, n)]
+    # the pair fits the list's 16-bit j | k << 8
+    assert all(j | (k << 8) < 1 << 16 for _, _, j, k in pairs)
+
+
+@pytest.mark.parametrize("n,share", [(0, 1.0), (2, 1.0), (32, 1.0),
+                                     (32, 0.5), (86, 0.6), (128, 1.0),
+                                     (256, 0.3), (256, 1.0)])
+def test_ni_pair_tiles_cover_the_candidates(n, share):
+    """Every admitted candidate lands in one tile, in order, no tile holds
+    more than TILE pairs, and a row of <= 32 slots is one tile."""
+    n_cand = n * (n - 1) // 2
+    rng = np.random.default_rng(n)
+    keep = rng.random(n_cand) < share
+    tiles = ni_pair_tiles(n_cand, lambda t: bool(keep[t]))
+    assert max(len(tile) for tile in tiles) <= TILE
+    assert [t for tile in tiles for t in tile] == list(np.flatnonzero(keep))
+    if n <= 32:
+        assert len(tiles) == 1
+    else:
+        # a tile closes only when another round could overflow it
+        assert all(len(tile) > TILE - 32 for tile in tiles[:-1])
 
 
 def cos_schedule(n_act):
@@ -164,13 +213,18 @@ def _odd(coeang):
     return coeang
 
 
-@pytest.mark.parametrize("width", ["reduced", "full", "full-odd"])
+@pytest.mark.parametrize("width", ["reduced", "full", "full-odd", "wide"])
 def test_g4_over_listed_pairs_once_matches_plain(width):
-    pot = reduced_ni_potential() if width == "reduced" \
-        else synthetic_ni_potential(0)
-    ks = 16 if width == "reduced" else 32
+    """"wide": Rc 6.0 A, Ks 128, ~86 partners a row and thousands of
+    listed pairs, over the tiles' boundaries."""
+    pot = {"reduced": reduced_ni_potential,
+           "wide": lambda: synthetic_ni_potential(
+               0, rc_bohr=6.0 * CFLENGTH)}.get(
+        width, lambda: synthetic_ni_potential(0))()
+    ks = {"reduced": 16, "wide": 128}.get(width, 32)
     rc_s = float(pot.sym_coeang[0, 3]) / CFLENGTH + 0.2
-    planes, filler = ni_short_planes(rc_s, ks, n_cells=3, seed=5)
+    planes, filler = ni_short_planes(rc_s, ks, n_cells=4 if width == "wide"
+                                     else 3, seed=5, capacity=160)
     assert filler.any()                      # filler lanes take part
     table = fn.ni_table(pot.sym_coerad, _odd(pot.sym_coeang)
                         if width.endswith("odd") else pot.sym_coeang)

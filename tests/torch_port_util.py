@@ -103,13 +103,15 @@ def reduced_ni_potential(seed=0, ang=NI_REDUCED_ANG, **kw):
                                   **kw)
 
 
-def ni_short_planes(rc_s, ks, n_cells=3, seed=0, disp=0.1):
+def ni_short_planes(rc_s, ks, n_cells=3, seed=0, disp=0.1, capacity=64):
     """[P, Ks] displacement planes (numpy) from the short list at rc_s of
     a perturbed fcc box with one vacancy, so that some rows hold fewer
-    partners than the rest; also the filler-lane mask."""
+    partners than the rest; also the filler-lane mask. capacity: the skin
+    list's, at rc_s + 0.3."""
     x, box = thermal_fcc(n_cells, seed=seed, disp=disp)
     x = x[1:]                                           # the vacancy
-    nbrs = build_neighbors_n2(t64(x), t64(box), rc_s + 0.3, 64)
+    nbrs = build_neighbors_n2(t64(x), t64(box), rc_s + 0.3, capacity)
+    assert not bool(nbrs.overflow)
     sidx = fa.compact_short(t64(x), t64(box), nbrs.idx, rc_s, ks,
                             (True, True, True)).sidx
     planes = [a.numpy() for a in fa.pair_dx_planes(t64(x), t64(box), sidx,
