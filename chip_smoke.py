@@ -60,7 +60,8 @@ Phases, each fatal on failure:
       [256000, 128] short planes in f32 and f64 (f64 held on every
       NI_WIDE_F64_STRIDE-th row), ni_g bitwise repeatable, their times and
       bounds; then the 10 + 22 table of testing.NI_WIDE_ANGULAR (nsf 32, 20
-      eta groups, 22 (lambda, zeta) shapes, 12 through pow) on
+      eta groups, 22 (lambda, zeta) shapes, 12 through pow) and the
+      potential's table at K 48 and K 256 (2 and 8 slots a lane) on
       NI_POW_ROWS of those rows; [ni-wide-main]: phase 11's NVT run on that
       potential at Ks 128 (skin capacity 128), NI_WIDE_BLOCKS blocks, its
       gates and launch counts, the widest short row and the rate;
@@ -1566,10 +1567,11 @@ def phase_ni_wide_kernels(dev, cfg32, p32):
     the [P, NI_WIDE_KS] short planes of the thermal ni scene on the
     potential at Rc NI_WIDE_RC (filler lanes included) in f32 and f64 (the
     f64 plain versions on every NI_WIDE_F64_STRIDE-th row), their times
-    and bounds; then, on its first
-    NI_POW_ROWS rows, the 10 + 22 table of testing.NI_WIDE_ANGULAR (nsf 32,
-    20 eta groups, 22 shapes, 12 of them through pow). Returns the wide
-    figures of each kernel's record."""
+    and bounds; then, on its first NI_POW_ROWS rows, the 10 + 22 table of
+    testing.NI_WIDE_ANGULAR (nsf 32, 20 eta groups, 22 shapes, 12 of them
+    through pow), and the potential's table at K 48 and K 256 (the kernels'
+    instances of 2 and 8 slots a lane). Returns the wide figures of each
+    kernel's record."""
     from meng_zhang_tpu_torch.ops import fused_annp as fa
     from meng_zhang_tpu_torch.ops import fused_ni as fn
     from meng_zhang_tpu_torch.ops import kernels
@@ -1593,18 +1595,32 @@ def phase_ni_wide_kernels(dev, cfg32, p32):
     rows = slice(0, NI_POW_ROWS)
     dedg_np = np.random.default_rng(SEED).normal(size=(NI_POW_ROWS,
                                                        fn.NSF_SUB))
-    for dtype in (torch.float32, torch.float64):
-        planes = [t[rows].to(dtype).contiguous() for t in planes32]
-        dedg = torch.tensor(dedg_np, dtype=dtype, device=dev)
-        tag = "ni-wide-kernels 10+22 table " + (
-            "f32" if dtype == torch.float32 else "f64")
-        compare(tag, f"ni_g [{NI_POW_ROWS}, {k}]", ("g",),
-                (kernels.ni_g(*planes, wide),),
-                (fn.ni_g_plain(*planes, wide),), NI_REL_BOUND[dtype])
-        compare(tag, f"ni_force [{NI_POW_ROWS}, {k}]", ("fjx", "fjy", "fjz"),
-                kernels.ni_force(*planes, dedg, wide),
-                fn.ni_force_plain(*planes, dedg, wide), NI_REL_BOUND[dtype],
-                filler[rows])
+    # the other instances of the kernels: K 48 (lanes 40-87 of the rows, 2
+    # slots a lane) and K 256 (the rows and 128 filler lanes, 8 slots)
+    pad = 2.0 * box + 10.0
+    planes256 = [torch.cat([t[rows], torch.full_like(t[rows], float(b))], 1)
+                 for t, b in zip(planes32, pad)]
+    cases = [("10+22 table", wide, [t[rows] for t in planes32],
+              filler[rows]),
+             ("K 48", table, [t[rows, 40:88] for t in planes32],
+              filler[rows, 40:88]),
+             ("K 256", table, planes256, torch.cat(
+                 [filler[rows], torch.ones_like(filler[rows])], 1))]
+    for case, tab, case_planes, case_filler in cases:
+        kc = case_planes[0].shape[1]
+        for dtype in (torch.float32, torch.float64):
+            planes = [t.to(dtype).contiguous() for t in case_planes]
+            dedg = torch.tensor(dedg_np, dtype=dtype, device=dev)
+            tag = f"ni-wide-kernels {case} " + (
+                "f32" if dtype == torch.float32 else "f64")
+            compare(tag, f"ni_g [{NI_POW_ROWS}, {kc}]", ("g",),
+                    (kernels.ni_g(*planes, tab),),
+                    (fn.ni_g_plain(*planes, tab),), NI_REL_BOUND[dtype])
+            compare(tag, f"ni_force [{NI_POW_ROWS}, {kc}]",
+                    ("fjx", "fjy", "fjz"),
+                    kernels.ni_force(*planes, dedg, tab),
+                    fn.ni_force_plain(*planes, dedg, tab),
+                    NI_REL_BOUND[dtype], case_filler)
     return {r["name"]: {"wide_shape": [p, k], "wide_ms": r["ms"],
                         "wide_plain_ms": r["plain_ms"],
                         "wide_bound_ms": r["bound_ms"],

@@ -523,23 +523,14 @@ ni_force_kernel(const T* __restrict__ dxx, const T* __restrict__ dxy,
           // the group's first entry of this chunk
           const int e0 = cfg.grp_off[gi] + __popc(gm & ((1u << c0) - 1u));
           T s_a = T(0), s_c = T(0);
-          if (m == all) {                  // every shape: a dense run
+          int e = e0;
 #pragma unroll
-            for (int i = 0; i < kShapeChunk; ++i) {
-              if (i >= nsh) break;
-              s_a = s_a + fr.wa[e0 + i] * fz[i];
-              s_c = s_c + fr.wc[e0 + i] * dfz[i];
-            }
-          } else {
-            int e = e0;
-#pragma unroll
-            for (int i = 0; i < kShapeChunk; ++i) {
-              if (i >= nsh) break;
-              if ((m >> i) & 1u) {
-                s_a = s_a + fr.wa[e] * fz[i];
-                s_c = s_c + fr.wc[e] * dfz[i];
-                ++e;
-              }
+          for (int i = 0; i < kShapeChunk; ++i) {
+            if (i >= nsh) break;
+            if ((m >> i) & 1u) {
+              s_a = s_a + fr.wa[e] * fz[i];
+              s_c = s_c + fr.wc[e] * dfz[i];
+              ++e;
             }
           }
           const T t_a = e_eta * s_a;

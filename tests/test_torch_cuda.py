@@ -204,10 +204,11 @@ def _ni_case(width):
     with a vacancy: reduced width at Ks 16, the shipped width at Ks 32 or,
     for "k17", 17 of its lanes, some of them filler (a K that leaves lanes of
     the warp idle). "wide": Rc 6.0 A at Ks 128 (~86 partners a row, 4 slots
-    a lane), "k70" 70 of its lanes, "k256" its lanes spread over 256 by a
-    seeded permutation, filler between them (8 slots a lane); "table": the
-    10 + 22 table of testing.NI_WIDE_ANGULAR at Rc 6.0 A, Ks 128."""
-    if width in ("wide", "k70", "k256", "table"):
+    a lane), "k48" 48 of its lanes (2 slots a lane), "k70" 70 of them,
+    "k256" its lanes spread over 256 by a seeded permutation, filler
+    between them (8 slots a lane); "table": the 10 + 22 table of
+    testing.NI_WIDE_ANGULAR at Rc 6.0 A, Ks 128."""
+    if width in ("wide", "k48", "k70", "k256", "table"):
         pot = synthetic_ni_potential(0, rc_bohr=6.0 * CFLENGTH) \
             if width != "table" else synthetic_ni_potential(
                 0, npsf=10, rc_bohr=6.0 * CFLENGTH, ang=NI_WIDE_ANGULAR,
@@ -220,8 +221,9 @@ def _ni_case(width):
     rc_s = float(pot.sym_coeang[0, 3]) / CFLENGTH + 0.2
     planes, filler = ni_short_planes(rc_s, ks, n_cells=4, seed=2,
                                      capacity=160)
-    if width in ("k17", "k70"):
-        lanes = slice(4, 21) if width == "k17" else slice(40, 110)
+    if width in ("k17", "k48", "k70"):
+        lanes = {"k17": slice(4, 21), "k48": slice(40, 88),
+                 "k70": slice(40, 110)}[width]
         planes = [np.ascontiguousarray(a[:, lanes]) for a in planes]
         filler = np.ascontiguousarray(filler[:, lanes])
     if width == "k256":
@@ -249,7 +251,7 @@ def _odd_coeang(pot):
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
 @pytest.mark.parametrize("width", ["reduced", "full", "reduced-odd",
                                    "full-odd", "k17", "wide", "wide-odd",
-                                   "k70", "k256", "table"])
+                                   "k48", "k70", "k256", "table"])
 def test_ni_kernels_match_plain(cuda_device, width, dtype):
     """Both ni kernels against their plain versions, on the potential's
     table or (-odd) one with zetas 3 and 6. Rows 0-2 are cut down to 0, 1
@@ -257,7 +259,8 @@ def test_ni_kernels_match_plain(cuda_device, width, dtype):
     inside the angular cutoff in random directions: the longest pair list,
     496 candidates at Ks 32, 8,128 (16 tiles) at Ks 128, 32,640 at 256.
     The padding-free box also has rows of its usual partners (~12, ~86 at
-    Rc 6.0 A), "k17" runs with K = 17 and "k70" with K = 70."""
+    Rc 6.0 A), "k17" runs with K = 17, "k48" with K = 48 and "k70" with
+    K = 70."""
     width, _, odd = width.partition("-")
     planes, filler, pot = _ni_case(width)
     _thin_rows(planes, filler, (0, 1, 2))
