@@ -189,6 +189,30 @@ process), each fatal on failure, by tag, added after [shard3d-fe]:
     NCCL with one rank a card on 4 (or 2) cards; with one card it prints
     that the check across cards did not run.
 
+Rows of 257-512 partners (the kernels' MAX_K = NI_MAX_K = 512), each
+fatal on failure, by tag:
+
+  * [fe-wide-kernels] (after [dist-nccl]): the benchmark scene on the fe
+    potential of the shipped widths at rc FE_WIDE_RC (a skin list at rc +
+    FE_WIDE_SKIN of capacity FE_WIDE_CAPACITY, short rows at Ks
+    FE_WIDE_KS, ~330-360 partners a row): the four fe kernels against
+    their plain versions in f32 and f64 (the cos pair on the first
+    WIDE_ROWS rows, f64 on every WIDE_F64_STRIDE-th row), and the first
+    WIDE_PAD_ROWS rows widened to K 512 by filler lanes; each kernel's time
+    on every row and its bound;
+  * [fe-wide-main]: phase 5's NPT path through FusedAnnp(k_short=
+    FE_WIDE_KS) on that potential, FE_WIDE_BLOCKS blocks: phase 5's gates,
+    the widest short and skin rows and the rate;
+  * [ni-wider] (after [ni-wide-main]): the ni potential of the shipped
+    table at Rc NI_WIDER_RC on a thermal box of NI_WIDER_CELLS^3 fcc cells
+    at Ks NI_WIDER_KS (~320 partners a row): ni_g / ni_force against their
+    plain versions on the first WIDE_ROWS rows (f64 on every
+    WIDE_F64_STRIDE-th; NI_WIDER_REL_BOUND) and on WIDE_PAD_ROWS rows at K
+    512, their times on every row and bounds; one evaluation of the
+    chunked BP functions in f32 against the f64 plain path (NI_EVAL_REL);
+    then [ni-wider-main], NI_WIDER_BLOCKS blocks of phase 11's NVT path at
+    those sizes, its gates.
+
 The 2-D and 3-D grid drivers (parallel/domain2d.py, domain3d.py:
 ShardedMD2D on a (2, 2) grid of columns, ShardedMD3D on a (2, 2, 2) grid
 of bricks, on the same in-process mesh; every frame row is a centre), each
@@ -227,8 +251,9 @@ failure, by tag, after the run path and before the profiles:
     evaluation; g_harm / force_harm against their plain versions on
     SCALE_SLICE short rows, and their times on the full [500094, 128];
   * [scale-2m]: `--config 2m` (config 5's scene: the 1,964,085-atom STGB
-    bicrystal, its overlap prune timed; FIRE <= 100 iterations, the
-    warm-up, SCALE_2M_STEPS timed NVE steps): the same gates, the kernels
+    bicrystal, its overlap prune timed; FIRE <= 100 iterations,
+    SCALE_2M_WARMUP warm-up blocks, SCALE_2M_STEPS timed NVE steps): the
+    same gates, the kernels
     against their plain versions on two slices (one through the grain
     boundary at x = STGB_PLANE_X) and timed on [1964085, 128], the peak
     memory of a skin-list build, a compaction and an evaluation, and one
@@ -286,11 +311,16 @@ ANNA-shape figures (`anna_shape`, `anna_ms`, `anna_plain_ms`,
 from phase 14); ni_g's and ni_force's carry their [ni-wide-kernels] figures
 (`wide_shape`, `wide_ms`, `wide_plain_ms`, `wide_bound_ms`,
 `wide_bound_by`, `wide_max_abs_err`, and `wide_launches` from
-[ni-wide-main]). Its `launches` add the new paths' runs ([multi-fe]'s and
-[rowsweep]'s Simulators, [multi-ni]'s, [thin-box]'s Simulator and FIRE,
-[cli-multi], the seven sharded runs, the ranks' and the in-process
-references' runs of the across-process tags, [disloc-core], [scale-500k],
-[scale-2m], [ni-wide-main] and the [script-*] runs) to the main paths';
+[ni-wide-main]) and their [ni-wider] figures (the same keys as `wider_*`,
+`wider_plain_rows` the rows of the plain versions' timed run, and
+`wider_launches` from [ni-wider-main]); the four fe kernels' carry their
+[fe-wide-kernels] figures as `wide_*` (`wide_plain_rows` likewise, and
+`wide_launches` from [fe-wide-main]). Its `launches` add the new paths'
+runs ([multi-fe]'s and [rowsweep]'s Simulators, [multi-ni]'s,
+[thin-box]'s Simulator and FIRE, [cli-multi], the seven sharded runs, the
+ranks' and the in-process references' runs of the across-process tags,
+[disloc-core], [scale-500k], [scale-2m], [ni-wide-main], [fe-wide-main],
+[ni-wider-main] and the [script-*] runs) to the main paths';
 g_harm's and force_harm's also carry
 their times and bounds on the scale scenes (`scale_500k_ms`,
 `scale_500k_bound_ms`, `scale_500k_bound_by`, and the same for `2m`). Prints
@@ -339,6 +369,19 @@ NI_WIDE_BLOCKS, NI_WIDE_RATE_BLOCKS = 10, 7
 # the plain versions on every 4th (the plain f64 pair loop over all
 # 256,000 rows costs ~20 s of the smoke)
 NI_WIDE_F64_STRIDE = 4
+# rows of 257-512 partners (kernels.MAX_K = NI_MAX_K = 512): bcc Fe holds
+# 330 lattice partners within 9.7 A (338 within rc + SHORT_DELTA, 410
+# within rc + FE_WIDE_SKIN), fcc Ni 320 within 9.2 A (368 within 9.9 A)
+FE_WIDE_RC = 9.7    # A
+FE_WIDE_KS, FE_WIDE_SKIN = 384, 0.8
+FE_WIDE_CAPACITY, FE_WIDE_CELL_CAPACITY = 512, 256
+FE_WIDE_BLOCKS, FE_WIDE_RATE_BLOCKS = 5, 3
+WIDE_F64_STRIDE = 4    # rows of the wide tags' f64 plain versions
+WIDE_ROWS = 8192    # rows of the wide cos and ni plain versions
+WIDE_PAD_ROWS = 2048   # rows of the K 512 checks (filler lanes)
+NI_WIDER_RC, NI_WIDER_CELLS = 9.2, 16     # A; 16,384 atoms
+NI_WIDER_KS, NI_WIDER_CAPACITY, NI_WIDER_CELL_CAPACITY = 352, 448, 192
+NI_WIDER_BLOCKS = 2                       # 10 NVT steps
 # run path (`python -m meng_zhang_tpu_torch`, run.main in this process)
 CLI_FE_STEPS, CLI_FE_RESTART_STEPS, CLI_THERMO = 40, 20, 10
 CLI_NI_STEPS, CLI_NI_THERMO = 20, 5
@@ -410,7 +453,7 @@ SHARD_REL64 = 1e-9
 # the one card, the NCCL backend at one rank (and across cards when the
 # machine has several)
 DIST_WORLD = 4                 # [dist-fe], [dist3d-ni]: ranks on the card
-DIST_BLOCKS = 3                # [dist-fe] NPT blocks
+DIST_BLOCKS = 2                # [dist-fe] NPT blocks
 DIST_NI_BLOCKS = 2             # [dist3d-ni] NVT blocks
 DIST_TIMEOUT = 600.0           # s, a launch's limit
 # f64 forces of the ranks against the in-process evaluation of the same
@@ -421,12 +464,13 @@ DIST_TIMEOUT = 600.0           # s, a launch's limit
 DIST_REL64 = 1e-12
 # the scale configurations (meng_zhang_tpu_torch/scripts/): full atom
 # counts, the timed steps cut
-SCALE_500K_STEPS = 100     # NPT steps after the warm-up (the script's 200)
-SCALE_2M_STEPS = 50        # NVE steps after the warm-up (the script's 100)
+SCALE_500K_STEPS = 60      # NPT steps after the warm-up (the script's 200)
+SCALE_2M_STEPS = 30        # NVE steps after the warm-up (the script's 100)
+SCALE_2M_WARMUP = 5        # [scale-2m]'s warm-up blocks (the script's 10)
 SCALE_SLICE = 20000        # short rows of each kernel-vs-plain check
 STGB_PLANE_X = 230.0       # A, the 2m scene's middle grain boundary
 # the run scripts (meng_zhang_tpu_torch/scripts/): full scenes, steps cut
-SCRIPT_MODEL_STEPS = {"kernels": 50, "chunked": 10}   # the script's 100
+SCRIPT_MODEL_STEPS = {"kernels": 20, "chunked": 10}   # the script's 100
 SCRIPT_SHARDED_SMALL_STEPS = 200                      # the script's 1000
 SCRIPT_PARITY_STEPS = 100      # [script-sharded-small]'s gated window
 SCRIPT_HALO_CPU_CELLS = 40     # [script-halo]'s card-vs-CPU planning
@@ -464,6 +508,20 @@ REL_BOUND = {torch.float32: 1e-4, torch.float64: 1e-12}
 #   f64: the same counts at 1.1e-16 give <= 7e-14; 1e-12 leaves 14x.
 COS_REL_BOUND = {torch.float32: {"g_cos": 1e-4, "force_cos": 3e-4},
                  torch.float64: {"g_cos": 1e-12, "force_cos": 1e-12}}
+# The cos pair at [fe-wide-kernels]'s rows of up to 383 partners (K 384,
+# and K 512 with filler lanes), by the counts above: g_cos's thread sums
+# <= n/2 = 192 terms of its own lane and <= 21 dealt ones, then 5 shuffle
+# levels and <= 16 warp partials, with the recurrence's 180: <= 414
+# roundings, 2.5e-5 of G_0, and the plain version as many: 1e-4 leaves
+# 2x. force_cos's slot sums run <= 192 partners a chain plus the
+# recurrences' 180: 373 roundings, 2.2e-5 of the sum; the plain version's
+# one reduction over <= 383 partners plus 180: 3.4e-5; 5.6e-5 apart, and
+# the same 8x for Fj's cancellation: 4.5e-4, so 5e-4. f64: <= 1.1e-13;
+# 1e-12 leaves 9x. The harmonic pair keeps REL_BOUND: its longest sums
+# (the plain versions' over <= 512 lanes, the kernels' <= 16 slots a lane,
+# 5 shuffles and the second tile's add) stay within ~500 terms, 3e-5.
+COS_WIDE_REL_BOUND = {torch.float32: {"g_cos": 1e-4, "force_cos": 5e-4},
+                      torch.float64: {"g_cos": 1e-12, "force_cos": 1e-12}}
 COS_SKIN_F64_STRIDE = 4
 # The two angular formulations in f64 on the full scene: the harmonic path
 # forms G_n = 1/2 (sum_l c_nl S_l - F2) from power sums S_l ~ (sum fc)^2
@@ -523,6 +581,13 @@ REF_E_RTOL = 1e-10
 # K 128; in f64 the same counts at 1.1e-16 give <= 3e-13, and 1e-12 leaves
 # 3x.
 NI_REL_BOUND = {torch.float32: 2e-4, torch.float64: 1e-12}
+# [ni-wider]'s rows of up to 351 partners (Ks 352, and 512 with filler
+# lanes), by the same counts: ni_force's slot sums take <= 351
+# contributions, <= 395 roundings a side, 4.7e-5 apart, 3.8e-4 with the 8x;
+# ni_g's lane sums take <= ~850 listed pairs (~24,000 a row over 32 lanes)
+# and the plain version's loop and sum <= 704, 9.3e-5 apart. So 4e-4; in
+# f64 the same counts give <= 7e-13, under 1e-12.
+NI_WIDER_REL_BOUND = {torch.float32: 4e-4, torch.float64: 1e-12}
 # ni evaluator on the thermal 256,000-atom box, f32 kernel path against the
 # f64 plain path, relative to the scales of what each measures. Min-max
 # normalisation divides each raw sum by its span: the largest |G| * scale
@@ -754,15 +819,18 @@ def model(dev):
     return cfg32, p32, cfg64, p64, float(pot.masses[0])
 
 
-def md_config(cfg):
+def md_config(cfg, skin=SKIN, capacity=CAPACITY,
+              cell_capacity=CELL_CAPACITY):
+    """The fe NPT main path's MDConfig; [fe-wide-main] passes its own skin
+    and capacities."""
     from meng_zhang_tpu_torch.md.simulation import MDConfig
     from meng_zhang_tpu_torch.system.neighbors import cell_grid_dims
-    rlist = cfg.cut + SKIN
+    rlist = cfg.cut + skin
     # NPT shrinks the box: size the static cell grid for up to 8% shrink
     dims = cell_grid_dims(np.asarray(BOX) * 0.92, rlist)
-    return MDConfig(dt=0.001, cutoff=cfg.cut, skin=SKIN, capacity=CAPACITY,
+    return MDConfig(dt=0.001, cutoff=cfg.cut, skin=skin, capacity=capacity,
                     nbr_method="cell", cell_dims=dims,
-                    cell_capacity=CELL_CAPACITY, ensemble="npt",
+                    cell_capacity=cell_capacity, ensemble="npt",
                     t_target=300.0, tau_t=0.1, p_target=(0.0,) * 3,
                     p_couple=COUPLE, tau_p=1.0, thermo_every=THERMO_EVERY,
                     pbc=PBC, short_every=SHORT_EVERY,
@@ -1061,13 +1129,14 @@ def phase_matrix_vs_harmonic(x, box, cfg64, p64, sl):
     return de, df
 
 
-def fe_simulator(x, cfg32, p32, mass, angular, elems=None, mcfg=None):
+def fe_simulator(x, cfg32, p32, mass, angular, elems=None, mcfg=None,
+                 k_short=K_SHORT):
     """The fe NPT main path's Simulator through one angular path; mass a
     number or the atoms' masses, elems the atoms' elements, mcfg the
-    MDConfig (default md_config)."""
+    MDConfig (default md_config), k_short the short rows' width."""
     from meng_zhang_tpu_torch.md.simulation import Simulator
     from meng_zhang_tpu_torch.ops import fused_annp as fa
-    ev = fa.FusedAnnp(cfg32, p32, k_short=K_SHORT, short_delta=SHORT_DELTA,
+    ev = fa.FusedAnnp(cfg32, p32, k_short=k_short, short_delta=SHORT_DELTA,
                       angular=angular, elems=elems)
     masses = torch.as_tensor(mass, dtype=torch.float32, device=x.device)
     return Simulator(
@@ -1077,12 +1146,14 @@ def fe_simulator(x, cfg32, p32, mass, angular, elems=None, mcfg=None):
 
 
 def phase_main_path(x, box, cfg32, p32, mass, card, angular="harmonic",
-                    elems=None, tag=None, n_blocks=None, rate_blocks=None):
+                    elems=None, tag=None, n_blocks=None, rate_blocks=None,
+                    wide=False):
     """init_state + blocks of the NPT main path through one angular path's
     kernels (elems: the atoms' elements, with `mass` their masses); the
     other path's kernels and the plain versions must not run. Returns the
     path's launches, its atom-steps/s over the rate window and its median
-    block's ms (a block without a skin rebuild)."""
+    block's ms (a block without a skin rebuild). wide: [fe-wide-main], the
+    harmonic path at the sizes of the rc FE_WIDE_RC potential."""
     from meng_zhang_tpu_torch.ops import kernels
     if angular == "harmonic":
         tag0, nb0, rb0 = "main", N_BLOCKS, RATE_BLOCKS
@@ -1090,10 +1161,14 @@ def phase_main_path(x, box, cfg32, p32, mass, card, angular="harmonic",
     else:
         tag0, nb0, rb0 = "cos-main", COS_BLOCKS, COS_RATE_BLOCKS
         names, others = ("g_cos", "force_cos"), ("g_harm", "force_harm")
+    ks, mcfg = K_SHORT, None
+    if wide:
+        tag0, nb0, rb0 = "fe-wide-main", FE_WIDE_BLOCKS, FE_WIDE_RATE_BLOCKS
+        ks, mcfg = FE_WIDE_KS, fe_wide_md_config(cfg32)
     tag, n_blocks = tag or tag0, n_blocks or nb0
     rate_blocks = rate_blocks or rb0
     n = x.shape[0]
-    sim = fe_simulator(x, cfg32, p32, mass, angular, elems)
+    sim = fe_simulator(x, cfg32, p32, mass, angular, elems, mcfg, ks)
     pe_off = n * cfg32.e_shift
     torch.cuda.reset_peak_memory_stats()
     kernels.reset_launch_counts()
@@ -1102,7 +1177,7 @@ def phase_main_path(x, box, cfg32, p32, mass, card, angular="harmonic",
         st = sim.init_state(x, box, seed=SEED, t_init=300.0)
         torch.cuda.synchronize()
         log(f"[{tag}] init_state {time.time() - t0:.2f} s")
-        rebuilds, rows, block_s = 0, [], []
+        rebuilds, rows, block_s, srow_max, krow_max = 0, [], [], 0, 0
         for blk in range(n_blocks):
             t0 = time.time()
             st, th = sim.run(st, 1)
@@ -1116,10 +1191,12 @@ def phase_main_path(x, box, cfg32, p32, mass, card, angular="harmonic",
             rows.append(row)
             b = st.box.tolist()
             srow = int((st.short.sidx < n).sum(1).max())
+            srow_max = max(srow_max, srow)
+            krow_max = max(krow_max, int((st.nbrs.idx < n).sum(1).max()))
             log(f"[{tag}] step {int(row[0]):4d} T {row[1]:8.3f} K  PE "
                 f"{row[2] + pe_off:.6f} eV  P {row[4]:9.2f} bar  box "
                 f"{b[0]:.4f} {b[1]:.5f} {b[2]:.4f}  conserved "
-                f"{row[6]:.6e}  short row max {srow}/{K_SHORT}  "
+                f"{row[6]:.6e}  short row max {srow}/{ks}  "
                 f"{block_s[-1] * 1e3:.1f} ms")
     launches = {name: getattr(kernels, name).launches
                 for name in names + others}
@@ -1139,7 +1216,9 @@ def phase_main_path(x, box, cfg32, p32, mass, card, angular="harmonic",
     window = sum(block_s[-rate_blocks:])
     aps = n * rate_blocks * THERMO_EVERY / window
     log(f"[{tag}] {steps} NPT steps, {rebuilds} rebuilds, launches "
-        f"{launches}, overflow {bool(st.overflow)} unsafe {bool(st.unsafe)}")
+        f"{launches}, overflow {bool(st.overflow)} unsafe {bool(st.unsafe)}"
+        f"; widest short row {srow_max}/{ks}, widest skin row {krow_max}/"
+        f"{sim.cfg.capacity}")
     log(f"[{tag}] {aps:.1f} atom-steps/s over the last {rate_blocks} blocks "
         f"({window:.3f} s) on {card}; peak device memory "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
@@ -1199,6 +1278,148 @@ def phase_profile(x, box, cfg32, p32, mass, card, angular="harmonic"):
     profile_block(tag, angular, sim, st, THERMO_EVERY, card)
 
 
+# --------------------------------------------------- fe, wide rows
+def fe_wide_model(dev):
+    """(cfg32, p32, mass) of the synthetic fe potential of the shipped
+    widths at rc FE_WIDE_RC."""
+    from meng_zhang_tpu_torch.models.annp import make_annp
+    from meng_zhang_tpu_torch.testing import synthetic_fe_potential
+    pot = synthetic_fe_potential(0, cut=FE_WIDE_RC)
+    cfg32, p32 = make_annp(pot, torch.float32, dev, pbc=PBC)
+    return cfg32, p32, float(pot.masses[0])
+
+
+def fe_wide_md_config(cfg):
+    return md_config(cfg, FE_WIDE_SKIN, FE_WIDE_CAPACITY,
+                     FE_WIDE_CELL_CAPACITY)
+
+
+def pad_lanes(planes, filler, box, k):
+    """[P, K] planes and filler mask widened to k lanes with filler lanes
+    (dx = 2 box + 10 on each axis)."""
+    p, k0 = planes[0].shape
+    out = [torch.cat([t, torch.full((p, k - k0), 2.0 * float(b) + 10.0,
+                                    dtype=t.dtype, device=t.device)], 1)
+           for t, b in zip(planes, box)]
+    return out, torch.cat([filler, torch.ones((p, k - k0), dtype=torch.bool,
+                                              device=filler.device)], 1)
+
+
+def phase_fe_wide_kernels(x, box, cfg32, p32):
+    """[fe-wide-kernels]: the four fe kernels on the benchmark scene's
+    short planes at Ks FE_WIDE_KS on the rc FE_WIDE_RC potential (~330-360
+    partners a row: g_harm's two-tile instances, force_harm's rows over
+    two blocks, the cos pair's 16-warp blocks), against their plain
+    versions in f32 and f64 (f64 on every WIDE_F64_STRIDE-th row): the
+    harmonic pair on every row, the cos pair (whose plain versions build a
+    [K, K] matrix a row) on the first WIDE_ROWS rows; then the first
+    WIDE_PAD_ROWS rows widened to kernels.MAX_K = 512 by filler lanes (the
+    widest instances). Each kernel's f32 time on every
+    row (median of 10, CUDA events) and its bound. Returns the wide
+    figures of each kernel's record."""
+    from meng_zhang_tpu_torch.ops import fused_annp as fa
+    from meng_zhang_tpu_torch.ops import kernels
+    from meng_zhang_tpu_torch.system.neighbors import build_neighbors_cell
+    tag = "fe-wide-kernels"
+    n = x.shape[0]
+    mcfg = fe_wide_md_config(cfg32)
+    t0 = time.time()
+    nbrs = build_neighbors_cell(x, box, cfg32.cut + FE_WIDE_SKIN,
+                                FE_WIDE_CAPACITY, mcfg.cell_dims,
+                                FE_WIDE_CELL_CAPACITY, pbc=PBC)
+    ev = fa.FusedAnnp(cfg32, p32, k_short=FE_WIDE_KS,
+                      short_delta=SHORT_DELTA)
+    sl = ev.compact_short(x, box, nbrs.idx)
+    torch.cuda.synchronize()
+    skin_max = int((nbrs.idx < n).sum(1).max())
+    short_max = int((sl.sidx < n).sum(1).max())
+    log(f"[{tag}] rc {cfg32.cut} A: skin list dims {mcfg.cell_dims} "
+        f"overflow {bool(nbrs.overflow)} max row {skin_max}/"
+        f"{FE_WIDE_CAPACITY}; short list overflow {bool(sl.overflow)} max "
+        f"row {short_max}/{FE_WIDE_KS} ({time.time() - t0:.2f} s)")
+    check(not bool(nbrs.overflow) and not bool(sl.overflow),
+          f"{tag}: neighbor list overflow")
+    check(short_max > 256, f"{tag}: no short row wider than 256 lanes")
+    del nbrs
+    npsf, ntsf, rc = cfg32.npsf, cfg32.ntsf, cfg32.cut
+    planes32 = fa.pair_dx_planes(x, box, sl.sidx, PBC)
+    filler = sl.sidx >= n
+    p, k = planes32[0].shape
+    lanes, pairs = fe_counts(planes32, rc)
+    log(f"[{tag}] {lanes:.0f} lanes and {pairs:.0f} unordered pairs inside "
+        f"{rc} A ({lanes / p:.2f} lanes a row)")
+    rows, pad_rows = slice(0, WIDE_ROWS), slice(0, WIDE_PAD_ROWS)
+    wide32, fill_wide = pad_lanes([t[pad_rows] for t in planes32],
+                                  filler[pad_rows], box.tolist(),
+                                  kernels.MAX_K)
+    rng = np.random.default_rng(SEED)
+    dedg_np = np.zeros((p, fa.NSF_PAD))
+    dedg_np[:, :npsf + ntsf] = rng.normal(size=(p, npsf + ntsf))
+    b_np = np.zeros((p, fa.AB_PAD))
+    b_np[:, :ntsf * ntsf + 1] = rng.normal(size=(p, ntsf * ntsf + 1))
+    figs = {}
+    for dtype in (torch.float32, torch.float64):
+        planes = [t.to(dtype) for t in planes32]
+        wide = [t.to(dtype) for t in wide32]
+        dedg = torch.tensor(dedg_np, dtype=dtype, device=x.device)
+        b = torch.tensor(b_np, dtype=dtype, device=x.device)
+        bounds = {"g_harm": REL_BOUND[dtype], "force_harm": REL_BOUND[dtype],
+                  **COS_WIDE_REL_BOUND[dtype]}
+        sub = f"{tag} " + ("f32" if dtype == torch.float32 else "f64")
+        # each: (kernel, plain version, outputs), on planes and the rows
+        # of dedg and b that go with them
+        fns = {
+            "g_harm": (lambda pl, r: kernels.g_harm(*pl, npsf, ntsf, rc),
+                       lambda pl, r: fa.g_harm_plain(*pl, npsf, ntsf, rc),
+                       ("g_raw", "A")),
+            "force_harm": (
+                lambda pl, r: kernels.force_harm(
+                    *pl, dedg[r].contiguous(), b[r].contiguous(), npsf, ntsf,
+                    rc),
+                lambda pl, r: fa.force_harm_plain(*pl, dedg[r], b[r], npsf,
+                                                  ntsf, rc),
+                ("fjx", "fjy", "fjz")),
+            "g_cos": (lambda pl, r: (kernels.g_cos(*pl, npsf, ntsf, rc),),
+                      lambda pl, r: (fa.g_cos_plain(*pl, npsf, ntsf, rc),),
+                      ("g",)),
+            "force_cos": (
+                lambda pl, r: kernels.force_cos(
+                    *pl, dedg[r].contiguous(), npsf, ntsf, rc),
+                lambda pl, r: fa.force_cos_plain(*pl, dedg[r], npsf, ntsf,
+                                                 rc),
+                ("fjx", "fjy", "fjz"))}
+        for name, (kern, plain, outs) in fns.items():
+            step = 1 if dtype == torch.float32 else WIDE_F64_STRIDE
+            cmp_rows = (slice(0, WIDE_ROWS, step)
+                        if name in COS_REL_BOUND[dtype]
+                        else slice(None, None, step))
+            cpl = [t[cmp_rows].contiguous() for t in planes]
+            got = kern(cpl, cmp_rows)
+            ref, plain_ms = timed(lambda: plain(cpl, cmp_rows))
+            worst = compare(sub, f"{name} [{cpl[0].shape[0]}, {k}]", outs,
+                            got, ref, bounds[name], filler[cmp_rows])
+            del got, ref, cpl
+            compare(sub, f"{name} [{WIDE_PAD_ROWS}, {kernels.MAX_K}]",
+                    outs, kern(wide, pad_rows), plain(wide, pad_rows),
+                    bounds[name], fill_wide)
+            if dtype != torch.float32:
+                continue
+            ms = cuda_ms(lambda: kern(planes, slice(None)), 10)
+            b_ms, b_by = bound(fe_flops(name, lanes, pairs, npsf, ntsf),
+                               fe_bytes(name, p, k, 4))
+            plain_rows = p if name not in COS_REL_BOUND[dtype] else WIDE_ROWS
+            figs[name] = {"wide_shape": [p, k], "wide_ms": ms,
+                          "wide_plain_ms": plain_ms,
+                          "wide_plain_rows": plain_rows,
+                          "wide_bound_ms": b_ms, "wide_bound_by": b_by,
+                          "wide_max_abs_err": worst}
+            log(f"[{tag}] {name} f32 [{p}, {k}]: kernel {ms:.3f} ms (median "
+                f"of 10, CUDA events), plain {plain_ms:.3f} ms on "
+                f"{plain_rows} rows (one run), bound {b_ms:.3f} ms ({b_by})")
+        del planes, wide, dedg, b
+    return figs
+
+
 # ------------------------------------------------------------------ ni
 def ni_model(dev):
     """(cfg32, p32, cfg64, p64, mass) of the synthetic ni potential."""
@@ -1211,18 +1432,22 @@ def ni_model(dev):
 
 
 def ni_sizes(wide):
-    """(Ks, skin-list capacity, cell capacity) of the ni path or, wide, of
-    the wide ni path."""
-    return ((NI_WIDE_KS, NI_WIDE_CAPACITY, NI_WIDE_CELL_CAPACITY) if wide
-            else (NI_KS, NI_CAPACITY, NI_CELL_CAPACITY))
+    """(Ks, skin-list capacity, cell capacity, fcc cells a side) of the ni
+    path, of the wide ni path (wide=True) or of the wider one
+    (wide="wider")."""
+    if wide == "wider":
+        return (NI_WIDER_KS, NI_WIDER_CAPACITY, NI_WIDER_CELL_CAPACITY,
+                NI_WIDER_CELLS)
+    return ((NI_WIDE_KS, NI_WIDE_CAPACITY, NI_WIDE_CELL_CAPACITY, NI_CELLS)
+            if wide else (NI_KS, NI_CAPACITY, NI_CELL_CAPACITY, NI_CELLS))
 
 
-def ni_wide_model(dev):
-    """(cfg32, p32, mass) of the synthetic ni potential at Rc NI_WIDE_RC."""
+def ni_wide_model(dev, rc=NI_WIDE_RC):
+    """(cfg32, p32, mass) of the synthetic ni potential at Rc rc (A)."""
     from meng_zhang_tpu_torch.models.annp import make_annp
     from meng_zhang_tpu_torch.testing import synthetic_ni_potential
     from meng_zhang_tpu_torch.units import CFLENGTH
-    pot = synthetic_ni_potential(0, rc_bohr=NI_WIDE_RC * CFLENGTH)
+    pot = synthetic_ni_potential(0, rc_bohr=rc * CFLENGTH)
     cfg32, p32 = make_annp(pot, torch.float32, dev)
     return cfg32, p32, float(pot.masses[0])
 
@@ -1230,7 +1455,7 @@ def ni_wide_model(dev):
 def ni_md_config(rc, box, wide=False):
     from meng_zhang_tpu_torch.md.simulation import MDConfig
     from meng_zhang_tpu_torch.system.neighbors import cell_grid_dims
-    _, capacity, cell_capacity = ni_sizes(wide)
+    _, capacity, cell_capacity, _ = ni_sizes(wide)
     return MDConfig(dt=0.001, cutoff=rc, skin=NI_SKIN, capacity=capacity,
                     nbr_method="cell",
                     cell_dims=cell_grid_dims(np.asarray(box), rc + NI_SKIN),
@@ -1243,13 +1468,13 @@ def ni_md_config(rc, box, wide=False):
 def ni_thermal_scene(dev, cfg32, p32, wide=False):
     """The ni scene with Gaussian displacements of NI_DISP A per component,
     its skin list and its short list (f32), at the ni path's sizes or the
-    wide path's."""
+    wide (or wider) path's."""
     from meng_zhang_tpu_torch.ops import fused_ni as fn
     from meng_zhang_tpu_torch.system.neighbors import build_neighbors_cell
     from meng_zhang_tpu_torch.testing import thermal_fcc
-    ks, capacity, cell_capacity = ni_sizes(wide)
-    tag = "ni-wide" if wide else "ni"
-    xn, bn = thermal_fcc(NI_CELLS, seed=SEED, disp=NI_DISP, a=NI_A)
+    ks, capacity, cell_capacity, cells = ni_sizes(wide)
+    tag = {False: "ni", True: "ni-wide", "wider": "ni-wider"}[wide]
+    xn, bn = thermal_fcc(cells, seed=SEED, disp=NI_DISP, a=NI_A)
     x = torch.tensor(xn, dtype=torch.float32, device=dev)
     box = torch.tensor(bn, dtype=torch.float32, device=dev)
     ev = fn.FusedNi(cfg32, p32, k_short=ks, short_delta=NI_DELTA)
@@ -1316,11 +1541,13 @@ def ni_flops(name, lanes, legs, table):
     return lanes * per_lane + legs / 2 * per_pair
 
 
-def ni_plane_checks(tag, planes32, table, nsf, filler, f64_stride=1):
+def ni_plane_checks(tag, planes32, table, nsf, filler, f64_stride=1,
+                    plain_rows=None, rel_bound=NI_REL_BOUND):
     """ni_g / ni_force against their plain versions on [P, K] planes
     (filler lanes included), with seeded random dedg, in f32 and f64 (the
     f64 kernels on every row, held against the plain versions on every
-    f64_stride-th); ni_g run twice for equal bits; then each kernel's f32
+    f64_stride-th; with plain_rows, both dtypes on the first plain_rows
+    rows alone); ni_g run twice for equal bits; then each kernel's f32
     time (median of 10, CUDA events), its plain version's (the comparison
     run) and its bound from this run's lanes and legs. Returns the two
     records."""
@@ -1338,9 +1565,13 @@ def ni_plane_checks(tag, planes32, table, nsf, filler, f64_stride=1):
         step = 1 if dtype == torch.float32 else f64_stride
         planes = [t.to(dtype) for t in planes32]
         dedg = torch.tensor(dedg_np, dtype=dtype, device=dev)
-        # the plain versions on every step-th row (rows are independent)
-        sub_planes = [t[::step].contiguous() for t in planes]
-        sub_dedg = dedg[::step].contiguous()
+        # the plain versions on every step-th row of the first plain_rows
+        # (rows are independent)
+        sel = slice(0, plain_rows, step)
+        sub_planes = [t[sel].contiguous() for t in planes]
+        sub_dedg = dedg[sel].contiguous()
+        shown = ((f" (every {step}th row)" if step > 1 else "")
+                 + (f" (of the first {plain_rows})" if plain_rows else ""))
         sub = f"{tag} " + ("f32" if dtype == torch.float32 else "f64")
         cases = [
             ("ni_g", lambda: (kernels.ni_g(*planes, table),),
@@ -1352,10 +1583,8 @@ def ni_plane_checks(tag, planes32, table, nsf, filler, f64_stride=1):
         for name, kern, plain, outs, line in cases:
             got = kern()
             ref, plain_ms = timed(plain)
-            worst = compare(sub, name if step == 1 else
-                            f"{name} (every {step}th row)", outs,
-                            [a[::step] for a in got], ref,
-                            NI_REL_BOUND[dtype], filler[::step])
+            worst = compare(sub, name + shown, outs, [a[sel] for a in got],
+                            ref, rel_bound[dtype], filler[sel])
             if name == "ni_g":
                 # register sums in list order, then shuffles: no atomics
                 check(torch.equal(kern()[0], got[0]),
@@ -1475,11 +1704,13 @@ def phase_ni_evaluator(x, box, cfg32, p32, cfg64, p64, sl, ref_out):
 def ni_simulator(dev, cfg32, p32, mass, wide=False):
     """(Simulator, x, box, evaluator) of the NVT main path of
     scripts/model_bench.py --model ni on the perfect lattice, the light
-    force variant wired as there; wide: at the wide path's sizes."""
+    force variant wired as there; wide: at the wide (or wider) path's
+    sizes."""
     from meng_zhang_tpu_torch.md.simulation import Simulator
     from meng_zhang_tpu_torch.ops import fused_ni as fn
     from meng_zhang_tpu_torch.testing import thermal_fcc
-    xn, bn = thermal_fcc(NI_CELLS, disp=0.0, a=NI_A)     # the perfect lattice
+    cells = ni_sizes(wide)[3]
+    xn, bn = thermal_fcc(cells, disp=0.0, a=NI_A)       # the perfect lattice
     x = torch.tensor(xn, dtype=torch.float32, device=dev)
     box = torch.tensor(bn, dtype=torch.float32, device=dev)
     n = x.shape[0]
@@ -1505,12 +1736,15 @@ def ni_simulator(dev, cfg32, p32, mass, wide=False):
 def phase_ni_main_path(dev, cfg32, p32, mass, card, wide=False):
     """init_state + NI_BLOCKS blocks of the ni NVT main path ([ni-main]);
     wide: NI_WIDE_BLOCKS blocks of the wide path ([ni-wide-main]), rows of
-    up to NI_WIDE_KS partners on the potential at Rc NI_WIDE_RC. Returns
-    the launches and the rate."""
+    up to NI_WIDE_KS partners on the potential at Rc NI_WIDE_RC; "wider":
+    NI_WIDER_BLOCKS blocks on NI_WIDER_CELLS^3 cells at Ks NI_WIDER_KS on
+    the potential at Rc NI_WIDER_RC ([ni-wider-main]). Returns the
+    launches and the rate."""
     from meng_zhang_tpu_torch.ops import kernels
-    tag = "ni-wide-main" if wide else "ni-main"
-    n_blocks, rate_blocks = ((NI_WIDE_BLOCKS, NI_WIDE_RATE_BLOCKS) if wide
-                             else (NI_BLOCKS, RATE_BLOCKS))
+    tag, n_blocks, rate_blocks = {
+        False: ("ni-main", NI_BLOCKS, RATE_BLOCKS),
+        True: ("ni-wide-main", NI_WIDE_BLOCKS, NI_WIDE_RATE_BLOCKS),
+        "wider": ("ni-wider-main", NI_WIDER_BLOCKS, 1)}[wide]
     ks = ni_sizes(wide)[0]
     sim, x, box, ev = ni_simulator(dev, cfg32, p32, mass, wide)
     n = x.shape[0]
@@ -1627,6 +1861,97 @@ def phase_ni_wide_kernels(dev, cfg32, p32):
                         "wide_bound_by": r["bound_by"],
                         "wide_max_abs_err": r["max_abs_err"]}
             for r in records}
+
+
+def phase_ni_wider(dev, card):
+    """[ni-wider]: the synthetic ni potential of the shipped table shape at
+    Rc NI_WIDER_RC on the thermal fcc box of NI_WIDER_CELLS^3 cells, short
+    planes at Ks NI_WIDER_KS (~320 partners a row: the kernels' 16-slot
+    instances): ni_g / ni_force against their plain versions in f32 and
+    f64 on the first WIDE_ROWS rows (f64 on every WIDE_F64_STRIDE-th),
+    their times on every row and bounds;
+    the first WIDE_PAD_ROWS rows widened to NI_MAX_K = 512 by filler lanes;
+    one evaluation
+    of the chunked BP functions (run.py's route: rows no wider than the
+    kernels go as they are) in f32 against the f64 plain path (the gates
+    of [ni-evaluator]); then [ni-wider-main], NI_WIDER_BLOCKS blocks of the
+    ni NVT main path at those sizes. Returns the wider figures of each
+    kernel's record and the main path's launches."""
+    from meng_zhang_tpu_torch.models import annp
+    from meng_zhang_tpu_torch.models.annp import make_annp
+    from meng_zhang_tpu_torch.ops import fused_annp as fa
+    from meng_zhang_tpu_torch.ops import fused_ni as fn
+    from meng_zhang_tpu_torch.ops import kernels
+    from meng_zhang_tpu_torch.testing import synthetic_ni_potential
+    from meng_zhang_tpu_torch.units import CFLENGTH
+    tag = "ni-wider"
+    pot = synthetic_ni_potential(0, rc_bohr=NI_WIDER_RC * CFLENGTH)
+    cfg32, p32 = make_annp(pot, torch.float32, dev)
+    cfg64, p64 = make_annp(pot, torch.float64, dev)
+    x, box, sl = ni_thermal_scene(dev, cfg32, p32, wide="wider")
+    n = x.shape[0]
+    short_max = int((sl.sidx < n).sum(1).max())
+    check(short_max > 256, f"{tag}: no short row wider than 256 lanes")
+    planes32 = fa.pair_dx_planes(x, box, sl.sidx, cfg32.pbc)
+    filler = sl.sidx >= n
+    table = fn.ni_table(p32["coerad"], p32["coeang"])
+    records = ni_plane_checks(tag, planes32, table, pot.nsf, filler,
+                              WIDE_F64_STRIDE, WIDE_ROWS,
+                              NI_WIDER_REL_BOUND)
+    rows = slice(0, WIDE_PAD_ROWS)
+    wide32, fill_wide = pad_lanes([t[rows] for t in planes32], filler[rows],
+                                  box.tolist(), kernels.NI_MAX_K)
+    dedg_np = np.random.default_rng(SEED).normal(size=(WIDE_PAD_ROWS,
+                                                       fn.NSF_SUB))
+    for dtype in (torch.float32, torch.float64):
+        planes = [t.to(dtype) for t in wide32]
+        dedg = torch.tensor(dedg_np, dtype=dtype, device=dev)
+        sub = f"{tag} " + ("f32" if dtype == torch.float32 else "f64")
+        shape = f"[{WIDE_PAD_ROWS}, {kernels.NI_MAX_K}]"
+        compare(sub, f"ni_g {shape}", ("g",), (kernels.ni_g(*planes, table),),
+                (fn.ni_g_plain(*planes, table),), NI_WIDER_REL_BOUND[dtype])
+        compare(sub, f"ni_force {shape}", ("fjx", "fjy", "fjz"),
+                kernels.ni_force(*planes, dedg, table),
+                fn.ni_force_plain(*planes, dedg, table),
+                NI_WIDER_REL_BOUND[dtype], fill_wide)
+    del wide32, planes, dedg
+
+    # the chunked functions through the kernels in f32, the plain path in
+    # f64, on the same rows
+    t0 = time.time()
+    e32, f32, w32 = annp.energy_forces_virial_chunked(cfg32, p32, x, box,
+                                                      sl.sidx, shift=False)
+    torch.cuda.synchronize()
+    chunked_s = time.time() - t0
+    x64, box64 = x.double(), box.double()
+    ev64 = fn.FusedNi(cfg64, p64, k_short=NI_WIDER_KS, short_delta=NI_DELTA,
+                      plain=True)
+    e64, f64, w64 = ev64.energy_forces_short(
+        x64, box64, fa.ShortList(sl.sidx, x64, sl.overflow))
+    check(bool(torch.isfinite(f32).all()) and bool(torch.isfinite(e32)),
+          f"{tag}: non-finite chunked output")
+    # the virial's scale from the f32 kernel path's Fj (a scale only)
+    ev32 = annp.fused_evaluator(cfg32, p32)
+    dd = fa.pair_dx_planes(x, box, sl.sidx, cfg32.pbc)
+    fj = ev32._eval_fj(*dd)[1]
+    w_abs = max(float((da.double() * fb.double()).abs().sum())
+                for da in dd for fb in fj)
+    del dd, fj
+    log(f"[{tag}] chunked functions on {n} atoms at K {sl.sidx.shape[1]}: "
+        f"{chunked_s:.3f} s (one call, the first); E/N f64 "
+        f"{float(e64) / n:.9f} eV; max|F| {float(f64.abs().max()):.4e} eV/A")
+    eval_gates(tag, NI_EVAL_REL, (e32, f32, w32), (e64, f64, w64), w_abs)
+    del x, box, sl, planes32, filler, x64, box64, e64, f64, w64
+    launches, rate = phase_ni_main_path(dev, cfg32, p32,
+                                        float(pot.masses[0]), card,
+                                        wide="wider")
+    return {r["name"]: {"wider_shape": [n, NI_WIDER_KS], "wider_ms": r["ms"],
+                        "wider_plain_ms": r["plain_ms"],
+                        "wider_plain_rows": WIDE_ROWS,
+                        "wider_bound_ms": r["bound_ms"],
+                        "wider_bound_by": r["bound_by"],
+                        "wider_max_abs_err": r["max_abs_err"]}
+            for r in records}, launches, rate
 
 
 def phase_ni_profile(dev, cfg32, p32, mass, card):
@@ -3752,7 +4077,7 @@ def phase_scale_2m(card):
     with _Timed(stgb, "_prune_overlaps") as prune:
         run, launches, wall = scale_script(
             tag, scale_demo, ["--config", "2m", "--steps",
-                              str(SCALE_2M_STEPS)])
+                              str(SCALE_2M_STEPS)], warmup=SCALE_2M_WARMUP)
     rec, st, sim, ev = run.record, run.state, run.sim, run.evaluator
     n = rec["atoms"]
     log(f"[{tag}] scene built in {rec['scene_s']:.3f} s, its overlap prune "
@@ -3760,7 +4085,7 @@ def phase_scale_2m(card):
         f" in {rec['fire_s']:.2f} s, fmax {rec['fire_fmax']:.4e} eV/A; init"
         f" {rec['init_s']:.2f} s; warm-up {rec['warmup_s']:.2f} s")
     evaluations = rec["fire_iters"] + 1 + 1 + \
-        sim.cfg.thermo_every * scale_demo.WARMUP_BLOCKS + rec["steps"]
+        sim.cfg.thermo_every * SCALE_2M_WARMUP + rec["steps"]
     scale_gates(tag, rec, launches, evaluations, wall, card)
     pbc, cfg, dev = tuple(ev.pbc), ev.cfg, st.x.device
     cases = fe_kernel_cases(cfg.npsf, cfg.ntsf, cfg.cut, SCALE_SLICE, dev)[0]
@@ -4280,6 +4605,15 @@ def main():
         extra.update(dist_counts)
         extra["dist-nccl"] = phase_dist_nccl(dist_spec, card)
         del dist_spec
+        cfg_w, p_w, mass_w = fe_wide_model(dev)
+        fe_wide = phase_fe_wide_kernels(x, box, cfg_w, p_w)
+        extra["fe-wide-main"], fe_wide_rate, _ = phase_main_path(
+            x, box, cfg_w, p_w, mass_w, card, wide=True)
+        log(f"[fe-wide-main] rate {fe_wide_rate / main_rate[0]:.3f}x "
+            "[main]'s")
+        for kname, fig in fe_wide.items():
+            fig["wide_launches"] = extra["fe-wide-main"].get(kname, 0)
+        del cfg_w, p_w
         del fe_ref
         fe = (x, box, cfg32, p32, mass)
         del x, box, sl, cfg64, p64
@@ -4306,6 +4640,11 @@ def main():
         for kname, fig in ni_wide.items():
             fig["wide_launches"] = extra["ni-wide-main"][kname]
         del cfg_w, p_w
+        ni_wider, extra["ni-wider-main"], wider_rate = phase_ni_wider(dev,
+                                                                      card)
+        log(f"[ni-wider-main] rate {wider_rate / ni_rate:.3f}x [ni-main]'s")
+        for kname, fig in ni_wider.items():
+            fig["wider_launches"] = extra["ni-wider-main"][kname]
         extra["multi-ni"] = phase_multi_ni(dev, card)
         t_anna = time.time()
         cfg32, p32, cfg64, p64, mass = anna_model(dev)
@@ -4361,6 +4700,8 @@ def main():
         if r["name"] == "g_harm":
             r.update(anna)
         r.update(ni_wide.get(r["name"], {}))
+        r.update(fe_wide.get(r["name"], {}))
+        r.update(ni_wider.get(r["name"], {}))
         for cfg, times in scale.items():
             if r["name"] in times:
                 ms, b_ms, b_by = times[r["name"]]

@@ -68,6 +68,7 @@ from .annp import compact_neighbor_rows
 from .mlp import mlp_apply
 
 ROW_CHUNK = 131072   # rows per chunk: [C, K, 3, 3] f32 at K 256 is 1.2 GB
+#                      (2.4 GB at g_harm's widest row, K 512)
 
 
 @dataclasses.dataclass(frozen=True)

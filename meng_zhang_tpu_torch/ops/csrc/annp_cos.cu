@@ -3,8 +3,10 @@
 // force_cos replaces the TPU kernel `_force_kernel` (meng_zhang_tpu/ops/
 // pallas_annp.py, row body `_row_force`); its descriptor counterpart g_cos
 // is in annp_gcos.cu. It reads [P, K] displacement planes dx = x_i - x_j
-// (K <= 256; filler lanes carry dx = 2 box + 10 and give exactly 0) and
-// works on one atom row per thread block, one lane per thread:
+// (K <= 512; filler lanes carry dx = 2 box + 10 and give exactly 0) and
+// works on one atom row per thread block, one lane per thread (blocks of up
+// to 256 threads for K <= 256, as the main paths run it, and up to 512
+// above, whose instances may hold at most 128 registers a thread):
 //   force_cos  per-pair Fj = -dE_i/dx_j [P, K] x3 from dedg [P, 128] = dE/dG
 //              already multiplied by sf_scale * e_scale.
 //
@@ -40,8 +42,8 @@ using annp::pair_geometry;
 using annp::radial_coeff;
 
 constexpr int kNsfPad = 128;        // g / dedg row width
-constexpr int kMaxK = 256;          // lanes: one thread each, <= 8 warps
-constexpr int kMaxWarps = kMaxK / 32;
+constexpr int kWarps = 8;           // warps of a K <= 256 block
+constexpr int kWideWarps = 16;      // warps of a K <= 512 block
 constexpr int kMaxT = 32;           // angular functions (ntsf)
 constexpr unsigned kFull = 0xffffffffu;
 
@@ -52,19 +54,20 @@ struct alignas(4 * sizeof(T)) Vec4 {
   T x, y, z, w;
 };
 
-// One instance per ntsf (NT): the T_n and U_n recurrences are unrolled to
-// exactly NT terms and wa[], nwa[] hold NT registers each.
-template <typename T, int NT>
-__global__ void __launch_bounds__(kMaxK)
+// One instance per ntsf (NT) and block size (W warps at most): the T_n
+// and U_n recurrences are unrolled to exactly NT terms and wa[], nwa[]
+// hold NT registers each.
+template <typename T, int NT, int W>
+__global__ void __launch_bounds__(32 * W)
 force_cos_kernel(const T* __restrict__ dxx, const T* __restrict__ dxy,
                  const T* __restrict__ dxz, const T* __restrict__ dedg,
                  T* __restrict__ fjx, T* __restrict__ fjy,
                  T* __restrict__ fjz, int k, int npsf, double rc) {
-  __shared__ Vec4<T> geo[kMaxK];    // compacted lanes: u and fc
-  __shared__ Vec4<T> acc[kMaxK];    // per slot: sum a cs, sum a u (x, y, z)
-  __shared__ T accb[kMaxK];         // per slot: sum fc P
+  __shared__ Vec4<T> geo[32 * W];   // compacted lanes: u and fc
+  __shared__ Vec4<T> acc[32 * W];   // per slot: sum a cs, sum a u (x, y, z)
+  __shared__ T accb[32 * W];        // per slot: sum fc P
   __shared__ T wsh[kNsfPad];
-  __shared__ int wcount[kMaxWarps];
+  __shared__ int wcount[W];
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
@@ -193,19 +196,19 @@ force_cos_kernel(const T* __restrict__ dxx, const T* __restrict__ dxy,
   fjz[o] = (coeff * p.uz - ((sac * p.uz - saz) * two_ir - sb * p.uz)) * p.m;
 }
 
-template <typename T, int NT = 1>
+template <typename T, int W, int NT = 1>
 void launch_force_nt(int ntsf, unsigned grid, int block,
                      cudaStream_t stream, const T* dxx, const T* dxy,
                      const T* dxz, const T* dedg, T* fjx, T* fjy, T* fjz,
                      int k, int npsf, double rc) {
   if constexpr (NT < kMaxT) {
     if (ntsf > NT) {
-      launch_force_nt<T, NT + 1>(ntsf, grid, block, stream, dxx, dxy, dxz,
-                                 dedg, fjx, fjy, fjz, k, npsf, rc);
+      launch_force_nt<T, W, NT + 1>(ntsf, grid, block, stream, dxx, dxy,
+                                    dxz, dedg, fjx, fjy, fjz, k, npsf, rc);
       return;
     }
   }
-  force_cos_kernel<T, NT><<<grid, block, 0, stream>>>(
+  force_cos_kernel<T, NT, W><<<grid, block, 0, stream>>>(
       dxx, dxy, dxz, dedg, fjx, fjy, fjz, k, npsf, rc);
 }
 
@@ -214,11 +217,22 @@ int launch_force(const void* dxx, const void* dxy, const void* dxz,
                  const void* dedg, void* fjx, void* fjy, void* fjz,
                  long long p, int k, int npsf, int ntsf, double rc,
                  void* stream) {
-  if (p > 0)
-    launch_force_nt<T>(ntsf, (unsigned)p, block_threads(k),
-                       (cudaStream_t)stream, (const T*)dxx, (const T*)dxy,
-                       (const T*)dxz, (const T*)dedg, (T*)fjx, (T*)fjy,
-                       (T*)fjz, k, npsf, rc);
+  if (k > 32 * kWideWarps) return (int)cudaErrorInvalidValue;
+  if (p > 0) {
+    const int block = block_threads(k);
+    if (block <= 32 * kWarps)
+      launch_force_nt<T, kWarps>(ntsf, (unsigned)p, block,
+                                 (cudaStream_t)stream, (const T*)dxx,
+                                 (const T*)dxy, (const T*)dxz,
+                                 (const T*)dedg, (T*)fjx, (T*)fjy, (T*)fjz,
+                                 k, npsf, rc);
+    else
+      launch_force_nt<T, kWideWarps>(ntsf, (unsigned)p, block,
+                                     (cudaStream_t)stream, (const T*)dxx,
+                                     (const T*)dxy, (const T*)dxz,
+                                     (const T*)dedg, (T*)fjx, (T*)fjy,
+                                     (T*)fjz, k, npsf, rc);
+  }
   return (int)cudaGetLastError();
 }
 

@@ -2,9 +2,10 @@
 //
 // g_cos replaces the TPU kernel `_g_kernel` (meng_zhang_tpu/ops/
 // pallas_annp.py, row body `_row_g`); its force counterpart force_cos is in
-// annp_cos.cu. It reads [P, K] displacement planes dx = x_i - x_j (K <= 256;
+// annp_cos.cu. It reads [P, K] displacement planes dx = x_i - x_j (K <= 512;
 // filler lanes carry dx = 2 box + 10 and give exactly 0) and works on one
-// atom row per thread block, one lane per thread:
+// atom row per thread block, one lane per thread (blocks of up to 256
+// threads for K <= 256, as the main paths run it, and up to 512 above):
 //   g_cos  g [P, 128]: radial G_m = sum_j T_m(2r/rc - 1) fc_j in cols
 //          [0, npsf), angular G_n = 1/2 sum_{j != k} T_n((cos_jk + 1)/2)
 //          fc_j fc_k in cols npsf + n, rest 0.
@@ -40,6 +41,11 @@
 // sections that are all executed: 171 instructions a pair whatever ntsf is,
 // which is what that kernel's time was. The row ends in a warp-shuffle and
 // cross-warp reduction; no atomics, a fixed order: deterministic.
+//   Each instance is built for at most W warps a block (8: K <= 256; 16:
+// K <= 512). The 16-warp instances keep the second copy of the compacted
+// lanes only as far as the loop reads it (slot < 1.5 n_act + 1), so that
+// their shared memory stays under the static 48 KB in f64; under
+// __launch_bounds__(512) a thread may hold at most 128 registers.
 #include "pair_geometry.cuh"
 
 namespace {
@@ -50,15 +56,24 @@ using annp::pair_geometry;
 using annp::warp_sum;
 
 constexpr int kNsfPad = 128;        // g row width
-constexpr int kMaxK = 256;          // lanes: one thread each, <= 8 warps
-constexpr int kMaxWarps = kMaxK / 32;
+constexpr int kWarps = 8;           // warps of a K <= 256 block
+constexpr int kWideWarps = 16;      // warps of a K <= 512 block
 constexpr int kMaxT = 32;           // angular functions (ntsf)
 constexpr unsigned kFull = 0xffffffffu;
 
+// Slots of each compacted-lane array in a block of at most W warps: two
+// copies of 32 W lanes, or (W = 16) as much of the second as the pair
+// loop reads
+template <int W>
+__host__ __device__ constexpr int lane_slots() {
+  return W <= kWarps ? 64 * W : 48 * W + 1;
+}
+
 // Lanes inside the cutoff, compacted to the front of shared memory in lane
-// order, and once more behind themselves (slot s + n_act = slot s). Every
-// thread of the block calls it; returns the number of active lanes.
-template <typename T>
+// order, and once more behind themselves (slot s + n_act = slot s) as far
+// as the arrays of W warps hold. Every thread of the block calls it;
+// returns the number of active lanes.
+template <typename T, int W>
 __device__ __forceinline__ int compact_active(const Pair<T>& p, T* sx, T* sy,
                                               T* sz, T* sfc, int* wcount) {
   const int lane = threadIdx.x & 31;
@@ -78,10 +93,12 @@ __device__ __forceinline__ int compact_active(const Pair<T>& p, T* sx, T* sy,
     sy[s] = p.uy;
     sz[s] = p.uz;
     sfc[s] = p.fc;
-    sx[s + n_act] = p.ux;
-    sy[s + n_act] = p.uy;
-    sz[s + n_act] = p.uz;
-    sfc[s + n_act] = p.fc;
+    if (lane_slots<W>() >= 64 * W || s + n_act < lane_slots<W>()) {
+      sx[s + n_act] = p.ux;
+      sy[s + n_act] = p.uy;
+      sz[s + n_act] = p.uz;
+      sfc[s + n_act] = p.fc;
+    }
   }
   __syncthreads();
   return n_act;
@@ -118,15 +135,17 @@ __device__ __forceinline__ void add_pairs(const T* sx, const T* sy,
   }
 }
 
-// One instance per ntsf (NT): acc[] holds NT registers.
-template <typename T, int NT>
-__global__ void __launch_bounds__(kMaxK)
+// One instance per ntsf (NT) and block size (W warps at most): acc[]
+// holds NT registers.
+template <typename T, int NT, int W>
+__global__ void __launch_bounds__(32 * W)
 g_cos_kernel(const T* __restrict__ dxx, const T* __restrict__ dxy,
              const T* __restrict__ dxz, T* __restrict__ g_out, int k,
              int npsf, double rc) {
-  __shared__ T sx[2 * kMaxK], sy[2 * kMaxK], sz[2 * kMaxK], sfc[2 * kMaxK];
-  __shared__ T part[kMaxWarps][kNsfPad];   // per-warp column sums
-  __shared__ int wcount[kMaxWarps];
+  constexpr int kSlots = lane_slots<W>();
+  __shared__ T sx[kSlots], sy[kSlots], sz[kSlots], sfc[kSlots];
+  __shared__ T part[W][kNsfPad];           // per-warp column sums
+  __shared__ int wcount[W];
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
@@ -156,7 +175,7 @@ g_cos_kernel(const T* __restrict__ dxx, const T* __restrict__ dxy,
     if (lane == 0) part[warp][n] = v;
   }
 
-  const int n_act = compact_active(p, sx, sy, sz, sfc, wcount);
+  const int n_act = compact_active<T, W>(p, sx, sy, sz, sfc, wcount);
 
   // angular: sum_{j<k} T_n(x_jk) fc_j fc_k. Lane j's partners are k = j + d
   // (mod n_act), d = 1 .. nd = (n_act - 1) / 2, and for even n_act the half
@@ -210,29 +229,38 @@ g_cos_kernel(const T* __restrict__ dxx, const T* __restrict__ dxy,
   }
 }
 
-template <typename T, int NT = 1>
+template <typename T, int W, int NT = 1>
 void launch_g_nt(int ntsf, unsigned grid, int block, cudaStream_t stream,
                  const T* dxx, const T* dxy, const T* dxz, T* g, int k,
                  int npsf, double rc) {
   if constexpr (NT < kMaxT) {
     if (ntsf > NT) {
-      launch_g_nt<T, NT + 1>(ntsf, grid, block, stream, dxx, dxy, dxz, g, k,
-                             npsf, rc);
+      launch_g_nt<T, W, NT + 1>(ntsf, grid, block, stream, dxx, dxy, dxz, g,
+                                k, npsf, rc);
       return;
     }
   }
-  g_cos_kernel<T, NT><<<grid, block, 0, stream>>>(dxx, dxy, dxz, g, k, npsf,
-                                                  rc);
+  g_cos_kernel<T, NT, W><<<grid, block, 0, stream>>>(dxx, dxy, dxz, g, k,
+                                                     npsf, rc);
 }
 
 template <typename T>
 int launch_g(const void* dxx, const void* dxy, const void* dxz, void* g,
              long long p, int k, int npsf, int ntsf, double rc,
              void* stream) {
-  if (p > 0)
-    launch_g_nt<T>(ntsf, (unsigned)p, block_threads(k), (cudaStream_t)stream,
-                   (const T*)dxx, (const T*)dxy, (const T*)dxz, (T*)g, k,
-                   npsf, rc);
+  if (k > 32 * kWideWarps) return (int)cudaErrorInvalidValue;
+  if (p > 0) {
+    const int block = block_threads(k);
+    if (block <= 32 * kWarps)
+      launch_g_nt<T, kWarps>(ntsf, (unsigned)p, block, (cudaStream_t)stream,
+                             (const T*)dxx, (const T*)dxy, (const T*)dxz,
+                             (T*)g, k, npsf, rc);
+    else
+      launch_g_nt<T, kWideWarps>(ntsf, (unsigned)p, block,
+                                 (cudaStream_t)stream, (const T*)dxx,
+                                 (const T*)dxy, (const T*)dxz, (T*)g, k,
+                                 npsf, rc);
+  }
   return (int)cudaGetLastError();
 }
 

@@ -3,7 +3,8 @@
 // g_harm replaces the TPU kernel `_g_kernel_harm`
 // (meng_zhang_tpu/ops/pallas_annp.py:299); force_harm replaces
 // `_force_kernel_harm` (:352). Both work on [P, K] displacement planes
-// dx = x_i - x_j (filler lanes carry dx = 2 box + 10 and give 0).
+// dx = x_i - x_j, 1 <= K <= 512 (filler lanes carry dx = 2 box + 10 and
+// give 0).
 //
 // What bounds them on this card: per pair both kernels run the real
 // spherical-harmonic ladder to L = ntsf - 1 (190 (l, m) steps at L = 18)
@@ -18,9 +19,16 @@
 //     after it carry the first column in the lower half-warp and the second
 //     in the upper one: 5 shuffles for 2 of the row's 371 columns. Totals
 //     land in a per-warp shared buffer, from which the warp writes A and
-//     the S_l pass as coalesced rows. No block-wide barrier.
+//     the S_l pass as coalesced rows. No block-wide barrier. A row of up
+//     to 256 slots is one tile (NS <= 8); a wider one (K <= 512) is walked
+//     in two tiles of NS = ceil(K / 64) slots a lane, the second adding its
+//     column totals to the first's in the buffer: the slot state of 16
+//     slots a lane would not fit the registers, and the fixed order keeps
+//     the kernel deterministic.
 //   force_harm: one thread per lane (no reduction); B is staged in shared
 //     memory once per block of rows and read as (cos, sin) vector pairs.
+//     A row of more than 256 lanes is split over two blocks (blockIdx.y),
+//     each staging the row's B.
 //     The per-m sums are factored: with P = sum_l H_lm B_lm and
 //     Q = sum_l dH_lm/du_z B_lm for the cosine and sine columns, an (l, m)
 //     step costs its two recurrences (four instructions) and four FMAs,
@@ -62,7 +70,9 @@ constexpr unsigned kFull = 0xffffffffu;
 constexpr int kNsfPad = 128;
 constexpr int kAbPad = 384;
 constexpr int kL = 19;                     // ntsf <= 19 (L <= 18)
-constexpr int kMaxNs = 8;                  // K <= 256
+constexpr int kMaxNs = 8;                  // slots a lane in one tile
+constexpr int kGTiles = 2;                 // g_harm: tiles of a wide row
+constexpr int kMaxK = kGTiles * 32 * kMaxNs;   // K <= 512
 constexpr int kGWarps = 4;                 // g_harm: rows (warps) a block
 constexpr int kGBuf = kAbPad + kNsfPad;    // g_harm: a warp's column totals
 constexpr int kFThreads = 256;             // force_harm: threads a block
@@ -138,18 +148,27 @@ __device__ __forceinline__ T load_dx(const T* plane, long long row, int k,
 }
 
 // ------------------------------------------------------------------ g_harm
+// Stores v in *dst, or adds it to what *dst holds when add is set (the
+// second tile of a wide row).
+template <typename T>
+__device__ __forceinline__ void put_total(T* dst, T v, bool add) {
+  *dst = add ? *dst + v : v;
+}
+
 // Sums a and b over the warp with 5 shuffles (lane 0 holds a's total,
-// lane 16 b's) and stores them, times sa and sb, in buf[ca] and buf[cb].
+// lane 16 b's) and stores them, times sa and sb, in buf[ca] and buf[cb]
+// (adds them there with add).
 template <typename T>
 __device__ __forceinline__ void pair_sum_store(T a, int ca, T sa, T b,
                                                int cb, T sb, T* buf,
-                                               int lane) {
+                                               int lane, bool add) {
   const bool hi = lane & 16;
   T v = hi ? b : a;
   v += __shfl_xor_sync(kFull, hi ? a : b, 16);
 #pragma unroll
   for (int o = 8; o > 0; o >>= 1) v += __shfl_xor_sync(kFull, v, o);
-  if ((lane & 15) == 0) buf[hi ? cb : ca] = v * (hi ? sb : sa);
+  if ((lane & 15) == 0) put_total(buf + (hi ? cb : ca), v * (hi ? sb : sa),
+                                  add);
 }
 
 // Pairs a stream of single columns (value, column, scale) for
@@ -158,6 +177,7 @@ template <typename T>
 struct ColumnPairer {
   T* buf;
   int lane;
+  bool add;
   T held = T(0), held_scale = T(1);
   int held_col = -1;
 
@@ -167,41 +187,40 @@ struct ColumnPairer {
       held_col = col;
       held_scale = scale;
     } else {
-      pair_sum_store(held, held_col, held_scale, v, col, scale, buf, lane);
+      pair_sum_store(held, held_col, held_scale, v, col, scale, buf, lane,
+                     add);
       held_col = -1;
     }
   }
   __device__ __forceinline__ void flush() {
     if (held_col >= 0) {
       const T s = warp_sum(held);
-      if (lane == 0) buf[held_col] = s * held_scale;
+      if (lane == 0) put_total(buf + held_col, s * held_scale, add);
       held_col = -1;
     }
   }
 };
 
+// One tile of a row: the column totals of slots slot0 + lane + 32 s,
+// s < NS, into buf (added to what buf holds with add). A lane writes the
+// same columns in every tile, so the tiles need no barrier between them.
 template <typename T, int NS>
-__global__ void __launch_bounds__(kGWarps * 32)
-    g_harm_kernel(const __grid_constant__ GArgs<T> args) {
-  __shared__ T bufs[kGWarps][kGBuf];
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const long long row = (long long)blockIdx.x * kGWarps + warp;
-  if (row >= args.p) return;   // whole warps leave; no block-wide barrier
+__device__ __forceinline__ void g_tile(const GArgs<T>& args, long long row,
+                                       int lane, int slot0, bool add,
+                                       T* buf) {
   const Ladder<T>& lad = args.lad;
-  T* buf = bufs[warp];
   const int npsf = args.npsf;
   const int nl = args.ntsf;
   const int lmax = nl - 1;
-  ColumnPairer<T> cols{buf, lane};
+  ColumnPairer<T> cols{buf, lane, add};
 
-  // slot s is neighbor lane j = lane + 32 s; lanes past K read dx = 0,
-  // which pair_geometry masks as it masks a filler lane
+  // slot s is neighbor lane j = slot0 + lane + 32 s; lanes past K read
+  // dx = 0, which pair_geometry masks as it masks a filler lane
   T fc[NS], ux[NS], uy[NS], uz[NS], xch[NS], tp[NS], tc[NS];
   T v0 = T(0), v1 = T(0), f2 = T(0);
 #pragma unroll
   for (int s = 0; s < NS; ++s) {
-    const int j = lane + 32 * s;
+    const int j = slot0 + lane + 32 * s;
     const Pair<T> q = pair_geometry(load_dx(args.dxx, row, args.k, j),
                                     load_dx(args.dxy, row, args.k, j),
                                     load_dx(args.dxz, row, args.k, j),
@@ -284,7 +303,7 @@ __global__ void __launch_bounds__(kGWarps * 32)
       vc += h1[s] * cw[s];
       vs += h1[s] * sw[s];
     }
-    pair_sum_store(vc, col, T(1), vs, col + 1, T(1), buf, lane);
+    pair_sum_store(vc, col, T(1), vs, col + 1, T(1), buf, lane, add);
     col += 2;
     if (mm < lmax) {
       const T d1 = lad.d1[mm];
@@ -296,7 +315,7 @@ __global__ void __launch_bounds__(kGWarps * 32)
         vc += h1[s] * cw[s];
         vs += h1[s] * sw[s];
       }
-      pair_sum_store(vc, col, T(1), vs, col + 1, T(1), buf, lane);
+      pair_sum_store(vc, col, T(1), vs, col + 1, T(1), buf, lane, add);
       col += 2;
     }
     for (int ll = mm + 2; ll <= lmax; ++ll) {
@@ -310,10 +329,27 @@ __global__ void __launch_bounds__(kGWarps * 32)
         vc += h * cw[s];
         vs += h * sw[s];
       }
-      pair_sum_store(vc, col, sc, vs, col + 1, sc, buf, lane);
+      pair_sum_store(vc, col, sc, vs, col + 1, sc, buf, lane, add);
       col += 2;
     }
   }
+}
+
+// NS slots a lane in each of NT tiles (NT = 1 for K <= 256, 2 above)
+template <typename T, int NS, int NT>
+__global__ void __launch_bounds__(kGWarps * 32)
+    g_harm_kernel(const __grid_constant__ GArgs<T> args) {
+  __shared__ T bufs[kGWarps][kGBuf];
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const long long row = (long long)blockIdx.x * kGWarps + warp;
+  if (row >= args.p) return;   // whole warps leave; no block-wide barrier
+  T* buf = bufs[warp];
+  const int npsf = args.npsf;
+  const int nl = args.ntsf;
+#pragma unroll 1
+  for (int t = 0; t < NT; ++t)
+    g_tile<T, NS>(args, row, lane, 32 * NS * t, t > 0, buf);
   __syncwarp();
 
   const int n_harm = nl * nl;
@@ -490,11 +526,13 @@ __global__ void __launch_bounds__(kFThreads)
   }
   __syncthreads();
   const long long row = row0 + threadIdx.y;
-  if (row >= args.p || (int)threadIdx.x >= args.k) return;
+  // a row wider than one block's lanes is split over blockIdx.y
+  const int lane = blockIdx.y * blockDim.x + threadIdx.x;
+  if (row >= args.p || lane >= args.k) return;
   const T* bsh = smem + threadIdx.y * kBRow + shift;
   const T* wn = smem + rows * kBRow + threadIdx.y * kNsfPad;
 
-  const long long o = row * args.k + threadIdx.x;
+  const long long o = row * args.k + lane;
   const Pair<T> q = pair_geometry(__ldg(args.dxx + o), __ldg(args.dxy + o),
                                   __ldg(args.dxz + o), args.rc);
 
@@ -516,27 +554,36 @@ __global__ void __launch_bounds__(kFThreads)
 }
 
 // ---------------------------------------------------------------- launches
-template <typename T, int NS = 1>
+// The instance of NT tiles of ns slots a lane: NS runs from NS0 (1 for
+// one tile; 5 for two, the least that a row above 256 slots needs) to
+// kMaxNs
+template <typename T, int NT, int NS>
 void launch_g_ns(const GArgs<T>& args, int ns, cudaStream_t stream) {
   if constexpr (NS < kMaxNs) {
     if (ns > NS) {
-      launch_g_ns<T, NS + 1>(args, ns, stream);
+      launch_g_ns<T, NT, NS + 1>(args, ns, stream);
       return;
     }
   }
   const unsigned blocks = (unsigned)((args.p + kGWarps - 1) / kGWarps);
-  g_harm_kernel<T, NS><<<blocks, kGWarps * 32, 0, stream>>>(args);
+  g_harm_kernel<T, NS, NT><<<blocks, kGWarps * 32, 0, stream>>>(args);
 }
 
 template <typename T>
 int launch_g(const void* dxx, const void* dxy, const void* dxz,
              const void* tab, void* g, void* a, long long p, int k, int npsf,
              int ntsf, double rc, void* stream) {
+  if (k > kMaxK) return (int)cudaErrorInvalidValue;
   if (p > 0) {
     GArgs<T> args = {(const T*)dxx, (const T*)dxy, (const T*)dxz, (T*)g,
                      (T*)a, p, k, npsf, ntsf, rc,
                      make_ladder<T>((const double*)tab, ntsf)};
-    launch_g_ns<T>(args, (k + 31) / 32, (cudaStream_t)stream);
+    const int ns = (k + 31) / 32;
+    if (ns <= kMaxNs)
+      launch_g_ns<T, 1, 1>(args, ns, (cudaStream_t)stream);
+    else
+      launch_g_ns<T, kGTiles, kMaxNs / 2 + 1>(
+          args, (ns + kGTiles - 1) / kGTiles, (cudaStream_t)stream);
   }
   return (int)cudaGetLastError();
 }
@@ -558,14 +605,17 @@ int launch_force(const void* dxx, const void* dxy, const void* dxz,
                  const void* dedg, const void* b, const void* tab, void* fjx,
                  void* fjy, void* fjz, long long p, int k, int npsf, int ntsf,
                  double rc, void* stream) {
+  if (k > kMaxK) return (int)cudaErrorInvalidValue;
   if (p > 0) {
     FArgs<T> args = {(const T*)dxx, (const T*)dxy, (const T*)dxz,
                      (const T*)dedg, (const T*)b, (T*)fjx, (T*)fjy, (T*)fjz,
                      p, k, npsf, rc,
                      make_ladder<T>((const double*)tab, ntsf)};
-    const int lanes = annp::block_threads(k);
+    // a row's lanes over ny blocks of <= kFThreads threads, evenly
+    const int ny = (k + kFThreads - 1) / kFThreads;
+    const int lanes = annp::block_threads((k + ny - 1) / ny);
     const int rows = kFThreads / lanes > 1 ? kFThreads / lanes : 1;
-    const unsigned grid = (unsigned)((p + rows - 1) / rows);
+    const dim3 grid((unsigned)((p + rows - 1) / rows), (unsigned)ny);
     launch_force_nl<T>(args, ntsf, grid, dim3(lanes, rows),
                        sizeof(T) * rows * (kBRow + kNsfPad),
                        (cudaStream_t)stream);

@@ -2,10 +2,10 @@
 //
 // ni_g replaces the TPU kernel `_ni_g_kernel` (meng_zhang_tpu/ops/
 // pallas_ni.py); ni_force replaces `_ni_force_kernel` in the same file. Both
-// read [P, K] displacement planes dx = x_i - x_j (1 <= K <= 256; filler
+// read [P, K] displacement planes dx = x_i - x_j (1 <= K <= 512; filler
 // lanes carry dx = 2 box + 10 and give exactly 0) and work on one atom row
 // per warp, S = ceil(K / 32) neighbor slots a lane (slot s * 32 + lane; one
-// compiled instance per S in 1, 2, 4, 8, picked at launch):
+// compiled instance per S in 1, 2, 4, 8, 16, picked at launch):
 //   ni_g      g [P, 32]: radial G2 = sum_j exp(-eta r^2) fc in cols
 //             [0, npsf), angular G4 = 1/2 sum_{p != q} 2^(1-zeta)
 //             (1 + lambda cos)^zeta exp(-eta r2sum) fc_p fc_q fc_pq in cols
@@ -62,8 +62,15 @@
 // (group, shape) entries that occur in the table (at most nang of them,
 // group-major). A lane holds the powers of kShapeChunk shapes at a time;
 // a table of more shapes walks its groups once per chunk.
+//   A listed pair packs its two compacted slots in 16 bits (8 each) up to
+// S = 8 and in 32 bits (16 each) at S = 16. ni_force's per-warp working set
+// at S = 16 is ~47 KB in f64 (the per-slot sums and geometry of 512 slots
+// and the tile), so a block of 4 rows takes ~186 KB of dynamic shared
+// memory and an SM holds one such block (two in f32).
 #include <cuda_runtime.h>
 #include <math_constants.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -222,12 +229,16 @@ __device__ __forceinline__ bool radial_in(bool active, T rm, T r, double rc_r,
 // warp, in shared memory.
 template <typename T, int S>
 struct PairRow {
+  // a listed pair's code: j | k << kShift (j, k < 32 S)
+  using Code =
+      typename std::conditional<(S > 8), unsigned, unsigned short>::type;
+  static constexpr int kShift = S > 8 ? 16 : 8;
+  static constexpr int kMask = (1 << kShift) - 1;
   T ux[32 * S], uy[32 * S], uz[32 * S], a[32 * S], fc[32 * S];
-  // listed pairs of the current tile, j | k << 8 (j, k < 256)
-  unsigned short pairs[kTile];
+  Code pairs[kTile];               // listed pairs of the current tile
 };
 
-// t / n for t < 2^24, n <= 256: the high word of t * ceil(2^32 / n)
+// t / n for t < 2^23, n <= 512: the high word of t * ceil(2^32 / n)
 __host__ __device__ __forceinline__ unsigned div_magic(int n) {
   return n > 1 ? 0xffffffffu / (unsigned)n + 1u : 0u;
 }
@@ -262,7 +273,7 @@ __device__ __forceinline__ int list_pairs(PairRow<T, S>& sh, int n_in,
     const unsigned okm = __ballot_sync(kFull, ok);
     if (ok)
       sh.pairs[n_pair + __popc(okm & lt_mask)] =
-          (unsigned short)(j | (kk << 8));
+          (typename PairRow<T, S>::Code)(j | (kk << PairRow<T, S>::kShift));
     n_pair += __popc(okm);
   }
   *cand = base;
@@ -345,7 +356,8 @@ ni_g_kernel(const T* __restrict__ dxx, const T* __restrict__ dxy,
     for (int base = 0; base < n_pair; base += 32) {
       if (base + lane >= n_pair) continue;
       const int pr = sh.pairs[base + lane];
-      const int j = pr & 255, kk = pr >> 8;
+      const int j = pr & PairRow<T, S>::kMask;
+      const int kk = pr >> PairRow<T, S>::kShift;
       const T aj = sh.a[j], ak = sh.a[kk];
       const T cs = sh.ux[j] * sh.ux[kk] + sh.uy[j] * sh.uy[kk]
                    + sh.uz[j] * sh.uz[kk];
@@ -467,7 +479,8 @@ ni_force_kernel(const T* __restrict__ dxx, const T* __restrict__ dxy,
     for (int base = 0; base < n_pair; base += 32) {
       if (base + lane >= n_pair) continue;
       const int pr = sh.pairs[base + lane];
-      const int j = pr & 255, kk = pr >> 8;
+      const int j = pr & PairRow<T, S>::kMask;
+      const int kk = pr >> PairRow<T, S>::kShift;
       const T ujx = sh.ux[j], ujy = sh.uy[j], ujz = sh.uz[j];
       const T ukx = sh.ux[kk], uky = sh.uy[kk], ukz = sh.uz[kk];
       const T aj = sh.a[j], ak = sh.a[kk];
@@ -650,9 +663,10 @@ int launch_force_s(const void* dxx, const void* dxy, const void* dxz,
 }
 
 // slots a lane: the instance for K
-#define NI_BY_SLOTS(k, call)                              \
-  ((k) <= 32 ? call(1) : (k) <= 64 ? call(2) : (k) <= 128 \
-   ? call(4) : (k) <= 256 ? call(8) : (int)cudaErrorInvalidValue)
+#define NI_BY_SLOTS(k, call)                                            \
+  ((k) <= 32 ? call(1) : (k) <= 64 ? call(2) : (k) <= 128 ? call(4)     \
+   : (k) <= 256 ? call(8) : (k) <= 512 ? call(16)                       \
+   : (int)cudaErrorInvalidValue)
 
 template <typename T>
 int launch_g(const void* dxx, const void* dxy, const void* dxz, void* g,

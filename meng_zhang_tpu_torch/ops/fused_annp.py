@@ -329,10 +329,13 @@ def force_harm_plain(dxx, dxy, dxz, dedg_rad, b, npsf, ntsf, rc):
             (coeff + pref) * uz + fcr * gz)
 
 
-def _row_chunk(k):
-    """Rows per chunk of the cos-matrix plain versions: 2^24 [K, K] entries,
-    so that their ~10 live [rows, K, K] tensors stay near 1.3 GB in f64."""
-    return max(1, (1 << 24) // (k * k))
+def _row_chunk(k, device):
+    """Rows per chunk of the cos-matrix plain versions: 2^24 [K, K] entries
+    on the card, so that their ~10 live [rows, K, K] tensors stay near
+    1.3 GB in f64; 2^18 on the CPU, whose ~2 MB temporaries stay in cache
+    (4x faster at K 384 than 2^24)."""
+    entries = 1 << 24 if device.type == "cuda" else 1 << 18
+    return max(1, entries // (k * k))
 
 
 def _angular_matrices(ux, uy, uz, fc):
@@ -356,7 +359,7 @@ def g_cos_plain(dxx, dxy, dxz, npsf, ntsf, rc):
     r, fc, dfc, inv_r, m, ux, uy, uz = pair_geometry(dxx, dxy, dxz, rc)
     g = dxx.new_zeros(p, NSF_PAD)
     g[:, :npsf] = torch.stack(_radial_g(r, fc, m, npsf, rc), 1)
-    rows = _row_chunk(k)
+    rows = _row_chunk(k, dxx.device)
     for i0 in range(0, p, rows):
         c = slice(i0, i0 + rows)
         cos, w, _ = _angular_matrices(ux[c], uy[c], uz[c], fc[c])
@@ -382,7 +385,7 @@ def force_cos_plain(dxx, dxy, dxz, dedg, npsf, ntsf, rc):
     r, fc, dfc, inv_r, m, ux, uy, uz = pair_geometry(dxx, dxy, dxz, rc)
     coeff = _radial_coeff(r, fc, dfc, m, dedg, npsf, rc)
     out = [torch.empty_like(dxx) for _ in range(3)]
-    rows = _row_chunk(k)
+    rows = _row_chunk(k, dxx.device)
     for i0 in range(0, p, rows):
         c = slice(i0, i0 + rows)
         cos, w, diag = _angular_matrices(ux[c], uy[c], uz[c], fc[c])

@@ -231,9 +231,10 @@ class FusedNi(FrameOps):
     """Per-step BP evaluator: gather -> ni_g -> min-max MLP + VJP ->
     ni_force -> index_add delivery.
 
-    k_short: short-list width Ks, at most kernels.NI_MAX_K = 256 (32 on
+    k_short: short-list width Ks, at most kernels.NI_MAX_K = 512 (32 on
     the ni path: fcc has 18 partners within rc + 0.2 = 4.10 A; 128 at
-    Rc 6.0 A, 86 partners within 6.2 A). short_delta: the inner skin of the
+    Rc 6.0 A, 86 partners within 6.2 A; 352 at Rc 9.2 A, 320 partners
+    within 9.4 A). short_delta: the inner skin of the
     refresh-static short list. plain=True runs the plain PyTorch versions
     of the two kernels on any device (the f64 reference on the card); with
     plain=False the kernel wrappers run, which launch the CUDA kernels for

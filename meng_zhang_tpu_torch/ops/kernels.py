@@ -41,9 +41,14 @@ _BUILD_ROOT = os.path.join(
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
               "--split-compile", "0")
-MAX_K = 256          # fe kernels: <= 8 slots a lane (g_harm), 8 warps a row
+# Widest row (K) each kernel takes: the JAX fused fe evaluator's own
+# ceiling. fe: g_harm walks a row of more than 256 slots in two tiles of
+# <= 8 slots a lane, force_harm splits it over two blocks, the cos pair
+# runs it on blocks of up to 16 warps; ni: one warp a row, <= 16 slots a
+# lane.
+MAX_K = 512
 COS_MAX_T = 32       # cos kernels: one compiled instance per ntsf up to it
-NI_MAX_K = 256       # ni kernels: one warp per row, <= 8 slots a lane
+NI_MAX_K = 512
 
 
 def _nvcc():
@@ -139,7 +144,7 @@ def _libs():
 _SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
 
 
-def _check_planes(planes, max_k):
+def _check_planes(planes, max_k, limit):
     dev = planes[0].device
     if dev.type != "cuda":
         raise ValueError(f"the kernels take CUDA or CPU tensors, got {dev}")
@@ -152,12 +157,12 @@ def _check_planes(planes, max_k):
     if planes[0].dtype not in _SUFFIX:
         raise ValueError(f"unsupported dtype {planes[0].dtype}")
     if not 1 <= k <= max_k:
-        raise ValueError(f"K = {k} outside [1, {max_k}]")
+        raise ValueError(f"K = {k} outside [1, {limit} = {max_k}]")
     return p, k
 
 
 def _check(planes, npsf, ntsf):
-    p, k = _check_planes(planes, MAX_K)
+    p, k = _check_planes(planes, MAX_K, "MAX_K")
     if npsf < 2 or ntsf < 1 or ntsf * ntsf > fused_annp.AB_PAD - 1 \
             or npsf + ntsf + 1 > fused_annp.NSF_PAD:
         raise ValueError(f"npsf {npsf}, ntsf {ntsf} outside the kernels' "
@@ -247,7 +252,7 @@ class ForceHarm(_HarmKernel):
 
 # ---------------------------------------------------------- cos matrix
 def _check_cos(planes, npsf, ntsf):
-    p, k = _check_planes(planes, MAX_K)
+    p, k = _check_planes(planes, MAX_K, "MAX_K")
     if npsf < 2 or not 1 <= ntsf <= COS_MAX_T \
             or npsf + ntsf > fused_annp.NSF_PAD:
         raise ValueError(f"npsf {npsf}, ntsf {ntsf} outside the cos kernels' "
@@ -399,7 +404,7 @@ def _ni_cfg(table, suffix):
 
 
 def _check_ni(planes):
-    p, k = _check_planes(planes, NI_MAX_K)
+    p, k = _check_planes(planes, NI_MAX_K, "NI_MAX_K")
     return p, k, _SUFFIX[planes[0].dtype]
 
 

@@ -125,14 +125,23 @@ def _paired_wells(rng, g0n, nnod, v_scale):
     return (w1, w2, w3), (b1, 0.1 * rng.normal(size=nnod), np.zeros(1))
 
 
+def _cells_for(cells, cut, a):
+    """`cells`, or more where a periodic cube of `cells` unit cells of edge
+    `a` is no wider than 2 cut: the minimum-image descriptors of the
+    normalisation boxes would miss the partners beyond half the box."""
+    return max(cells, int(2.0 * cut / a) + 1)
+
+
 def synthetic_fe_potential(seed=0, npsf=9, ntsf=19, nnod=10, cut=6.5,
                            e_scale=0.1) -> AnnpPotential:
     """A Chebyshev ANNP of the shipped fe shape with seeded random weights.
 
     Normalisation rows: norm_row1 is the mean and norm_row0 the mean square
-    of the raw descriptors over a 5x5x5 bcc box (a = 2.8553 A) with Gaussian
-    displacements of 0.1 A per component, so norm_row0 > norm_row1**2 and
-    the normalised network inputs are O(1) in bulk.
+    of the raw descriptors over a 5x5x5 bcc box (a = 2.8553 A; at cut 9.7 A,
+    whose box must exceed 2 cut, every 4th atom of 7^3 cells, to keep the
+    build to seconds) with Gaussian displacements of 0.1 A per component,
+    so norm_row0 > norm_row1**2 and the normalised network inputs are O(1)
+    in bulk.
 
     The weights are random but arranged so that the perfect lattice is a
     stable minimum (`_paired_wells`); e_scale sets its stiffness.
@@ -154,12 +163,14 @@ def synthetic_fe_potential(seed=0, npsf=9, ntsf=19, nnod=10, cut=6.5,
     """
     rng = np.random.default_rng(seed)
     nsf = npsf + ntsf
-    x, box = thermal_bcc(5, seed=12345, disp=0.1)
-    g = _chebyshev_g_np(x, box, npsf, ntsf, cut)
+    cells = _cells_for(5, cut, 2.8553)
+    x, box = thermal_bcc(cells, seed=12345, disp=0.1)
+    g = _chebyshev_g_np(x, box, npsf, ntsf, cut,
+                        rows=None if cells == 5 else range(0, len(x), 4))
     norm_row1 = g.mean(0)
     norm_row0 = (g * g).mean(0)
     scale = 1.0 / np.sqrt(norm_row0 - norm_row1 ** 2)
-    g0n = (_chebyshev_g_np(*bcc(5), npsf, ntsf, cut, rows=[0])[0]
+    g0n = (_chebyshev_g_np(*bcc(cells), npsf, ntsf, cut, rows=[0])[0]
            - norm_row1) * scale
     weights, biases = _paired_wells(rng, g0n, nnod, 2.0)
     net = NetworkParams(weights=weights, biases=biases,
@@ -247,10 +258,13 @@ def synthetic_ni_potential(seed=0, npsf=3, nnod=24, rc_bohr=RC_NI_BOHR,
     shipped angular etas, so the default table reuses the radial three: 3
     eta groups x lambda -1, +1 x zeta 1, 2, 4, 16 = 24 rows, ending with
     (0.05, 1, 16, 7.3699319) as the shipped file does. rc_bohr is every row's Rc (7.3699319 Bohr =
-    3.90 A); the header cutoff stays the shipped 6.5 A.
+    3.90 A); the header cutoff stays the shipped 6.5 A, or is Rc where Rc
+    lies beyond it (the chunked functions evaluate within the smaller of
+    the two, `models/annp.descriptor_cutoff`).
 
     Normalisation is min-max, (G - min) / (max - min), with min and max
-    taken over the descriptors of a 4x4x4 fcc box (a = 3.52 A) with
+    taken over the descriptors of a 4x4x4 fcc box (a = 3.52 A; at Rc 9.2 A,
+    whose box must exceed 2 Rc, every 16th atom of 6^3 cells) with
     Gaussian displacements of 0.2 A per component, each widened by 5 % of
     its span. A 0.1 A box would give the (1 - cos)^16 columns spans near
     1e-6, and their normalised values would then reach ~10 at 0.15 A.
@@ -289,12 +303,14 @@ def synthetic_ni_potential(seed=0, npsf=3, nnod=24, rc_bohr=RC_NI_BOHR,
     rng = np.random.default_rng(seed)
     coerad = np.array([(eta, 0.0, rc_bohr) for eta in rad_etas[:npsf]])
     coeang = np.array([(eta, lam, zeta, rc_bohr) for eta, lam, zeta in ang])
-    x, box = thermal_fcc(4, seed=12345, disp=0.2)
-    g = _behler_g_np(x, box, coerad, coeang)
+    cells = _cells_for(4, rc_bohr / CFLENGTH, 3.52)
+    x, box = thermal_fcc(cells, seed=12345, disp=0.2)
+    g = _behler_g_np(x, box, coerad, coeang,
+                     rows=None if cells == 4 else range(0, len(x), 16))
     lo, hi = g.min(0), g.max(0)
     pad = 0.05 * (hi - lo)
     norm_row0, norm_row1 = lo - pad, hi + pad
-    g0 = _behler_g_np(*fcc(4, 3.52), coerad, coeang, rows=[0])[0]
+    g0 = _behler_g_np(*fcc(cells, 3.52), coerad, coeang, rows=[0])[0]
     g0n = (g0 - norm_row0) / (norm_row1 - norm_row0)
     (w1, w2, w3), (b1, b2, b3) = _paired_wells(rng, g0n, nnod, 8.0)
     # cohesion unit: c solves phi'(r1) = 0, phi''(r1) = 1, phi''(r2) = 0
@@ -317,7 +333,8 @@ def synthetic_ni_potential(seed=0, npsf=3, nnod=24, rc_bohr=RC_NI_BOHR,
     return AnnpPotential(
         elements=("Ni",), masses=np.asarray([MASS_NI]), ntl=4, nhl=2,
         nnod=nnod, nsf=npsf + len(coeang), npsf=npsf, ntsf=len(coeang),
-        cut=6.5, flagsym=SYM_BEHLER, norm_row0=norm_row0,
+        cut=max(6.5, rc_bohr / CFLENGTH), flagsym=SYM_BEHLER,
+        norm_row0=norm_row0,
         norm_row1=norm_row1, norm_style="minmax", e_scale=1.0, e_shift=0.0,
         e_atom=0.0, networks=(net,), sym_coerad=coerad, sym_coeang=coeang)
 

@@ -102,10 +102,11 @@ def test_local_params_compacts_wide_rows():
     want = A.local_params(t.cfg, t.p, t.x, t.box, t.idx)
     np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=1e-13)
     rng = np.random.default_rng(0)
-    dense = t64(rng.uniform(0.0, 8.0, (400, 3)))
+    dense = t64(rng.uniform(0.0, 8.0, (640, 3)))      # 520-574 partners
     box8 = torch.full((3,), 8.0, dtype=torch.float64)
-    nb = build_neighbors_n2(dense, box8, t.cfg.cut, 400)
-    with pytest.raises(ValueError, match="MAX_K"):
+    nb = build_neighbors_n2(dense, box8, t.cfg.cut, 640)
+    assert int((nb.idx < 640).sum(1).max()) > kernels.MAX_K
+    with pytest.raises(ValueError, match="MAX_K = 512"):
         A.local_params(t.cfg, t.p, dense, box8, nb.idx)
 
 

@@ -151,10 +151,12 @@ def test_evaluator_built_once(case):
 def test_bp_rows_beyond_kernel_width_raise():
     """A compressed fcc box puts 42 partners inside the descriptor cutoff,
     more than one warp's 32 lanes: the BP functions evaluate those rows as
-    the JAX functions do. A box compressed further puts more than the ni
-    kernels' NI_MAX_K = 256 slots inside it: the BP functions raise an
-    error that names the limit instead of evaluating a clipped row; a wide
-    skin list whose rows fit after compaction evaluates exactly."""
+    the JAX functions do. A box compressed further puts ~290 inside it,
+    past the 256 slots the ni kernels took before NI_MAX_K = 512: those rows
+    evaluate too. A box compressed further still puts more than NI_MAX_K
+    inside it: the BP functions raise an error that names the limit instead
+    of evaluating a clipped row; a skin list wider than NI_MAX_K whose rows
+    fit after compaction evaluates exactly."""
     pot = reduced_ni_potential()
     cfg, params = annp.make_annp(pot, torch.float64, device="cpu")
     jcfg, jparams = jannp.make_annp(pot, dtype=jnp.float64)
@@ -168,22 +170,37 @@ def test_bp_rows_beyond_kernel_width_raise():
            jannp.energy_forces_virial_chunked(
                jcfg, jparams, jnp.asarray(x * 0.6), jnp.asarray(box * 0.6),
                jnp.asarray(nb.idx.numpy())))
-    xd, bd = thermal_fcc(7, seed=1, disp=0.02)
-    denser = (t64(xd * 0.3), t64(bd * 0.3))
+    xd, bd = thermal_fcc(6, seed=1, disp=0.02)
+    denser = (t64(xd * 0.32), t64(bd * 0.32))      # box 6.76 A > 2 rc
     nb = build_neighbors_n2(*denser, rc + 0.5, 640)
     assert not bool(nb.overflow)
-    assert int((nb.idx < len(xd)).sum(1).max()) > kernels.NI_MAX_K
-    with pytest.raises(ValueError, match="NI_MAX_K = 256"):
-        annp.energy_forces_chunked(cfg, params, *denser, nb.idx)
-    idx_s, ovf = annp.compact_neighbor_rows(*denser, nb.idx, rc, 384)
+    assert nb.idx.shape[1] > kernels.NI_MAX_K
+    idx_s, ovf = annp.compact_neighbor_rows(*denser, nb.idx, rc, 320)
     assert not bool(ovf)
-    with pytest.raises(ValueError, match="NI_MAX_K = 256"):
-        annp.energy_forces_virial_chunked(cfg, params, *denser, idx_s)
-    # the unstrained box: 12 partners a row, the 300-wide list is compacted
-    wide = build_neighbors_n2(t64(x), t64(box), rc + 2.0, 300)
+    assert 256 < int((idx_s < len(xd)).sum(1).max()) <= kernels.NI_MAX_K
+    _check(annp.energy_forces_virial_chunked(cfg, params, *denser, idx_s),
+           jannp.energy_forces_virial_chunked(
+               jcfg, jparams, jnp.asarray(xd * 0.32), jnp.asarray(bd * 0.32),
+               jnp.asarray(idx_s.numpy())))
+    densest = (t64(xd * 0.25), t64(bd * 0.25))
+    nb = build_neighbors_n2(*densest, rc + 0.5, len(xd))
+    assert not bool(nb.overflow)
+    assert int((nb.idx < len(xd)).sum(1).max()) > kernels.NI_MAX_K
+    with pytest.raises(ValueError, match="NI_MAX_K = 512"):
+        annp.energy_forces_chunked(cfg, params, *densest, nb.idx)
+    idx_s, ovf = annp.compact_neighbor_rows(*densest, nb.idx, rc, 640)
+    assert not bool(ovf)
+    assert int((idx_s < len(xd)).sum(1).max()) > kernels.NI_MAX_K
+    with pytest.raises(ValueError, match="NI_MAX_K = 512"):
+        annp.energy_forces_virial_chunked(cfg, params, *densest, idx_s)
+    # an unstrained box: 12 partners a row, the 552-wide list is compacted
+    # (the JAX functions evaluate the same rows compacted to 32)
+    x, box = (t64(a) for a in thermal_fcc(3, seed=1, disp=0.02))
+    wide = build_neighbors_n2(x, box, rc + 2.0, kernels.NI_MAX_K + 40)
     assert wide.idx.shape[1] > kernels.NI_MAX_K
     want = jannp.energy_forces_virial_chunked(
-        jcfg, jparams, jnp.asarray(x), jnp.asarray(box),
-        jnp.asarray(wide.idx.numpy()), chunk=32)
-    _check(annp.energy_forces_virial_chunked(cfg, params, t64(x), t64(box),
-                                             wide.idx), want)
+        jcfg, jparams, jnp.asarray(x.numpy()), jnp.asarray(box.numpy()),
+        jnp.asarray(annp.compact_neighbor_rows(
+            x, box, wide.idx, rc, 32)[0].numpy()), chunk=32)
+    _check(annp.energy_forces_virial_chunked(cfg, params, x, box, wide.idx),
+           want)

@@ -18,7 +18,12 @@ wide margin over the ~1e-6 that f32 rounding of those sums gives. At K 128
 and 256 (the wide cases) a slot's sums take up to 255 partners and a
 lane's G4 sums up to ~1,000 listed pairs: their worst-case linear growth
 (~6e-5) nears the bound, but the roundings add at random and read ~1e-6
-on the card (chip_smoke.py's [ni-wide-kernels]).
+on the card (chip_smoke.py's [ni-wide-kernels]). At K 320 and 512 (~320
+partners a row) the worst case passes the bound (chip_smoke.py derives
+NI_WIDER_REL_BOUND = 4e-4 for it); the card reads ~1e-6 there too
+([ni-wider]). The fe cases at K 300-512 (rc 9.7 A, ~360 partners) keep
+the harmonic and cos bounds: the card reads <= 5e-6 of max |value|
+([fe-wide-kernels]).
 The cos kernels' f32 bounds are chip_smoke.py's COS_REL_BOUND, derived
 there. The delivered forces of a kernel path sum to zero up to rounding:
 chip_smoke.py's EVAL_REL["sum_F"], 1e-6 N rms|F|.
@@ -51,12 +56,29 @@ COS_RTOL = {torch.float64: (1e-12, 1e-12), torch.float32: (1e-4, 3e-4)}
 SUM_F_REL = 1e-6        # chip_smoke.EVAL_REL["sum_F"], of N rms|F|
 
 
+def _capacity(cut):
+    """Skin capacity of short_planes' bcc box at cut + 0.5: 128 up to the
+    shipped fe cutoff, 512 at rc 9.7 A (~410 partners within 10.2 A)."""
+    return 128 if cut < 7.0 else 512
+
+
+def _with_filler_rows(planes, filler):
+    """8 all-filler rows (dx = 2 box + 10, the planes' largest value) after
+    the box's, where its atom count, a multiple of 8, left none."""
+    if filler.all(1).any():
+        return planes, filler
+    return ([np.concatenate([a, np.full((8, a.shape[1]), a.max())])
+             for a in planes],
+            np.concatenate([filler, np.ones((8, filler.shape[1]), bool)]))
+
+
 def _harm_case(n_cells, cut, ks, npsf, ntsf, dtype, device):
     """Short planes of a perturbed bcc box with their lanes permuted (one
     seeded permutation for every row), so that the box's neighbors reach
     every slot of a wide K and filler lanes sit between them; the padding
     rows past the box are all filler. Returns (planes, filler, dedg, b)."""
-    planes, filler = short_planes(n_cells, cut, ks)
+    planes, filler = _with_filler_rows(*short_planes(
+        n_cells, cut, ks, capacity=_capacity(cut)))
     perm = np.random.default_rng(ks).permutation(ks)
     planes = [torch.as_tensor(np.ascontiguousarray(a[:, perm]), dtype=dtype,
                               device=device) for a in planes]
@@ -97,7 +119,10 @@ def _check_harm(planes, filler, dedg, b, npsf, ntsf, cut):
     (3, 4.0, 40, 4, 5),          # K not a multiple of 32
     (5, 6.5, 128, 9, 19),        # the shipped fe width
     (5, 6.5, 192, 9, 19),        # skin-list lanes
-    (5, 6.5, 256, 9, 19),        # MAX_K: 8 slots a lane in g_harm
+    (5, 6.5, 256, 9, 19),        # 8 slots a lane in g_harm, one tile
+    (5, 6.5, 300, 9, 19),        # two tiles of 5 slots a lane; 2 blocks
+    (8, 9.7, 384, 9, 19),        # rc 9.7 A: ~340 partners, 2 x 6 slots
+    (8, 9.7, 512, 9, 19),        # MAX_K: 2 x 8 slots, 2 x 256 lanes
 ])
 def test_kernels_match_plain(cuda_device, n_cells, cut, ks, npsf, ntsf,
                              dtype):
@@ -120,9 +145,9 @@ def test_harm_widths_interleaved(cuda_device):
 def test_wrappers_refuse_bad_inputs(cuda_device):
     planes = [torch.zeros(8, 32, dtype=torch.float64, device=cuda_device)
               for _ in range(3)]
-    with pytest.raises(ValueError):                 # K above 256 lanes
-        kernels.g_harm(*[torch.zeros(8, 300, device=cuda_device)] * 3,
-                       4, 5, 4.0)
+    wide = [torch.zeros(8, kernels.MAX_K + 1, device=cuda_device)] * 3
+    with pytest.raises(ValueError, match="MAX_K = 512"):   # K above MAX_K
+        kernels.g_harm(*wide, 4, 5, 4.0)
     with pytest.raises(ValueError):                 # mixed dtypes
         kernels.g_harm(planes[0], planes[1].float(), planes[2], 4, 5, 4.0)
     with pytest.raises(ValueError):                 # b of the wrong width
@@ -148,7 +173,10 @@ def _thin_rows(planes, filler, counts):
     (3, 4.0, 40, 4, 5),          # K not a multiple of 32
     (5, 6.5, 128, 9, 19),        # the shipped fe width, short-list lanes
     (5, 6.5, 192, 9, 19),        # skin-list lanes (energy_dedg)
-    (5, 6.5, 256, 9, 19),        # MAX_K: 8 warps a row
+    (5, 6.5, 256, 9, 19),        # 8 warps a row: the widest 8-warp block
+    (5, 6.5, 300, 9, 19),        # a 16-warp block, ~112 active lanes
+    (8, 9.7, 384, 9, 19),        # rc 9.7 A: ~340 active lanes
+    (8, 9.7, 512, 9, 19),        # MAX_K: 16 warps
     (3, 4.0, 32, 4, 1),          # one angular function
     (3, 4.0, 32, 4, 2),          # no recurrence step
     (3, 4.0, 40, 4, 12),         # one more instance of force_cos
@@ -160,7 +188,8 @@ def test_cos_kernels_match_plain(cuda_device, n_cells, cut, ks, npsf, ntsf,
     no active lane; rows 0-3 are cut down to 1, 2, 7 and 8 active lanes
     (force_cos pairs thread j with j + d: one lane has no pair, two lanes
     one, and an even count ends on a half step)."""
-    planes, filler = short_planes(n_cells, cut, ks)
+    planes, filler = _with_filler_rows(*short_planes(
+        n_cells, cut, ks, capacity=_capacity(cut)))
     _thin_rows(planes, filler, (1, 2, 7, 8))
     assert filler.all(1).any()
     planes = [torch.as_tensor(a, dtype=dtype, device=cuda_device)
@@ -189,9 +218,9 @@ def test_cos_kernels_match_plain(cuda_device, n_cells, cut, ks, npsf, ntsf,
 def test_cos_wrappers_refuse_bad_inputs(cuda_device):
     planes = [torch.zeros(8, 32, dtype=torch.float64, device=cuda_device)
               for _ in range(3)]
-    with pytest.raises(ValueError):                 # K above 256 lanes
-        kernels.g_cos(*[torch.zeros(8, 300, device=cuda_device)] * 3,
-                      4, 5, 4.0)
+    wide = [torch.zeros(8, kernels.MAX_K + 1, device=cuda_device)] * 3
+    with pytest.raises(ValueError, match="MAX_K = 512"):   # K above MAX_K
+        kernels.g_cos(*wide, 4, 5, 4.0)
     with pytest.raises(ValueError):                 # more than 32 functions
         kernels.g_cos(*planes, 4, 33, 4.0)
     with pytest.raises(ValueError):                 # dedg of the wrong width
@@ -207,7 +236,17 @@ def _ni_case(width):
     a lane), "k48" 48 of its lanes (2 slots a lane), "k70" 70 of them,
     "k256" its lanes spread over 256 by a seeded permutation, filler
     between them (8 slots a lane); "table": the 10 + 22 table of
-    testing.NI_WIDE_ANGULAR at Rc 6.0 A, Ks 128."""
+    testing.NI_WIDE_ANGULAR at Rc 6.0 A, Ks 128. "k320": Rc 9.2 A on fcc
+    6^3 cells at Ks 320 (~320 partners a row, 16 slots a lane), "k512"
+    those rows spread over 512 lanes, filler between them."""
+    if width in ("k320", "k512"):
+        pot = synthetic_ni_potential(0, rc_bohr=9.2 * CFLENGTH)
+        rc_s = float(pot.sym_coeang[0, 3]) / CFLENGTH + 0.2
+        planes, filler = ni_short_planes(rc_s, 320, n_cells=6, seed=2,
+                                         capacity=448)
+        if width == "k512":
+            planes, filler = _spread(planes, filler, 512)
+        return planes, filler, pot
     if width in ("wide", "k48", "k70", "k256", "table"):
         pot = synthetic_ni_potential(0, rc_bohr=6.0 * CFLENGTH) \
             if width != "table" else synthetic_ni_potential(
@@ -227,13 +266,22 @@ def _ni_case(width):
         planes = [np.ascontiguousarray(a[:, lanes]) for a in planes]
         filler = np.ascontiguousarray(filler[:, lanes])
     if width == "k256":
-        pad = planes[0].max()
-        perm = np.random.default_rng(256).permutation(256)
-        planes = [np.ascontiguousarray(np.concatenate(
-            [a, np.full_like(a, pad)], 1)[:, perm]) for a in planes]
-        filler = np.ascontiguousarray(np.concatenate(
-            [filler, np.ones_like(filler)], 1)[:, perm])
+        planes, filler = _spread(planes, filler, 256)
     return planes, filler, pot
+
+
+def _spread(planes, filler, k):
+    """The [P, Ks] planes' lanes spread over k by a seeded permutation,
+    filler lanes (the planes' largest value) between them."""
+    ks = planes[0].shape[1]
+    pad = planes[0].max()
+    perm = np.random.default_rng(k).permutation(k)
+    planes = [np.ascontiguousarray(np.concatenate(
+        [a, np.full((a.shape[0], k - ks), pad)], 1)[:, perm])
+        for a in planes]
+    filler = np.ascontiguousarray(np.concatenate(
+        [filler, np.ones((filler.shape[0], k - ks), bool)], 1)[:, perm])
+    return planes, filler
 
 
 def _odd_coeang(pot):
@@ -251,16 +299,17 @@ def _odd_coeang(pot):
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
 @pytest.mark.parametrize("width", ["reduced", "full", "reduced-odd",
                                    "full-odd", "k17", "wide", "wide-odd",
-                                   "k48", "k70", "k256", "table"])
+                                   "k48", "k70", "k256", "table", "k320",
+                                   "k512"])
 def test_ni_kernels_match_plain(cuda_device, width, dtype):
     """Both ni kernels against their plain versions, on the potential's
     table or (-odd) one with zetas 3 and 6. Rows 0-2 are cut down to 0, 1
     and 2 lanes (no candidate pair, none, one), and row 3 holds Ks lanes
     inside the angular cutoff in random directions: the longest pair list,
-    496 candidates at Ks 32, 8,128 (16 tiles) at Ks 128, 32,640 at 256.
-    The padding-free box also has rows of its usual partners (~12, ~86 at
-    Rc 6.0 A), "k17" runs with K = 17, "k48" with K = 48 and "k70" with
-    K = 70."""
+    496 candidates at Ks 32, 8,128 (16 tiles) at Ks 128, 32,640 at 256,
+    130,816 at 512. The padding-free box also has rows of its usual
+    partners (~12, ~86 at Rc 6.0 A, ~320 at 9.2 A), "k17" runs with K =
+    17, "k48" with K = 48 and "k70" with K = 70."""
     width, _, odd = width.partition("-")
     planes, filler, pot = _ni_case(width)
     _thin_rows(planes, filler, (0, 1, 2))
@@ -330,9 +379,9 @@ def test_ni_wrappers_refuse_bad_inputs(cuda_device):
     table = fn.ni_table(pot.sym_coerad, pot.sym_coeang)
     wide = [torch.zeros(8, kernels.NI_MAX_K + 1, device=cuda_device)
             for _ in range(3)]
-    with pytest.raises(ValueError):                 # K above NI_MAX_K
+    with pytest.raises(ValueError, match="NI_MAX_K = 512"):
         kernels.ni_g(*wide, table)
-    with pytest.raises(ValueError):
+    with pytest.raises(ValueError, match="NI_MAX_K = 512"):
         kernels.ni_force(*wide, torch.zeros(8, fn.NSF_SUB,
                                             device=cuda_device), table)
     planes = [torch.zeros(8, 16, device=cuda_device) for _ in range(3)]

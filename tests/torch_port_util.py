@@ -57,12 +57,13 @@ def rel_max(a, b):
     return float(np.max(np.abs(a - b)) / max(np.max(np.abs(b)), 1e-300))
 
 
-def short_planes(n_cells, cut, ks, seed=0):
+def short_planes(n_cells, cut, ks, seed=0, capacity=128):
     """[P, Ks] displacement planes from the short list of a perturbed bcc
     box (P a multiple of 8, the Pallas tile), with filler lanes; numpy.
-    Also returns the filler-lane mask."""
+    Also returns the filler-lane mask. capacity: the skin list's, at
+    cut + 0.5."""
     x, box = perturbed_bcc(n_cells, seed=seed)
-    nbrs = build_neighbors_n2(t64(x), t64(box), cut + 0.5, 128)
+    nbrs = build_neighbors_n2(t64(x), t64(box), cut + 0.5, capacity)
     sidx = fa.compact_short(t64(x), t64(box), nbrs.idx, cut + 0.4, ks,
                             (True, True, True)).sidx
     planes = fa.pair_dx_planes(t64(x), t64(box), sidx, (True, True, True))
