@@ -213,6 +213,33 @@ fatal on failure, by tag:
     then [ni-wider-main], NI_WIDER_BLOCKS blocks of phase 11's NVT path at
     those sizes, its gates.
 
+Rows of more than 512 partners (the harmonic pair in virtual rows of
+kernels.HARM_TILE slots, the ni pair's cross-tile instances in tiles of
+kernels.NI_TILE), each fatal on failure, by tag, after [disloc-core]:
+
+  * [fe-widest]: the benchmark slab on the fe potential of the shipped
+    widths at rc FE_WIDEST_RC (~610 partners a row): g_harm / force_harm on
+    the rows compacted at rc against their plain versions on WIDEST_ROWS
+    rows (f64 on every WIDE_F64_STRIDE-th), their times on every row and
+    bounds; one energy_forces_virial_chunked in f32
+    against the f64 plain path (WIDEST_OVER_PLAIN times the f32 plain
+    path's difference); FE_WIDEST_CLI_STEPS NPT steps of the CLI's
+    `--engine xla` route at --capacity FE_WIDEST_CAPACITY;
+  * [ni-widest]: the ni potential of the shipped table at Rc NI_WIDEST_RC
+    on thermal fcc NI_WIDEST_CELLS^3 cells (~600 partners a row):
+    ni_g_tiles / ni_force_tiles against the plain versions on the whole row
+    and their tiled plain twins on WIDEST_ROWS rows (NI_WIDEST_REL_BOUND;
+    ni_force's twin on the f64 rows), two runs bit for bit equal, the
+    times and bounds; one chunked evaluation in f32 against f64
+    (WIDEST_OVER_PLAIN);
+    NI_WIDEST_CLI_STEPS NVT steps of the CLI's BP route at --capacity
+    NI_WIDEST_CAPACITY;
+  * [anna-widest]: the synthetic .anna of the shipped widths at cut
+    ANNA_WIDEST_CUT on thermal bcc ANNA_WIDEST_CELLS^3 cells (rows of
+    513-640 partners, counted): local_params, the reference-shaped
+    energy_forces_virial and make_anna_fast_fns(k_short=ANNA_WIDEST_KS) in
+    f32 against f64 (WIDEST_OVER_PLAIN).
+
 The 2-D and 3-D grid drivers (parallel/domain2d.py, domain3d.py:
 ShardedMD2D on a (2, 2) grid of columns, ShardedMD3D on a (2, 2, 2) grid
 of bricks, on the same in-process mesh; every frame row is a centre), each
@@ -288,8 +315,9 @@ card), each fatal on failure, by tag, after [scale-2m]:
     grid, its own t = 0 parity limits, 20 NVE steps): no overflow, no
     `unsafe` latch (slabs), finite thermo, g_harm / force_harm once an
     evaluation of each run;
-  * [script-halo]: `halo_fraction.py` at 2,000,000 atoms (planning only,
-    no launch): every row planned or refused with a reason, the 8-shard
+  * [script-halo]: `halo_fraction.py --cells SCRIPT_HALO_CELLS` (524,288
+    atoms; planning only, no launch): every row planned or refused with a
+    reason, the 8-shard
     layouts planned, and the rows at --cells SCRIPT_HALO_CPU_CELLS equal
     to the same planning on the CPU;
   * [script-bench]: `bench.py --steps SCRIPT_BENCH_STEPS`, the port's
@@ -315,12 +343,17 @@ from phase 14); ni_g's and ni_force's carry their [ni-wide-kernels] figures
 `wider_plain_rows` the rows of the plain versions' timed run, and
 `wider_launches` from [ni-wider-main]); the four fe kernels' carry their
 [fe-wide-kernels] figures as `wide_*` (`wide_plain_rows` likewise, and
-`wide_launches` from [fe-wide-main]). Its `launches` add the new paths'
+`wide_launches` from [fe-wide-main]); g_harm's and force_harm's carry
+their [fe-widest] figures as `widest_*` (`widest_tile`
+kernels.HARM_TILE). The records `ni_g_tiles` and `ni_force_tiles` are
+the ni pair's cross-tile instances at [ni-widest]'s shape (`tile`
+kernels.NI_TILE), their launches [ni-widest]'s CLI run's. Its `launches` add the new paths'
 runs ([multi-fe]'s and [rowsweep]'s Simulators, [multi-ni]'s,
 [thin-box]'s Simulator and FIRE, [cli-multi], the seven sharded runs, the
 ranks' and the in-process references' runs of the across-process tags,
 [disloc-core], [scale-500k], [scale-2m], [ni-wide-main], [fe-wide-main],
-[ni-wider-main] and the [script-*] runs) to the main paths';
+[ni-wider-main], the [*-widest] CLI runs and [anna-widest]'s f32
+evaluations, and the [script-*] runs) to the main paths';
 g_harm's and force_harm's also carry
 their times and bounds on the scale scenes (`scale_500k_ms`,
 `scale_500k_bound_ms`, `scale_500k_bound_by`, and the same for `2m`). Prints
@@ -328,6 +361,7 @@ the kernels' JSON record on the line before the last, and as the last line
 {"ok": true, "device": {...}}. Run from the repository root:
 `python3 chip_smoke.py`.
 """
+import concurrent.futures
 import contextlib
 import io
 import json
@@ -369,6 +403,7 @@ NI_WIDE_BLOCKS, NI_WIDE_RATE_BLOCKS = 10, 7
 # the plain versions on every 4th (the plain f64 pair loop over all
 # 256,000 rows costs ~20 s of the smoke)
 NI_WIDE_F64_STRIDE = 4
+NI_WIDE_PLAIN_ROWS = 65536   # rows of its plain versions (of 256,000)
 # rows of 257-512 partners (kernels.MAX_K = NI_MAX_K = 512): bcc Fe holds
 # 330 lattice partners within 9.7 A (338 within rc + SHORT_DELTA, 410
 # within rc + FE_WIDE_SKIN), fcc Ni 320 within 9.2 A (368 within 9.9 A)
@@ -382,6 +417,23 @@ WIDE_PAD_ROWS = 2048   # rows of the K 512 checks (filler lanes)
 NI_WIDER_RC, NI_WIDER_CELLS = 9.2, 16     # A; 16,384 atoms
 NI_WIDER_KS, NI_WIDER_CAPACITY, NI_WIDER_CELL_CAPACITY = 352, 448, 192
 NI_WIDER_BLOCKS = 2                       # 10 NVT steps
+# rows of more than 512 partners (the harmonic pair as virtual rows of
+# kernels.HARM_TILE slots, the ni pair through its cross-tile instances in
+# kernels.NI_TILE-slot tiles): bcc Fe holds 608 lattice partners within
+# 12.0 A (700 within 12.4), fcc Ni 602 within 11.5 A
+FE_WIDEST_RC, FE_WIDEST_SKIN = 12.0, 0.4
+FE_WIDEST_CAPACITY, FE_WIDEST_CELL_CAPACITY = 896, 320
+FE_WIDEST_CLI_STEPS = 10
+NI_WIDEST_RC, NI_WIDEST_CELLS, NI_WIDEST_SKIN = 11.5, 16, 0.5
+NI_WIDEST_CAPACITY, NI_WIDEST_CELL_CAPACITY = 896, 320
+NI_WIDEST_CLI_STEPS = 5
+# [anna-widest]: the synthetic .anna of the shipped widths at cut 11.5 A on
+# thermal bcc 16^3 cells (8,192 atoms, box 45.7 A): 536 lattice partners
+# within cut, 608 within cut + 0.3
+ANNA_WIDEST_CUT, ANNA_WIDEST_CELLS = 11.5, 16
+ANNA_WIDEST_CAPACITY, ANNA_WIDEST_CELL_CAPACITY, ANNA_WIDEST_KS = \
+    768, 448, 640
+WIDEST_ROWS = 2048     # rows of the widest tags' plain comparisons
 # run path (`python -m meng_zhang_tpu_torch`, run.main in this process)
 CLI_FE_STEPS, CLI_FE_RESTART_STEPS, CLI_THERMO = 40, 20, 10
 CLI_NI_STEPS, CLI_NI_THERMO = 20, 5
@@ -474,6 +526,7 @@ SCRIPT_MODEL_STEPS = {"kernels": 20, "chunked": 10}   # the script's 100
 SCRIPT_SHARDED_SMALL_STEPS = 200                      # the script's 1000
 SCRIPT_PARITY_STEPS = 100      # [script-sharded-small]'s gated window
 SCRIPT_HALO_CPU_CELLS = 40     # [script-halo]'s card-vs-CPU planning
+SCRIPT_HALO_CELLS = 64         # [script-halo]'s planning run (the script's 100)
 SCRIPT_BENCH_STEPS = 100       # [script-bench]'s timed steps (the script's 500)
 U32 = 2.0 ** -24               # f32 unit roundoff
 
@@ -588,6 +641,43 @@ NI_REL_BOUND = {torch.float32: 2e-4, torch.float64: 1e-12}
 # and the plain version's loop and sum <= 704, 9.3e-5 apart. So 4e-4; in
 # f64 the same counts give <= 7e-13, under 1e-12.
 NI_WIDER_REL_BOUND = {torch.float32: 4e-4, torch.float64: 1e-12}
+# The ni pair's cross-tile instances at [ni-widest]'s rows of up to ~660
+# partners inside Rc (K 768), by the same counts: ni_force's owner adds a
+# slot's <= 660 contributions (a 5-level shuffle tree within a round, then
+# the rounds in order), <= 704 roundings with the factors' 44, and the
+# plain version's q loop as many: 8.4e-5 apart, 6.8e-4 with the 8x for
+# Fj's cancellation. ni_g: a unit (a 128-slot tile against the row) lists
+# ~43,000 ordered pairs at ~660 partners, ~90 pair tiles of <= 512; a lane
+# adds its <= 64 pairs of 4 pair tiles, the transposed tree 5 levels, lane
+# f the ~23 batch sums in list order, and the wrapper the T tile
+# partials: <= ~100 roundings, 6e-6 of the column (G4's terms are all
+# positive); the plain version's 660-step loop and sums over the lanes
+# <= 1,000, 6e-5. So 7e-4, which ni_force sets
+# (1e-3 for the card tests' rows of up to ~880 partners,
+# tests/test_torch_cuda.py NI_TILES_RTOL); in f64 the same counts give
+# <= 1.4e-12: 2e-12.
+NI_WIDEST_REL_BOUND = {torch.float32: 7e-4, torch.float64: 2e-12}
+# The widest tags' f32 paths (the chunked functions, ANNA-ADP's
+# functions) against f64 on the same rows: beside their kernels' rounding
+# (~4e-6 of the kernels' outputs in f32, the checks above) both the
+# kernel path and the plain path carry the same dominant f32 error, the
+# network inputs' (EVAL_REL: normalisation subtracts a mean up to ~30 from
+# sums with a spread of ~0.1), which grows with the rows' partners (~610
+# here, 5x phase 4's). So E, F and W of the f32 kernel path are held to
+# WIDEST_OVER_PLAIN times the f32 plain path's own difference from the f64
+# reference, measured in the same run on the same rows (as
+# THIN_W_OVER_PLAIN): the two differ by the order of their sums alone, so
+# their differences are draws of one size, and 3x leaves room for the
+# larger draw; sum F keeps its rounding bound (EVAL_REL["sum_F"]). The ni
+# pair has no such shared error (min-max normalisation adds ~2.4x the raw
+# sums' rounding, NI_EVAL_REL): each path's own rounding of the G4 sums
+# leads, reaching every pair term of a row alike through dE/dG, and W,
+# the sum over ~10^7 pairs, takes it coherently. So its ratio follows the
+# G4 sums' chains: ni_g_tiles' (<= ~100 roundings, NI_WIDEST_REL_BOUND)
+# are shorter than the plain version's (~600-step q loops), and 3x holds
+# for it too. With one running sum a lane across the row (~1,350 terms)
+# the kernel's max dW read 3.9x the plain path's; see PERF.md.
+WIDEST_OVER_PLAIN = 3.0
 # ni evaluator on the thermal 256,000-atom box, f32 kernel path against the
 # f64 plain path, relative to the scales of what each measures. Min-max
 # normalisation divides each raw sum by its span: the largest |G| * scale
@@ -653,7 +743,9 @@ PLAIN_VERSIONS = (("fused_annp", "g_harm_plain"),
                   ("fused_annp", "force_harm_plain"),
                   ("fused_annp", "g_cos_plain"),
                   ("fused_annp", "force_cos_plain"),
-                  ("fused_ni", "ni_g_plain"), ("fused_ni", "ni_force_plain"))
+                  ("fused_ni", "ni_g_plain"), ("fused_ni", "ni_force_plain"),
+                  ("fused_ni", "ni_g_tiles_plain"),
+                  ("fused_ni", "ni_force_tiles_plain"))
 
 
 class SmokeFailure(Exception):
@@ -951,11 +1043,12 @@ def phase_kernels(x, box, cfg32, p32):
             # against the first plain version's one timed run
             cases[0][5](short, slice(None))
         for name, note, pl, filler, kern, plain, outs, in_record in cases:
-            # the cos plain versions build a [K, K] matrix a row: in f64 at
-            # the skin-list width they are held on every fourth row
+            # the cos plain versions build a [K, K] matrix a row: they are
+            # held on every fourth row, but for the f32 short planes (the
+            # records' shape)
             rows = slice(None, None, COS_SKIN_F64_STRIDE) \
-                if (dtype == torch.float64 and note == skin_w
-                    and name in COS_REL_BOUND[dtype]) else slice(None)
+                if (name in COS_REL_BOUND[dtype]
+                    and (dtype == torch.float64 or note)) else slice(None)
             cpl = [t[rows].contiguous() for t in pl]
             shape = f"[{cpl[0].shape[0]}, {pl[0].shape[1]}]" \
                 + (f" {note}" if note else "")
@@ -966,10 +1059,11 @@ def phase_kernels(x, box, cfg32, p32):
             del got, ref, cpl
             if dtype != torch.float32:
                 continue
-            ms = cuda_ms(lambda: kern(pl, rows), 10)
+            ms = cuda_ms(lambda: kern(pl, slice(None)), 10)
             if not in_record:
-                log(f"[kernels] {name} f32 {shape}: kernel {ms:.3f} ms "
-                    f"(median, CUDA events; not in the record)")
+                log(f"[kernels] {name} f32 [{pl[0].shape[0]}, "
+                    f"{pl[0].shape[1]}] {note}: kernel {ms:.3f} ms (median, "
+                    "CUDA events; not in the record)")
                 continue
             src, line = FE_KERNELS[name]
             rec = records[name] = record(
@@ -1800,8 +1894,9 @@ def phase_ni_wide_kernels(dev, cfg32, p32):
     """[ni-wide-kernels]: ni_g / ni_force against their plain versions on
     the [P, NI_WIDE_KS] short planes of the thermal ni scene on the
     potential at Rc NI_WIDE_RC (filler lanes included) in f32 and f64 (the
-    f64 plain versions on every NI_WIDE_F64_STRIDE-th row), their times
-    and bounds; then, on its first NI_POW_ROWS rows, the 10 + 22 table of
+    f64 plain versions on every NI_WIDE_F64_STRIDE-th row, both on the
+    first NI_WIDE_PLAIN_ROWS rows), their times and bounds; then, on its
+    first NI_POW_ROWS rows, the 10 + 22 table of
     testing.NI_WIDE_ANGULAR (nsf 32, 20 eta groups, 22 shapes, 12 of them
     through pow), and the potential's table at K 48 and K 256 (the kernels'
     instances of 2 and 8 slots a lane). Returns the wide figures of each
@@ -1820,7 +1915,7 @@ def phase_ni_wide_kernels(dev, cfg32, p32):
     table = fn.ni_table(p32["coerad"], p32["coeang"])
     records = ni_plane_checks("ni-wide-kernels", planes32, table,
                               cfg32.npsf + cfg32.ntsf, filler,
-                              NI_WIDE_F64_STRIDE)
+                              NI_WIDE_F64_STRIDE, NI_WIDE_PLAIN_ROWS)
 
     pot = synthetic_ni_potential(0, npsf=10, rc_bohr=NI_WIDE_RC * CFLENGTH,
                                  ang=NI_WIDE_ANGULAR,
@@ -2157,9 +2252,7 @@ def phase_anna_md(dev, cfg32, p32, mass, card):
                 f"{row[2] + pe_off:.4f} eV  P {row[4]:9.2f} bar  conserved "
                 f"{row[6] + pe_off:.4f} eV  short row max {srow}/{ANNA_KS}  "
                 f"{block_s[-1] * 1e3:.1f} ms")
-    launches = {k: getattr(kernels, k).launches
-                for k in ("g_harm", "force_harm", "g_cos", "force_cos",
-                          "ni_g", "ni_force")}
+    launches = {k: getattr(kernels, k).launches for k in kernels.WRAPPERS}
     steps = ANNA_BLOCKS * ANNA_EVERY
     check(not plain, f"anna-md: plain versions ran on the card: {plain}")
     check(all(np.isfinite(r).all() for r in rows), "anna: non-finite thermo")
@@ -2274,9 +2367,7 @@ def cli(tag, argv):
     check(len(rows) >= 2 and all(
         math.isfinite(float(v)) for ln in rows for v in ln.split()),
         f"{tag}: missing or non-finite thermo rows")
-    launches = {k: getattr(kernels, k).launches
-                for k in ("g_harm", "force_harm", "g_cos", "force_cos",
-                          "ni_g", "ni_force")}
+    launches = {k: getattr(kernels, k).launches for k in kernels.WRAPPERS}
     log(f"[{tag}] {wall:.2f} s in run.main; launches {launches}")
     return rows, err.getvalue().splitlines(), wall, launches
 
@@ -3088,18 +3179,18 @@ def shard_planes(md, st, idx, pbc):
                                pbc)
 
 
-def shard_kernel_checks(tag, planes32, cases):
+def shard_kernel_checks(tag, planes32, cases, stride=1):
     """Each case (name, kernel, plain version, outputs, bounds by dtype)
-    on the frame planes in f32 and f64, the kernel against its plain
-    version; then the kernel's f32 time on them. kernel/plain take
-    (planes, dtype)."""
+    on every stride-th row of the frame planes in f32 and f64, the kernel
+    against its plain version; then the kernel's f32 time on all of
+    them. kernel/plain take (planes, dtype)."""
     p, k = planes32[0].shape
     for dtype in (torch.float32, torch.float64):
-        pl = [t.to(dtype) for t in planes32]
+        pl = [t[::stride].to(dtype).contiguous() for t in planes32]
         for name, kern, plain, outs, bounds in cases:
             compare(f"{tag} {'f32' if dtype == torch.float32 else 'f64'}",
-                    f"{name} frame planes [{p}, {k}]", outs, kern(pl, dtype),
-                    plain(pl, dtype), bounds[dtype])
+                    f"{name} frame planes [{pl[0].shape[0]}, {k}]", outs,
+                    kern(pl, dtype), plain(pl, dtype), bounds[dtype])
         del pl
     for name, kern, _, _, _ in cases:
         ms = cuda_ms(lambda: kern(planes32, torch.float32), 5)
@@ -3192,8 +3283,7 @@ def shard_md(tag, md, x, v, n_blocks, names, card, sim_run, rel_f,
     kernel and no plain version, T against the single-device run within
     shard_t_bound. Returns the launches."""
     from meng_zhang_tpu_torch.ops import kernels
-    all_names = ("g_harm", "force_harm", "g_cos", "force_cos", "ni_g",
-                 "ni_force")
+    all_names = kernels.WRAPPERS
     n = x.shape[0]
     th_ref = sim_run()
     torch.cuda.synchronize()
@@ -3308,6 +3398,10 @@ def grid_coverage(tag, md, x):
 # the layouts of the sharded tags: [shard-*] SHARD_D slabs, [shard2d-*] a
 # (2, 2) grid of columns, [shard3d-*] a (2, 2, 2) grid of bricks
 SHARD_MESH = {"1d": None, "2d": (2, 2), "3d": (2, 2, 2)}
+# rows of the harmonic kernels' plain comparisons on the fe frame planes:
+# every row of the slabs' 213,360, every 4th of the grids' 401,200 and
+# 636,336 (their times stay on every row)
+SHARD_HARM_STRIDE = {"1d": 1, "2d": 4, "3d": 4}
 SHARD_TAG = {"1d": "shard", "2d": "shard2d", "3d": "shard3d"}
 
 
@@ -3359,7 +3453,7 @@ def phase_shard_fe(x, box, cfg32, p32, cfg64, p64, mass, card, ref,
     # (c) the kernels on the frame planes
     harm, cos = fe_kernel_cases(cfg32.npsf, cfg32.ntsf, cfg32.cut,
                                 planes[0].shape[0], dev)
-    shard_kernel_checks(tag, planes, harm)
+    shard_kernel_checks(tag, planes, harm, SHARD_HARM_STRIDE[layout])
     shard_kernel_checks(tag, [t[::4].contiguous() for t in planes], cos)
     del planes
 
@@ -3466,7 +3560,7 @@ def phase_shard3d_fe(x, box, cfg32, p32, mass, ref):
     del st, md, e64, f64, w64
     harm, _ = fe_kernel_cases(cfg32.npsf, cfg32.ntsf, cfg32.cut,
                               planes[0].shape[0], dev)
-    shard_kernel_checks(tag, planes, harm)
+    shard_kernel_checks(tag, planes, harm, SHARD_HARM_STRIDE["3d"])
     log(f"[{tag}] phase {time.time() - t_phase:.1f} s")
     return launches
 
@@ -3702,10 +3796,9 @@ def dist_launches(tag, out, want):
     """Each rank's launches against `want` {kernel: count} (every other
     kernel 0): every rank launches each kernel once a step for its own
     shards."""
-    names = ("g_harm", "force_harm", "g_cos", "force_cos", "ni_g",
-             "ni_force")
+    from meng_zhang_tpu_torch.ops import kernels
     for r, got in enumerate(out.launches):
-        exp = {k: want.get(k, 0) for k in names}
+        exp = {k: want.get(k, 0) for k in kernels.WRAPPERS}
         check(got == exp, f"{tag}: rank {r} launches {got}, expected {exp}")
 
 
@@ -3933,9 +4026,7 @@ def scale_script(tag, module, argv, stdout=None, **kw):
     for line in out.getvalue().splitlines():
         log(f"[{tag}] {line}")
     check(not plain, f"{tag}: plain versions ran on the card: {plain}")
-    launches = {k: getattr(kernels, k).launches
-                for k in ("g_harm", "force_harm", "g_cos", "force_cos",
-                          "ni_g", "ni_force")}
+    launches = {k: getattr(kernels, k).launches for k in kernels.WRAPPERS}
     log(f"[{tag}] {wall:.2f} s in {module.__name__}.main; launches "
         f"{launches}")
     return run, launches, wall
@@ -4196,14 +4287,11 @@ def phase_disloc_core(card, tmp):
 
 
 # ----------------------------------------------------- the run scripts
-ALL_KERNELS = ("g_harm", "force_harm", "g_cos", "force_cos", "ni_g",
-               "ni_force")
-
-
 def script_launches(tag, launches, want):
     """Each kernel launched want[name] times and no other kernel; returns
     the launches."""
-    for name in ALL_KERNELS:
+    from meng_zhang_tpu_torch.ops import kernels
+    for name in kernels.WRAPPERS:
         check(launches[name] == want.get(name, 0),
               f"{tag}: {name} launched {launches[name]} times, expected "
               f"{want.get(name, 0)}")
@@ -4480,13 +4568,15 @@ def phase_script_sharded2d(card):
 
 
 def phase_script_halo(card):
-    """`scripts/halo_fraction.py` at full size (2,000,000 atoms, planning
-    only: no kernel launch): every row planned or refused with a reason,
-    every 8-shard layout planned; and the rows of a run at
-    SCRIPT_HALO_CPU_CELLS equal to the same planning on the CPU."""
+    """`scripts/halo_fraction.py --cells SCRIPT_HALO_CELLS` (524,288 atoms
+    of the script's 2,000,000; planning only: no kernel launch): every row
+    planned or refused with a reason, every 8-shard layout planned; and the
+    rows of a run at SCRIPT_HALO_CPU_CELLS equal to the same planning on
+    the CPU."""
     from meng_zhang_tpu_torch.scripts import halo_fraction
     tag = "script-halo"
-    run, launches, wall = scale_script(tag, halo_fraction, [])
+    run, launches, wall = scale_script(
+        tag, halo_fraction, ["--cells", str(SCRIPT_HALO_CELLS)])
     script_launches(tag, launches, {})
     rows = run.record["rows"]
     for r in rows:
@@ -4574,7 +4664,453 @@ def phase_scripts(card, relaxed_2m, fe_rate):
     return extra
 
 
+# ------------------------------------------------- rows over 512 partners
+@contextlib.contextmanager
+def g_harm_plain_inside():
+    """kernels.g_harm replaced by its plain version inside the block: the
+    f32 plain path of ANNA-ADP's reference-shaped functions, which take no
+    plain switch (their phase 1 reads kernels.g_harm at each call), for
+    [anna-widest]'s bounds."""
+    from meng_zhang_tpu_torch.ops import fused_annp as fa
+    from meng_zhang_tpu_torch.ops import kernels
+    saved = kernels.g_harm
+    kernels.g_harm = fa.g_harm_plain
+    try:
+        yield
+    finally:
+        kernels.g_harm = saved
+
+
+def widest_gates(tag, out32, plain32, out64):
+    """[*-widest]'s f32 gates: each of E (per atom), F, W of the f32 kernel
+    path within WIDEST_OVER_PLAIN times the f32 plain path's difference
+    from the f64 reference out64 on the same rows, and sum F within
+    EVAL_REL["sum_F"] N rms|F|. out*: (E, F, W)."""
+    def diffs(out):
+        (e, f, w), (e64, f64, w64) = out, out64
+        n = f64.shape[0]
+        return {"dE_per_atom": abs(float(e) - float(e64)) / n,
+                "max_dF": float((f.double() - f64).abs().max()),
+                "max_dW": float((w.double() - w64).abs().max())}
+    f32 = out32[1]
+    check(bool(torch.isfinite(f32).all()) and math.isfinite(float(out32[0]))
+          and bool(torch.isfinite(out32[2]).all()),
+          f"{tag}: non-finite f32 output")
+    got, own = diffs(out32), diffs(plain32)
+    for key in got:
+        lim = WIDEST_OVER_PLAIN * own[key]
+        log(f"[{tag}] {key} {got[key]:.3e} (bound {lim:.3e} = "
+            f"{WIDEST_OVER_PLAIN} x the "
+            f"f32 plain path's {own[key]:.3e})")
+        check(got[key] <= lim, f"{tag} {key} {got[key]:.3e} over {lim:.3e}")
+    f64 = out64[1]
+    n = f64.shape[0]
+    sum_f = float(f32.double().sum(0).abs().max())
+    lim = EVAL_REL["sum_F"] * n * float(f64.pow(2).mean().sqrt())
+    log(f"[{tag}] sum_F {sum_f:.3e} (bound {lim:.3e})")
+    check(sum_f <= lim, f"{tag} sum_F {sum_f:.3e} over {lim:.3e}")
+
+
+def widest_rows(tag, x, box, idx, rc, pbc):
+    """Each skin row's partners within rc: (widest, mean, narrowest),
+    logged; fails unless some row holds more than 512."""
+    n = x.shape[0]
+    dd = __import__("meng_zhang_tpu_torch.ops.fused_annp",
+                    fromlist=["pair_dx_planes"]).pair_dx_planes(
+        x, box, idx, pbc)
+    cnt = ((sum(d * d for d in dd) < rc * rc) & (idx < n)).sum(1)
+    del dd
+    w, m, lo = int(cnt.max()), float(cnt.float().mean()), int(cnt.min())
+    log(f"[{tag}] partners within {rc} A: widest row {w}, mean {m:.1f}, "
+        f"narrowest {lo}")
+    check(w > 512, f"{tag}: no row of more than 512 partners")
+    return w, m, lo
+
+
+def widest_potentials(pool):
+    """The [*-widest] tags' synthetic potentials, built on `pool` while the
+    earlier phases run: their normalisation boxes, twice the cutoff wide,
+    take ~10 s each of host work (testing.py), which the card need not
+    wait for. {name: future}."""
+    from meng_zhang_tpu_torch.testing import (synthetic_fe_potential,
+                                              synthetic_ni_potential)
+    from meng_zhang_tpu_torch.units import CFLENGTH
+    return {"fe": pool.submit(synthetic_fe_potential, 0, cut=FE_WIDEST_RC),
+            "ni": pool.submit(synthetic_ni_potential, 0,
+                              rc_bohr=NI_WIDEST_RC * CFLENGTH)}
+
+
+def phase_fe_widest(x, box, card, tmp, paths, pot):
+    """[fe-widest]: the benchmark slab on the fe potential of the shipped
+    widths at rc FE_WIDEST_RC (~610 partners a row). The tiled g_harm /
+    force_harm on the rows compacted at rc (run.py's route, kernels.
+    tiled_width wide) against their plain versions on the first
+    WIDEST_ROWS rows (f32, the plain versions timed; f64 on every
+    WIDE_F64_STRIDE-th), their f32 times on every row and bounds; one
+    energy_forces_virial_chunked in f32 against the f64 plain path
+    (widest_gates); then
+    FE_WIDEST_CLI_STEPS NPT steps of `python -m meng_zhang_tpu_torch
+    --engine xla` at capacity FE_WIDEST_CAPACITY. Returns the widest
+    figures of g_harm's and force_harm's records and the CLI's
+    launches."""
+    from meng_zhang_tpu_torch.io.potential import write_ann
+    from meng_zhang_tpu_torch.models import annp
+    from meng_zhang_tpu_torch.ops import fused_annp as fa
+    from meng_zhang_tpu_torch.ops import kernels
+    from meng_zhang_tpu_torch.system.neighbors import build_neighbors_cell
+    tag = "fe-widest"
+    t_phase = time.time()
+    cfg32, p32 = annp.make_annp(pot, torch.float32, x.device, pbc=PBC)
+    cfg64, p64 = annp.make_annp(pot, torch.float64, x.device, pbc=PBC)
+    n, rc = x.shape[0], FE_WIDEST_RC
+    npsf, ntsf = cfg32.npsf, cfg32.ntsf
+    mcfg = md_config(cfg32, FE_WIDEST_SKIN, FE_WIDEST_CAPACITY,
+                     FE_WIDEST_CELL_CAPACITY)
+    nbrs = build_neighbors_cell(x, box, rc + FE_WIDEST_SKIN,
+                                FE_WIDEST_CAPACITY, mcfg.cell_dims,
+                                FE_WIDEST_CELL_CAPACITY, pbc=PBC)
+    check(not bool(nbrs.overflow), f"{tag}: skin list overflow")
+    widest, _, _ = widest_rows(tag, x, box, nbrs.idx, rc, PBC)
+    ks = kernels.tiled_width(widest, kernels.HARM_TILE)
+    sidx = fa.compact_short(x, box, nbrs.idx, rc, ks, PBC).sidx
+    del nbrs
+    planes32 = fa.pair_dx_planes(x, box, sidx, PBC)
+    filler = sidx >= n
+    lanes, pairs = fe_counts(planes32, rc)
+    log(f"[{tag}] rows compacted at rc to K {ks} ({ks // kernels.HARM_TILE} "
+        f"virtual rows of {kernels.HARM_TILE}); {lanes:.0f} lanes inside "
+        f"{rc} A")
+    rng = np.random.default_rng(SEED)
+    dedg_np = np.zeros((n, fa.NSF_PAD))
+    dedg_np[:, :npsf + ntsf] = rng.normal(size=(n, npsf + ntsf))
+    b_np = np.zeros((n, fa.AB_PAD))
+    b_np[:, :ntsf * ntsf + 1] = rng.normal(size=(n, ntsf * ntsf + 1))
+    figs = {}
+    for dtype in (torch.float32, torch.float64):
+        step = 1 if dtype == torch.float32 else WIDE_F64_STRIDE
+        rows = slice(0, WIDEST_ROWS, step)
+        pl = [t[rows].to(dtype).contiguous() for t in planes32]
+        dedg = torch.tensor(dedg_np[rows], dtype=dtype, device=x.device)
+        b = torch.tensor(b_np[rows], dtype=dtype, device=x.device)
+        sub = f"{tag} " + ("f32" if dtype == torch.float32 else "f64")
+        shown = f"[{pl[0].shape[0]}, {ks}]"
+        g_ref, g_ms = timed(lambda: fa.g_harm_plain(*pl, npsf, ntsf, rc))
+        g_worst = compare(sub, f"g_harm {shown}", ("g_raw", "A"),
+                          kernels.g_harm(*pl, npsf, ntsf, rc), g_ref,
+                          REL_BOUND[dtype])
+        f_ref, f_ms = timed(lambda: fa.force_harm_plain(*pl, dedg, b, npsf,
+                                                        ntsf, rc))
+        f_worst = compare(sub, f"force_harm {shown}", ("fjx", "fjy", "fjz"),
+                          kernels.force_harm(*pl, dedg, b, npsf, ntsf, rc),
+                          f_ref, REL_BOUND[dtype], filler[rows])
+        del g_ref, f_ref
+        if dtype == torch.float32:
+            worst = {"g_harm": g_worst, "force_harm": f_worst}
+            plain_ms = {"g_harm": g_ms, "force_harm": f_ms}
+            log(f"[{tag}] the plain versions on {shown}: g_harm {g_ms:.3f}, "
+                f"force_harm {f_ms:.3f} ms (one run, CUDA events)")
+    del pl, dedg, b
+    dedg = torch.tensor(dedg_np, dtype=torch.float32, device=x.device)
+    b = torch.tensor(b_np, dtype=torch.float32, device=x.device)
+    times = {
+        "g_harm": cuda_ms(lambda: kernels.g_harm(*planes32, npsf, ntsf, rc),
+                          10),
+        "force_harm": cuda_ms(lambda: kernels.force_harm(
+            *planes32, dedg, b, npsf, ntsf, rc), 10)}
+    log(f"[{tag}] tiles of {kernels.HARM_TILE} slots at [{n}, {ks}]: g_harm "
+        f"{times['g_harm']:.3f} ms, force_harm {times['force_harm']:.3f} ms "
+        f"(median of 10, CUDA events) on {card}")
+    del dedg, b
+    for name in ("g_harm", "force_harm"):
+        b_ms, b_by = bound(fe_flops(name, lanes, 0, npsf, ntsf),
+                           fe_bytes(name, n, ks, 4))
+        figs[name] = {"widest_shape": [n, ks],
+                      "widest_tile": kernels.HARM_TILE,
+                      "widest_ms": times[name],
+                      "widest_bound_ms": b_ms, "widest_bound_by": b_by,
+                      "widest_plain_ms": plain_ms[name],
+                      "widest_plain_rows": WIDEST_ROWS,
+                      "widest_max_abs_err": worst[name]}
+        log(f"[{tag}] {name} bound {b_ms:.3f} ms ({b_by})")
+
+    # the chunked function through the kernels in f32, the plain path in
+    # f32 and f64, on the same compacted rows
+    x64, box64 = x.double(), box.double()
+    t0 = time.time()
+    out32 = annp.energy_forces_virial_chunked(cfg32, p32, x, box, sidx,
+                                              shift=False)
+    torch.cuda.synchronize()
+    chunked_s = time.time() - t0
+    sl = fa.ShortList(sidx, x, torch.zeros((), dtype=torch.bool,
+                                           device=x.device))
+    plain32 = fa.FusedAnnp(cfg32, p32, k_short=ks, plain=True) \
+        .energy_forces_short(x, box, sl)
+    out64 = fa.FusedAnnp(cfg64, p64, k_short=ks, plain=True) \
+        .energy_forces_short(x64, box64, sl._replace(ref_x=x64))
+    log(f"[{tag}] energy_forces_virial_chunked on {n} atoms at K {ks}: "
+        f"{chunked_s:.3f} s (one call, the first); E/N f64 "
+        f"{float(out64[0]) / n:.9f} eV; max|F| "
+        f"{float(out64[1].abs().max()):.4e} eV/A")
+    widest_gates(tag, out32, plain32, out64)
+    del planes32, filler, sidx, sl, out32, plain32, out64, x64, box64
+
+    # run.py's --engine xla route at capacity FE_WIDEST_CAPACITY
+    ann = os.path.join(tmp, "fe_widest.ann")
+    write_ann(ann, pot)
+    rows, err, _, launches = cli(f"{tag}-cli", [
+        "--data", paths["data"], "--potential", ann, "--engine", "xla",
+        "--ensemble", "npt", "--temp", "300", "--couple", "y", "--boundary",
+        "m p m", "--skin", str(FE_WIDEST_SKIN), "--capacity",
+        str(FE_WIDEST_CAPACITY), "--steps", str(FE_WIDEST_CLI_STEPS),
+        "--thermo", "5"])
+    for name in ("g_harm", "force_harm"):
+        check(launches[name] == FE_WIDEST_CLI_STEPS + 1,
+              f"{tag}: {name} launched {launches[name]} times in the CLI "
+              f"run, expected {FE_WIDEST_CLI_STEPS + 1} (init + one a step)")
+    check(sum(launches.values()) == 2 * launches["g_harm"],
+          f"{tag}: other kernels launched in the CLI run: {launches}")
+    log(f"[{tag}] CLI Loop time rate {_loop_rate(err):.1f} atom-steps/s on "
+        f"{card}; the phase took {time.time() - t_phase:.1f} s")
+    return figs, {k: launches[k] for k in ("g_harm", "force_harm")}
+
+
+def phase_ni_widest(dev, card, tmp, pot):
+    """[ni-widest]: the synthetic ni potential of the shipped table at Rc
+    NI_WIDEST_RC on the thermal fcc box of NI_WIDEST_CELLS^3 cells (~620
+    partners a row). ni_g / ni_force on the rows compacted at Rc
+    (kernels.tiled_width wide: the cross-tile instances) against the plain
+    versions on the whole row and against their tiled plain twins, on the
+    first WIDEST_ROWS rows (f32; f64 on every WIDE_F64_STRIDE-th), two
+    runs bit for bit equal, the f32 times on every row and the bounds; one energy_forces_virial_chunked in f32 against the
+    f64 kernel path (held to the plain versions just above), the f32
+    plain path's difference setting the bounds (widest_gates); then
+    NI_WIDEST_CLI_STEPS NVT steps of the CLI's BP route at capacity
+    NI_WIDEST_CAPACITY. Returns the records of ni_g_tiles and
+    ni_force_tiles (without launches) and the CLI's launches."""
+    from meng_zhang_tpu_torch.io.potential import write_ann
+    from meng_zhang_tpu_torch.models import annp
+    from meng_zhang_tpu_torch.ops import fused_annp as fa
+    from meng_zhang_tpu_torch.ops import fused_ni as fn
+    from meng_zhang_tpu_torch.ops import kernels
+    from meng_zhang_tpu_torch.system.neighbors import (build_neighbors_cell,
+                                                       cell_grid_dims)
+    from meng_zhang_tpu_torch.testing import thermal_fcc
+    tag = "ni-widest"
+    t_phase = time.time()
+    cfg32, p32 = annp.make_annp(pot, torch.float32, dev)
+    cfg64, p64 = annp.make_annp(pot, torch.float64, dev)
+    xn, bn = thermal_fcc(NI_WIDEST_CELLS, seed=SEED, disp=NI_DISP, a=NI_A)
+    x = torch.tensor(xn, dtype=torch.float32, device=dev)
+    box = torch.tensor(bn, dtype=torch.float32, device=dev)
+    n, rc = x.shape[0], annp.descriptor_cutoff(cfg32, p32)
+    nbrs = build_neighbors_cell(
+        x, box, rc + NI_WIDEST_SKIN, NI_WIDEST_CAPACITY,
+        cell_grid_dims(bn, rc + NI_WIDEST_SKIN), NI_WIDEST_CELL_CAPACITY)
+    check(not bool(nbrs.overflow), f"{tag}: skin list overflow")
+    widest, _, _ = widest_rows(tag, x, box, nbrs.idx, rc, (True,) * 3)
+    ks = kernels.tiled_width(widest, kernels.NI_TILE)
+    sidx = fa.compact_short(x, box, nbrs.idx, rc, ks, (True,) * 3).sidx
+    del nbrs
+    planes32 = fa.pair_dx_planes(x, box, sidx, (True,) * 3)
+    filler = sidx >= n
+    table = fn.ni_table(p32["coerad"], p32["coeang"])
+    counts = ni_counts([t[:WIDEST_ROWS] for t in planes32], table.rc_a)
+    scale = n / WIDEST_ROWS
+    counts = (counts[0] * scale, counts[1] * scale)
+    log(f"[{tag}] rows compacted at Rc {rc:.4f} A to K {ks} (tiles of "
+        f"{kernels.NI_TILE}); ~{counts[0]:.0f} lanes and ~{counts[1]:.0f} "
+        f"ordered legs inside {table.rc_a} Bohr (the first {WIDEST_ROWS} "
+        f"rows' counts x {scale:.0f})")
+    dedg_np = np.zeros((n, fn.NSF_SUB))
+    dedg_np[:, :pot.nsf] = np.random.default_rng(SEED).normal(
+        size=(n, pot.nsf))
+    worst = {}
+    for dtype in (torch.float32, torch.float64):
+        step = 1 if dtype == torch.float32 else WIDE_F64_STRIDE
+        rows = slice(0, WIDEST_ROWS, step)
+        pl = [t[rows].to(dtype).contiguous() for t in planes32]
+        dedg = torch.tensor(dedg_np[rows], dtype=dtype, device=dev)
+        sub = f"{tag} " + ("f32" if dtype == torch.float32 else "f64")
+        shown = f"[{pl[0].shape[0]}, {ks}]"
+        g = kernels.ni_g_tiles(*pl, table)
+        check(torch.equal(kernels.ni_g_tiles(*pl, table), g),
+              f"{sub}: two ni_g_tiles runs differ in their bits")
+        fj = kernels.ni_force_tiles(*pl, dedg, table)
+        check(all(torch.equal(u, v) for u, v in zip(
+            kernels.ni_force_tiles(*pl, dedg, table), fj)),
+            f"{sub}: two ni_force_tiles runs differ in their bits")
+        g_ref, g_ms = timed(lambda: fn.ni_g_plain(*pl, table))
+        w_g = compare(sub, f"ni_g_tiles {shown} vs ni_g_plain", ("g",),
+                      (g,), (g_ref,), NI_WIDEST_REL_BOUND[dtype])
+        compare(sub, f"ni_g_tiles {shown} vs its plain twin", ("g",), (g,),
+                (fa.sum_tiles(fn.ni_g_tiles_plain(*pl, table,
+                                                  kernels.NI_TILE)),),
+                NI_WIDEST_REL_BOUND[dtype])
+        f_ref, f_ms = timed(lambda: fn.ni_force_plain(*pl, dedg, table))
+        w_f = compare(sub, f"ni_force_tiles {shown} vs ni_force_plain",
+                      ("fjx", "fjy", "fjz"), fj, f_ref,
+                      NI_WIDEST_REL_BOUND[dtype], filler[rows])
+        del g_ref, f_ref
+        if dtype == torch.float32:
+            worst = {"ni_g_tiles": w_g, "ni_force_tiles": w_f}
+            plain_ms = {"ni_g_tiles": g_ms, "ni_force_tiles": f_ms}
+        else:        # the twin's T q loops a tile: on the f64 rows alone
+            compare(sub, f"ni_force_tiles {shown} vs its plain twin",
+                    ("fjx", "fjy", "fjz"), fj, fn.ni_force_tiles_plain(
+                        *pl, dedg, table, kernels.NI_TILE),
+                    NI_WIDEST_REL_BOUND[dtype], filler[rows])
+        del pl, dedg, g, fj
+    dedg = torch.tensor(dedg_np, dtype=torch.float32, device=dev)
+    times = {"ni_g_tiles": cuda_ms(lambda: kernels.ni_g_tiles(*planes32,
+                                                              table), 3),
+             "ni_force_tiles": cuda_ms(lambda: kernels.ni_force_tiles(
+                 *planes32, dedg, table), 3)}
+    log(f"[{tag}] tiles of {kernels.NI_TILE} slots at [{n}, {ks}]: "
+        f"ni_g_tiles {times['ni_g_tiles']:.3f} ms, ni_force_tiles "
+        f"{times['ni_force_tiles']:.3f} ms (median of 3, CUDA events) on "
+        f"{card}")
+    del dedg
+    records = []
+    for name, line, short in (("ni_g_tiles", 126, "ni_g"),
+                              ("ni_force_tiles", 170, "ni_force")):
+        rec = record(name, "meng_zhang_tpu_torch/ops/csrc/ni_bp.cu",
+                     f"meng_zhang_tpu/ops/pallas_ni.py:{line}", worst[name],
+                     times[name], plain_ms[name],
+                     ni_flops(short, *counts, table),
+                     n * (3 * ks + fn.NSF_SUB
+                          + (3 * ks if short == "ni_force" else 0)) * 4)
+        rec.update({"shape": [n, ks], "tile": kernels.NI_TILE,
+                    "plain_rows": WIDEST_ROWS})
+        records.append(rec)
+        log(f"[{tag}] {name} f32 [{n}, {ks}]: kernel {rec['ms']:.3f} ms, "
+            f"plain {rec['plain_ms']:.3f} ms on {WIDEST_ROWS} rows (one "
+            f"run), bound {rec['bound_ms']:.3f} ms ({rec['bound_by']})")
+
+    # the chunked function in f32 and f64 through the kernels, and in f32
+    # through the plain versions, on the same compacted rows
+    x64, box64 = x.double(), box.double()
+    t0 = time.time()
+    out32 = annp.energy_forces_virial_chunked(cfg32, p32, x, box, sidx,
+                                              shift=False)
+    torch.cuda.synchronize()
+    chunked_s = time.time() - t0
+    out64 = annp.energy_forces_virial_chunked(cfg64, p64, x64, box64, sidx,
+                                              shift=False)
+    sl = fa.ShortList(sidx, x, torch.zeros((), dtype=torch.bool, device=dev))
+    t0 = time.time()
+    plain32 = fn.FusedNi(cfg32, p32, k_short=kernels.NI_MAX_K, plain=True) \
+        .energy_forces_short(x, box, sl)
+    torch.cuda.synchronize()
+    log(f"[{tag}] energy_forces_virial_chunked on {n} atoms at K {ks}: "
+        f"{chunked_s:.3f} s (one call, the first); the f32 plain path "
+        f"{time.time() - t0:.1f} s; E/N f64 {float(out64[0]) / n:.9f} eV; "
+        f"max|F| {float(out64[1].abs().max()):.4e} eV/A")
+    widest_gates(tag, out32, plain32, out64)
+    del planes32, filler, sidx, sl, out32, plain32, out64, x64, box64
+
+    ann = os.path.join(tmp, "ni_widest.ann")
+    write_ann(ann, pot)
+    _, err, _, launches = cli(f"{tag}-cli", [
+        "--lattice", "fcc", "--cells", *[str(NI_WIDEST_CELLS)] * 3,
+        "--lattice-a", str(NI_A), "--potential", ann, "--ensemble", "nvt",
+        "--temp", str(NI_T), "--skin", str(NI_WIDEST_SKIN), "--capacity",
+        str(NI_WIDEST_CAPACITY), "--steps", str(NI_WIDEST_CLI_STEPS),
+        "--thermo", str(NI_WIDEST_CLI_STEPS)])
+    want = NI_WIDEST_CLI_STEPS + 1
+    for name in ("ni_g_tiles", "ni_force_tiles"):
+        check(launches[name] == want, f"{tag}: {name} launched "
+              f"{launches[name]} times in the CLI run, expected {want} "
+              "(init + one a step)")
+    check(sum(launches.values()) == 2 * want,
+          f"{tag}: other kernels launched in the CLI run: {launches}")
+    log(f"[{tag}] CLI Loop time rate {_loop_rate(err):.1f} atom-steps/s on "
+        f"{card}; the phase took {time.time() - t_phase:.1f} s")
+    return records, {k: launches[k] for k in ("ni_g_tiles",
+                                              "ni_force_tiles")}
+
+
+def phase_anna_widest(dev, card):
+    """[anna-widest]: the synthetic .anna of the shipped widths at cut
+    ANNA_WIDEST_CUT on thermal bcc ANNA_WIDEST_CELLS^3 cells (rows of
+    513-640 partners within cut, counted and printed): local_params,
+    the reference-shaped energy_forces_virial (phase 1 through the tiled
+    g_harm) and make_anna_fast_fns(k_short=ANNA_WIDEST_KS) in f32 against
+    f64, each f32 difference within WIDEST_OVER_PLAIN times its f32 plain
+    path's (g_harm's plain version inside phase 1; the fast path's plain
+    switch), measured here on the same rows. Returns the g_harm
+    launches of the f32 kernel runs."""
+    from meng_zhang_tpu_torch.models import anna_adp as A
+    from meng_zhang_tpu_torch.ops import kernels
+    from meng_zhang_tpu_torch.system.neighbors import (build_neighbors_cell,
+                                                       cell_grid_dims)
+    from meng_zhang_tpu_torch.testing import (synthetic_anna_potential,
+                                              thermal_bcc)
+    tag = "anna-widest"
+    t_phase = time.time()
+    pot = synthetic_anna_potential(0, cut=ANNA_WIDEST_CUT)
+    cfg32, p32 = A.make_anna(pot, torch.float32, dev)
+    cfg64, p64 = A.make_anna(pot, torch.float64, dev)
+    xn, bn = thermal_bcc(ANNA_WIDEST_CELLS, seed=SEED, disp=ANNA_DISP)
+    x = torch.tensor(xn, dtype=torch.float32, device=dev)
+    box = torch.tensor(bn, dtype=torch.float32, device=dev)
+    x64, box64 = x.double(), box.double()
+    n, cut = x.shape[0], cfg32.cut
+    rl = cut + 0.5
+    nbrs = build_neighbors_cell(x, box, rl, ANNA_WIDEST_CAPACITY,
+                                cell_grid_dims(bn, rl),
+                                ANNA_WIDEST_CELL_CAPACITY)
+    check(not bool(nbrs.overflow), f"{tag}: skin list overflow")
+    widest, _, lo = widest_rows(tag, x, box, nbrs.idx, cut, (True,) * 3)
+    check(widest <= ANNA_WIDEST_KS, f"{tag}: a row of {widest} partners")
+    idx = nbrs.idx
+    kernels.reset_launch_counts()
+    lp32 = A.local_params(cfg32, p32, x, box, idx)
+    ref32 = A.energy_forces_virial(cfg32, p32, x, box, idx, shift=False)
+    fns32 = A.make_anna_fast_fns(cfg32, p32, k_short=ANNA_WIDEST_KS,
+                                 delta=0.3)
+    short = fns32[2](x, box, nbrs)
+    check(not bool(short.overflow), f"{tag}: short-list overflow")
+    s_w = int((short.idx < n).sum(1).max())
+    fast32 = fns32[0](x, box, nbrs, short)
+    torch.cuda.synchronize()
+    launches = kernels.g_harm.launches
+    lp64 = A.local_params(cfg64, p64, x64, box64, idx)
+    ref64 = A.energy_forces_virial(cfg64, p64, x64, box64, idx, shift=False)
+    with g_harm_plain_inside():
+        lp32p = A.local_params(cfg32, p32, x, box, idx)
+        ref32p = A.energy_forces_virial(cfg32, p32, x, box, idx, shift=False)
+    fast64 = A.make_anna_fast_fns(cfg64, p64, k_short=ANNA_WIDEST_KS,
+                                  delta=0.3, plain=True)[0](
+        x64, box64, nbrs, short._replace(ref_x=x64))
+    fast32p = A.make_anna_fast_fns(cfg32, p32, k_short=ANNA_WIDEST_KS,
+                                   delta=0.3, plain=True)[0](
+        x, box, nbrs, short)
+    log(f"[{tag}] N {n}: skin rows {idx.shape[1]} wide, short rows within "
+        f"cut + 0.3 up to {s_w} of {ANNA_WIDEST_KS}; local params "
+        f"(d2, q2) f64 in [{float(lp64.min()):.4f}, {float(lp64.max()):.4f}]"
+        f" /A; E/N f64 {float(ref64[0]) / n + cfg64.e_base:.6f} eV")
+    d_lp = float((lp32.double() - lp64).abs().max())
+    d_lpp = float((lp32p.double() - lp64).abs().max())
+    log(f"[{tag}] local_params max |d(d2, q2)| {d_lp:.3e} (bound "
+        f"{WIDEST_OVER_PLAIN * d_lpp:.3e} = {WIDEST_OVER_PLAIN} x the f32 "
+        f"plain path's {d_lpp:.3e})")
+    check(d_lp <= WIDEST_OVER_PLAIN * d_lpp, f"{tag}: local_params f32")
+    log(f"[{tag}] energy_forces_virial (reference-shaped):")
+    widest_gates(tag, ref32, ref32p, ref64)
+    log(f"[{tag}] make_anna_fast_fns(k_short={ANNA_WIDEST_KS}):")
+    widest_gates(tag, fast32, fast32p, fast64)
+    check(launches == 3, f"{tag}: g_harm launched {launches} times in the "
+          "three f32 kernel runs, expected 3")
+    log(f"[{tag}] the phase took {time.time() - t_phase:.1f} s on {card}")
+    return launches
+
+
 def main():
+    with concurrent.futures.ThreadPoolExecutor(max_workers=2) as pool:
+        return run_phases(pool)
+
+
+def run_phases(pool):
     try:
         kind, card = phase_device()
         phase_build()
@@ -4601,6 +5137,8 @@ def main():
                                              main_rate[0], layout="2d")
         extra["shard3d-fe"] = phase_shard3d_fe(x, box, cfg32, p32, mass,
                                                fe_ref)
+        # the [*-widest] potentials' host work overlaps the ranks' start
+        widest_pots = widest_potentials(pool)
         dist_counts, dist_spec = phase_dist(x, box, cfg32, mass, card)
         extra.update(dist_counts)
         extra["dist-nccl"] = phase_dist_nccl(dist_spec, card)
@@ -4673,6 +5211,12 @@ def main():
                             "cli-anna": {"g_harm": phase_cli_anna(
                                 card, tmp, paths)}}
             extra["disloc-core"] = phase_disloc_core(card, tmp)
+            fe_widest, extra["fe-widest"] = phase_fe_widest(
+                fe[0], fe[1], card, tmp, paths, widest_pots["fe"].result())
+            ni_widest, extra["ni-widest"] = phase_ni_widest(
+                dev, card, tmp, widest_pots["ni"].result())
+        extra["anna-widest"] = {"g_harm": phase_anna_widest(dev, card)}
+        records += ni_widest
         log(f"[smoke] run-path launches {cli_launches}")
         for key in ("thin-box", "cli-multi"):
             extra[key] = cli_launches[key]
@@ -4695,13 +5239,14 @@ def main():
         return 1
     log(f"[smoke] main-path launches {launches}; new paths' {extra}")
     for r in records:
-        r["launches"] = launches[r["name"]] + sum(
+        r["launches"] = launches.get(r["name"], 0) + sum(
             d.get(r["name"], 0) for d in extra.values())
         if r["name"] == "g_harm":
             r.update(anna)
         r.update(ni_wide.get(r["name"], {}))
         r.update(fe_wide.get(r["name"], {}))
         r.update(ni_wider.get(r["name"], {}))
+        r.update(fe_widest.get(r["name"], {}))
         for cfg, times in scale.items():
             if r["name"] in times:
                 ms, b_ms, b_by = times[r["name"]]

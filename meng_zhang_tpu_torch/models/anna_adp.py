@@ -41,8 +41,10 @@ the card, its plain version on the CPU), and the angular descriptors are
 formed from the power sums S_l as `FusedAnnp` forms them. The JAX
 reference-shaped path evaluates them over each row's [K, K] cos matrix;
 both give the same G. Rows wider than `kernels.MAX_K` are first compacted
-to their partners within the cutoff, which is exact; a row with more
-partners than that raises.
+to their partners within the cutoff, which is exact: to MAX_K columns
+where they fit, else to the widest row's count rounded up to whole tiles,
+which g_harm takes as virtual rows of `kernels.HARM_TILE` slots (phases
+2-3 are plain torch and take rows of any width).
 
 The JAX functions scan 512- or 2048-row chunks with `lax.map`; eager torch
 would launch every elementwise op once per chunk, so here rows go in
@@ -68,7 +70,7 @@ from .annp import compact_neighbor_rows
 from .mlp import mlp_apply
 
 ROW_CHUNK = 131072   # rows per chunk: [C, K, 3, 3] f32 at K 256 is 1.2 GB
-#                      (2.4 GB at g_harm's widest row, K 512)
+#                      (2.4 GB at K 512)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -174,8 +176,9 @@ def local_params(cfg: AnnaConfig, params, x, box, nbr_idx, elems=None,
                  chunk=ROW_CHUNK, x_src=None):
     """Phase 1: per-atom (d2, q2), [N, 2]. x_src (default x) is the gather
     source of the neighbor positions. Rows wider than kernels.MAX_K are
-    compacted to their partners within cfg.cut (one host read per chunk);
-    more partners than MAX_K raise."""
+    compacted to their partners within cfg.cut (one host read per chunk),
+    to MAX_K columns where they fit, else to whole tiles of
+    kernels.HARM_TILE."""
     src = x if x_src is None else x_src
     n_src = src.shape[0]
     out = []
@@ -183,14 +186,10 @@ def local_params(cfg: AnnaConfig, params, x, box, nbr_idx, elems=None,
         xc, idx = x[i0:i0 + chunk], nbr_idx[i0:i0 + chunk]
         planes = _planes(xc, src, box, idx, cfg.pbc)
         if idx.shape[1] > kernels.MAX_K:
-            rsq = sum(p * p for p in planes)
-            idx, counts = _compact_rows(rsq < cfg.cut * cfg.cut, idx,
-                                        kernels.MAX_K, n_src)
-            if int(counts.max()) > kernels.MAX_K:
-                raise ValueError(
-                    f"a neighbor row holds more than {kernels.MAX_K} "
-                    f"partners within {cfg.cut} A: g_harm takes at most "
-                    f"MAX_K = {kernels.MAX_K} slots a row (ops/kernels.py)")
+            within = sum(p * p for p in planes) < cfg.cut * cfg.cut
+            width = kernels.tiled_width(int(within.sum(dim=1).max()),
+                                        kernels.HARM_TILE)
+            idx, _ = _compact_rows(within, idx, width, n_src)
             planes = _planes(xc, src, box, idx, cfg.pbc)
         out.append(_phase1(cfg, params, planes,
                            None if elems is None else elems[i0:i0 + chunk]))
@@ -566,9 +565,6 @@ def make_anna_fast_fns(cfg: AnnaConfig, params, k_short=64, delta=0.3,
     light variant returns a zero virial. E is shift-free (no e_base).
     plain=True runs g_harm's plain version on any device (the f64
     reference of the kernel path on the card)."""
-    if k_short > kernels.MAX_K:
-        raise ValueError(f"k_short {k_short} > MAX_K = {kernels.MAX_K}, the "
-                         "widest row g_harm takes")
     gp = _gp(params)
     rc = cfg.cut
     nf = len(_FIELD_ORDER)
@@ -643,9 +639,6 @@ def energy_forces_frames_fast(cfg: AnnaConfig, params, xc, x_src, box, idx,
     over the vslice rows of every frame. plain=True takes g_harm's plain
     version on any device."""
     d, cc, k = idx.shape
-    if k > kernels.MAX_K:
-        raise ValueError(f"K = {k} > MAX_K = {kernels.MAX_K}, the widest "
-                         "row g_harm takes")
     gp = _gp(params)
     sidx, ctr = frames.frame_tables(idx, x_src.shape[1], off, cc)
     planes = frames.frame_planes(xc, x_src, box, sidx, cfg.pbc)

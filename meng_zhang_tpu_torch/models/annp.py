@@ -283,31 +283,33 @@ def fused_evaluator(cfg: AnnpConfig, params):
     return ev
 
 
-def _too_wide(ev, cfg):
-    limit = "NI_MAX_K" if cfg.descriptor == SYM_BEHLER else "MAX_K"
-    return ValueError(
-        f"a neighbor row holds more than {ev.k_short} partners within the "
-        f"descriptor cutoff: the kernels take at most {limit} = "
-        f"{ev.k_short} slots a row (ops/kernels.py)")
+def _width(cfg, widest):
+    """Columns of rows compacted to their partners, `widest` at most
+    (kernels.tiled_width, in the tiles of cfg's kernels)."""
+    return kernels.tiled_width(widest, kernels.NI_TILE
+                               if cfg.descriptor == SYM_BEHLER
+                               else kernels.HARM_TILE)
 
 
 def _short_list(ev, cfg, params, x, box, nbr_idx, x_ext=None, rc_scale=1.0):
     """nbr_idx rows as the evaluator's ShortList. Rows no wider than the
-    kernels take (ev.k_short: MAX_K = 512 fe, NI_MAX_K = 512 BP) are
-    evaluated as they are, exactly as the JAX functions evaluate any row;
-    wider rows are compacted to that width at rc_scale times the
-    descriptor cutoff, and a row with more partners inside it than the
-    kernels take raises (one host read per call, on this path only).
+    single launches take (ev.k_short: MAX_K = 512 fe, NI_MAX_K = 512 BP)
+    are evaluated as they are, exactly as the JAX functions evaluate any
+    row; wider rows are compacted to their partners within rc_scale times
+    the descriptor cutoff (one host read per call, on this path only), to
+    ev.k_short columns where they fit and otherwise to the widest row's
+    count rounded up to whole tiles, which the kernels take in tiles (the
+    JAX CLI's route compacts rows the same way, `compact_neighbor_rows`).
     x_ext: the image-extended table the rows index."""
     if nbr_idx.shape[1] <= ev.k_short:
         return fa.ShortList(nbr_idx, x, torch.zeros(
             (), dtype=torch.bool, device=x.device))
     sl = fa.compact_short(x, box, nbr_idx,
                           rc_scale * descriptor_cutoff(cfg, params),
-                          ev.k_short, cfg.pbc, x_ext=x_ext)
-    if bool(sl.overflow):
-        raise _too_wide(ev, cfg)
-    return sl
+                          nbr_idx.shape[1], cfg.pbc, x_ext=x_ext)
+    n_src = x.shape[0] if x_ext is None else x_ext.shape[0]
+    ks = _width(cfg, int((sl.sidx < n_src).sum(1).max()))
+    return sl._replace(sidx=sl.sidx[:, :ks].contiguous())
 
 
 def _elems(elems, x):
@@ -419,8 +421,8 @@ def energy_forces_virial_frames(cfg: AnnpConfig, params, x_src, box, idx,
     partners are all centre rows (the local ones) are physical. k_short <
     K compacts the rows to k_short at the descriptor cutoff first, and a
     row over it NaN-poisons eat and forces, as in JAX; rows still wider
-    than the kernels take are compacted to their width, and a row over
-    that raises. `chunk` only keeps the JAX signature."""
+    than the single launches take are compacted as in `_short_list`.
+    `chunk` only keeps the JAX signature."""
     ev = fused_evaluator(cfg, params)
     d, cc, k = idx.shape
     rc = descriptor_cutoff(cfg, params)
@@ -431,10 +433,9 @@ def energy_forces_virial_frames(cfg: AnnpConfig, params, x_src, box, idx,
         poison = (counts > k_short).any()
         k = k_short
     if k > ev.k_short:
-        idx, counts = frames.compact_frames(x_src, box, idx, off, cc, rc,
-                                        ev.k_short, cfg.pbc)
-        if bool((counts > ev.k_short).any()):
-            raise _too_wide(ev, cfg)
+        idx, counts = frames.compact_frames(x_src, box, idx, off, cc, rc, k,
+                                            cfg.pbc)
+        idx = idx[..., :_width(cfg, int(counts.max()))].contiguous()
     eat, f, w = frames.evaluate_frames(ev._eval_fj, x_src[:, off:off + cc],
                                    x_src, box, idx, off, cc, cfg.pbc, True,
                                    vslice)

@@ -179,7 +179,8 @@ class FrameOps:
     def energy_forces_frames(self, xc, x_src, box, idx, off,
                              want_virial=False, vslice=None):
         """D frames from their skin rows idx [D, cc, K] at full width (no
-        compaction; K at most the kernels' MAX_K): (eat [D, cc]
+        compaction; K at most MAX_K on the cos pair, any K on the harmonic
+        and ni kernels, which take wider rows in tiles): (eat [D, cc]
         shift-free, forces [D, cc, 3][, W over lanes whose partner is a
         centre row])."""
         return evaluate_frames(self._eval_fj, xc, x_src, box, idx, off,

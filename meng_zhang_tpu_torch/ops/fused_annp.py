@@ -11,7 +11,8 @@ of its angular paths:
   * `g_harm_plain` / `force_harm_plain`: plain PyTorch versions of the two
     harmonic-path TPU kernels `_g_kernel_harm` (:299) and
     `_force_kernel_harm` (:352); their CUDA kernels live in
-    csrc/annp_harm.cu;
+    csrc/annp_harm.cu. `g_harm_tiles` / `force_harm_tiles` take rows of
+    any width through either as tiles (`split_rows`);
   * `g_cos_plain` / `force_cos_plain`: plain PyTorch versions of the two
     cos-matrix TPU kernels `_g_kernel` (:116, row body `_row_g` :88) and
     `_force_kernel` (:193, `_row_force` :131); their CUDA kernels live in
@@ -327,6 +328,77 @@ def force_harm_plain(dxx, dxy, dxz, dedg_rad, b, npsf, ntsf, rc):
     fcr = fc * inv_r
     return ((coeff + pref) * ux + fcr * gx, (coeff + pref) * uy + fcr * gy,
             (coeff + pref) * uz + fcr * gz)
+
+
+def sum_tiles(part):
+    """part [P, T, ...] summed over its T tiles in tile order (a fixed
+    order: the tiled kernels' partials add up the same way on every run)."""
+    out = part[:, 0]
+    for t in range(1, part.shape[1]):
+        out = out + part[:, t]
+    return out
+
+
+def split_rows(planes, tile, rc):
+    """The [P, K] dx planes of rows wider than a tile as [P T, tile] planes
+    of T = ceil(K / tile) virtual rows (row i's tile t is virtual row
+    i T + t), K padded to T tile with lanes at 2 rc + 10 on every axis:
+    beyond the cutoff, they give exactly 0, as filler lanes do. Returns
+    (planes, T)."""
+    p, k = planes[0].shape
+    t = -(-k // tile)
+    out = []
+    for d in planes:
+        if t * tile > k:
+            d = torch.nn.functional.pad(d, (0, t * tile - k),
+                                        value=2.0 * rc + 10.0)
+        out.append(d.reshape(p * t, tile))
+    return out, t
+
+
+def power_sums(a, ntsf):
+    """S_l = sum_m A_lm^2, [P, ntsf], from A [P, 384] in harm_layout order,
+    in g_harm_plain's order: m ascending, each m's cosine square then its
+    sine square."""
+    s = a[:, :ntsf] * a[:, :ntsf]                   # m = 0, l = 0 .. L
+    col = ntsf
+    for m in range(1, ntsf):
+        blk = a[:, col:col + 2 * (ntsf - m)].reshape(-1, ntsf - m, 2)
+        ss = blk[..., 0] * blk[..., 0] + blk[..., 1] * blk[..., 1]
+        s = torch.cat([s[:, :m], s[:, m:] + ss], dim=1)
+        col += 2 * (ntsf - m)
+    return s
+
+
+def g_harm_tiles(dxx, dxy, dxz, npsf, ntsf, rc, tile, piece):
+    """g_harm of rows of any width as tiles of `tile` slots: the virtual
+    rows of `split_rows` through `piece` (kernels.g_harm: the kernel on the
+    card, g_harm_plain on the CPU), their radial G, F2 and A summed over
+    each row's tiles, then S_l recomputed from the summed A (the only
+    columns not additive over partners). Returns (g_raw [P, 128],
+    A [P, 384])."""
+    planes, t = split_rows((dxx, dxy, dxz), tile, rc)
+    g, a = piece(*planes, npsf, ntsf, rc)
+    p = dxx.shape[0]
+    g = sum_tiles(g.view(p, t, -1))
+    a = sum_tiles(a.view(p, t, -1))
+    g = torch.cat([g[:, :npsf], power_sums(a, ntsf), g[:, npsf + ntsf:]],
+                  dim=1)
+    return g, a
+
+
+def force_harm_tiles(dxx, dxy, dxz, dedg_rad, b, npsf, ntsf, rc, tile,
+                     piece):
+    """force_harm of rows of any width as tiles of `tile` slots: a lane's
+    Fj depends on its own geometry and its row's coefficients only, so
+    each virtual row of `split_rows` takes its row's dedg_rad and b, and
+    the Fj planes of `piece` (kernels.force_harm) are viewed back as
+    [P, K]."""
+    planes, t = split_rows((dxx, dxy, dxz), tile, rc)
+    fj = piece(*planes, dedg_rad.repeat_interleave(t, dim=0),
+               b.repeat_interleave(t, dim=0), npsf, ntsf, rc)
+    p, k = dxx.shape
+    return tuple(f.view(p, t * tile)[:, :k].contiguous() for f in fj)
 
 
 def _row_chunk(k, device):

@@ -5,6 +5,9 @@ Counterpart of meng_zhang_tpu/ops/pallas_ni.py:
   * `ni_g_plain` / `ni_force_plain`: plain PyTorch versions of the two TPU
     kernels `_ni_g_kernel` (:126) and `_ni_force_kernel` (:170). Their CUDA
     kernels live in csrc/ni_bp.cu and are launched through ops/kernels.py;
+    `ni_g_tiles_plain` / `ni_force_tiles_plain` are the plain twins of
+    their cross-tile instances `ni_g_tiles` / `ni_force_tiles`, which
+    take rows of more than 512 slots;
   * `FusedNi`, the counterpart of `PallasNi` (:298), with the frame methods
     of the sharded drivers (`frames.FrameOps`): refresh-static short
     list at the descriptor cutoff + short_delta, gather, G2/G4 descriptors,
@@ -93,6 +96,31 @@ def _pow_zeta(f1, zeta):
             torch.where(pos, zeta * fb ** (zeta - 1.0), zero))
 
 
+def _shape_powers(cos, shapes, with_d):
+    """{(lambda, zeta): (f^zeta, zeta f^(zeta - 1), or None without
+    with_d)} with f = 1 + lambda cos, for each (lambda, zeta) of `shapes`:
+    the values `_pow_zeta` gives, the power-of-two zetas of one lambda read
+    off one squaring chain (as ni_force's kernel walks them) instead of one
+    chain a function."""
+    out = {}
+    for lam in sorted({lam for lam, _ in shapes}):
+        f1 = 1.0 + lam * cos
+        p, fzm, level = f1, None, 0
+        for zeta in sorted(z for lm, z in shapes if lm == lam):
+            zi = int(zeta)
+            if not (zeta == zi and zi > 0 and (zi & (zi - 1)) == 0):
+                out[(lam, zeta)] = _pow_zeta(f1, zeta)
+                continue
+            while level < zi.bit_length() - 1:
+                if with_d:
+                    fzm = p if fzm is None else fzm * p
+                p = p * p
+                level += 1
+            out[(lam, zeta)] = (p, zeta * (torch.ones_like(f1) if fzm is None
+                                           else fzm) if with_d else None)
+    return out
+
+
 def _ni_geometry(dxx, dxy, dxz, rc_a):
     """Per-pair scalars on [P, K] planes (`_ni_geometry`, :105). Masked
     lanes get a Bohr radius a = rc_a + 1 so exp and sqrt stay finite;
@@ -119,18 +147,85 @@ def _radial_in(r, rm_true, rc_r):
     return in_r, torch.where(in_r, rm_true, torch.full_like(rm_true, rc_r))
 
 
-def _pair_legs(ux, uy, uz, a, in_a, q, rc_a):
-    """The (p, q) pair terms of the q loop for every lane p at once."""
+def _angular_lanes(in_a):
+    """(the lanes q that some row holds inside the angular cutoff, the
+    number of lanes up to the last of them): every other lane adds exactly
+    zero to the angular sums (the filler columns of compacted rows), so
+    the q loops and the angular terms skip them."""
+    qs = torch.nonzero(in_a.any(dim=0)).flatten().tolist()
+    return qs, qs[-1] + 1 if qs else 0
+
+
+def _first_lanes(planes, n):
+    """The first n lanes of per-lane [P, K] tensors (contiguous copies
+    unless n is K)."""
+    if n == planes[0].shape[1]:
+        return planes
+    return tuple(t[:, :n].contiguous() for t in planes)
+
+
+def _pair_legs(ux, uy, uz, a, in_a, q, rc_a, mine):
+    """The (p, q) pair terms of the q loop for every lane p of `mine` =
+    (ux, uy, uz, a, in_a, lane index) at once (q runs over the whole
+    row)."""
     uq = (ux[:, q:q + 1], uy[:, q:q + 1], uz[:, q:q + 1])
     aq = a[:, q:q + 1]
-    cos = ux * uq[0] + uy * uq[1] + uz * uq[2]
-    rjk2 = a * a + aq * aq - 2.0 * a * aq * cos
-    lane = torch.arange(a.shape[1], device=a.device)
-    legs = in_a & in_a[:, q:q + 1] & (rjk2 < rc_a * rc_a) & (lane != q)
+    pux, puy, puz, ap, p_in, lane = mine
+    cos = pux * uq[0] + puy * uq[1] + puz * uq[2]
+    rjk2 = ap * ap + aq * aq - 2.0 * ap * aq * cos
+    legs = p_in & in_a[:, q:q + 1] & (rjk2 < rc_a * rc_a) & (lane != q)
     rjk = torch.sqrt(torch.where(legs, rjk2.clamp_min(1.0e-12),
                                  torch.ones_like(rjk2)))
-    r2sum = a * a + aq * aq + torch.where(legs, rjk2, torch.zeros_like(rjk2))
+    r2sum = ap * ap + aq * aq + torch.where(legs, rjk2,
+                                            torch.zeros_like(rjk2))
     return uq, aq, cos, legs, rjk, r2sum
+
+
+def _ni_g_lanes(dxx, dxy, dxz, table: NiTable):
+    """Each lane's share of g: ({radial col: [P, K] exp(-eta r^2) fc},
+    {angular col: [P, K'] 1/2 sum_{q != p} of the lane p's terms}), the
+    angular lanes K' <= K ending at the last lane that some row holds
+    inside the angular cutoff (the rest add exactly zero)."""
+    rad, rc_a, ang = table
+    r, inv_r, ux, uy, uz, rm_true, in_a, a, fc_a, dfc_a = _ni_geometry(
+        dxx, dxy, dxz, rc_a)
+    zero = torch.zeros_like(r)
+    radial = {}
+    for mi, (eta, rc_r) in enumerate(rad):
+        in_r, rr = _radial_in(r, rm_true, rc_r)
+        fc_r = torch.where(in_r, 0.5 * (torch.cos(math.pi / rc_r * rr)
+                                        + 1.0), zero)
+        radial[mi] = torch.exp(-eta * rr * rr) * fc_r
+    qs, n_ang = _angular_lanes(in_a)
+    lane = torch.arange(dxx.shape[1], device=dxx.device)[None, :]
+    pux, puy, puz, ap, p_in, fcp, plane = _first_lanes(
+        (ux, uy, uz, a, in_a, fc_a, lane), n_ang)
+    mine = (pux, puy, puz, ap, p_in, plane)
+    zero = torch.zeros_like(ap)
+    acc = {col: zero for _, fns in ang for _, _, col in fns}
+    shapes = {(lam, zeta) for _, fns in ang for lam, zeta, _ in fns}
+    for q in qs:
+        _, _, cos, legs, rjk, r2sum = _pair_legs(ux, uy, uz, a, in_a, q, rc_a,
+                                                 mine)
+        fc_jk = 0.5 * (torch.cos(math.pi / rc_a * rjk) + 1.0)
+        fc3 = torch.where(legs, fcp * fc_a[:, q:q + 1] * fc_jk, zero)
+        powers = _shape_powers(cos, shapes, with_d=False)
+        for eta, fns in ang:
+            t_eta = torch.exp(-eta * r2sum) * fc3
+            for lam, zeta, col in fns:
+                fz = powers[(lam, zeta)][0]
+                acc[col] = acc[col] + (2.0 ** (1.0 - zeta)) * fz * t_eta
+    return radial, {col: 0.5 * v for col, v in acc.items()}
+
+
+def _g_of_lanes(radial, angular, lo, hi):
+    """g [P, 32] of the lanes [lo, hi) from _ni_g_lanes' shares."""
+    p = next(iter(radial.values())).shape[0]
+    ref = next(iter(radial.values()))
+    cols = [ref.new_zeros(p)] * NSF_SUB
+    for col, v in list(radial.items()) + list(angular.items()):
+        cols[col] = v[:, lo:hi].sum(dim=1)
+    return torch.stack(cols, dim=1)
 
 
 def ni_g_plain(dxx, dxy, dxz, table: NiTable):
@@ -138,38 +233,83 @@ def ni_g_plain(dxx, dxy, dxz, table: NiTable):
     [P, K] dx planes. Cols [0, npsf) radial G2 = sum exp(-eta r^2) fc,
     cols npsf + n angular G4 = 1/2 sum_{p != q} 2^(1-zeta)
     (1 + lambda cos)^zeta exp(-eta r2sum) fc fc fc, rest 0 (Bohr)."""
-    rad, rc_a, ang = table
-    r, inv_r, ux, uy, uz, rm_true, in_a, a, fc_a, dfc_a = _ni_geometry(
-        dxx, dxy, dxz, rc_a)
-    zero = torch.zeros_like(r)
-    cols = [zero[:, 0]] * NSF_SUB
-    for mi, (eta, rc_r) in enumerate(rad):
-        in_r, rr = _radial_in(r, rm_true, rc_r)
-        fc_r = torch.where(in_r, 0.5 * (torch.cos(math.pi / rc_r * rr)
-                                        + 1.0), zero)
-        cols[mi] = (torch.exp(-eta * rr * rr) * fc_r).sum(dim=1)
-    acc = {col: zero for _, fns in ang for _, _, col in fns}
-    for q in range(dxx.shape[1]):
-        _, _, cos, legs, rjk, r2sum = _pair_legs(ux, uy, uz, a, in_a, q, rc_a)
-        fc_jk = 0.5 * (torch.cos(math.pi / rc_a * rjk) + 1.0)
-        fc3 = torch.where(legs, fc_a * fc_a[:, q:q + 1] * fc_jk, zero)
+    return _g_of_lanes(*_ni_g_lanes(dxx, dxy, dxz, table), 0, dxx.shape[1])
+
+
+def ni_g_tiles_plain(dxx, dxy, dxz, table: NiTable, tile):
+    """Plain twin of the cross-tile `ni_g_tiles` kernel: the row cut into
+    tiles of `tile` slots, g_part [P, T, 32] with tile t's radial G2 and
+    the angular terms of its slots p against the whole row (1/2 each
+    ordered pair); `fused_annp.sum_tiles` of it is g. A lane's terms do not
+    depend on the tiles, so they are computed once for the whole row
+    (`_ni_g_lanes`) and summed tile by tile."""
+    shares = _ni_g_lanes(dxx, dxy, dxz, table)
+    return torch.stack([_g_of_lanes(*shares, lo, lo + tile)
+                        for lo in range(0, dxx.shape[1], tile)], dim=1)
+
+
+def _force_angular(geo, dedg, table: NiTable, lo, hi, qs, acc=None):
+    """p's own side of the leg pairs (p, q), p in the lanes [lo, hi) and q
+    in `qs` in order, added to acc (acc1, acc2x, acc2y, acc2z), each
+    [P, hi - lo], or to zeros: the u_p coefficient acc1 and the
+    u_q-projected vector acc2 of ni_force_plain's q loop. geo: the whole
+    row's (ux, uy, uz, a, in_a, fc_a, dfc_a, inv_r)."""
+    _, rc_a, ang = table
+    ux, uy, uz, a, in_a, fc_a, dfc_a, inv_r = geo
+    lane = torch.arange(ux.shape[1], device=ux.device)[None, :]
+    pux, puy, puz, ap, p_in, fcp, dfcp, irp, plane = (
+        t[:, lo:hi] for t in (ux, uy, uz, a, in_a, fc_a, dfc_a, inv_r, lane))
+    mine = (pux, puy, puz, ap, p_in, plane)
+    zero = torch.zeros_like(ap)
+    acc1, acc2x, acc2y, acc2z = acc if acc is not None else (zero,) * 4
+    shapes = {(lam, zeta) for _, fns in ang for lam, zeta, _ in fns}
+    # each function's weight dE/dG 2^(1 - zeta), and that times lambda
+    wv = {col: dedg[:, col:col + 1] * (2.0 ** (1.0 - zeta))
+          for _, fns in ang for _, zeta, col in fns}
+    wvl = {col: wv[col] * lam for _, fns in ang for lam, _, col in fns}
+    for q in qs:
+        uq, aq, cos, legs, rjk, r2sum = _pair_legs(ux, uy, uz, a, in_a, q,
+                                                   rc_a, mine)
+        fcq = fc_a[:, q:q + 1]
+        ang_jk = math.pi / rc_a * rjk
+        fc_jk = 0.5 * (torch.cos(ang_jk) + 1.0)
+        dfc_jk = -0.5 * math.pi / rc_a * torch.sin(ang_jk)
+        lm = legs.to(ux.dtype)
+        fc3 = fcp * fcq * fc_jk * lm
+        powers = _shape_powers(cos, shapes, with_d=True)
+        p_a = p_e = p_cs = zero    # sum_eta e S_A, eta e S_A, e S_C
         for eta, fns in ang:
-            t_eta = torch.exp(-eta * r2sum) * fc3
+            e_eta = torch.exp(-eta * r2sum)
+            s_a = s_c = zero
             for lam, zeta, col in fns:
-                fz, _ = _pow_zeta(1.0 + lam * cos, zeta)
-                acc[col] = acc[col] + (2.0 ** (1.0 - zeta)) * fz * t_eta
-    for col, v in acc.items():
-        cols[col] = 0.5 * v.sum(dim=1)
-    return torch.stack(cols, dim=1)
+                fz, dfz = powers[(lam, zeta)]
+                s_a = s_a + wv[col] * fz
+                s_c = s_c + wvl[col] * dfz
+            t_a = e_eta * s_a
+            p_a = p_a + t_a
+            p_e = p_e + eta * t_a
+            p_cs = p_cs + e_eta * s_c
+        # partials of h in the independent variables c, a_p, rjk
+        p_c = fc3 * p_cs
+        p_ap = -2.0 * ap * p_e * fc3 + dfcp * fcq * fc_jk * lm * p_a
+        p_jk = -2.0 * rjk * p_e * fc3 + fcp * fcq * dfc_jk * lm * p_a
+        inv_rjk = torch.where(legs, 1.0 / rjk, zero)
+        # d(sum w G)/dx_p = C1 u_p + C2 u_q, from dc/dx_p = (c u_p - u_q)/r_p,
+        # da_p/dx_p = -CFL u_p, drjk/dx_p = CFL (a_q u_q - a_p u_p)/rjk
+        c1 = (p_c * cos * irp - CFLENGTH * p_ap
+              - CFLENGTH * p_jk * ap * inv_rjk)
+        c2 = -p_c * irp + CFLENGTH * p_jk * aq * inv_rjk
+        acc1 = acc1 + c1
+        acc2x = acc2x + c2 * uq[0]
+        acc2y = acc2y + c2 * uq[1]
+        acc2z = acc2z + c2 * uq[2]
+    return acc1, acc2x, acc2y, acc2z
 
 
-def ni_force_plain(dxx, dxy, dxz, dedg, table: NiTable):
-    """Plain PyTorch `_ni_force_kernel`: per-pair Fj = -dE_i/dx_j as three
-    [P, K] planes, from dedg [P, 32] = dE/dG already multiplied by
-    sf_scale * e_scale. Radial: Fj += CFL w dg u; angular: the u_p
-    coefficient (acc1) and the u_q-projected vector (acc2) accumulate over
-    the q loop, Fj -= acc1 u + acc2; no reductions."""
-    rad, rc_a, ang = table
+def _ni_force(dxx, dxy, dxz, dedg, table: NiTable, angular):
+    """Fj planes from the radial terms and angular(geo, qs, n_ang), the
+    angular sums (acc1, acc2x, acc2y, acc2z) of the lanes [0, n_ang)."""
+    rad, rc_a, _ = table
     r, inv_r, ux, uy, uz, rm_true, in_a, a, fc_a, dfc_a = _ni_geometry(
         dxx, dxy, dxz, rc_a)
     zero = torch.zeros_like(r)
@@ -183,58 +323,61 @@ def ni_force_plain(dxx, dxy, dxz, dedg, table: NiTable):
         coeff = coeff + dedg[:, mi:mi + 1] * dg
     # dG2/dx_j = dg * CFL * (-u_j);  Fj = -w dG => + CFL w dg u
     coeff = coeff * CFLENGTH
-
-    acc1 = acc2x = acc2y = acc2z = zero
-    for q in range(dxx.shape[1]):
-        uq, aq, cos, legs, rjk, r2sum = _pair_legs(ux, uy, uz, a, in_a, q,
-                                                   rc_a)
-        fcq = fc_a[:, q:q + 1]
-        ang_jk = math.pi / rc_a * rjk
-        fc_jk = 0.5 * (torch.cos(ang_jk) + 1.0)
-        dfc_jk = -0.5 * math.pi / rc_a * torch.sin(ang_jk)
-        lm = legs.to(dxx.dtype)
-        fc3 = fc_a * fcq * fc_jk * lm
-        p_a = p_e = p_cs = zero    # sum_eta e S_A, eta e S_A, e S_C
-        for eta, fns in ang:
-            e_eta = torch.exp(-eta * r2sum)
-            s_a = s_c = zero
-            for lam, zeta, col in fns:
-                wv = dedg[:, col:col + 1] * (2.0 ** (1.0 - zeta))
-                fz, dfz = _pow_zeta(1.0 + lam * cos, zeta)
-                s_a = s_a + wv * fz
-                s_c = s_c + (wv * lam) * dfz
-            t_a = e_eta * s_a
-            p_a = p_a + t_a
-            p_e = p_e + eta * t_a
-            p_cs = p_cs + e_eta * s_c
-        # partials of h in the independent variables c, a_p, rjk
-        p_c = fc3 * p_cs
-        p_ap = -2.0 * a * p_e * fc3 + dfc_a * fcq * fc_jk * lm * p_a
-        p_jk = -2.0 * rjk * p_e * fc3 + fc_a * fcq * dfc_jk * lm * p_a
-        inv_rjk = torch.where(legs, 1.0 / rjk, zero)
-        # d(sum w G)/dx_p = C1 u_p + C2 u_q, from dc/dx_p = (c u_p - u_q)/r_p,
-        # da_p/dx_p = -CFL u_p, drjk/dx_p = CFL (a_q u_q - a_p u_p)/rjk
-        c1 = (p_c * cos * inv_r - CFLENGTH * p_ap
-              - CFLENGTH * p_jk * a * inv_rjk)
-        c2 = -p_c * inv_r + CFLENGTH * p_jk * aq * inv_rjk
-        acc1 = acc1 + c1
-        acc2x = acc2x + c2 * uq[0]
-        acc2y = acc2y + c2 * uq[1]
-        acc2z = acc2z + c2 * uq[2]
+    qs, n_ang = _angular_lanes(in_a)
+    acc = angular((ux, uy, uz, a, in_a, fc_a, dfc_a, inv_r), qs, n_ang)
     # Fj = -(d sum w G / dx_j): radial +coeff u (sign folded above),
-    # angular -(acc1 u + acc2)
-    return ((coeff - acc1) * ux - acc2x, (coeff - acc1) * uy - acc2y,
-            (coeff - acc1) * uz - acc2z)
+    # angular -(acc1 u + acc2), 0 past the lanes that hold a leg
+    pad = dxx.shape[1] - n_ang
+    acc1, acc2x, acc2y, acc2z = (torch.nn.functional.pad(t, (0, pad))
+                                 for t in acc)
+    return tuple((coeff - acc1) * u - acc2
+                 for u, acc2 in zip((ux, uy, uz), (acc2x, acc2y, acc2z)))
+
+
+def ni_force_plain(dxx, dxy, dxz, dedg, table: NiTable):
+    """Plain PyTorch `_ni_force_kernel`: per-pair Fj = -dE_i/dx_j as three
+    [P, K] planes, from dedg [P, 32] = dE/dG already multiplied by
+    sf_scale * e_scale. Radial: Fj += CFL w dg u; angular: the u_p
+    coefficient (acc1) and the u_q-projected vector (acc2) accumulate over
+    the q loop, Fj -= acc1 u + acc2; no reductions."""
+    return _ni_force(dxx, dxy, dxz, dedg, table,
+                     lambda geo, qs, n_ang: _force_angular(
+                         geo, dedg, table, 0, n_ang, qs))
+
+
+def ni_force_tiles_plain(dxx, dxy, dxz, dedg, table: NiTable, tile):
+    """Plain twin of the cross-tile `ni_force_tiles` kernel: the row cut
+    into tiles of `tile` slots; each owner tile a takes its slots' angular
+    sums by streaming the partner tiles b = 0, 1, ... in turn, each p
+    adding its side of the pairs (p, q in b) in q order. Equals
+    ni_force_plain up to the rounding of the lanes' elementwise ops."""
+    def angular(geo, qs, n_ang):
+        k = geo[0].shape[1]
+        parts = []
+        for lo in range(0, n_ang, tile):
+            acc = None
+            for b0 in range(0, k, tile):
+                acc = _force_angular(geo, dedg, table, lo,
+                                     min(lo + tile, n_ang),
+                                     [q for q in qs if b0 <= q < b0 + tile],
+                                     acc)
+            parts.append(acc)
+        if not parts:
+            zero = geo[0][:, :0]
+            return (zero,) * 4
+        return tuple(torch.cat(t, dim=1) for t in zip(*parts))
+    return _ni_force(dxx, dxy, dxz, dedg, table, angular)
 
 
 class FusedNi(FrameOps):
     """Per-step BP evaluator: gather -> ni_g -> min-max MLP + VJP ->
     ni_force -> index_add delivery.
 
-    k_short: short-list width Ks, at most kernels.NI_MAX_K = 512 (32 on
-    the ni path: fcc has 18 partners within rc + 0.2 = 4.10 A; 128 at
-    Rc 6.0 A, 86 partners within 6.2 A; 352 at Rc 9.2 A, 320 partners
-    within 9.4 A). short_delta: the inner skin of the
+    k_short: short-list width Ks (32 on the ni path: fcc has 18 partners
+    within rc + 0.2 = 4.10 A; 128 at Rc 6.0 A, 86 partners within 6.2 A;
+    352 at Rc 9.2 A, 320 partners within 9.4 A), at most kernels.NI_MAX_K
+    = 512, the JAX fused evaluators' ceiling (the chunked functions of
+    models/annp.py take wider rows). short_delta: the inner skin of the
     refresh-static short list. plain=True runs the plain PyTorch versions
     of the two kernels on any device (the f64 reference on the card); with
     plain=False the kernel wrappers run, which launch the CUDA kernels for

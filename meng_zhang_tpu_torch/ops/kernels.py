@@ -6,7 +6,9 @@
 (replaces `_g_kernel`, :116) and `csrc/annp_cos.cu` `force_cos` (replaces
 `_force_kernel`, :193); `csrc/ni_bp.cu` holds `ni_g` (replaces `_ni_g_kernel`,
 meng_zhang_tpu/ops/pallas_ni.py:126) and `ni_force` (replaces
-`_ni_force_kernel`, :170). Every `.cu` under `csrc/` is compiled at first
+`_ni_force_kernel`, :170), and for rows wider than NI_MAX_K their
+cross-tile instances `ni_g_tiles` and `ni_force_tiles` (the same TPU
+kernels). Every `.cu` under `csrc/` is compiled at first
 use by `nvcc` for `sm_90a` into its own plain-C shared library under
 `meng_zhang_tpu_torch/_build/<hash of the sources, headers and flags>/`
 (one nvcc per source, all started together), and bound with ctypes;
@@ -41,14 +43,29 @@ _BUILD_ROOT = os.path.join(
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
               "--split-compile", "0")
-# Widest row (K) each kernel takes: the JAX fused fe evaluator's own
-# ceiling. fe: g_harm walks a row of more than 256 slots in two tiles of
-# <= 8 slots a lane, force_harm splits it over two blocks, the cos pair
-# runs it on blocks of up to 16 warps; ni: one warp a row, <= 16 slots a
-# lane.
+# Widest row (K) of one launch's row: g_harm walks a row of more than 256
+# slots in two tiles of <= 8 slots a lane, force_harm splits it over two
+# blocks, the cos pair runs it on blocks of up to 16 warps; ni: one warp a
+# row, <= 16 slots a lane. 512 is the JAX fused evaluators' own ceiling
+# (their int32 (row, slot) packing), so the fused short-list path and the
+# cos pair stop there. The harmonic and ni wrappers take wider rows, of
+# any K, as the JAX chunked functions evaluate them: the harmonic pair as
+# HARM_TILE-slot virtual rows through the same kernels (row sums add over
+# tiles; fused_annp.g_harm_tiles), the ni pair through the cross-tile
+# instances of ni_bp.cu in NI_TILE-slot tiles.
 MAX_K = 512
 COS_MAX_T = 32       # cos kernels: one compiled instance per ntsf up to it
 NI_MAX_K = 512
+# Tile widths, chosen by measurement on an NVIDIA H100 80GB HBM3 at 700 W
+# (chip_smoke.py [fe-widest] / [ni-widest], PERF.md): at [152880, 768]
+# g_harm / force_harm took ~12.1 / ~10.7 ms in virtual rows of 256 slots
+# (the one-tile instances) and ~17.7 / ~16.6 ms in rows of 512 (the
+# two-tile ones); at [16384, 640] ni_g / ni_force took ~191 / ~147 ms in
+# tiles of 128 and ~221 / ~259 ms in tiles of 256 (a 256-slot unit holds
+# 2x the shared memory, so fewer warps share an SM). ni_bp.cu compiles
+# its cross-tile instances for NI_TILE alone (kCrossSlots).
+HARM_TILE = 256      # slots of a virtual row of a wider harmonic row
+NI_TILE = 128        # slots of a tile of a wider ni row
 
 
 def _nvcc():
@@ -133,6 +150,12 @@ def _libs():
         fn = getattr(ni, f"ni_force_{suffix}")
         fn.argtypes = [vp] * 7 + [ll, ci, vp, vp]
         fn.restype = ci
+        g = getattr(ni, f"ni_g_tiles_{suffix}")
+        g.argtypes = [vp] * 4 + [ll, ci, vp, vp]
+        g.restype = ci
+        fn = getattr(ni, f"ni_force_tiles_{suffix}")
+        fn.argtypes = [vp] * 7 + [ll, ci, vp, vp]
+        fn.restype = ci
         size = getattr(ni, f"ni_cfg_size_{suffix}")
         size.restype = ci
         if size() != ctypes.sizeof(_NI_CFG[suffix]):
@@ -144,7 +167,16 @@ def _libs():
 _SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
 
 
-def _check_planes(planes, max_k, limit):
+def tiled_width(widest, tile):
+    """Columns for rows compacted to their partners, `widest` at most:
+    MAX_K (= NI_MAX_K, the single launches' width) where they fit, else
+    `widest` rounded up to whole tiles."""
+    return MAX_K if widest <= MAX_K else -(-widest // tile) * tile
+
+
+def _check_planes(planes, max_k=None, limit=None):
+    """(P, K) of contiguous [P, K] planes of one dtype on one CUDA device;
+    K at most max_k unless it is None."""
     dev = planes[0].device
     if dev.type != "cuda":
         raise ValueError(f"the kernels take CUDA or CPU tensors, got {dev}")
@@ -156,7 +188,7 @@ def _check_planes(planes, max_k, limit):
                              "one dtype on one device")
     if planes[0].dtype not in _SUFFIX:
         raise ValueError(f"unsupported dtype {planes[0].dtype}")
-    if not 1 <= k <= max_k:
+    if k < 1 or (max_k is not None and k > max_k):
         raise ValueError(f"K = {k} outside [1, {limit} = {max_k}]")
     return p, k
 
@@ -201,9 +233,15 @@ class _HarmKernel:
 
 class GHarm(_HarmKernel):
     """g_harm(dxx, dxy, dxz, npsf, ntsf, rc) -> (g_raw [P, 128],
-    A [P, 384]); see fused_annp.g_harm_plain for the layout."""
+    A [P, 384]); see fused_annp.g_harm_plain for the layout. A row wider
+    than MAX_K goes as virtual rows of HARM_TILE slots through this wrapper
+    (fused_annp.g_harm_tiles): one launch on the card, the plain version
+    on the CPU."""
 
     def __call__(self, dxx, dxy, dxz, npsf, ntsf, rc):
+        if dxx.shape[1] > MAX_K:
+            return fused_annp.g_harm_tiles(dxx, dxy, dxz, npsf, ntsf, rc,
+                                           HARM_TILE, piece=self)
         if dxx.device.type == "cpu":
             return fused_annp.g_harm_plain(dxx, dxy, dxz, npsf, ntsf, rc)
         planes = (dxx, dxy, dxz)
@@ -226,9 +264,15 @@ class GHarm(_HarmKernel):
 class ForceHarm(_HarmKernel):
     """force_harm(dxx, dxy, dxz, dedg_rad, b, npsf, ntsf, rc) -> per-pair
     Fj = -dE_i/dx_j as three [P, K] planes; see
-    fused_annp.force_harm_plain."""
+    fused_annp.force_harm_plain. A row wider than MAX_K goes as virtual
+    rows of HARM_TILE slots, each with its row's dedg_rad and b
+    (fused_annp.force_harm_tiles)."""
 
     def __call__(self, dxx, dxy, dxz, dedg_rad, b, npsf, ntsf, rc):
+        if dxx.shape[1] > MAX_K:
+            return fused_annp.force_harm_tiles(dxx, dxy, dxz, dedg_rad, b,
+                                               npsf, ntsf, rc, HARM_TILE,
+                                               piece=self)
         if dxx.device.type == "cpu":
             return fused_annp.force_harm_plain(dxx, dxy, dxz, dedg_rad, b,
                                                npsf, ntsf, rc)
@@ -403,20 +447,23 @@ def _ni_cfg(table, suffix):
     return c
 
 
-def _check_ni(planes):
-    p, k = _check_planes(planes, NI_MAX_K, "NI_MAX_K")
+def _check_ni(planes, max_k=NI_MAX_K):
+    p, k = _check_planes(planes, max_k, "NI_MAX_K")
     return p, k, _SUFFIX[planes[0].dtype]
 
 
 class NiG:
     """ni_g(dxx, dxy, dxz, table) -> raw BP descriptors g [P, 32]; see
     fused_ni.ni_g_plain. The kernel sums in a fixed order: two runs on the
-    same input agree bit for bit."""
+    same input agree bit for bit. A row wider than NI_MAX_K goes to the
+    cross-tile wrapper `ni_g_tiles`."""
 
     def __init__(self):
         self.launches = 0
 
     def __call__(self, dxx, dxy, dxz, table):
+        if dxx.shape[1] > NI_MAX_K:
+            return ni_g_tiles(dxx, dxy, dxz, table)
         if dxx.device.type == "cpu":
             return fused_ni.ni_g_plain(dxx, dxy, dxz, table)
         p, k, suffix = _check_ni((dxx, dxy, dxz))
@@ -438,12 +485,15 @@ class NiForce:
     three [P, K] planes, dedg [P, 32] carrying sf_scale * e_scale; see
     fused_ni.ni_force_plain. The kernel sums each lane's pair terms with
     shared-memory atomics, so f32 results may differ in the last bits from
-    run to run."""
+    run to run. A row wider than NI_MAX_K goes to the cross-tile wrapper
+    `ni_force_tiles`."""
 
     def __init__(self):
         self.launches = 0
 
     def __call__(self, dxx, dxy, dxz, dedg, table):
+        if dxx.shape[1] > NI_MAX_K:
+            return ni_force_tiles(dxx, dxy, dxz, dedg, table)
         if dxx.device.type == "cpu":
             return fused_ni.ni_force_plain(dxx, dxy, dxz, dedg, table)
         planes = (dxx, dxy, dxz)
@@ -462,14 +512,77 @@ class NiForce:
         return tuple(out)
 
 
+class NiGTiles:
+    """ni_g of rows of any width through the cross-tile instance, in tiles
+    of NI_TILE slots (CPU: its plain twin fused_ni.ni_g_tiles_plain):
+    [P, T, 32] partials, one a tile, summed in tile order. It sums in a
+    fixed order: two runs on the same input agree bit for bit."""
+
+    def __init__(self):
+        self.launches = 0
+
+    def __call__(self, dxx, dxy, dxz, table):
+        if dxx.device.type == "cpu":
+            part = fused_ni.ni_g_tiles_plain(dxx, dxy, dxz, table, NI_TILE)
+            return fused_annp.sum_tiles(part)
+        p, k, suffix = _check_ni((dxx, dxy, dxz), None)
+        cfg = _ni_cfg(table, suffix)
+        part = torch.empty((p, -(-k // NI_TILE), fused_ni.NSF_SUB),
+                           dtype=dxx.dtype, device=dxx.device)
+        fn = getattr(_libs()["ni_bp"], f"ni_g_tiles_{suffix}")
+        with torch.cuda.device(dxx.device):
+            stream = torch.cuda.current_stream().cuda_stream
+            rc_ = fn(dxx.data_ptr(), dxy.data_ptr(), dxz.data_ptr(),
+                     part.data_ptr(), p, k, ctypes.addressof(cfg), stream)
+        _raise_on(rc_, "ni_g_tiles")
+        self.launches += 1
+        return fused_annp.sum_tiles(part)
+
+
+class NiForceTiles:
+    """ni_force of rows of any width through the cross-tile instance, in
+    tiles of NI_TILE slots (CPU: its plain twin
+    fused_ni.ni_force_tiles_plain): each slot's owner adds its pair terms
+    in a fixed order, no atomics, so two runs agree bit for bit."""
+
+    def __init__(self):
+        self.launches = 0
+
+    def __call__(self, dxx, dxy, dxz, dedg, table):
+        if dxx.device.type == "cpu":
+            return fused_ni.ni_force_tiles_plain(dxx, dxy, dxz, dedg, table,
+                                                 NI_TILE)
+        planes = (dxx, dxy, dxz)
+        p, k, suffix = _check_ni(planes, None)
+        _check_row(dedg, planes, fused_ni.NSF_SUB, "dedg")
+        cfg = _ni_cfg(table, suffix)
+        out = [torch.empty_like(dxx) for _ in range(3)]
+        fn = getattr(_libs()["ni_bp"], f"ni_force_tiles_{suffix}")
+        with torch.cuda.device(dxx.device):
+            stream = torch.cuda.current_stream().cuda_stream
+            rc_ = fn(dxx.data_ptr(), dxy.data_ptr(), dxz.data_ptr(),
+                     dedg.data_ptr(), *(o.data_ptr() for o in out), p, k,
+                     ctypes.addressof(cfg), stream)
+        _raise_on(rc_, "ni_force_tiles")
+        self.launches += 1
+        return tuple(out)
+
+
 g_harm = GHarm()
 force_harm = ForceHarm()
 g_cos = GCos()
 force_cos = ForceCos()
 ni_g = NiG()
 ni_force = NiForce()
+ni_g_tiles = NiGTiles()
+ni_force_tiles = NiForceTiles()
+
+
+# every kernel wrapper of this module, by name
+WRAPPERS = ("g_harm", "force_harm", "g_cos", "force_cos", "ni_g", "ni_force",
+            "ni_g_tiles", "ni_force_tiles")
 
 
 def reset_launch_counts():
-    for kernel in (g_harm, force_harm, g_cos, force_cos, ni_g, ni_force):
-        kernel.launches = 0
+    for name in WRAPPERS:
+        globals()[name].launches = 0

@@ -56,7 +56,6 @@ import torch.multiprocessing as mp
 from .mesh import ShardMesh
 
 DEFAULT_TIMEOUT = 120.0      # s: a collective's wait, and spawn's default
-KERNELS = ("g_harm", "force_harm", "g_cos", "force_cos", "ni_g", "ni_force")
 
 
 def _backend(device, backend):
@@ -146,7 +145,8 @@ def _worker(rank, world, backend, device, store, timeout, t0, conn):
         out = fn(*args)
         seconds = (t1 - t0, time.time() - t1)
         from ..ops import kernels
-        launches = {k: getattr(kernels, k).launches for k in KERNELS}
+        launches = {k: getattr(kernels, k).launches
+                    for k in kernels.WRAPPERS}
         peak = torch.cuda.max_memory_allocated(dev) \
             if dev.type == "cuda" else 0
         _barrier(dev)

@@ -89,10 +89,12 @@ def test_local_params_match_jax(width, ne):
         assert not np.allclose(one.numpy()[el == 1], got.numpy()[el == 1])
 
 
-def test_local_params_compacts_wide_rows():
+def test_local_params_compacts_wide_rows_to_tiles():
     """Rows wider than kernels.MAX_K are compacted at the cutoff first:
-    the same values as from rows that fit; more partners than MAX_K
-    within the cutoff raise."""
+    the same values as from rows that fit; rows with more partners than
+    MAX_K within the cutoff are compacted to whole tiles of
+    kernels.HARM_TILE, which g_harm takes as virtual rows, and match the
+    JAX function on the full rows."""
     pot = synthetic_anna_potential(0, **REDUCED)
     t, _ = _case(pot)
     wide = build_neighbors_n2(t.x, t.box, t.cfg.cut + 0.5,
@@ -102,12 +104,16 @@ def test_local_params_compacts_wide_rows():
     want = A.local_params(t.cfg, t.p, t.x, t.box, t.idx)
     np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=1e-13)
     rng = np.random.default_rng(0)
-    dense = t64(rng.uniform(0.0, 8.0, (640, 3)))      # 520-574 partners
-    box8 = torch.full((3,), 8.0, dtype=torch.float64)
-    nb = build_neighbors_n2(dense, box8, t.cfg.cut, 640)
+    dense = rng.uniform(0.0, 8.0, (640, 3))          # 520-574 partners
+    box8 = np.full(3, 8.0)
+    nb = build_neighbors_n2(t64(dense), t64(box8), t.cfg.cut, 640)
     assert int((nb.idx < 640).sum(1).max()) > kernels.MAX_K
-    with pytest.raises(ValueError, match="MAX_K = 512"):
-        A.local_params(t.cfg, t.p, dense, box8, nb.idx)
+    jcfg, jparams = J.make_anna(pot, dtype=jnp.float64)
+    np.testing.assert_allclose(
+        A.local_params(t.cfg, t.p, t64(dense), t64(box8), nb.idx).numpy(),
+        _np(J.local_params(jcfg, jparams, jnp.asarray(dense),
+                           jnp.asarray(box8), jnp.asarray(nb.idx.numpy()))),
+        rtol=1e-10)
 
 
 @pytest.mark.parametrize("width", ["reduced", "full"])
@@ -278,16 +284,28 @@ def test_fast_fns_match_jax(gp, pbc):
 
 def test_fast_fns_poison_on_short_overflow():
     """k_short below the rows' partner count: both packages flag the
-    overflow and NaN-poison E and F."""
-    t, j, nbj = _fast(synthetic_anna_potential(0, **REDUCED), k_short=40)
+    overflow and NaN-poison E and F. k_short past kernels.MAX_K is no
+    error (g_harm takes such rows in tiles): its rows are the fitting
+    ones padded, and its E and F theirs."""
+    pot = synthetic_anna_potential(0, **REDUCED)
+    t, j, nbj = _fast(pot, k_short=40)
     assert bool(t.short.overflow) and bool(j.short.overflow)
     for fn, jfn in zip(t.fns[:2], j.fns[:2]):
         e, f, _ = fn(t.x, t.box, t.nb, t.short)
         je, jf, _ = jfn(j.x, j.box, nbj, j.short)
         assert np.isnan(float(e)) and np.isnan(float(je))
         assert bool(torch.isnan(f).all()) and bool(jnp.isnan(jf).all())
-    with pytest.raises(ValueError, match="MAX_K"):
-        A.make_anna_fast_fns(t.cfg, t.p, k_short=kernels.MAX_K + 1)
+    fits = {ks: A.make_anna_fast_fns(t.cfg, t.p, k_short=ks, delta=0.3)
+            for ks in (64, kernels.MAX_K + 1)}
+    out = {}
+    for ks, fns in fits.items():
+        short = fns[2](t.x, t.box, t.nb)
+        assert short.idx.shape[1] == ks and not bool(short.overflow)
+        out[ks] = fns[1](t.x, t.box, t.nb, short)
+    np.testing.assert_allclose(float(out[64][0]),
+                               float(out[kernels.MAX_K + 1][0]), rtol=1e-13)
+    assert np.max(np.abs(out[64][1].numpy()
+                         - out[kernels.MAX_K + 1][1].numpy())) <= 1e-12
 
 
 def test_fast_path_vs_oracle():

@@ -148,15 +148,17 @@ def test_evaluator_built_once(case):
     np.testing.assert_allclose(float(e_eps), float(e), rtol=1e-14)
 
 
-def test_bp_rows_beyond_kernel_width_raise():
+def test_bp_rows_of_any_width_match_jax():
     """A compressed fcc box puts 42 partners inside the descriptor cutoff,
     more than one warp's 32 lanes: the BP functions evaluate those rows as
     the JAX functions do. A box compressed further puts ~290 inside it,
     past the 256 slots the ni kernels took before NI_MAX_K = 512: those rows
-    evaluate too. A box compressed further still puts more than NI_MAX_K
-    inside it: the BP functions raise an error that names the limit instead
-    of evaluating a clipped row; a skin list wider than NI_MAX_K whose rows
-    fit after compaction evaluates exactly."""
+    evaluate too. A 5 x 5 x 6-cell box compressed further still puts ~550
+    inside it, more than NI_MAX_K: the BP functions compact the 600-wide
+    skin rows to whole tiles of kernels.NI_TILE and evaluate them through
+    the cross-tile kernels (their plain twins here), as the JAX functions
+    evaluate the same rows compacted at the cutoff; a skin list wider than
+    NI_MAX_K whose rows fit after compaction evaluates exactly."""
     pot = reduced_ni_potential()
     cfg, params = annp.make_annp(pot, torch.float64, device="cpu")
     jcfg, jparams = jannp.make_annp(pot, dtype=jnp.float64)
@@ -182,17 +184,17 @@ def test_bp_rows_beyond_kernel_width_raise():
            jannp.energy_forces_virial_chunked(
                jcfg, jparams, jnp.asarray(xd * 0.32), jnp.asarray(bd * 0.32),
                jnp.asarray(idx_s.numpy())))
-    densest = (t64(xd * 0.25), t64(bd * 0.25))
+    xd, bd = thermal_fcc((5, 5, 6), seed=1, disp=0.02)
+    densest = (t64(xd * 0.23), t64(bd * 0.23))     # 600 atoms
     nb = build_neighbors_n2(*densest, rc + 0.5, len(xd))
     assert not bool(nb.overflow)
-    assert int((nb.idx < len(xd)).sum(1).max()) > kernels.NI_MAX_K
-    with pytest.raises(ValueError, match="NI_MAX_K = 512"):
-        annp.energy_forces_chunked(cfg, params, *densest, nb.idx)
     idx_s, ovf = annp.compact_neighbor_rows(*densest, nb.idx, rc, 640)
     assert not bool(ovf)
     assert int((idx_s < len(xd)).sum(1).max()) > kernels.NI_MAX_K
-    with pytest.raises(ValueError, match="NI_MAX_K = 512"):
-        annp.energy_forces_virial_chunked(cfg, params, *densest, idx_s)
+    _check(annp.energy_forces_virial_chunked(cfg, params, *densest, nb.idx),
+           jannp.energy_forces_virial_chunked(
+               jcfg, jparams, jnp.asarray(xd * 0.23), jnp.asarray(bd * 0.23),
+               jnp.asarray(idx_s.numpy()), chunk=16))
     # an unstrained box: 12 partners a row, the 552-wide list is compacted
     # (the JAX functions evaluate the same rows compacted to 32)
     x, box = (t64(a) for a in thermal_fcc(3, seed=1, disp=0.02))

@@ -24,8 +24,13 @@ NI_WIDER_REL_BOUND = 4e-4 for it); the card reads ~1e-6 there too
 ([ni-wider]). The fe cases at K 300-512 (rc 9.7 A, ~360 partners) keep
 the harmonic and cos bounds: the card reads <= 5e-6 of max |value|
 ([fe-wide-kernels]).
-The cos kernels' f32 bounds are chip_smoke.py's COS_REL_BOUND, derived
-there. The delivered forces of a kernel path sum to zero up to rounding:
+Rows wider than 512 slots (K 513, 640, 1,024 of partners spread through a
+ball): the harmonic pair in virtual rows keeps HARM_RTOL (the plain
+versions' longest sums, over <= 1,024 lanes, 6.1e-5 of their terms in
+f32); the ni cross-tile instances are held to NI_TILES_RTOL,
+chip_smoke.py's NI_WIDEST_REL_BOUND widened for these rows' ~880
+partners. The cos kernels' f32 bounds are chip_smoke.py's COS_REL_BOUND,
+derived there. The delivered forces of a kernel path sum to zero up to rounding:
 chip_smoke.py's EVAL_REL["sum_F"], 1e-6 N rms|F|.
 """
 import dataclasses
@@ -51,6 +56,9 @@ from torch_port_util import (kernel_coeffs, ni_short_planes,
 # harmonic kernels, per dtype: chip_smoke.REL_BOUND
 HARM_RTOL = {torch.float64: 1e-12, torch.float32: 1e-4}
 NI_RTOL = {torch.float64: 1e-12, torch.float32: 1e-4}
+# the ni cross-tile instances on rows of up to ~900 partners inside Rc:
+# chip_smoke.NI_WIDEST_REL_BOUND, derived there
+NI_TILES_RTOL = {torch.float64: 2e-12, torch.float32: 1e-3}
 # chip_smoke.COS_REL_BOUND (g_cos, force_cos)
 COS_RTOL = {torch.float64: (1e-12, 1e-12), torch.float32: (1e-4, 3e-4)}
 SUM_F_REL = 1e-6        # chip_smoke.EVAL_REL["sum_F"], of N rms|F|
@@ -145,9 +153,6 @@ def test_harm_widths_interleaved(cuda_device):
 def test_wrappers_refuse_bad_inputs(cuda_device):
     planes = [torch.zeros(8, 32, dtype=torch.float64, device=cuda_device)
               for _ in range(3)]
-    wide = [torch.zeros(8, kernels.MAX_K + 1, device=cuda_device)] * 3
-    with pytest.raises(ValueError, match="MAX_K = 512"):   # K above MAX_K
-        kernels.g_harm(*wide, 4, 5, 4.0)
     with pytest.raises(ValueError):                 # mixed dtypes
         kernels.g_harm(planes[0], planes[1].float(), planes[2], 4, 5, 4.0)
     with pytest.raises(ValueError):                 # b of the wrong width
@@ -377,17 +382,101 @@ def test_g_cos_every_ntsf_instance(cuda_device, dtype):
 def test_ni_wrappers_refuse_bad_inputs(cuda_device):
     pot = reduced_ni_potential()
     table = fn.ni_table(pot.sym_coerad, pot.sym_coeang)
-    wide = [torch.zeros(8, kernels.NI_MAX_K + 1, device=cuda_device)
-            for _ in range(3)]
-    with pytest.raises(ValueError, match="NI_MAX_K = 512"):
-        kernels.ni_g(*wide, table)
-    with pytest.raises(ValueError, match="NI_MAX_K = 512"):
-        kernels.ni_force(*wide, torch.zeros(8, fn.NSF_SUB,
-                                            device=cuda_device), table)
-    planes = [torch.zeros(8, 16, device=cuda_device) for _ in range(3)]
-    with pytest.raises(ValueError):                 # dedg of the wrong width
-        kernels.ni_force(*planes, torch.zeros(8, 27, device=cuda_device),
-                         table)
+    for k in (16, kernels.NI_MAX_K + 1):     # one-warp and cross-tile
+        planes = [torch.zeros(8, k, device=cuda_device) for _ in range(3)]
+        with pytest.raises(ValueError):             # dedg of the wrong width
+            kernels.ni_force(*planes, torch.zeros(8, 27, device=cuda_device),
+                             table)
+        with pytest.raises(ValueError):             # mixed dtypes
+            kernels.ni_g(planes[0], planes[1].double(), planes[2], table)
+
+
+def _ball_rows(k, rmax, seed):
+    """[8, K] planes (numpy) of rows of partners spread through a ball of
+    radius rmax: rows 0-4 full (row 0's last 40 lanes filler), row 5 with
+    only its first and last lanes real (one partner in its first and last
+    tiles), row 6 with only lane 300, row 7 all filler (2 box + 10 = 70 A
+    on every axis). Also the filler mask."""
+    rng = np.random.default_rng(seed)
+    u = rng.normal(size=(8, k, 3))
+    u /= np.linalg.norm(u, axis=-1, keepdims=True)
+    x = u * rmax * rng.uniform(0.05, 1.0, size=(8, k, 1)) ** (1.0 / 3.0)
+    filler = np.zeros((8, k), dtype=bool)
+    filler[0, -40:] = True
+    filler[5, 1:-1] = True
+    filler[6] = True
+    filler[6, 300] = False
+    filler[7] = True
+    x[filler] = 70.0
+    return [np.ascontiguousarray(x[..., a]) for a in range(3)], filler
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("k", [513, 640, 1024])
+def test_harm_tiles_match_plain(cuda_device, k, dtype):
+    """Rows wider than MAX_K through the harmonic kernels as virtual rows of
+    HARM_TILE slots, one launch each: against the plain versions on the whole
+    row (HARM_RTOL: the plain versions' longest sums run over <= 1,024
+    lanes, 6.1e-5 of their terms in f32) and bitwise against the same
+    split over the plain pieces' inputs where the kernels are exact (the
+    filler lanes and rows: 0)."""
+    npsf, ntsf, cut = 9, 19, 6.5
+    planes, filler = _ball_rows(k, cut + 0.5, seed=k)
+    tp = [torch.as_tensor(a, dtype=dtype, device=cuda_device) for a in planes]
+    dedg, b = (torch.as_tensor(a, dtype=dtype, device=cuda_device)
+               for a in kernel_coeffs(8, npsf, ntsf))
+    g_fn, f_fn = kernels.GHarm(), kernels.ForceHarm()
+    tol = HARM_RTOL[dtype]
+    got = g_fn(*tp, npsf, ntsf, cut)
+    for u, v in zip(got, fa.g_harm_plain(*tp, npsf, ntsf, cut)):
+        assert rel_max(u.cpu(), v.cpu()) <= tol
+        assert torch.all(u[7] == 0)
+    fj = f_fn(*tp, dedg, b, npsf, ntsf, cut)
+    for u, v in zip(fj, fa.force_harm_plain(*tp, dedg, b, npsf, ntsf, cut)):
+        assert u.shape == (8, k)
+        assert rel_max(u.cpu(), v.cpu()) <= tol
+        assert torch.all(u.cpu()[torch.as_tensor(filler)] == 0)
+    assert (g_fn.launches, f_fn.launches) == (1, 1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("k,table", [(513, "full"), (640, "full"),
+                                     (640, "odd"), (1024, "full")])
+def test_ni_tiles_match_plain(cuda_device, k, table, dtype):
+    """Rows wider than NI_MAX_K through the cross-tile instances, on the
+    shipped table at Rc 11.0 A (or its pow-route variant, "odd"): against
+    the plain versions on the whole row and the plain twins of the tiled
+    decomposition (NI_TILES_RTOL), filler lanes exactly 0, one launch each;
+    two runs of each kernel agree bit for bit."""
+    pot = synthetic_ni_potential(0, rc_bohr=11.0 * CFLENGTH)
+    tab = fn.ni_table(pot.sym_coerad,
+                      _odd_coeang(pot) if table == "odd" else pot.sym_coeang)
+    planes, filler = _ball_rows(k, 11.0 * 1.05, seed=k + 1)
+    tp = [torch.as_tensor(a, dtype=dtype, device=cuda_device) for a in planes]
+    dedg = np.zeros((8, fn.NSF_SUB))
+    dedg[:, :pot.nsf] = np.random.default_rng(1).normal(size=(8, pot.nsf))
+    td = torch.as_tensor(dedg, dtype=dtype, device=cuda_device)
+    g_fn, f_fn = kernels.NiGTiles(), kernels.NiForceTiles()
+    tol = NI_TILES_RTOL[dtype]
+    g = g_fn(*tp, tab)
+    for want in (fn.ni_g_plain(*tp, tab), fa.sum_tiles(
+            fn.ni_g_tiles_plain(*tp, tab, kernels.NI_TILE))):
+        assert rel_max(g.cpu(), want.cpu()) <= tol
+    assert torch.all(g[:, pot.nsf:] == 0) and torch.all(g[7] == 0)
+    fj = f_fn(*tp, td, tab)
+    for want in (fn.ni_force_plain(*tp, td, tab),
+                 fn.ni_force_tiles_plain(*tp, td, tab, kernels.NI_TILE)):
+        for u, v in zip(fj, want):
+            assert rel_max(u.cpu(), v.cpu()) <= tol
+    for u in fj:
+        assert torch.all(u.cpu()[torch.as_tensor(filler)] == 0)
+        assert torch.isfinite(u).all()
+    assert (g_fn.launches, f_fn.launches) == (1, 1)
+    assert torch.equal(g_fn(*tp, tab), g)
+    for u, v in zip(f_fn(*tp, td, tab), fj):
+        assert torch.equal(u, v)
 
 
 @pytest.mark.cuda
