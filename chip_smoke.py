@@ -208,7 +208,10 @@ fatal on failure, by tag:
     at Ks NI_WIDER_KS (~320 partners a row): ni_g / ni_force against their
     plain versions on the first WIDE_ROWS rows (f64 on every
     WIDE_F64_STRIDE-th; NI_WIDER_REL_BOUND) and on WIDE_PAD_ROWS rows at K
-    512, their times on every row and bounds; one evaluation of the
+    512, their times on every row and bounds; the cross-tile instances
+    ni_g_tiles / ni_force_tiles on the same [16384, 352] planes, against
+    the one-warp kernels (twice NI_WIDER_REL_BOUND) and timed beside them
+    (the crossover); one evaluation of the
     chunked BP functions in f32 against the f64 plain path (NI_EVAL_REL);
     then [ni-wider-main], NI_WIDER_BLOCKS blocks of phase 11's NVT path at
     those sizes, its gates.
@@ -229,9 +232,10 @@ kernels.NI_TILE), each fatal on failure, by tag, after [disloc-core]:
     on thermal fcc NI_WIDEST_CELLS^3 cells (~600 partners a row):
     ni_g_tiles / ni_force_tiles against the plain versions on the whole row
     and their tiled plain twins on WIDEST_ROWS rows (NI_WIDEST_REL_BOUND;
-    ni_force's twin on the f64 rows), two runs bit for bit equal, the
-    times and bounds; one chunked evaluation in f32 against f64
-    (WIDEST_OVER_PLAIN);
+    ni_force's twin on the f64 rows), ni_force_tiles' sum kernel on its
+    unit kernel's partials against its plain twin on the same ones, two
+    runs bit for bit equal, the times and bounds; one chunked evaluation
+    in f32 against f64 (WIDEST_OVER_PLAIN);
     NI_WIDEST_CLI_STEPS NVT steps of the CLI's BP route at --capacity
     NI_WIDEST_CAPACITY;
   * [anna-widest]: the synthetic .anna of the shipped widths at cut
@@ -345,9 +349,17 @@ from phase 14); ni_g's and ni_force's carry their [ni-wide-kernels] figures
 [fe-wide-kernels] figures as `wide_*` (`wide_plain_rows` likewise, and
 `wide_launches` from [fe-wide-main]); g_harm's and force_harm's carry
 their [fe-widest] figures as `widest_*` (`widest_tile`
-kernels.HARM_TILE). The records `ni_g_tiles` and `ni_force_tiles` are
-the ni pair's cross-tile instances at [ni-widest]'s shape (`tile`
-kernels.NI_TILE), their launches [ni-widest]'s CLI run's. Its `launches` add the new paths'
+kernels.HARM_TILE). The records `ni_g_tiles`, `ni_force_tiles` and
+`ni_force_tiles_sum` are the ni pair's cross-tile instances at
+[ni-widest]'s shape (`tile` kernels.NI_TILE), their launches [ni-widest]'s
+CLI run's (ni_force_tiles' unit kernel and its sum kernel once a chunk of
+kernels.ni_scratch_rows rows; ni_force_tiles' `ms` the whole function,
+both kernels, ni_force_tiles_sum's the sum kernel's share); the first two
+also carry [ni-wider]'s crossover (`crossover_shape`, `crossover_ms`
+their time on the one-warp kernels' planes, `crossover_one_warp_ms` the
+one-warp kernels', `crossover_err_vs_one_warp` their max abs difference
+from the one-warp kernels' outputs). Its
+`launches` add the new paths'
 runs ([multi-fe]'s and [rowsweep]'s Simulators, [multi-ni]'s,
 [thin-box]'s Simulator and FIRE, [cli-multi], the seven sharded runs, the
 ranks' and the in-process references' runs of the across-process tags,
@@ -642,18 +654,24 @@ NI_REL_BOUND = {torch.float32: 2e-4, torch.float64: 1e-12}
 # f64 the same counts give <= 7e-13, under 1e-12.
 NI_WIDER_REL_BOUND = {torch.float32: 4e-4, torch.float64: 1e-12}
 # The ni pair's cross-tile instances at [ni-widest]'s rows of up to ~660
-# partners inside Rc (K 768), by the same counts: ni_force's owner adds a
-# slot's <= 660 contributions (a 5-level shuffle tree within a round, then
-# the rounds in order), <= 704 roundings with the factors' 44, and the
-# plain version's q loop as many: 8.4e-5 apart, 6.8e-4 with the 8x for
-# Fj's cancellation. ni_g: a unit (a 128-slot tile against the row) lists
-# ~43,000 ordered pairs at ~660 partners, ~90 pair tiles of <= 512; a lane
-# adds its <= 64 pairs of 4 pair tiles, the transposed tree 5 levels, lane
-# f the ~23 batch sums in list order, and the wrapper the T tile
-# partials: <= ~100 roundings, 6e-6 of the column (G4's terms are all
-# positive); the plain version's 660-step loop and sums over the lanes
-# <= 1,000, 6e-5. So 7e-4, which ni_force sets
-# (1e-3 for the card tests' rows of up to ~880 partners,
+# partners inside Rc (K 768, T 6 tiles of 128 slots, U 21 units), by the
+# same counts. ni_force: within a unit a slot's sums take its partners in
+# the unit's other tile (<= 128) one a round, or as a key slot a 5-level
+# shuffle tree a round and <= 4 rounds in order; within its own tile's
+# unit (a, a) both roles add to one sum (<= 127 partners); the sum kernel
+# then adds the T partials in tile order: <= ~140 roundings, ~184 with the
+# factors' 44. The plain version's q loop adds <= 660 contributions, 704
+# roundings: 4.2e-5 of the largest sum, so <= 5.3e-5 apart, 4.3e-4 with
+# the 8x for Fj's cancellation. ni_g: a unit lists each unordered pair of
+# its two tiles once, <= ~7,700 at ~120 partners a tile, ~30 pair tiles of
+# <= 256; a lane adds its <= 64 pairs of 8 pair tiles as <= 32 sums of
+# two, the transposed tree 5 levels, lane e the <= 4 batch sums in list
+# order, and the wrapper the U unit partials in unit order: <= ~73
+# roundings with the term's ~10, 4.4e-6 of the column (G4's terms are all
+# positive; the 2^(1 - zeta) factor after the sum is exact); the plain
+# version's 660-step loop and sums over the lanes <= 1,000, 6e-5. So 7e-4
+# keeps ~1.6x over ni_force's
+# figure (1e-3 for the card tests' rows of up to ~880 partners,
 # tests/test_torch_cuda.py NI_TILES_RTOL); in f64 the same counts give
 # <= 1.4e-12: 2e-12.
 NI_WIDEST_REL_BOUND = {torch.float32: 7e-4, torch.float64: 2e-12}
@@ -673,7 +691,7 @@ NI_WIDEST_REL_BOUND = {torch.float32: 7e-4, torch.float64: 2e-12}
 # sums' rounding, NI_EVAL_REL): each path's own rounding of the G4 sums
 # leads, reaching every pair term of a row alike through dE/dG, and W,
 # the sum over ~10^7 pairs, takes it coherently. So its ratio follows the
-# G4 sums' chains: ni_g_tiles' (<= ~100 roundings, NI_WIDEST_REL_BOUND)
+# G4 sums' chains: ni_g_tiles' (<= ~73 roundings, NI_WIDEST_REL_BOUND)
 # are shorter than the plain version's (~600-step q loops), and 3x holds
 # for it too. With one running sum a lane across the row (~1,350 terms)
 # the kernel's max dW read 3.9x the plain path's; see PERF.md.
@@ -745,7 +763,9 @@ PLAIN_VERSIONS = (("fused_annp", "g_harm_plain"),
                   ("fused_annp", "force_cos_plain"),
                   ("fused_ni", "ni_g_plain"), ("fused_ni", "ni_force_plain"),
                   ("fused_ni", "ni_g_tiles_plain"),
-                  ("fused_ni", "ni_force_tiles_plain"))
+                  ("fused_ni", "ni_force_tiles_plain"),
+                  ("fused_ni", "ni_force_tiles_part_plain"),
+                  ("fused_ni", "ni_force_tiles_sum_plain"))
 
 
 class SmokeFailure(Exception):
@@ -1964,14 +1984,17 @@ def phase_ni_wider(dev, card):
     planes at Ks NI_WIDER_KS (~320 partners a row: the kernels' 16-slot
     instances): ni_g / ni_force against their plain versions in f32 and
     f64 on the first WIDE_ROWS rows (f64 on every WIDE_F64_STRIDE-th),
-    their times on every row and bounds;
+    their times on every row and bounds; the cross-tile instances on the
+    same planes beside them (ni_tiles_crossover);
     the first WIDE_PAD_ROWS rows widened to NI_MAX_K = 512 by filler lanes;
     one evaluation
     of the chunked BP functions (run.py's route: rows no wider than the
     kernels go as they are) in f32 against the f64 plain path (the gates
     of [ni-evaluator]); then [ni-wider-main], NI_WIDER_BLOCKS blocks of the
     ni NVT main path at those sizes. Returns the wider figures of each
-    kernel's record and the main path's launches."""
+    kernel's record (and the cross-tile instances' crossover times as
+    a dict of their own, by name: `crossover_*`), the main path's launches
+    and its rate."""
     from meng_zhang_tpu_torch.models import annp
     from meng_zhang_tpu_torch.models.annp import make_annp
     from meng_zhang_tpu_torch.ops import fused_annp as fa
@@ -1993,6 +2016,8 @@ def phase_ni_wider(dev, card):
     records = ni_plane_checks(tag, planes32, table, pot.nsf, filler,
                               WIDE_F64_STRIDE, WIDE_ROWS,
                               NI_WIDER_REL_BOUND)
+    tiles = ni_tiles_crossover(tag, planes32, table, pot.nsf, filler,
+                               records, card)
     rows = slice(0, WIDE_PAD_ROWS)
     wide32, fill_wide = pad_lanes([t[rows] for t in planes32], filler[rows],
                                   box.tolist(), kernels.NI_MAX_K)
@@ -2040,13 +2065,57 @@ def phase_ni_wider(dev, card):
     launches, rate = phase_ni_main_path(dev, cfg32, p32,
                                         float(pot.masses[0]), card,
                                         wide="wider")
-    return {r["name"]: {"wider_shape": [n, NI_WIDER_KS], "wider_ms": r["ms"],
+    figs = {r["name"]: {"wider_shape": [n, NI_WIDER_KS], "wider_ms": r["ms"],
                         "wider_plain_ms": r["plain_ms"],
                         "wider_plain_rows": WIDE_ROWS,
                         "wider_bound_ms": r["bound_ms"],
                         "wider_bound_by": r["bound_by"],
                         "wider_max_abs_err": r["max_abs_err"]}
-            for r in records}, launches, rate
+            for r in records}
+    crossover = {name: {"crossover_shape": [n, NI_WIDER_KS],
+                        "crossover_ms": tiles[name][0],
+                        "crossover_one_warp_ms": figs[short]["wider_ms"],
+                        "crossover_err_vs_one_warp": tiles[name][1]}
+                 for name, short in (("ni_g_tiles", "ni_g"),
+                                     ("ni_force_tiles", "ni_force"))}
+    return figs, crossover, launches, rate
+
+
+def ni_tiles_crossover(tag, planes32, table, nsf, filler, records, card):
+    """The cross-tile instances on the one-warp kernels' [P, K <= 512]
+    planes (f32, the dedg of ni_plane_checks): held to the one-warp
+    kernels (each within its rel bound of the plain versions, so twice
+    it apart) and timed beside them (the records' ms, median of 10).
+    Returns {name: (ms, max abs err)}."""
+    from meng_zhang_tpu_torch.ops import fused_ni as fn
+    from meng_zhang_tpu_torch.ops import kernels
+    p, k = planes32[0].shape
+    dedg_np = np.zeros((p, fn.NSF_SUB))
+    dedg_np[:, :nsf] = np.random.default_rng(SEED).normal(size=(p, nsf))
+    dedg = torch.tensor(dedg_np, dtype=torch.float32,
+                        device=planes32[0].device)
+    bound_rel = 2 * NI_WIDER_REL_BOUND[torch.float32]
+    sub = f"{tag} f32"
+    err_g = compare(sub, f"ni_g_tiles [{p}, {k}] vs ni_g", ("g",),
+                    (kernels.ni_g_tiles(*planes32, table),),
+                    (kernels.ni_g(*planes32, table),), bound_rel)
+    err_f = compare(sub, f"ni_force_tiles [{p}, {k}] vs ni_force",
+                    ("fjx", "fjy", "fjz"),
+                    kernels.ni_force_tiles(*planes32, dedg, table),
+                    kernels.ni_force(*planes32, dedg, table), bound_rel,
+                    filler)
+    out = {"ni_g_tiles": (cuda_ms(lambda: kernels.ni_g_tiles(
+               *planes32, table), 10), err_g),
+           "ni_force_tiles": (cuda_ms(lambda: kernels.ni_force_tiles(
+               *planes32, dedg, table), 10), err_f)}
+    one = {r["name"]: r["ms"] for r in records}
+    for name, short in (("ni_g_tiles", "ni_g"),
+                        ("ni_force_tiles", "ni_force")):
+        log(f"[{tag}] crossover at [{p}, {k}]: {name} {out[name][0]:.3f} ms "
+            f"(tiles of {kernels.NI_TILE}, median of 10, CUDA events), the "
+            f"one-warp {short} {one[short]:.3f} ms "
+            f"({one[short] / out[name][0]:.2f}x) on {card}")
+    return out
 
 
 def phase_ni_profile(dev, cfg32, p32, mass, card):
@@ -4880,13 +4949,17 @@ def phase_ni_widest(dev, card, tmp, pot):
     partners a row). ni_g / ni_force on the rows compacted at Rc
     (kernels.tiled_width wide: the cross-tile instances) against the plain
     versions on the whole row and against their tiled plain twins, on the
-    first WIDEST_ROWS rows (f32; f64 on every WIDE_F64_STRIDE-th), two
-    runs bit for bit equal, the f32 times on every row and the bounds; one energy_forces_virial_chunked in f32 against the
-    f64 kernel path (held to the plain versions just above), the f32
-    plain path's difference setting the bounds (widest_gates); then
-    NI_WIDEST_CLI_STEPS NVT steps of the CLI's BP route at capacity
-    NI_WIDEST_CAPACITY. Returns the records of ni_g_tiles and
-    ni_force_tiles (without launches) and the CLI's launches."""
+    first WIDEST_ROWS rows (f32; f64 on every WIDE_F64_STRIDE-th), and
+    ni_force_tiles' sum kernel on its unit kernel's partials of those rows
+    against its plain twin on the same partials; two runs bit for bit
+    equal; the f32 times on every row (the sum kernel's over the chunks
+    that ni_force_tiles gives it) and the bounds; one
+    energy_forces_virial_chunked in f32 against the f64 kernel path (held
+    to the plain versions just above), the f32 plain path's difference
+    setting the bounds (widest_gates); then NI_WIDEST_CLI_STEPS NVT steps
+    of the CLI's BP route at capacity NI_WIDEST_CAPACITY. Returns the
+    records of ni_g_tiles, ni_force_tiles and ni_force_tiles_sum (without
+    launches) and the CLI's launches."""
     from meng_zhang_tpu_torch.io.potential import write_ann
     from meng_zhang_tpu_torch.models import annp
     from meng_zhang_tpu_torch.ops import fused_annp as fa
@@ -4951,34 +5024,74 @@ def phase_ni_widest(dev, card, tmp, pot):
                       ("fjx", "fjy", "fjz"), fj, f_ref,
                       NI_WIDEST_REL_BOUND[dtype], filler[rows])
         del g_ref, f_ref
+        part = kernels.ni_force_tiles.units(*pl, dedg, table)
+        s_ref, s_ms = timed(lambda: fn.ni_force_tiles_sum_plain(
+            *pl, dedg, part, table))
+        w_s = compare(sub, f"ni_force_tiles_sum {shown} vs its plain twin",
+                      ("fjx", "fjy", "fjz"), kernels.ni_force_tiles_sum(
+                          *pl, dedg, part, table), s_ref,
+                      NI_WIDEST_REL_BOUND[dtype], filler[rows])
+        del part, s_ref
         if dtype == torch.float32:
-            worst = {"ni_g_tiles": w_g, "ni_force_tiles": w_f}
-            plain_ms = {"ni_g_tiles": g_ms, "ni_force_tiles": f_ms}
-        else:        # the twin's T q loops a tile: on the f64 rows alone
+            worst = {"ni_g_tiles": w_g, "ni_force_tiles": w_f,
+                     "ni_force_tiles_sum": w_s}
+            plain_ms = {"ni_g_tiles": g_ms, "ni_force_tiles": f_ms,
+                        "ni_force_tiles_sum": s_ms}
+        else:        # the twin's q loop a second time: on the f64 rows alone
             compare(sub, f"ni_force_tiles {shown} vs its plain twin",
                     ("fjx", "fjy", "fjz"), fj, fn.ni_force_tiles_plain(
                         *pl, dedg, table, kernels.NI_TILE),
                     NI_WIDEST_REL_BOUND[dtype], filler[rows])
         del pl, dedg, g, fj
     dedg = torch.tensor(dedg_np, dtype=torch.float32, device=dev)
+    # ni_force_tiles' memory beyond its inputs: the three Fj planes and
+    # its scratch of unit partials (kernels.NI_SCRATCH_BYTES at most)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    fj = kernels.ni_force_tiles(*planes32, dedg, table)
+    torch.cuda.synchronize()
+    log(f"[{tag}] ni_force_tiles at [{n}, {ks}] f32: peak "
+        f"{(torch.cuda.max_memory_allocated() - base) / 2**20:.1f} MiB "
+        f"above its inputs, of which Fj "
+        f"{sum(t.numel() * t.element_size() for t in fj) / 2**20:.1f} MiB "
+        f"(scratch cap {kernels.NI_SCRATCH_BYTES / 2**20:.0f} MiB)")
+    del fj
+    # the sum kernel alone, on the chunks that ni_force_tiles gives it
+    chunk = kernels.ni_scratch_rows(ks, 4)
+    spans = [slice(r0, min(n, r0 + chunk)) for r0 in range(0, n, chunk)]
+    parts = [kernels.ni_force_tiles.units(*(t[s] for t in planes32),
+                                          dedg[s], table) for s in spans]
+
+    def sums():
+        for s, part in zip(spans, parts):
+            kernels.ni_force_tiles_sum(*(t[s] for t in planes32), dedg[s],
+                                       part, table)
     times = {"ni_g_tiles": cuda_ms(lambda: kernels.ni_g_tiles(*planes32,
                                                               table), 3),
              "ni_force_tiles": cuda_ms(lambda: kernels.ni_force_tiles(
-                 *planes32, dedg, table), 3)}
+                 *planes32, dedg, table), 3),
+             "ni_force_tiles_sum": cuda_ms(sums, 3)}
     log(f"[{tag}] tiles of {kernels.NI_TILE} slots at [{n}, {ks}]: "
         f"ni_g_tiles {times['ni_g_tiles']:.3f} ms, ni_force_tiles "
-        f"{times['ni_force_tiles']:.3f} ms (median of 3, CUDA events) on "
-        f"{card}")
-    del dedg
+        f"{times['ni_force_tiles']:.3f} ms, of which its sum kernel "
+        f"{times['ni_force_tiles_sum']:.3f} ms over {len(spans)} chunks of "
+        f"<= {chunk} rows (median of 3, CUDA events) on {card}")
+    del dedg, parts
+    nt = -(-ks // kernels.NI_TILE)
+    sum_work = (counts[0] * (15 + 15 * len(table.rad) + 6 + 4 * nt),
+                (n * (6 * ks + fn.NSF_SUB) + counts[0] * 4 * nt) * 4)
     records = []
     for name, line, short in (("ni_g_tiles", 126, "ni_g"),
-                              ("ni_force_tiles", 170, "ni_force")):
+                              ("ni_force_tiles", 170, "ni_force"),
+                              ("ni_force_tiles_sum", 170, None)):
+        work = sum_work if short is None else (
+            ni_flops(short, *counts, table),
+            n * (3 * ks + fn.NSF_SUB
+                 + (3 * ks if short == "ni_force" else 0)) * 4)
         rec = record(name, "meng_zhang_tpu_torch/ops/csrc/ni_bp.cu",
                      f"meng_zhang_tpu/ops/pallas_ni.py:{line}", worst[name],
-                     times[name], plain_ms[name],
-                     ni_flops(short, *counts, table),
-                     n * (3 * ks + fn.NSF_SUB
-                          + (3 * ks if short == "ni_force" else 0)) * 4)
+                     times[name], plain_ms[name], *work)
         rec.update({"shape": [n, ks], "tile": kernels.NI_TILE,
                     "plain_rows": WIDEST_ROWS})
         records.append(rec)
@@ -5017,16 +5130,19 @@ def phase_ni_widest(dev, card, tmp, pot):
         str(NI_WIDEST_CAPACITY), "--steps", str(NI_WIDEST_CLI_STEPS),
         "--thermo", str(NI_WIDEST_CLI_STEPS)])
     want = NI_WIDEST_CLI_STEPS + 1
-    for name in ("ni_g_tiles", "ni_force_tiles"):
-        check(launches[name] == want, f"{tag}: {name} launched "
-              f"{launches[name]} times in the CLI run, expected {want} "
-              "(init + one a step)")
-    check(sum(launches.values()) == 2 * want,
+    chunks = len(spans)
+    for name, each in (("ni_g_tiles", 1), ("ni_force_tiles", chunks),
+                       ("ni_force_tiles_sum", chunks)):
+        check(launches[name] == want * each, f"{tag}: {name} launched "
+              f"{launches[name]} times in the CLI run, expected "
+              f"{want * each} (init + one a step, {each} a call: rows of K "
+              f"{ks} in chunks of <= {chunk})")
+    check(sum(launches.values()) == want * (1 + 2 * chunks),
           f"{tag}: other kernels launched in the CLI run: {launches}")
     log(f"[{tag}] CLI Loop time rate {_loop_rate(err):.1f} atom-steps/s on "
         f"{card}; the phase took {time.time() - t_phase:.1f} s")
-    return records, {k: launches[k] for k in ("ni_g_tiles",
-                                              "ni_force_tiles")}
+    return records, {k: launches[k] for k in (
+        "ni_g_tiles", "ni_force_tiles", "ni_force_tiles_sum")}
 
 
 def phase_anna_widest(dev, card):
@@ -5178,8 +5294,8 @@ def run_phases(pool):
         for kname, fig in ni_wide.items():
             fig["wide_launches"] = extra["ni-wide-main"][kname]
         del cfg_w, p_w
-        ni_wider, extra["ni-wider-main"], wider_rate = phase_ni_wider(dev,
-                                                                      card)
+        ni_wider, crossover, extra["ni-wider-main"], wider_rate = \
+            phase_ni_wider(dev, card)
         log(f"[ni-wider-main] rate {wider_rate / ni_rate:.3f}x [ni-main]'s")
         for kname, fig in ni_wider.items():
             fig["wider_launches"] = extra["ni-wider-main"][kname]
@@ -5246,6 +5362,7 @@ def run_phases(pool):
         r.update(ni_wide.get(r["name"], {}))
         r.update(fe_wide.get(r["name"], {}))
         r.update(ni_wider.get(r["name"], {}))
+        r.update(crossover.get(r["name"], {}))
         r.update(fe_widest.get(r["name"], {}))
         for cfg, times in scale.items():
             if r["name"] in times:

@@ -7,7 +7,8 @@
 // S = ceil(K / 32) neighbor slots a lane (slot s * 32 + lane; one compiled
 // instance per S in 1, 2, 4, 8, 16, picked at launch); a wider row, of any
 // K, goes in tiles of 128 slots through the cross-tile instances
-// ni_g_tiles / ni_force_tiles (the section "rows of more than 512" below):
+// ni_g_tiles / ni_force_tiles, one warp a pair of tiles, each unordered leg
+// pair of the row once (the section "rows of more than 512" below):
 //   ni_g      g [P, 32]: radial G2 = sum_j exp(-eta r^2) fc in cols
 //             [0, npsf), angular G4 = 1/2 sum_{p != q} 2^(1-zeta)
 //             (1 + lambda cos)^zeta exp(-eta r2sum) fc_p fc_q fc_pq in cols
@@ -99,7 +100,9 @@ constexpr double kCfLength = 1.889726;    // Angstrom -> Bohr (units.py)
 // adds its weight to entry ent[f]. Power-of-two zetas of one lambda lie
 // along one squaring chain: sh_new[s] starts a chain at f = 1 + lambda cos,
 // sh_adv[s] is the number of squarings from the chain's state at the shape
-// before; sh_adv[s] = -1 sends the shape through pow.
+// before; sh_adv[s] = -1 sends the shape through pow. ni_g_tiles walks the
+// entries: entry e has shape ent_sh[e], group eta ent_eta[e], and
+// ent_first[e] marks its group's first entry.
 template <typename T>
 struct NiCfg {
   int nrad;
@@ -125,6 +128,10 @@ struct NiCfg {
   int sh_adv[kMaxShape];
   int sh_new[kMaxShape];
   int ent[kMaxAng];
+  // per entry: its shape, whether it is its group's first, its group's eta
+  int ent_sh[kMaxAng];
+  int ent_first[kMaxAng];
+  T ent_eta[kMaxAng];
 };
 
 __device__ __forceinline__ float dev_sqrt(float v) { return sqrtf(v); }
@@ -649,66 +656,121 @@ ni_force_kernel(const T* __restrict__ dxx, const T* __restrict__ dxy,
 
 // ------------------------------------------------- rows of more than 512
 // A wider row goes in T = ceil(K / 128) tiles of 128 slots (kCrossSlots = 4
-// slots a lane). One warp owns a (row, tile a) unit and streams every tile
-// b of the row, a included, through its shared memory: each tile's slots
-// inside the angular cutoff compacted in slot order, as in the one-tile
-// kernels. Stage 1 lists the ordered leg pairs (p in a, q in b, p != q)
-// with r_pq < Rc, p-major, in tiles of kTile; stage 2 walks them one pair a
-// lane. Each pair is computed from both of its sides (once by the owner of
-// p, once by the owner of q), twice the pair work of the one-tile kernels'
-// unordered list, and in exchange no lane ever adds to another unit's sums:
-//   ni_g_tiles  g_part [P, T, 32]: unit (row, a) holds the radial G2 of a's
-//               slots and 1/2 sum_{p in a} sum_{q != p} of the angular
-//               terms (G4's 1/2 over ordered pairs). A lane adds its <= 16
-//               pairs of each of kSumEvery = 4 pair tiles, a transposed
-//               shuffle tree sums the 32 lanes' function vectors (31
-//               shuffles; lane f ends with function f), and lane f adds
-//               those batch sums in list order: on a row of ~600 partners
-//               no chain passes ~90 roundings, where one running sum a
-//               lane across the row would take ~1,350 terms (and a tree
-//               after every pair tile costs ~5 % more time). The wrapper
-//               sums the T partials in tile order;
-//   ni_force_tiles  Fj [P, K] x3: a lane of the owner of p adds p's own
-//               side of each pair; the pairs of one round that share p are
-//               summed by a segmented shuffle reduction (the list is
-//               p-major), whose first lane adds the total to p's sums in
-//               shared memory. The per-entry weights are summed in function
-//               order by one lane each.
-// Both add in an order fixed by the input alone (list order, fixed
-// shuffle trees): two runs agree bit for bit.
+// slots a lane). A work unit is (row, a, b), one of the row's U = T (T + 1)
+// / 2 unordered tile pairs a <= b, in the order (0, 0), (0, 1), ...,
+// (0, T - 1), (1, 1), ...; one warp owns a unit. It compacts the slots of
+// tile a inside the angular cutoff into its shared memory, and those of
+// tile b where b != a, in slot order, as the one-tile kernels do. Stage 1
+// (list_unit) lists the unit's leg pairs with r_pq < Rc: every (p in a,
+// q in b) where a != b, the pairs p < q of tile a where a == b. So the
+// units of a row hold each unordered in-cutoff leg pair once, as the
+// one-tile kernels' list does. The list is sorted by a key slot (p for
+// a != b, q for a == b); stage 2 walks it, ni_g_tiles two pairs a lane and
+// ni_force_tiles one.
+//   ni_g_tiles  g_part [P, U, 32]: a unit's share of g, each pair's term
+//               added once, undoubled, as ni_g adds it (G4's 1/2 and the
+//               pair's two orders cancel); unit (a, a) also holds tile a's
+//               radial G2. The pair body reads the table by its structure:
+//               each (lambda, zeta) shape's power once, the power-of-two
+//               zetas of one lambda along one squaring chain (into the
+//               lane's columns of a shared-memory table), then the (group,
+//               shape) entries group-major, one exp at each group's first
+//               entry and the entry's term into a register sum. A lane
+//               takes two pairs at once (two independent chains, where one
+//               pair a lane left the card waiting on latency), adding their
+//               terms' sum; it adds its <= 8 pairs of each of kSumEvery = 8
+//               pair tiles, a transposed shuffle tree sums the 32 lanes'
+//               entry vectors (31 shuffles; lane e ends with entry e), lane
+//               e adds those batch sums in list order, and lane f writes
+//               function f's column, 2^(1 - zeta) times its entry's sum. On
+//               a row of ~600 partners no chain passes ~65 roundings (<= 32
+//               sums of two pairs, 5 tree levels, <= ~4 batches, then the
+//               wrapper's sum of the U partials in unit order). Units never
+//               touch each other's sums.
+//   ni_force_tiles  Fj [P, K] x3, two kernels. The unit kernel computes
+//               each pair's symmetric part once (angular_sums, the partials
+//               in c and r_pq) and from it both sides' own partials. The
+//               key side's are summed over a round's lanes of one key by a
+//               segmented shuffle reduction (the list is key-major), whose
+//               first lane adds the total to the key slot's sums in shared
+//               memory; the other side's go to their slots one key segment
+//               of the round at a time (the other slots of one segment
+//               differ). The unit then writes tile a's slot sums to
+//               part[row, a, b] and tile b's to part[row, b, a] (scratch
+//               [rows, T, T, 4, 128], by a slot's place among its tile's
+//               slots inside the angular cutoff). The sum kernel
+//               (ni_force_tiles_sum), one warp a (row, tile), adds each
+//               slot's T partials in tile order, adds its radial term and
+//               writes Fj. Each has its own C entry: the wrapper bounds the
+//               scratch by passing the rows in chunks, each chunk through
+//               the unit kernel and then the sum kernel.
+// Both add in an order fixed by the input alone (list order, fixed shuffle
+// trees, unit and tile order): no atomics, two runs agree bit for bit.
+
+constexpr int kCrossSlots = 4;   // slots a lane of a cross tile (128 a tile)
+static_assert(32 * kCrossSlots <= 256, "list_unit packs a slot in 8 bits");
+static_assert(kMaxAng == 32, "ni_g_tiles sums one entry a lane");
+// ni_g_tiles lists kGTile pairs at a time and adds a lane's terms of
+// kSumEvery pair tiles between tree sums (<= 64 a lane): its working set,
+// 7.5 KB a warp in f32 with the shipped table's 8 shapes (two pairs' powers
+// a lane), lets seven 4-warp blocks share an SM
+constexpr int kGTile = 256;
+constexpr int kSumEvery = 8;
 
 // One tile's compacted slots inside the angular cutoff
-constexpr int kCrossSlots = 4;   // slots a lane of a cross tile (128 a tile)
-static_assert(kMaxAng == 32, "ni_g_tiles sums one function a lane");
-constexpr int kSumEvery = 4;     // pair tiles a lane adds up between tree sums
-
 template <typename T, int S>
 struct CrossTile {
   T ux[32 * S], uy[32 * S], uz[32 * S], a[32 * S], fc[32 * S];
 };
 
+// ni_g_tiles' per-warp working set; after the kWarps of them, each warp's
+// [nshape][2][32] table of its lanes' two pairs' shape powers (sized by the
+// launch, so that a table of few shapes leaves room for more warps on an
+// SM)
 template <typename T, int S>
 struct CrossG {
-  CrossTile<T, S> own, other;
-  unsigned short pairs[kTile];     // p | q << 8 (compacted slots)
+  CrossTile<T, S> ta, tb;
+  unsigned short pairs[kGTile];    // key | other << 8 (compacted slots)
 };
+
+// ni_force_tiles' per-slot values of one tile: the cutoff's derivative
+// and the sums acc[0] (the u_p coefficient) and acc[1..3] (the
+// u_q-projected vector)
+template <typename T, int S>
+struct CrossSums {
+  T dfc[32 * S];
+  T acc[4][32 * S];
+};
+
+// ni_force_tiles lists kForceTile pairs at a time: its working set, 11 KB a
+// warp in f32, then lets five 4-warp blocks share an SM (four at 512)
+constexpr int kForceTile = 256;
 
 template <typename T, int S>
 struct CrossF {
-  CrossTile<T, S> own, other;
-  T dfc[32 * S], inv_r[32 * S];    // own slots: cutoff derivative, 1 / r
-  T acc1[32 * S], acc2x[32 * S], acc2y[32 * S], acc2z[32 * S];
+  CrossTile<T, S> ta, tb;
+  CrossSums<T, S> sa, sb;
   T wa[kMaxAng], wc[kMaxAng];
-  unsigned short pairs[kTile];
+  unsigned short pairs[kForceTile];
 };
+
+// The tiles (a, b), a <= b, of unit w of a row of nt tiles
+__device__ __forceinline__ void unit_tiles(int w, int nt, int* a, int* b) {
+  int i = 0;
+  while (w >= nt - i) {
+    w -= nt - i;
+    ++i;
+  }
+  *a = i;
+  *b = i + w;
+}
 
 // Compact the slots of tile `tile` of `row` inside the angular cutoff into
 // t, in slot order; returns their count. With dfc, the cutoff goes through
-// sincospi (ni_force's form) and dfc / inv_r take each slot's cutoff
-// derivative and 1 / r; rm / r / act keep every slot's geometry (ni_g's
-// radial sums).
+// sincospi (ni_force's form) and dfc takes each slot's cutoff derivative;
+// rm / r / act keep every slot's geometry (ni_g's radial sums).
 template <typename T, int S>
-__device__ __forceinline__ int load_tile(CrossTile<T, S>& t, T* dfc, T* inv_r,
+__device__ __forceinline__ int load_tile(CrossTile<T, S>& t, T* dfc,
                                          const T* dxx, const T* dxy,
                                          const T* dxz, long long row, int k,
                                          int tile, int lane, double rc_a,
@@ -734,7 +796,6 @@ __device__ __forceinline__ int load_tile(CrossTile<T, S>& t, T* dfc, T* inv_r,
         dev_sincospi(g.rm * inv_rc, &sn, &cn);
         t.fc[c] = T(0.5) * (cn + T(1));
         dfc[c] = T(-0.5 * CUDART_PI / rc_a) * sn;
-        inv_r[c] = g.inv_r;
       } else {
         t.fc[c] = T(0.5) * (dev_cospi(g.rm * inv_rc) + T(1));
       }
@@ -748,35 +809,49 @@ __device__ __forceinline__ int load_tile(CrossTile<T, S>& t, T* dfc, T* inv_r,
   return n;
 }
 
-// Stage 1 of both cross-tile kernels: candidates t = pi n_b + qi of (p, q)
-// in tiles (ta, tb), 32 a round; those with r_pq < Rc, p != q, go to the
-// pair tile. Starts at candidate *cand, stops when the candidates are done
-// or the tile could not take another round; advances *cand and returns the
+// Stage 1 of both cross-tile kernels: the candidates t of a unit, 32 a
+// round (pair tiles of kCap), as compacted slots (key of tile a, other of tile b), key-major:
+// for a != b, t = key n_b + other over every (key, other); for a == b
+// (same, tb = ta), t = key (key - 1) / 2 + other over the pairs
+// other < key. Those with r < Rc go to the pair tile, so the tile is sorted
+// by key. Starts at candidate *cand, stops when the candidates are done or
+// the tile could not take another round; advances *cand and returns the
 // tile's pairs.
-template <typename T, int S>
-__device__ __forceinline__ int list_cross(unsigned short* pairs,
-                                          const CrossTile<T, S>& ta,
-                                          const CrossTile<T, S>& tb,
-                                          bool same, int n_b, int n_cand,
-                                          unsigned magic, int* cand,
-                                          int lane, T rc_a2) {
+template <int kCap, typename T, int S>
+__device__ __forceinline__ int list_unit(unsigned short* pairs,
+                                         const CrossTile<T, S>& ta,
+                                         const CrossTile<T, S>& tb, bool same,
+                                         int n_b, int n_cand, unsigned magic,
+                                         int* cand, int lane, T rc_a2) {
   const unsigned lt_mask = (1u << lane) - 1u;
   int n_pair = 0;
   int base = *cand;
-  for (; base < n_cand && n_pair <= kTile - 32; base += 32) {
+  for (; base < n_cand && n_pair <= kCap - 32; base += 32) {
     const bool c = base + lane < n_cand;
     const int t = c ? base + lane : 0;
-    const int pi = n_b > 1 ? (int)__umulhi((unsigned)t, magic) : t;
-    const int qi = t - pi * n_b;
-    const T ap = ta.a[pi], aq = tb.a[qi];
-    const T cs = ta.ux[pi] * tb.ux[qi] + ta.uy[pi] * tb.uy[qi]
-                 + ta.uz[pi] * tb.uz[qi];
+    int ki, oi;
+    if (same) {
+      // the largest ki with ki (ki - 1) / 2 <= t; for t < 2^20 the float
+      // root is off by at most one, which the two tests mend
+      ki = (int)(0.5f * (1.0f + sqrtf(8.0f * (float)t + 1.0f)));
+      if (ki * (ki - 1) / 2 > t)
+        --ki;
+      else if (ki * (ki + 1) / 2 <= t)
+        ++ki;
+      oi = t - ki * (ki - 1) / 2;
+    } else {
+      ki = n_b > 1 ? (int)__umulhi((unsigned)t, magic) : t;
+      oi = t - ki * n_b;
+    }
+    const T ap = ta.a[ki], aq = tb.a[oi];
+    const T cs = ta.ux[ki] * tb.ux[oi] + ta.uy[ki] * tb.uy[oi]
+                 + ta.uz[ki] * tb.uz[oi];
     const T r2 = ap * ap + aq * aq - T(2) * ap * aq * cs;
-    const bool ok = c && r2 < rc_a2 && !(same && pi == qi);
+    const bool ok = c && r2 < rc_a2;
     const unsigned okm = __ballot_sync(kFull, ok);
     if (ok)
       pairs[n_pair + __popc(okm & lt_mask)] =
-          (unsigned short)(pi | (qi << 8));
+          (unsigned short)(ki | (oi << 8));
     n_pair += __popc(okm);
   }
   *cand = base;
@@ -798,7 +873,7 @@ __device__ __forceinline__ void swap_add(T (&v)[32], int lane) {
   }
 }
 
-// v[f] summed over the warp for every f < 32, the sum of function `lane`
+// v[e] summed over the warp for every e < 32, the sum of entry `lane`
 // returned on each lane (16 + 8 + 4 + 2 + 1 shuffles, a fixed tree).
 template <typename T>
 __device__ __forceinline__ T warp_sum_transposed(T (&v)[32], int lane) {
@@ -820,122 +895,167 @@ ni_g_tiles_kernel(const T* __restrict__ dxx, const T* __restrict__ dxy,
   const int lane = threadIdx.x & 31;
   const long long unit = (long long)blockIdx.x * kWarps + (threadIdx.x >> 5);
   if (unit >= units) return;       // uniform across the warp
-  const long long row = unit / nt;
-  const int ta = (int)(unit - row * nt);
-  CrossG<T, S>& sh = reinterpret_cast<CrossG<T, S>*>(smem)[threadIdx.x >> 5];
+  const int nu = nt * (nt + 1) / 2;
+  const long long row = unit / nu;
+  int ta, tb;
+  unit_tiles((int)(unit - row * nu), nt, &ta, &tb);
+  const bool same = ta == tb;
+  const int warp = threadIdx.x >> 5;
+  CrossG<T, S>& sh = reinterpret_cast<CrossG<T, S>*>(smem)[warp];
+  T* fzs = reinterpret_cast<T*>(smem + kWarps * sizeof(CrossG<T, S>))
+           + warp * cfg.nshape * 64 + lane;
   T* g_row = g_part + unit * kNsfSub;
-  if (lane >= cfg.nrad + cfg.nang) g_row[lane] = T(0);
+  if (lane >= cfg.nrad + cfg.nang || (lane < cfg.nrad && !same))
+    g_row[lane] = T(0);
 
   bool act[S];
   T rm[S], r[S];
-  const int n_a = load_tile(sh.own, (T*)nullptr, (T*)nullptr, dxx, dxy, dxz,
-                            row, k, ta, lane, cfg.rc_a, act, rm, r);
-  // radial G2 of the own tile's slots
-  for (int mi = 0; mi < cfg.nrad; ++mi) {
-    const double rc_r = cfg.rad_rc[mi];
-    const T eta = T(cfg.rad_eta[mi]);
-    T v = T(0);
+  const int n_a = load_tile(sh.ta, (T*)nullptr, dxx, dxy, dxz, row, k, ta,
+                            lane, cfg.rc_a, act, rm, r);
+  if (same) {                      // radial G2 of the tile's slots
+    for (int mi = 0; mi < cfg.nrad; ++mi) {
+      const double rc_r = cfg.rad_rc[mi];
+      const T eta = T(cfg.rad_eta[mi]);
+      T v = T(0);
 #pragma unroll
-    for (int s = 0; s < S; ++s) {
-      T rr;
-      const bool in_r = radial_in(act[s], rm[s], r[s], rc_r, &rr);
-      const T fc_r =
-          in_r ? T(0.5) * (dev_cos(T(CUDART_PI / rc_r) * rr) + T(1)) : T(0);
-      v = v + dev_exp(-eta * rr * rr) * fc_r;
+      for (int s = 0; s < S; ++s) {
+        T rr;
+        const bool in_r = radial_in(act[s], rm[s], r[s], rc_r, &rr);
+        const T fc_r =
+            in_r ? T(0.5) * (dev_cos(T(CUDART_PI / rc_r) * rr) + T(1)) : T(0);
+        v = v + dev_exp(-eta * rr * rr) * fc_r;
+      }
+      v = warp_sum(v);
+      if (lane == 0) g_row[mi] = v;
     }
-    v = warp_sum(v);
-    if (lane == 0) g_row[mi] = v;
   }
+  const int n_b = same ? n_a
+                       : load_tile(sh.tb, (T*)nullptr, dxx, dxy, dxz, row, k,
+                                   tb, lane, cfg.rc_a, act, rm, r);
+  const CrossTile<T, S>& ot = same ? sh.ta : sh.tb;
 
-  // angular: the own tile's p against every tile's q, one pair a lane;
-  // acc: this lane's terms of the last <= kSumEvery pair tiles; tot: on
-  // lane f, function f's sum of the warp's acc, batch by batch
+  // angular, two pairs a lane; v: this lane's entry sums of the last
+  // <= kSumEvery pair tiles; tot: on lane e, entry e's sum of the warp's v,
+  // batch by batch
   const T inv_rc = T(1.0 / cfg.rc_a);
   const T rc_a2 = T(cfg.rc_a * cfg.rc_a);
-  T acc[kMaxAng];
+  T v[kMaxAng];
 #pragma unroll
-  for (int f = 0; f < kMaxAng; ++f) acc[f] = T(0);
+  for (int e = 0; e < kMaxAng; ++e) v[e] = T(0);
   T tot = T(0);
   int held = 0;
-  for (int tb = 0; tb < nt && n_a > 0; ++tb) {
-    const bool same = tb == ta;
-    const CrossTile<T, S>& ot = same ? sh.own : sh.other;
-    const int n_b = same ? n_a
-                         : load_tile(sh.other, (T*)nullptr, (T*)nullptr, dxx,
-                                     dxy, dxz, row, k, tb, lane, cfg.rc_a,
-                                     act, rm, r);
-    const int n_cand = n_a * n_b;
-    const unsigned magic = div_magic(n_b);
-    int cand = 0;
-    while (cand < n_cand) {
-      const int n_pair = list_cross(sh.pairs, sh.own, ot, same, n_b, n_cand,
-                                    magic, &cand, lane, rc_a2);
-      for (int base = 0; base < n_pair; base += 32) {
-        if (base + lane >= n_pair) continue;
-        const int pr = sh.pairs[base + lane];
+  const int n_cand = same ? n_a * (n_a - 1) / 2 : n_a * n_b;
+  const unsigned magic = div_magic(n_b);
+  int cand = 0;
+  while (cand < n_cand) {
+    const int n_pair = list_unit<kGTile>(sh.pairs, sh.ta, ot, same, n_b,
+                                         n_cand, magic, &cand, lane, rc_a2);
+    for (int base = 0; base < n_pair; base += 64) {
+      if (base + lane >= n_pair) continue;
+      // two pairs a lane, the second with fc3 0 past the list
+      T cs[2], r2sum[2], fc3[2];
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int i = base + 32 * h + lane;
+        const int pr = sh.pairs[i < n_pair ? i : base + lane];
         const int pi = pr & 0xff, qi = pr >> 8;
-        const T ap = sh.own.a[pi], aq = ot.a[qi];
-        const T cs = sh.own.ux[pi] * ot.ux[qi] + sh.own.uy[pi] * ot.uy[qi]
-                     + sh.own.uz[pi] * ot.uz[qi];
-        const T r2 = ap * ap + aq * aq - T(2) * ap * aq * cs;
+        const T ap = sh.ta.a[pi], aq = ot.a[qi];
+        cs[h] = sh.ta.ux[pi] * ot.ux[qi] + sh.ta.uy[pi] * ot.uy[qi]
+                + sh.ta.uz[pi] * ot.uz[qi];
+        const T r2 = ap * ap + aq * aq - T(2) * ap * aq * cs[h];
         const T rpq = dev_sqrt(r2 > T(1.0e-12) ? r2 : T(1.0e-12));
         const T fc_pq = T(0.5) * (dev_cospi(rpq * inv_rc) + T(1));
-        const T fc3 = sh.own.fc[pi] * ot.fc[qi] * fc_pq;
-        const T r2sum = ap * ap + aq * aq + r2;
-        T t_eta = T(0);
+        fc3[h] = i < n_pair ? sh.ta.fc[pi] * ot.fc[qi] * fc_pq : T(0);
+        r2sum[h] = ap * ap + aq * aq + r2;
+      }
+      // each shape's f^zeta once a pair (_pow_zeta's products), the
+      // power-of-two zetas of one lambda along one squaring chain
+      T pz[2] = {T(0), T(0)};
+      for (int s = 0; s < cfg.nshape; ++s) {
+        const int adv = cfg.sh_adv[s];
 #pragma unroll
-        for (int f = 0; f < kMaxAng; ++f) {
-          if (f < cfg.nang) {
-            if (cfg.first[f]) t_eta = dev_exp(-cfg.eta[f] * r2sum) * fc3;
-            const T fz = pow_zeta(T(1) + cfg.lam[f] * cs, cfg.zeta[f],
-                                  cfg.zlog2[f], (T*)nullptr);
-            acc[f] = acc[f] + cfg.coef[f] * fz * t_eta;
+        for (int h = 0; h < 2; ++h) {
+          T fz;
+          if (adv < 0) {
+            fz = pow_route(T(1) + cfg.sh_lam[s] * cs[h], cfg.sh_zeta[s],
+                           (T*)nullptr);
+          } else {
+            if (cfg.sh_new[s]) pz[h] = T(1) + cfg.sh_lam[s] * cs[h];
+            for (int q = 0; q < adv; ++q) pz[h] = pz[h] * pz[h];
+            fz = pz[h];
           }
+          fzs[(2 * s + h) * 32] = fz;
         }
       }
-      if (++held == kSumEvery) {
-        tot = tot + warp_sum_transposed(acc, lane);
+      // each (group, shape) entry's terms, one exp a group and pair
+      T t0 = T(0), t1 = T(0);
 #pragma unroll
-        for (int f = 0; f < kMaxAng; ++f) acc[f] = T(0);
-        held = 0;
+      for (int e = 0; e < kMaxAng; ++e) {
+        if (e < cfg.nent) {
+          if (cfg.ent_first[e]) {
+            t0 = dev_exp(-cfg.ent_eta[e] * r2sum[0]) * fc3[0];
+            t1 = dev_exp(-cfg.ent_eta[e] * r2sum[1]) * fc3[1];
+          }
+          const int o = cfg.ent_sh[e] * 64;
+          v[e] = v[e] + (fzs[o] * t0 + fzs[o + 32] * t1);
+        }
       }
-      __syncwarp();                // the pair tile is read before it is refilled
     }
-    __syncwarp();                  // the other tile is read before it is refilled
+    if (++held == kSumEvery) {
+      tot = tot + warp_sum_transposed(v, lane);
+#pragma unroll
+      for (int e = 0; e < kMaxAng; ++e) v[e] = T(0);
+      held = 0;
+    }
+    __syncwarp();                  // the pair tile is read before it is refilled
   }
-  tot = tot + warp_sum_transposed(acc, lane);
-  if (lane < cfg.nang) g_row[cfg.col[lane]] = T(0.5) * tot;
+  tot = tot + warp_sum_transposed(v, lane);
+  // function f: 2^(1 - zeta) times its entry's sum
+  const T ent_sum = __shfl_sync(kFull, tot, lane < cfg.nang ? cfg.ent[lane]
+                                                            : 0);
+  if (lane < cfg.nang) g_row[cfg.col[lane]] = cfg.coef[lane] * ent_sum;
 }
 
 template <typename T, int S>
 __global__ void __launch_bounds__(kWarps * 32)
 ni_force_tiles_kernel(const T* __restrict__ dxx, const T* __restrict__ dxy,
                       const T* __restrict__ dxz, const T* __restrict__ dedg,
-                      T* __restrict__ fjx, T* __restrict__ fjy,
-                      T* __restrict__ fjz, long long units, int nt, int k,
+                      T* __restrict__ part, long long units, int nt, int k,
                       const __grid_constant__ NiCfg<T> cfg) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int lane = threadIdx.x & 31;
   const long long unit = (long long)blockIdx.x * kWarps + (threadIdx.x >> 5);
   if (unit >= units) return;       // uniform across the warp
-  const long long row = unit / nt;
-  const int ta = (int)(unit - row * nt);
+  const int nu = nt * (nt + 1) / 2;
+  const long long row = unit / nu;
+  int ta, tb;
+  unit_tiles((int)(unit - row * nu), nt, &ta, &tb);
+  const bool same = ta == tb;
   CrossF<T, S>& fr = reinterpret_cast<CrossF<T, S>*>(smem)[threadIdx.x >> 5];
   const T* w_row = dedg + row * kNsfSub;
   const T inv_rc = T(1.0 / cfg.rc_a);
   const T dfc_scale = T(-0.5 * CUDART_PI / cfg.rc_a);
   const T rc_a2 = T(cfg.rc_a * cfg.rc_a);
-  const unsigned lt_mask = (1u << lane) - 1u;
+  const T cfl = T(kCfLength);
 
   bool act[S];
   T rm[S], r[S];
-  const int n_a = load_tile(fr.own, fr.dfc, fr.inv_r, dxx, dxy, dxz, row, k,
-                            ta, lane, cfg.rc_a, act, rm, r);
+  const int n_a = load_tile(fr.ta, fr.sa.dfc, dxx, dxy, dxz, row, k, ta,
+                            lane, cfg.rc_a, act, rm, r);
+  const int n_b = same ? n_a
+                       : load_tile(fr.tb, fr.sb.dfc, dxx, dxy, dxz, row, k,
+                                   tb, lane, cfg.rc_a, act, rm, r);
+  const CrossTile<T, S>& ot = same ? fr.ta : fr.tb;
+  CrossSums<T, S>& os = same ? fr.sa : fr.sb;
   for (int i = lane; i < n_a; i += 32) {
-    fr.acc1[i] = T(0);
-    fr.acc2x[i] = T(0);
-    fr.acc2y[i] = T(0);
-    fr.acc2z[i] = T(0);
+#pragma unroll
+    for (int c = 0; c < 4; ++c) fr.sa.acc[c][i] = T(0);
+  }
+  if (!same) {
+    for (int i = lane; i < n_b; i += 32) {
+#pragma unroll
+      for (int c = 0; c < 4; ++c) fr.sb.acc[c][i] = T(0);
+    }
   }
   // per (group, shape) entry: its functions' dE/dG_col 2^(1 - zeta), in
   // function order
@@ -953,90 +1073,136 @@ ni_force_tiles_kernel(const T* __restrict__ dxx, const T* __restrict__ dxy,
   }
   __syncwarp();
 
-  for (int tb = 0; tb < nt && n_a > 0; ++tb) {
-    const bool same = tb == ta;
-    const CrossTile<T, S>& ot = same ? fr.own : fr.other;
-    const int n_b = same ? n_a
-                         : load_tile(fr.other, (T*)nullptr, (T*)nullptr, dxx,
-                                     dxy, dxz, row, k, tb, lane, cfg.rc_a,
-                                     act, rm, r);
-    const int n_cand = n_a * n_b;
-    const unsigned magic = div_magic(n_b);
-    int cand = 0;
-    while (cand < n_cand) {
-      const int n_pair = list_cross(fr.pairs, fr.own, ot, same, n_b, n_cand,
-                                    magic, &cand, lane, rc_a2);
-      for (int base = 0; base < n_pair; base += 32) {
-        const bool has = base + lane < n_pair;
-        // p's own side of the pair: d(sum w G)/dx_p = C1 u_p + C2 u_q
-        int key = 1 << 16;         // past every p: lanes without a pair
-        T v1 = T(0), v2x = T(0), v2y = T(0), v2z = T(0);
-        if (has) {
-          const int pr = fr.pairs[base + lane];
-          const int pi = pr & 0xff, qi = pr >> 8;
-          key = pi;
-          const T uqx = ot.ux[qi], uqy = ot.uy[qi], uqz = ot.uz[qi];
-          const T ap = fr.own.a[pi], aq = ot.a[qi];
-          const T fcp = fr.own.fc[pi], fcq = ot.fc[qi];
-          const T cs = fr.own.ux[pi] * uqx + fr.own.uy[pi] * uqy
-                       + fr.own.uz[pi] * uqz;
-          const T r2 = ap * ap + aq * aq - T(2) * ap * aq * cs;
-          const T rpq = dev_sqrt(r2 > T(1.0e-12) ? r2 : T(1.0e-12));
-          T sn, cn;
-          dev_sincospi(rpq * inv_rc, &sn, &cn);
-          const T fc_pq = T(0.5) * (cn + T(1));
-          const T dfc_pq = dfc_scale * sn;
-          const T fcpq2 = fcp * fcq;
-          const T fc3 = fcpq2 * fc_pq;
-          const T r2sum = ap * ap + aq * aq + r2;
-          T p_a, p_e, p_cs;
-          angular_sums(cfg, fr.wa, fr.wc, cs, r2sum, &p_a, &p_e, &p_cs);
-          const T cfl = T(kCfLength);
-          const T p_c = fc3 * p_cs;
-          const T pe3 = T(-2) * p_e * fc3;
-          const T p_pq = rpq * pe3 + fcpq2 * dfc_pq * p_a;
-          const T cpq = cfl * p_pq / rpq;
-          const T p_ap = ap * pe3 + fr.dfc[pi] * fcq * fc_pq * p_a;
-          const T irp = fr.inv_r[pi];
-          v1 = p_c * cs * irp - cfl * p_ap - cpq * ap;
-          const T c2 = cpq * aq - p_c * irp;
-          v2x = c2 * uqx;
-          v2y = c2 * uqy;
-          v2z = c2 * uqz;
-        }
-        // segmented suffix sums over the lanes of one p (keys ascend)
+  const int n_cand = same ? n_a * (n_a - 1) / 2 : n_a * n_b;
+  const unsigned magic = div_magic(n_b);
+  int cand = 0;
+  while (cand < n_cand) {
+    const int n_pair = list_unit<kForceTile>(fr.pairs, fr.ta, ot, same, n_b,
+                                             n_cand, magic, &cand, lane,
+                                             rc_a2);
+    for (int base = 0; base < n_pair; base += 32) {
+      const bool has = base + lane < n_pair;
+      // the pair's two sides: d(sum w G)/dx_p = C1 u_p + C2 u_q for the key
+      // slot p (v) and the same with p and q exchanged for the other (w)
+      int key = 1 << 16;           // past every slot: lanes without a pair
+      int oi = 0;
+      T v[4] = {T(0), T(0), T(0), T(0)}, w[4] = {T(0), T(0), T(0), T(0)};
+      if (has) {
+        const int pr = fr.pairs[base + lane];
+        key = pr & 0xff;
+        oi = pr >> 8;
+        const T upx = fr.ta.ux[key], upy = fr.ta.uy[key],
+                upz = fr.ta.uz[key];
+        const T uqx = ot.ux[oi], uqy = ot.uy[oi], uqz = ot.uz[oi];
+        const T ap = fr.ta.a[key], aq = ot.a[oi];
+        const T fcp = fr.ta.fc[key], fcq = ot.fc[oi];
+        const T cs = upx * uqx + upy * uqy + upz * uqz;
+        const T r2 = ap * ap + aq * aq - T(2) * ap * aq * cs;
+        const T rpq = dev_sqrt(r2 > T(1.0e-12) ? r2 : T(1.0e-12));
+        T sn, cn;
+        dev_sincospi(rpq * inv_rc, &sn, &cn);
+        const T fc_pq = T(0.5) * (cn + T(1));
+        const T dfc_pq = dfc_scale * sn;
+        const T fcpq2 = fcp * fcq;
+        const T fc3 = fcpq2 * fc_pq;
+        const T r2sum = ap * ap + aq * aq + r2;
+        T p_a, p_e, p_cs;
+        angular_sums(cfg, fr.wa, fr.wc, cs, r2sum, &p_a, &p_e, &p_cs);
+        // partials of h in the independent variables c, a_p, a_q, r_pq
+        const T p_c = fc3 * p_cs;
+        const T pe3 = T(-2) * p_e * fc3;
+        const T p_pq = rpq * pe3 + fcpq2 * dfc_pq * p_a;
+        const T cpq = cfl * p_pq / rpq;
+        const T p_ap = ap * pe3 + fr.sa.dfc[key] * fcq * fc_pq * p_a;
+        const T p_aq = aq * pe3 + os.dfc[oi] * fcp * fc_pq * p_a;
+        // 1 / r from the Bohr radius a = CFLENGTH r
+        const T irp = cfl / ap, irq = cfl / aq;
+        v[0] = p_c * cs * irp - cfl * p_ap - cpq * ap;
+        const T c2p = cpq * aq - p_c * irp;
+        v[1] = c2p * uqx;
+        v[2] = c2p * uqy;
+        v[3] = c2p * uqz;
+        w[0] = p_c * cs * irq - cfl * p_aq - cpq * aq;
+        const T c2q = cpq * ap - p_c * irq;
+        w[1] = c2q * upx;
+        w[2] = c2q * upy;
+        w[3] = c2q * upz;
+      }
+      // the key side: segmented suffix sums over the lanes of one key
+      // (keys ascend), the segment's first lane adding the total
 #pragma unroll
-        for (int o = 1; o < 32; o <<= 1) {
-          const int ko = __shfl_down_sync(kFull, key, o);
-          const T d1 = __shfl_down_sync(kFull, v1, o);
-          const T dx = __shfl_down_sync(kFull, v2x, o);
-          const T dy = __shfl_down_sync(kFull, v2y, o);
-          const T dz = __shfl_down_sync(kFull, v2z, o);
-          if (lane + o < 32 && ko == key) {
-            v1 = v1 + d1;
-            v2x = v2x + dx;
-            v2y = v2y + dy;
-            v2z = v2z + dz;
-          }
+      for (int o = 1; o < 32; o <<= 1) {
+        const int ko = __shfl_down_sync(kFull, key, o);
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          const T d = __shfl_down_sync(kFull, v[c], o);
+          if (lane + o < 32 && ko == key) v[c] = v[c] + d;
         }
-        const int kprev = __shfl_up_sync(kFull, key, 1);
-        if (has && (lane == 0 || kprev != key)) {
-          fr.acc1[key] = fr.acc1[key] + v1;
-          fr.acc2x[key] = fr.acc2x[key] + v2x;
-          fr.acc2y[key] = fr.acc2y[key] + v2y;
-          fr.acc2z[key] = fr.acc2z[key] + v2z;
+      }
+      const int kprev = __shfl_up_sync(kFull, key, 1);
+      const bool lead = has && (lane == 0 || kprev != key);
+      if (lead) {
+#pragma unroll
+        for (int c = 0; c < 4; ++c) fr.sa.acc[c][key] = fr.sa.acc[c][key] + v[c];
+      }
+      __syncwarp();
+      // the other side: one key segment at a time, in lane order (within a
+      // segment the other slots differ)
+      const unsigned seg = __ballot_sync(kFull, lead);
+      const int mine = __popc(seg & ((2u << lane) - 1u)) - 1;
+      const int n_seg = __popc(seg);
+      for (int s = 0; s < n_seg; ++s) {
+        if (has && mine == s) {
+#pragma unroll
+          for (int c = 0; c < 4; ++c) os.acc[c][oi] = os.acc[c][oi] + w[c];
         }
         __syncwarp();
       }
     }
-    __syncwarp();                  // the other tile is read before it is refilled
   }
 
-  // each own slot: Fj = radial +coeff u, angular -(acc1 u + acc2)
+  // the unit's partials: tile a's slot sums at (a, b), tile b's at (b, a)
+  constexpr int kSlots = 32 * S;
+  T* pa = part + ((row * nt + ta) * nt + tb) * 4 * kSlots;
+  for (int i = lane; i < n_a; i += 32) {
+#pragma unroll
+    for (int c = 0; c < 4; ++c) pa[c * kSlots + i] = fr.sa.acc[c][i];
+  }
+  if (!same) {
+    T* pb = part + ((row * nt + tb) * nt + ta) * 4 * kSlots;
+    for (int i = lane; i < n_b; i += 32) {
+#pragma unroll
+      for (int c = 0; c < 4; ++c) pb[c * kSlots + i] = fr.sb.acc[c][i];
+    }
+  }
+}
+
+// ni_force_tiles' second kernel, one warp a (row, tile a): each slot's
+// partials summed in tile order, then Fj = radial +coeff u, angular
+// -(acc1 u + acc2)
+template <typename T, int S>
+__global__ void __launch_bounds__(kWarps * 32)
+ni_force_tiles_sum_kernel(const T* __restrict__ dxx,
+                          const T* __restrict__ dxy,
+                          const T* __restrict__ dxz,
+                          const T* __restrict__ dedg,
+                          const T* __restrict__ part, T* __restrict__ fjx,
+                          T* __restrict__ fjy, T* __restrict__ fjz,
+                          long long units, int nt, int k,
+                          const __grid_constant__ NiCfg<T> cfg) {
+  const int lane = threadIdx.x & 31;
+  const long long unit = (long long)blockIdx.x * kWarps + (threadIdx.x >> 5);
+  if (unit >= units) return;       // uniform across the warp
+  const long long row = unit / nt;
+  const int ta = (int)(unit - row * nt);
+  const T* w_row = dedg + row * kNsfSub;
+  constexpr int kSlots = 32 * S;
+  const T* pa = part + (row * nt + ta) * nt * 4 * kSlots;
+  const unsigned lt_mask = (1u << lane) - 1u;
   int n_c = 0;
 #pragma unroll
   for (int s = 0; s < S; ++s) {
-    const int slot = ta * 32 * S + s * 32 + lane;
+    const int slot = ta * kSlots + s * 32 + lane;
     const long long o = row * k + slot;
     const Geo<T> g = ni_geometry(dxx, dxy, dxz, o, slot < k, cfg.rc_a);
     const unsigned in_mask = __ballot_sync(kFull, g.in_a);
@@ -1044,16 +1210,17 @@ ni_force_tiles_kernel(const T* __restrict__ dxx, const T* __restrict__ dxy,
     n_c += __popc(in_mask);
     if (!g.active) continue;
     const T coeff = radial_coeff(cfg, w_row, g);
-    T acc1 = T(0), acc2x = T(0), acc2y = T(0), acc2z = T(0);
+    T acc[4] = {T(0), T(0), T(0), T(0)};
     if (g.in_a) {
-      acc1 = fr.acc1[c];
-      acc2x = fr.acc2x[c];
-      acc2y = fr.acc2y[c];
-      acc2z = fr.acc2z[c];
+      for (int b = 0; b < nt; ++b) {
+#pragma unroll
+        for (int q = 0; q < 4; ++q)
+          acc[q] = acc[q] + pa[(b * 4 + q) * kSlots + c];
+      }
     }
-    fjx[o] = (coeff - acc1) * g.ux - acc2x;
-    fjy[o] = (coeff - acc1) * g.uy - acc2y;
-    fjz[o] = (coeff - acc1) * g.uz - acc2z;
+    fjx[o] = (coeff - acc[0]) * g.ux - acc[1];
+    fjy[o] = (coeff - acc[0]) * g.uy - acc[2];
+    fjz[o] = (coeff - acc[0]) * g.uz - acc[3];
   }
 }
 
@@ -1128,31 +1295,50 @@ template <typename T, int S>
 int launch_g_tiles_s(const void* dxx, const void* dxy, const void* dxz,
                      void* g_part, long long p, int k, const void* cfg,
                      cudaStream_t stream) {
-  constexpr size_t smem = kWarps * sizeof(CrossG<T, S>);
-  static const int attr = set_smem(ni_g_tiles_kernel<T, S>, smem);
+  constexpr size_t fixed = kWarps * sizeof(CrossG<T, S>);
+  static const int attr = set_smem(
+      ni_g_tiles_kernel<T, S>, fixed + kWarps * kMaxShape * 64 * sizeof(T));
   if (attr != 0) return attr;
+  const size_t smem = fixed + kWarps * ((const NiCfg<T>*)cfg)->nshape * 64
+                                  * sizeof(T);
   const int nt = (k + 32 * S - 1) / (32 * S);
-  const long long units = p * nt;
+  const long long units = p * (nt * (nt + 1) / 2);
   ni_g_tiles_kernel<T, S><<<n_blocks(units), kWarps * 32, smem, stream>>>(
       (const T*)dxx, (const T*)dxy, (const T*)dxz, (T*)g_part, units, nt, k,
       *(const NiCfg<T>*)cfg);
   return (int)cudaGetLastError();
 }
 
+// ni_force_tiles' unit kernel: part [p, T, T, 4, 32 S] of p rows
 template <typename T, int S>
 int launch_force_tiles_s(const void* dxx, const void* dxy, const void* dxz,
-                         const void* dedg, void* fjx, void* fjy, void* fjz,
-                         long long p, int k, const void* cfg,
-                         cudaStream_t stream) {
+                         const void* dedg, void* part, long long p, int k,
+                         const void* cfg, cudaStream_t stream) {
   constexpr size_t smem = kWarps * sizeof(CrossF<T, S>);
   static const int attr = set_smem(ni_force_tiles_kernel<T, S>, smem);
   if (attr != 0) return attr;
   const int nt = (k + 32 * S - 1) / (32 * S);
-  const long long units = p * nt;
+  const long long units = p * (nt * (nt + 1) / 2);
   ni_force_tiles_kernel<T, S><<<n_blocks(units), kWarps * 32, smem,
                                 stream>>>(
+      (const T*)dxx, (const T*)dxy, (const T*)dxz, (const T*)dedg, (T*)part,
+      units, nt, k, *(const NiCfg<T>*)cfg);
+  return (int)cudaGetLastError();
+}
+
+// ni_force_tiles' sum kernel: Fj of p rows from their part
+template <typename T, int S>
+int launch_force_tiles_sum_s(const void* dxx, const void* dxy,
+                             const void* dxz, const void* dedg,
+                             const void* part, void* fjx, void* fjy,
+                             void* fjz, long long p, int k, const void* cfg,
+                             cudaStream_t stream) {
+  const int nt = (k + 32 * S - 1) / (32 * S);
+  ni_force_tiles_sum_kernel<T, S><<<n_blocks(p * nt), kWarps * 32, 0,
+                                    stream>>>(
       (const T*)dxx, (const T*)dxy, (const T*)dxz, (const T*)dedg,
-      (T*)fjx, (T*)fjy, (T*)fjz, units, nt, k, *(const NiCfg<T>*)cfg);
+      (const T*)part, (T*)fjx, (T*)fjy, (T*)fjz, p * nt, nt, k,
+      *(const NiCfg<T>*)cfg);
   return (int)cudaGetLastError();
 }
 
@@ -1167,12 +1353,22 @@ int launch_g_tiles(const void* dxx, const void* dxy, const void* dxz,
 
 template <typename T>
 int launch_force_tiles(const void* dxx, const void* dxy, const void* dxz,
-                       const void* dedg, void* fjx, void* fjy, void* fjz,
-                       long long p, int k, const void* cfg, void* stream) {
+                       const void* dedg, void* part, long long p, int k,
+                       const void* cfg, void* stream) {
   if (p <= 0) return 0;
-  return launch_force_tiles_s<T, kCrossSlots>(dxx, dxy, dxz, dedg, fjx, fjy,
-                                              fjz, p, k, cfg,
-                                              (cudaStream_t)stream);
+  return launch_force_tiles_s<T, kCrossSlots>(dxx, dxy, dxz, dedg, part, p,
+                                              k, cfg, (cudaStream_t)stream);
+}
+
+template <typename T>
+int launch_force_tiles_sum(const void* dxx, const void* dxy, const void* dxz,
+                           const void* dedg, const void* part, void* fjx,
+                           void* fjy, void* fjz, long long p, int k,
+                           const void* cfg, void* stream) {
+  if (p <= 0) return 0;
+  return launch_force_tiles_sum_s<T, kCrossSlots>(
+      dxx, dxy, dxz, dedg, part, fjx, fjy, fjz, p, k, cfg,
+      (cudaStream_t)stream);
 }
 
 }  // namespace
@@ -1207,8 +1403,8 @@ int ni_force_f64(const void* dxx, const void* dxy, const void* dxz,
                               stream);
 }
 
-// rows of K > 512 in tiles of 128 slots: g_part [P, T, 32],
-// T = ceil(K / 128)
+// rows of K > 512 in tiles of 32 kCrossSlots slots: g_part [P, U, 32],
+// U = T (T + 1) / 2 units of T = ceil(K / tile) tiles
 int ni_g_tiles_f32(const void* dxx, const void* dxy, const void* dxz,
                    void* g_part, long long p, int k, const void* cfg,
                    void* stream) {
@@ -1221,18 +1417,36 @@ int ni_g_tiles_f64(const void* dxx, const void* dxy, const void* dxz,
   return launch_g_tiles<double>(dxx, dxy, dxz, g_part, p, k, cfg, stream);
 }
 
+// ni_force_tiles in two kernels: the unit kernel writes part [P, T, T, 4,
+// tile] of P rows, the sum kernel reads it and writes their Fj
 int ni_force_tiles_f32(const void* dxx, const void* dxy, const void* dxz,
-                       const void* dedg, void* fjx, void* fjy, void* fjz,
-                       long long p, int k, const void* cfg, void* stream) {
-  return launch_force_tiles<float>(dxx, dxy, dxz, dedg, fjx, fjy, fjz, p, k,
-                                   cfg, stream);
+                       const void* dedg, void* part, long long p, int k,
+                       const void* cfg, void* stream) {
+  return launch_force_tiles<float>(dxx, dxy, dxz, dedg, part, p, k, cfg,
+                                   stream);
 }
 
 int ni_force_tiles_f64(const void* dxx, const void* dxy, const void* dxz,
-                       const void* dedg, void* fjx, void* fjy, void* fjz,
-                       long long p, int k, const void* cfg, void* stream) {
-  return launch_force_tiles<double>(dxx, dxy, dxz, dedg, fjx, fjy, fjz, p, k,
-                                    cfg, stream);
+                       const void* dedg, void* part, long long p, int k,
+                       const void* cfg, void* stream) {
+  return launch_force_tiles<double>(dxx, dxy, dxz, dedg, part, p, k, cfg,
+                                    stream);
+}
+
+int ni_force_tiles_sum_f32(const void* dxx, const void* dxy, const void* dxz,
+                           const void* dedg, const void* part, void* fjx,
+                           void* fjy, void* fjz, long long p, int k,
+                           const void* cfg, void* stream) {
+  return launch_force_tiles_sum<float>(dxx, dxy, dxz, dedg, part, fjx, fjy,
+                                       fjz, p, k, cfg, stream);
+}
+
+int ni_force_tiles_sum_f64(const void* dxx, const void* dxy, const void* dxz,
+                           const void* dedg, const void* part, void* fjx,
+                           void* fjy, void* fjz, long long p, int k,
+                           const void* cfg, void* stream) {
+  return launch_force_tiles_sum<double>(dxx, dxy, dxz, dedg, part, fjx, fjy,
+                                        fjz, p, k, cfg, stream);
 }
 
 }  // extern "C"

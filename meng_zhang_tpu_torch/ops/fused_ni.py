@@ -7,7 +7,8 @@ Counterpart of meng_zhang_tpu/ops/pallas_ni.py:
     kernels live in csrc/ni_bp.cu and are launched through ops/kernels.py;
     `ni_g_tiles_plain` / `ni_force_tiles_plain` are the plain twins of
     their cross-tile instances `ni_g_tiles` / `ni_force_tiles`, which
-    take rows of more than 512 slots;
+    take rows of more than 512 slots (`ni_force_tiles_part_plain` and
+    `ni_force_tiles_sum_plain` those of ni_force_tiles' two kernels);
   * `FusedNi`, the counterpart of `PallasNi` (:298), with the frame methods
     of the sharded drivers (`frames.FrameOps`): refresh-static short
     list at the descriptor cutoff + short_delta, gather, G2/G4 descriptors,
@@ -218,13 +219,12 @@ def _ni_g_lanes(dxx, dxy, dxz, table: NiTable):
     return radial, {col: 0.5 * v for col, v in acc.items()}
 
 
-def _g_of_lanes(radial, angular, lo, hi):
-    """g [P, 32] of the lanes [lo, hi) from _ni_g_lanes' shares."""
-    p = next(iter(radial.values())).shape[0]
+def _g_of_lanes(radial, angular):
+    """g [P, 32] from _ni_g_lanes' shares."""
     ref = next(iter(radial.values()))
-    cols = [ref.new_zeros(p)] * NSF_SUB
+    cols = [ref.new_zeros(ref.shape[0])] * NSF_SUB
     for col, v in list(radial.items()) + list(angular.items()):
-        cols[col] = v[:, lo:hi].sum(dim=1)
+        cols[col] = v.sum(dim=1)
     return torch.stack(cols, dim=1)
 
 
@@ -233,77 +233,135 @@ def ni_g_plain(dxx, dxy, dxz, table: NiTable):
     [P, K] dx planes. Cols [0, npsf) radial G2 = sum exp(-eta r^2) fc,
     cols npsf + n angular G4 = 1/2 sum_{p != q} 2^(1-zeta)
     (1 + lambda cos)^zeta exp(-eta r2sum) fc fc fc, rest 0 (Bohr)."""
-    return _g_of_lanes(*_ni_g_lanes(dxx, dxy, dxz, table), 0, dxx.shape[1])
+    return _g_of_lanes(*_ni_g_lanes(dxx, dxy, dxz, table))
+
+
+def cross_units(nt):
+    """The work units of the cross-tile kernels on a row of nt tiles: its
+    unordered tile pairs (a, b), a <= b, in unit order."""
+    return [(a, b) for a in range(nt) for b in range(a, nt)]
+
+
+def _tile_sums(v, tile, nt):
+    """v [P, n], n <= nt tile, summed within tiles of `tile` lanes:
+    [P, nt]."""
+    p, n = v.shape
+    v = torch.nn.functional.pad(v, (0, nt * tile - n))
+    return v.view(p, nt, tile).sum(dim=2)
 
 
 def ni_g_tiles_plain(dxx, dxy, dxz, table: NiTable, tile):
     """Plain twin of the cross-tile `ni_g_tiles` kernel: the row cut into
-    tiles of `tile` slots, g_part [P, T, 32] with tile t's radial G2 and
-    the angular terms of its slots p against the whole row (1/2 each
-    ordered pair); `fused_annp.sum_tiles` of it is g. A lane's terms do not
-    depend on the tiles, so they are computed once for the whole row
-    (`_ni_g_lanes`) and summed tile by tile."""
-    shares = _ni_g_lanes(dxx, dxy, dxz, table)
-    return torch.stack([_g_of_lanes(*shares, lo, lo + tile)
-                        for lo in range(0, dxx.shape[1], tile)], dim=1)
-
-
-def _force_angular(geo, dedg, table: NiTable, lo, hi, qs, acc=None):
-    """p's own side of the leg pairs (p, q), p in the lanes [lo, hi) and q
-    in `qs` in order, added to acc (acc1, acc2x, acc2y, acc2z), each
-    [P, hi - lo], or to zeros: the u_p coefficient acc1 and the
-    u_q-projected vector acc2 of ni_force_plain's q loop. geo: the whole
-    row's (ux, uy, uz, a, in_a, fc_a, dfc_a, inv_r)."""
-    _, rc_a, ang = table
-    ux, uy, uz, a, in_a, fc_a, dfc_a, inv_r = geo
-    lane = torch.arange(ux.shape[1], device=ux.device)[None, :]
-    pux, puy, puz, ap, p_in, fcp, dfcp, irp, plane = (
-        t[:, lo:hi] for t in (ux, uy, uz, a, in_a, fc_a, dfc_a, inv_r, lane))
-    mine = (pux, puy, puz, ap, p_in, plane)
-    zero = torch.zeros_like(ap)
-    acc1, acc2x, acc2y, acc2z = acc if acc is not None else (zero,) * 4
+    T tiles of `tile` slots, g_part [P, U, 32] over the units (a, b) of
+    cross_units(T). Unit (a, b) holds the angular terms of the unordered
+    leg pairs (p in tile a, q in tile b; p < q where a == b), each once,
+    undoubled, and unit (a, a) tile a's radial G2; `fused_annp.sum_tiles`
+    of it is g. The q loop takes each q's pairs p < q and sums their terms
+    within the tiles of p."""
+    rad, rc_a, ang = table
+    r, inv_r, ux, uy, uz, rm_true, in_a, a, fc_a, dfc_a = _ni_geometry(
+        dxx, dxy, dxz, rc_a)
+    p, k = dxx.shape
+    nt = -(-k // tile)
+    zero = torch.zeros_like(r)
+    sums = {}                      # col: [P, T, T], unit (a, b) at [:, a, b]
+    for mi, (eta, rc_r) in enumerate(rad):
+        in_r, rr = _radial_in(r, rm_true, rc_r)
+        fc_r = torch.where(in_r, 0.5 * (torch.cos(math.pi / rc_r * rr)
+                                        + 1.0), zero)
+        sums[mi] = torch.diag_embed(
+            _tile_sums(torch.exp(-eta * rr * rr) * fc_r, tile, nt))
+    cols = [col for _, fns in ang for _, _, col in fns]
+    angular = dxx.new_zeros((len(cols), p, nt, nt))
     shapes = {(lam, zeta) for _, fns in ang for lam, zeta, _ in fns}
-    # each function's weight dE/dG 2^(1 - zeta), and that times lambda
+    lane = torch.arange(k, device=dxx.device)[None, :]
+    for q in _angular_lanes(in_a)[0]:
+        mine = tuple(t[:, :q] for t in (ux, uy, uz, a, in_a, lane))
+        _, _, cos, legs, rjk, r2sum = _pair_legs(ux, uy, uz, a, in_a, q, rc_a,
+                                                 mine)
+        fc_jk = 0.5 * (torch.cos(math.pi / rc_a * rjk) + 1.0)
+        fc3 = torch.where(legs, fc_a[:, :q] * fc_a[:, q:q + 1] * fc_jk,
+                          zero[:, :q])
+        powers = _shape_powers(cos, shapes, with_d=False)
+        terms = []
+        for eta, fns in ang:
+            t_eta = torch.exp(-eta * r2sum) * fc3
+            terms += [(2.0 ** (1.0 - zeta)) * powers[(lam, zeta)][0] * t_eta
+                      for lam, zeta, _ in fns]
+        angular[:, :, :, q // tile] += _tile_sums(
+            torch.stack(terms).view(len(cols) * p, q), tile, nt).view(
+                len(cols), p, nt)
+    sums.update(zip(cols, angular))
+    ua, ub = (list(t) for t in zip(*cross_units(nt)))
+    out = dxx.new_zeros((p, len(ua), NSF_SUB))
+    for col, s in sums.items():
+        out[:, :, col] = s[:, ua, ub]
+    return out
+
+
+def _force_weights(dedg, table: NiTable):
+    """(the table's shapes, each angular column's weight dE/dG
+    2^(1 - zeta), and that times lambda) for _pair_force."""
+    ang = table.ang
+    shapes = {(lam, zeta) for _, fns in ang for lam, zeta, _ in fns}
     wv = {col: dedg[:, col:col + 1] * (2.0 ** (1.0 - zeta))
           for _, fns in ang for _, zeta, col in fns}
     wvl = {col: wv[col] * lam for _, fns in ang for lam, _, col in fns}
-    for q in qs:
-        uq, aq, cos, legs, rjk, r2sum = _pair_legs(ux, uy, uz, a, in_a, q,
-                                                   rc_a, mine)
-        fcq = fc_a[:, q:q + 1]
-        ang_jk = math.pi / rc_a * rjk
-        fc_jk = 0.5 * (torch.cos(ang_jk) + 1.0)
-        dfc_jk = -0.5 * math.pi / rc_a * torch.sin(ang_jk)
-        lm = legs.to(ux.dtype)
-        fc3 = fcp * fcq * fc_jk * lm
-        powers = _shape_powers(cos, shapes, with_d=True)
-        p_a = p_e = p_cs = zero    # sum_eta e S_A, eta e S_A, e S_C
-        for eta, fns in ang:
-            e_eta = torch.exp(-eta * r2sum)
-            s_a = s_c = zero
-            for lam, zeta, col in fns:
-                fz, dfz = powers[(lam, zeta)]
-                s_a = s_a + wv[col] * fz
-                s_c = s_c + wvl[col] * dfz
-            t_a = e_eta * s_a
-            p_a = p_a + t_a
-            p_e = p_e + eta * t_a
-            p_cs = p_cs + e_eta * s_c
-        # partials of h in the independent variables c, a_p, rjk
-        p_c = fc3 * p_cs
-        p_ap = -2.0 * ap * p_e * fc3 + dfcp * fcq * fc_jk * lm * p_a
-        p_jk = -2.0 * rjk * p_e * fc3 + fcp * fcq * dfc_jk * lm * p_a
-        inv_rjk = torch.where(legs, 1.0 / rjk, zero)
-        # d(sum w G)/dx_p = C1 u_p + C2 u_q, from dc/dx_p = (c u_p - u_q)/r_p,
-        # da_p/dx_p = -CFL u_p, drjk/dx_p = CFL (a_q u_q - a_p u_p)/rjk
-        c1 = (p_c * cos * irp - CFLENGTH * p_ap
-              - CFLENGTH * p_jk * ap * inv_rjk)
-        c2 = -p_c * irp + CFLENGTH * p_jk * aq * inv_rjk
-        acc1 = acc1 + c1
-        acc2x = acc2x + c2 * uq[0]
-        acc2y = acc2y + c2 * uq[1]
-        acc2z = acc2z + c2 * uq[2]
-    return acc1, acc2x, acc2y, acc2z
+    return shapes, wv, wvl
+
+
+def _pair_force(geo, table: NiTable, weights, q, n, both=False):
+    """ni_force's terms of the leg pairs (p, q) for the lanes p < n at
+    once: (u_q, C1, C2) of p's side, d(sum w G)/dx_p = C1 u_p + C2 u_q,
+    and with `both` also q's C1 and C2 (p and q exchanged). geo: the whole
+    row's (ux, uy, uz, a, in_a, fc_a, dfc_a, inv_r); weights:
+    _force_weights."""
+    _, rc_a, ang = table
+    shapes, wv, wvl = weights
+    ux, uy, uz, a, in_a, fc_a, dfc_a, inv_r = geo
+    lane = torch.arange(n, device=ux.device)[None, :]
+    pux, puy, puz, ap, p_in, fcp, dfcp, irp = (
+        t[:, :n] for t in (ux, uy, uz, a, in_a, fc_a, dfc_a, inv_r))
+    zero = torch.zeros_like(ap)
+    uq, aq, cos, legs, rjk, r2sum = _pair_legs(
+        ux, uy, uz, a, in_a, q, rc_a, (pux, puy, puz, ap, p_in, lane))
+    fcq = fc_a[:, q:q + 1]
+    ang_jk = math.pi / rc_a * rjk
+    fc_jk = 0.5 * (torch.cos(ang_jk) + 1.0)
+    dfc_jk = -0.5 * math.pi / rc_a * torch.sin(ang_jk)
+    lm = legs.to(ux.dtype)
+    fc3 = fcp * fcq * fc_jk * lm
+    powers = _shape_powers(cos, shapes, with_d=True)
+    p_a = p_e = p_cs = zero        # sum_eta e S_A, eta e S_A, e S_C
+    for eta, fns in ang:
+        e_eta = torch.exp(-eta * r2sum)
+        s_a = s_c = zero
+        for lam, zeta, col in fns:
+            fz, dfz = powers[(lam, zeta)]
+            s_a = s_a + wv[col] * fz
+            s_c = s_c + wvl[col] * dfz
+        t_a = e_eta * s_a
+        p_a = p_a + t_a
+        p_e = p_e + eta * t_a
+        p_cs = p_cs + e_eta * s_c
+    # partials of h in the independent variables c, a_p, rjk
+    p_c = fc3 * p_cs
+    p_ap = -2.0 * ap * p_e * fc3 + dfcp * fcq * fc_jk * lm * p_a
+    p_jk = -2.0 * rjk * p_e * fc3 + fcp * fcq * dfc_jk * lm * p_a
+    inv_rjk = torch.where(legs, 1.0 / rjk, zero)
+    # d(sum w G)/dx_p = C1 u_p + C2 u_q, from dc/dx_p = (c u_p - u_q)/r_p,
+    # da_p/dx_p = -CFL u_p, drjk/dx_p = CFL (a_q u_q - a_p u_p)/rjk
+    c1 = (p_c * cos * irp - CFLENGTH * p_ap
+          - CFLENGTH * p_jk * ap * inv_rjk)
+    c2 = -p_c * irp + CFLENGTH * p_jk * aq * inv_rjk
+    if not both:
+        return uq, c1, c2
+    irq = inv_r[:, q:q + 1]
+    p_aq = -2.0 * aq * p_e * fc3 + dfc_a[:, q:q + 1] * fcp * fc_jk * lm * p_a
+    c1q = (p_c * cos * irq - CFLENGTH * p_aq
+           - CFLENGTH * p_jk * aq * inv_rjk)
+    c2q = -p_c * irq + CFLENGTH * p_jk * ap * inv_rjk
+    return uq, c1, c2, c1q, c2q
 
 
 def _ni_force(dxx, dxy, dxz, dedg, table: NiTable, angular):
@@ -340,33 +398,87 @@ def ni_force_plain(dxx, dxy, dxz, dedg, table: NiTable):
     sf_scale * e_scale. Radial: Fj += CFL w dg u; angular: the u_p
     coefficient (acc1) and the u_q-projected vector (acc2) accumulate over
     the q loop, Fj -= acc1 u + acc2; no reductions."""
-    return _ni_force(dxx, dxy, dxz, dedg, table,
-                     lambda geo, qs, n_ang: _force_angular(
-                         geo, dedg, table, 0, n_ang, qs))
+    def angular(geo, qs, n_ang):
+        weights = _force_weights(dedg, table)
+        acc1 = acc2x = acc2y = acc2z = geo[0].new_zeros(
+            (geo[0].shape[0], n_ang))
+        for q in qs:
+            uq, c1, c2 = _pair_force(geo, table, weights, q, n_ang)
+            acc1 = acc1 + c1
+            acc2x = acc2x + c2 * uq[0]
+            acc2y = acc2y + c2 * uq[1]
+            acc2z = acc2z + c2 * uq[2]
+        return acc1, acc2x, acc2y, acc2z
+    return _ni_force(dxx, dxy, dxz, dedg, table, angular)
+
+
+def _places(in_a, tile, nt):
+    """(in_a, each slot's place among its tile's slots inside the angular
+    cutoff, in slot order: the kernels' compaction), both [P, T, tile]."""
+    p, k = in_a.shape
+    inn = torch.nn.functional.pad(in_a.to(torch.int64),
+                                  (0, nt * tile - k)).view(p, nt, tile)
+    return inn.bool(), inn.cumsum(2) - 1
+
+
+def ni_force_tiles_part_plain(dxx, dxy, dxz, dedg, table: NiTable, tile):
+    """Plain twin of ni_force_tiles' unit kernel: part [P, T, T, 4, tile],
+    at [:, a, b] the angular sums (acc1, acc2x, acc2y, acc2z) of tile a's
+    slots over their leg pairs with the slots of tile b, each slot at its
+    place among its tile's slots inside the angular cutoff (0 past them).
+    Each unordered leg pair (p, q), p < q, once, both sides' terms from one
+    symmetric part."""
+    r, inv_r, ux, uy, uz, rm_true, in_a, a, fc_a, dfc_a = _ni_geometry(
+        dxx, dxy, dxz, table.rc_a)
+    geo = (ux, uy, uz, a, in_a, fc_a, dfc_a, inv_r)
+    qs, n_ang = _angular_lanes(in_a)
+    p, k = dxx.shape
+    nt = -(-k // tile)
+    by_slot = dxx.new_zeros((4, p, nt, n_ang))      # [c, P, b, slot]
+    if qs:
+        weights = _force_weights(dedg, table)
+    for q in qs:
+        uq, c1, c2, c1q, c2q = _pair_force(geo, table, weights, q, q,
+                                            both=True)
+        by_slot[:, :, q // tile, :q] += torch.stack(
+            (c1, c2 * uq[0], c2 * uq[1], c2 * uq[2]))
+        other = torch.stack((c1q, c2q * ux[:, :q], c2q * uy[:, :q],
+                             c2q * uz[:, :q]))
+        by_slot[:, :, :, q] += _tile_sums(other.view(4 * p, q), tile,
+                                          nt).view(4, p, nt)
+    src = torch.nn.functional.pad(by_slot, (0, nt * tile - n_ang)).view(
+        4, p, nt, nt, tile).permute(1, 3, 2, 0, 4)     # [P, a, b, c, slot]
+    inn, place = _places(in_a, tile, nt)
+    idx = torch.where(inn, place, tile)[:, :, None, None, :].expand(
+        p, nt, nt, 4, tile)
+    out = dxx.new_zeros((p, nt, nt, 4, tile + 1))
+    return out.scatter_(4, idx, src)[..., :tile].contiguous()
+
+
+def ni_force_tiles_sum_plain(dxx, dxy, dxz, dedg, part, table: NiTable):
+    """Plain twin of ni_force_tiles' sum kernel: Fj planes from the units'
+    partials part [P, T, T, 4, tile] (ni_force_tiles_part_plain's layout),
+    each slot's T partials added in tile order, then its radial term."""
+    p, nt, _, _, tile = part.shape
+
+    def angular(geo, qs, n_ang):
+        acc = fa.sum_tiles(part.transpose(1, 2))          # [P, a, c, place]
+        inn, place = _places(geo[4], tile, nt)
+        got = torch.gather(acc, 3, place.clamp_min(0)[:, :, None, :].expand(
+            p, nt, 4, tile))
+        got = torch.where(inn[:, :, None, :], got, torch.zeros_like(got))
+        return tuple(got.permute(2, 0, 1, 3).reshape(4, p, nt * tile)
+                     [:, :, :n_ang])
+    return _ni_force(dxx, dxy, dxz, dedg, table, angular)
 
 
 def ni_force_tiles_plain(dxx, dxy, dxz, dedg, table: NiTable, tile):
-    """Plain twin of the cross-tile `ni_force_tiles` kernel: the row cut
-    into tiles of `tile` slots; each owner tile a takes its slots' angular
-    sums by streaming the partner tiles b = 0, 1, ... in turn, each p
-    adding its side of the pairs (p, q in b) in q order. Equals
-    ni_force_plain up to the rounding of the lanes' elementwise ops."""
-    def angular(geo, qs, n_ang):
-        k = geo[0].shape[1]
-        parts = []
-        for lo in range(0, n_ang, tile):
-            acc = None
-            for b0 in range(0, k, tile):
-                acc = _force_angular(geo, dedg, table, lo,
-                                     min(lo + tile, n_ang),
-                                     [q for q in qs if b0 <= q < b0 + tile],
-                                     acc)
-            parts.append(acc)
-        if not parts:
-            zero = geo[0][:, :0]
-            return (zero,) * 4
-        return tuple(torch.cat(t, dim=1) for t in zip(*parts))
-    return _ni_force(dxx, dxy, dxz, dedg, table, angular)
+    """Plain twin of the cross-tile `ni_force_tiles`: the plain twins of
+    its two kernels in turn. Equals ni_force_plain up to the rounding of
+    the sums' order."""
+    return ni_force_tiles_sum_plain(
+        dxx, dxy, dxz, dedg,
+        ni_force_tiles_part_plain(dxx, dxy, dxz, dedg, table, tile), table)
 
 
 class FusedNi(FrameOps):

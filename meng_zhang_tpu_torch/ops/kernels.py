@@ -8,7 +8,7 @@
 meng_zhang_tpu/ops/pallas_ni.py:126) and `ni_force` (replaces
 `_ni_force_kernel`, :170), and for rows wider than NI_MAX_K their
 cross-tile instances `ni_g_tiles` and `ni_force_tiles` (the same TPU
-kernels). Every `.cu` under `csrc/` is compiled at first
+kernels), the latter with its second kernel `ni_force_tiles_sum`. Every `.cu` under `csrc/` is compiled at first
 use by `nvcc` for `sm_90a` into its own plain-C shared library under
 `meng_zhang_tpu_torch/_build/<hash of the sources, headers and flags>/`
 (one nvcc per source, all started together), and bound with ctypes;
@@ -16,7 +16,9 @@ kernels run on PyTorch's current stream.
 
 Each wrapper takes the kernel's plain PyTorch version (ops/fused_annp.py,
 ops/fused_ni.py) only when its inputs lie on the CPU. For CUDA tensors it
-launches the kernel or raises; it counts its launches in `launches`.
+launches the kernel or raises; it counts its kernel's launches in
+`launches` (one a call, but for `ni_force_tiles` and `ni_force_tiles_sum`:
+one a chunk of rows).
 """
 from __future__ import annotations
 
@@ -57,15 +59,19 @@ MAX_K = 512
 COS_MAX_T = 32       # cos kernels: one compiled instance per ntsf up to it
 NI_MAX_K = 512
 # Tile widths, chosen by measurement on an NVIDIA H100 80GB HBM3 at 700 W
-# (chip_smoke.py [fe-widest] / [ni-widest], PERF.md): at [152880, 768]
-# g_harm / force_harm took ~12.1 / ~10.7 ms in virtual rows of 256 slots
-# (the one-tile instances) and ~17.7 / ~16.6 ms in rows of 512 (the
-# two-tile ones); at [16384, 640] ni_g / ni_force took ~191 / ~147 ms in
-# tiles of 128 and ~221 / ~259 ms in tiles of 256 (a 256-slot unit holds
-# 2x the shared memory, so fewer warps share an SM). ni_bp.cu compiles
-# its cross-tile instances for NI_TILE alone (kCrossSlots).
+# (PERF.md): at [152880, 768] g_harm / force_harm took ~12.1 / ~10.7 ms in
+# virtual rows of 256 slots (the one-tile instances) and ~17.7 / ~16.6 ms
+# in rows of 512 (the two-tile ones; chip_smoke.py [fe-widest] as it stood
+# then); at [16384, 640] the ni cross-tile kernels of pairs of tiles take
+# about half the time in tiles of 128 slots that they take in tiles of 256
+# (a 256-slot unit holds 2x the shared memory, so fewer warps share an
+# SM). ni_bp.cu compiles its cross-tile instances for NI_TILE alone
+# (kCrossSlots).
 HARM_TILE = 256      # slots of a virtual row of a wider harmonic row
 NI_TILE = 128        # slots of a tile of a wider ni row
+# ni_force_tiles' scratch of unit partials, T^2 4 NI_TILE values a row (at
+# K 640 in f32 51,200 bytes: 5,242 rows a chunk)
+NI_SCRATCH_BYTES = 1 << 28
 
 
 def _nvcc():
@@ -154,7 +160,10 @@ def _libs():
         g.argtypes = [vp] * 4 + [ll, ci, vp, vp]
         g.restype = ci
         fn = getattr(ni, f"ni_force_tiles_{suffix}")
-        fn.argtypes = [vp] * 7 + [ll, ci, vp, vp]
+        fn.argtypes = [vp] * 5 + [ll, ci, vp, vp]
+        fn.restype = ci
+        fn = getattr(ni, f"ni_force_tiles_sum_{suffix}")
+        fn.argtypes = [vp] * 8 + [ll, ci, vp, vp]
         fn.restype = ci
         size = getattr(ni, f"ni_cfg_size_{suffix}")
         size.restype = ci
@@ -377,7 +386,8 @@ def _ni_cfg_type(real):
         ("grp_mask", cu * _NI_MAX), ("grp_off", ci * _NI_MAX),
         ("sh_lam", real * _NI_MAX), ("sh_zeta", real * _NI_MAX),
         ("sh_adv", ci * _NI_MAX), ("sh_new", ci * _NI_MAX),
-        ("ent", ci * _NI_MAX)]})
+        ("ent", ci * _NI_MAX), ("ent_sh", ci * _NI_MAX),
+        ("ent_first", ci * _NI_MAX), ("ent_eta", real * _NI_MAX)]})
 
 
 _NI_CFG = {"f32": _ni_cfg_type(ctypes.c_float),
@@ -402,7 +412,9 @@ def _ni_cfg(table, suffix):
     grp_mask, its first entry grp_off; each function's entry ent).
     Power-of-two zetas of one lambda share a squaring chain: sh_new starts
     it, sh_adv counts the squarings from the shape before (-1: through
-    pow). Raises where the TPU kernels refuse the table: more than NSF_SUB
+    pow). ni_g_tiles walks the entries: each one's shape (ent_sh), group
+    eta (ent_eta) and whether it opens its group (ent_first). Raises where
+    the TPU kernels refuse the table: more than NSF_SUB
     functions, or angular columns that do not follow the radial ones
     (ni_table itself refuses more than one angular cutoff)."""
     fns = [(gi, eta, fi == 0, lam, zeta, col)
@@ -444,6 +456,9 @@ def _ni_cfg(table, suffix):
         c.col[f], c.first[f] = col, int(first)
         c.zlog2[f] = _zeta_log2(zeta)
         c.ent[f] = entries.index((gi, shapes.index((lam, zeta))))
+    for e, (gi, si) in enumerate(entries):
+        c.ent_sh[e], c.ent_eta[e] = si, table.ang[gi][0]
+        c.ent_first[e] = int(e == c.grp_off[gi])
     return c
 
 
@@ -515,8 +530,9 @@ class NiForce:
 class NiGTiles:
     """ni_g of rows of any width through the cross-tile instance, in tiles
     of NI_TILE slots (CPU: its plain twin fused_ni.ni_g_tiles_plain):
-    [P, T, 32] partials, one a tile, summed in tile order. It sums in a
-    fixed order: two runs on the same input agree bit for bit."""
+    [P, U, 32] partials, one a unit (the U = T (T + 1) / 2 tile pairs of
+    fused_ni.cross_units), summed in unit order. It sums in a fixed order:
+    two runs on the same input agree bit for bit."""
 
     def __init__(self):
         self.launches = 0
@@ -527,7 +543,8 @@ class NiGTiles:
             return fused_annp.sum_tiles(part)
         p, k, suffix = _check_ni((dxx, dxy, dxz), None)
         cfg = _ni_cfg(table, suffix)
-        part = torch.empty((p, -(-k // NI_TILE), fused_ni.NSF_SUB),
+        nt = -(-k // NI_TILE)
+        part = torch.empty((p, nt * (nt + 1) // 2, fused_ni.NSF_SUB),
                            dtype=dxx.dtype, device=dxx.device)
         fn = getattr(_libs()["ni_bp"], f"ni_g_tiles_{suffix}")
         with torch.cuda.device(dxx.device):
@@ -539,11 +556,23 @@ class NiGTiles:
         return fused_annp.sum_tiles(part)
 
 
+def ni_scratch_rows(k, itemsize):
+    """Rows of a chunk of ni_force_tiles on rows of K slots: as many as
+    keep its scratch of T^2 4 NI_TILE values a row within
+    NI_SCRATCH_BYTES, at least one."""
+    nt = -(-k // NI_TILE)
+    return max(1, NI_SCRATCH_BYTES // (nt * nt * 4 * NI_TILE * itemsize))
+
+
 class NiForceTiles:
     """ni_force of rows of any width through the cross-tile instance, in
     tiles of NI_TILE slots (CPU: its plain twin
-    fused_ni.ni_force_tiles_plain): each slot's owner adds its pair terms
-    in a fixed order, no atomics, so two runs agree bit for bit."""
+    fused_ni.ni_force_tiles_plain). The rows go in chunks of
+    ni_scratch_rows; each chunk goes through the unit kernel (`units`,
+    counted here), whose partials of its units' two tiles' slots go to a
+    scratch [rows, T, T, 4, NI_TILE], and then through `ni_force_tiles_sum`
+    (counted there), which adds each slot's T partials in tile order. No
+    atomics: two runs agree bit for bit."""
 
     def __init__(self):
         self.launches = 0
@@ -552,20 +581,93 @@ class NiForceTiles:
         if dxx.device.type == "cpu":
             return fused_ni.ni_force_tiles_plain(dxx, dxy, dxz, dedg, table,
                                                  NI_TILE)
+        p, k, _ = _check_ni((dxx, dxy, dxz), None)
+        _check_row(dedg, (dxx, dxy, dxz), fused_ni.NSF_SUB, "dedg")
+        chunk = max(1, min(p, ni_scratch_rows(k, dxx.element_size())))
+        nt = -(-k // NI_TILE)
+        part = torch.empty((chunk, nt, nt, 4, NI_TILE), dtype=dxx.dtype,
+                           device=dxx.device)
+        out = [torch.empty_like(dxx) for _ in range(3)]
+        for r0 in range(0, p, chunk):
+            rows = slice(r0, min(p, r0 + chunk))
+            planes = [t[rows] for t in (dxx, dxy, dxz)]
+            sub = part[:rows.stop - r0]
+            self.units(*planes, dedg[rows], table, sub)
+            ni_force_tiles_sum(*planes, dedg[rows], sub, table,
+                               [o[rows] for o in out])
+        return tuple(out)
+
+    def units(self, dxx, dxy, dxz, dedg, table, part=None):
+        """The unit kernel alone: part [P, T, T, 4, NI_TILE] (CPU:
+        fused_ni.ni_force_tiles_part_plain); at [:, a, b] tile a's sums
+        over its pairs with tile b, by a slot's place among its tile's
+        slots inside the angular cutoff (places past them unwritten)."""
+        if dxx.device.type == "cpu":
+            return fused_ni.ni_force_tiles_part_plain(dxx, dxy, dxz, dedg,
+                                                      table, NI_TILE)
         planes = (dxx, dxy, dxz)
         p, k, suffix = _check_ni(planes, None)
         _check_row(dedg, planes, fused_ni.NSF_SUB, "dedg")
+        nt = -(-k // NI_TILE)
+        if part is None:
+            part = torch.empty((p, nt, nt, 4, NI_TILE), dtype=dxx.dtype,
+                               device=dxx.device)
+        _check_part(part, planes, nt)
         cfg = _ni_cfg(table, suffix)
-        out = [torch.empty_like(dxx) for _ in range(3)]
         fn = getattr(_libs()["ni_bp"], f"ni_force_tiles_{suffix}")
         with torch.cuda.device(dxx.device):
             stream = torch.cuda.current_stream().cuda_stream
             rc_ = fn(dxx.data_ptr(), dxy.data_ptr(), dxz.data_ptr(),
-                     dedg.data_ptr(), *(o.data_ptr() for o in out), p, k,
+                     dedg.data_ptr(), part.data_ptr(), p, k,
                      ctypes.addressof(cfg), stream)
         _raise_on(rc_, "ni_force_tiles")
         self.launches += 1
+        return part
+
+
+class NiForceTilesSum:
+    """ni_force_tiles' second kernel: Fj [P, K] x3 from the unit partials
+    part [P, T, T, 4, NI_TILE] of NiForceTiles.units, each slot's T
+    partials added in tile order, then its radial term (CPU: its plain twin
+    fused_ni.ni_force_tiles_sum_plain). `out`: three [P, K] planes to write
+    (views of wider planes' rows may do), else new ones."""
+
+    def __init__(self):
+        self.launches = 0
+
+    def __call__(self, dxx, dxy, dxz, dedg, part, table, out=None):
+        if dxx.device.type == "cpu":
+            return fused_ni.ni_force_tiles_sum_plain(dxx, dxy, dxz, dedg,
+                                                     part, table)
+        planes = (dxx, dxy, dxz)
+        p, k, suffix = _check_ni(planes, None)
+        _check_row(dedg, planes, fused_ni.NSF_SUB, "dedg")
+        _check_part(part, planes, -(-k // NI_TILE))
+        if out is None:
+            out = [torch.empty_like(dxx) for _ in range(3)]
+        for o in out:
+            if o.shape != dxx.shape or o.dtype != dxx.dtype \
+                    or o.device != dxx.device or not o.is_contiguous():
+                raise ValueError("out: three contiguous planes like dxx")
+        cfg = _ni_cfg(table, suffix)
+        fn = getattr(_libs()["ni_bp"], f"ni_force_tiles_sum_{suffix}")
+        with torch.cuda.device(dxx.device):
+            stream = torch.cuda.current_stream().cuda_stream
+            rc_ = fn(dxx.data_ptr(), dxy.data_ptr(), dxz.data_ptr(),
+                     dedg.data_ptr(), part.data_ptr(),
+                     *(o.data_ptr() for o in out), p, k,
+                     ctypes.addressof(cfg), stream)
+        _raise_on(rc_, "ni_force_tiles_sum")
+        self.launches += 1
         return tuple(out)
+
+
+def _check_part(part, planes, nt):
+    shape = (planes[0].shape[0], nt, nt, 4, NI_TILE)
+    if tuple(part.shape) != shape or part.dtype != planes[0].dtype \
+            or part.device != planes[0].device or not part.is_contiguous():
+        raise ValueError(f"part: a contiguous {list(shape)} tensor like the "
+                         "planes")
 
 
 g_harm = GHarm()
@@ -576,11 +678,12 @@ ni_g = NiG()
 ni_force = NiForce()
 ni_g_tiles = NiGTiles()
 ni_force_tiles = NiForceTiles()
+ni_force_tiles_sum = NiForceTilesSum()
 
 
 # every kernel wrapper of this module, by name
 WRAPPERS = ("g_harm", "force_harm", "g_cos", "force_cos", "ni_g", "ni_force",
-            "ni_g_tiles", "ni_force_tiles")
+            "ni_g_tiles", "ni_force_tiles", "ni_force_tiles_sum")
 
 
 def reset_launch_counts():

@@ -3,7 +3,8 @@
 `model_bench` (the ni and ANNA-ADP scenes), the per-phase profiles
 `profile_bench`, `profile_ni` and `profile_2m`, the sharded demos
 `sharded_demo` and `sharded2d_demo`, and `halo_fraction` (the sharded
-drivers' ghost rows, planning only). Each runs with
+drivers' ghost rows, planning only); beside them `bench` (bench.py's
+headline run). Each runs with
 `python -m meng_zhang_tpu_torch.scripts.<name>` on the card, and exposes
 `main(argv, device=None)`, which the CPU reaches with `device="cpu"`; each
 prints one JSON record on stdout and writes a file only at `--out`."""

@@ -443,22 +443,36 @@ def test_harm_tiles_match_plain(cuda_device, k, dtype):
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
 @pytest.mark.parametrize("k,table", [(513, "full"), (640, "full"),
-                                     (640, "odd"), (1024, "full")])
+                                     (640, "odd"), (640, "gap"),
+                                     (1024, "full")])
 def test_ni_tiles_match_plain(cuda_device, k, table, dtype):
     """Rows wider than NI_MAX_K through the cross-tile instances, on the
-    shipped table at Rc 11.0 A (or its pow-route variant, "odd"): against
-    the plain versions on the whole row and the plain twins of the tiled
-    decomposition (NI_TILES_RTOL), filler lanes exactly 0, one launch each;
-    two runs of each kernel agree bit for bit."""
+    shipped table at Rc 11.0 A (or its pow-route variant, "odd"; "gap":
+    the shipped table on rows whose third tile holds real partners, all
+    beyond Rc, so that the units with that tile list no pair): against the
+    plain versions on the whole row and the plain twins of the tiled
+    decomposition (NI_TILES_RTOL), filler lanes exactly 0, one launch of
+    each kernel a call (the rows in one chunk); ni_force_tiles' sum kernel
+    on the unit kernel's partials against its plain twin on the same ones
+    (NI_TILES_RTOL); two runs of each kernel agree bit for bit."""
     pot = synthetic_ni_potential(0, rc_bohr=11.0 * CFLENGTH)
     tab = fn.ni_table(pot.sym_coerad,
                       _odd_coeang(pot) if table == "odd" else pot.sym_coeang)
     planes, filler = _ball_rows(k, 11.0 * 1.05, seed=k + 1)
+    if table == "gap":             # the third tile's partners to 1.2-1.5 Rc
+        gap = slice(2 * kernels.NI_TILE, 3 * kernels.NI_TILE)
+        d = np.stack([t[:, gap] for t in planes], -1)
+        far = np.random.default_rng(k).uniform(1.2, 1.5, size=d.shape[:2])
+        d = np.where(filler[:, gap, None], d, d / np.linalg.norm(
+            d, axis=-1, keepdims=True) * (far * 11.0)[..., None])
+        for a, t in enumerate(planes):
+            t[:, gap] = d[..., a]
     tp = [torch.as_tensor(a, dtype=dtype, device=cuda_device) for a in planes]
     dedg = np.zeros((8, fn.NSF_SUB))
     dedg[:, :pot.nsf] = np.random.default_rng(1).normal(size=(8, pot.nsf))
     td = torch.as_tensor(dedg, dtype=dtype, device=cuda_device)
     g_fn, f_fn = kernels.NiGTiles(), kernels.NiForceTiles()
+    sums0 = kernels.ni_force_tiles_sum.launches
     tol = NI_TILES_RTOL[dtype]
     g = g_fn(*tp, tab)
     for want in (fn.ni_g_plain(*tp, tab), fa.sum_tiles(
@@ -473,10 +487,42 @@ def test_ni_tiles_match_plain(cuda_device, k, table, dtype):
     for u in fj:
         assert torch.all(u.cpu()[torch.as_tensor(filler)] == 0)
         assert torch.isfinite(u).all()
+        if table == "gap":
+            assert torch.all(u[:, gap] == 0)
     assert (g_fn.launches, f_fn.launches) == (1, 1)
+    assert kernels.ni_force_tiles_sum.launches == sums0 + 1
     assert torch.equal(g_fn(*tp, tab), g)
     for u, v in zip(f_fn(*tp, td, tab), fj):
         assert torch.equal(u, v)
+    part = f_fn.units(*tp, td, tab)
+    for u, v in zip(kernels.ni_force_tiles_sum(*tp, td, part, tab),
+                    fn.ni_force_tiles_sum_plain(*tp, td, part, tab)):
+        assert rel_max(u.cpu(), v.cpu()) <= tol
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_ni_force_tiles_chunks_equal_one_pass(cuda_device, dtype,
+                                              monkeypatch):
+    """ni_force_tiles with a scratch of 3 rows (its 8 rows in 3 chunks,
+    each through both kernels, 3 launches of each) gives the bits of one
+    pass over all rows."""
+    pot = synthetic_ni_potential(0, rc_bohr=11.0 * CFLENGTH)
+    tab = fn.ni_table(pot.sym_coerad, pot.sym_coeang)
+    planes, _ = _ball_rows(640, 11.0 * 1.05, seed=7)
+    tp = [torch.as_tensor(a, dtype=dtype, device=cuda_device) for a in planes]
+    td = torch.as_tensor(np.random.default_rng(3).normal(size=(8, 32)),
+                         dtype=dtype, device=cuda_device)
+    whole = kernels.ni_force_tiles(*tp, td, tab)
+    nt = -(-640 // kernels.NI_TILE)
+    row_bytes = nt * nt * 4 * kernels.NI_TILE * tp[0].element_size()
+    monkeypatch.setattr(kernels, "NI_SCRATCH_BYTES", 3 * row_bytes)
+    assert kernels.ni_scratch_rows(640, tp[0].element_size()) == 3
+    kernels.reset_launch_counts()
+    for u, v in zip(kernels.ni_force_tiles(*tp, td, tab), whole):
+        assert torch.equal(u, v)
+    assert kernels.ni_force_tiles.launches == 3
+    assert kernels.ni_force_tiles_sum.launches == 3
 
 
 @pytest.mark.cuda

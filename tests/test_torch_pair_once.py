@@ -14,6 +14,11 @@ card, tests/test_torch_cuda.py):
   * csrc/annp_gcos.cu: the same steps, but a part-full last warp's lanes
     may be dealt in chunks to the threads of the full warps, and partners
     are read from a doubled array at j + d without a wrap;
+  * csrc/ni_bp.cu's cross-tile kernels (rows of more than 512): the
+    units (row, a, b) over a row's unordered tile pairs (`unit_tiles`,
+    fused_ni.cross_units) and `list_unit`'s candidates (key n_b + other
+    through div_magic across two tiles, the triangle other < key through
+    an f32 root within one) hold each in-cutoff pair of the row once;
   * ni_g's stage 2: G4 = 1/2 sum_{p != q} equals the sum over the listed
     unordered pairs, each once and undoubled, when the list admits a pair by
     both legs inside Rc and r_jk^2 < Rc^2 from the law of cosines.
@@ -22,12 +27,14 @@ import numpy as np
 import pytest
 
 from meng_zhang_tpu_torch.ops import fused_ni as fn
+from meng_zhang_tpu_torch.ops import kernels
 from meng_zhang_tpu_torch.testing import synthetic_ni_potential
 from meng_zhang_tpu_torch.units import CFLENGTH
 from torch_port_util import ni_short_planes, reduced_ni_potential, t64
 
 
 TILE = 512              # ni_bp.cu kTile
+NI_TILE = kernels.NI_TILE   # slots of a cross tile (ni_bp.cu kCrossSlots)
 
 
 def div_magic(n):
@@ -238,3 +245,73 @@ def test_g4_over_listed_pairs_once_matches_plain(width):
     assert (scale > 0).all()
     assert (np.abs(got[:, cols] - want[:, cols]).max(0)
             <= 1.0e-12 * scale).all()
+
+
+def _unit_tiles(w, nt):
+    """unit_tiles in ni_bp.cu: unit w's tile pair (a, b)."""
+    a = 0
+    while w >= nt - a:
+        w -= nt - a
+        a += 1
+    return a, a + w
+
+
+def _unit_candidates(n_a, n_b, same):
+    """list_unit's candidates in ni_bp.cu, as it maps them: (key, other)
+    compacted slots, t = key n_b + other through the reciprocal's high
+    word where the tiles differ, t = key (key - 1) / 2 + other (other <
+    key) through the f32 root and its two tests within one tile."""
+    if same:
+        t = np.arange(n_a * (n_a - 1) // 2, dtype=np.int64)
+        root = np.sqrt(np.float32(8.0) * t.astype(np.float32)
+                       + np.float32(1.0))
+        ki = (np.float32(0.5) * (np.float32(1.0) + root)).astype(np.int64)
+        ki = np.where(ki * (ki - 1) // 2 > t, ki - 1,
+                      np.where(ki * (ki + 1) // 2 <= t, ki + 1, ki))
+        return ki, t - ki * (ki - 1) // 2
+    t = np.arange(n_a * n_b, dtype=np.int64)
+    ki = (t * div_magic(n_b)) >> 32 if n_b > 1 else t
+    return ki, t - ki * n_b
+
+
+@pytest.mark.parametrize("nt", range(1, 9))
+def test_ni_cross_units_hold_each_pair_once(nt):
+    """The cross-tile kernels' decomposition of a row of nt tiles of
+    NI_TILE slots, the last one partial and, from nt 3 on, the second with
+    no partner inside Rc: its units (fused_ni.cross_units, in unit_tiles'
+    order) and their candidates (list_unit) list each unordered pair of
+    in-cutoff slots whose third leg lies inside Rc exactly once, against
+    a brute-force count; each unit's list runs key-major."""
+    tile, rc = NI_TILE, 1.0
+    k = (nt - 1) * tile + 77
+    rng = np.random.default_rng(nt)
+    u = rng.normal(size=(k, 3))
+    x = u / np.linalg.norm(u, axis=1, keepdims=True) * rng.uniform(
+        0.05, 1.25, size=(k, 1))             # ~half the slots beyond rc
+    if nt >= 3:
+        x[tile:2 * tile] *= 1.3 / np.linalg.norm(x[tile:2 * tile], axis=1,
+                                                 keepdims=True)
+    inside = np.linalg.norm(x, axis=1) < rc
+    slots = [np.flatnonzero(inside[lo:lo + tile]) + lo
+             for lo in range(0, k, tile)]
+    assert len(slots) == nt and len(slots[-1]) > 0
+    if nt >= 3:
+        assert len(slots[1]) == 0
+    units = fn.cross_units(nt)
+    assert units == [_unit_tiles(w, nt) for w in range(len(units))]
+    assert len(units) == nt * (nt + 1) // 2
+    listed = []
+    for a, b in units:
+        ki, oi = _unit_candidates(len(slots[a]), len(slots[b]), a == b)
+        assert np.all(np.diff(ki) >= 0)
+        p, q = slots[a][ki], slots[b][oi]
+        if a == b:
+            assert np.all(oi < ki)
+        near = np.linalg.norm(x[p] - x[q], axis=1) < rc
+        listed.append(np.minimum(p, q)[near] * k + np.maximum(p, q)[near])
+    listed = np.concatenate(listed)
+    i, j = np.triu_indices(k, 1)
+    want = inside[i] & inside[j] & (np.linalg.norm(x[i] - x[j], axis=1)
+                                    < rc)
+    assert len(listed) == int(want.sum()) > 0
+    np.testing.assert_array_equal(np.sort(listed), (i * k + j)[want])

@@ -130,15 +130,18 @@ def test_harmonic_tiles_equal_whole_rows(k):
 @pytest.mark.parametrize("k", [513, 640, 1000])
 def test_ni_cross_tiles_equal_whole_rows(k):
     """Rows wider than NI_MAX_K through the ni wrappers, which take the
-    cross-tile twins on the CPU: g (the tiles' partials summed in tile
-    order) and Fj (each owner tile streaming the partner tiles in turn)
-    equal the plain versions on the whole row."""
+    cross-tile twins on the CPU: g (the partials of the U = T (T + 1) / 2
+    units, each unordered leg pair in one of them, summed in unit order)
+    and Fj (each pair's two sides from one symmetric part, a slot's
+    partials by partner tile added in tile order) equal the plain versions
+    on the whole row."""
     pot = _ni_potential()
     table = fn.ni_table(pot.sym_coerad, pot.sym_coeang)
     planes = _ball_planes(2, k, NI_RC * 1.05, seed=k + 1)
     dedg = t64(np.random.default_rng(2).normal(size=(2, fn.NSF_SUB)))
     part = fn.ni_g_tiles_plain(*planes, table, kernels.NI_TILE)
-    assert part.shape == (2, -(-k // kernels.NI_TILE), fn.NSF_SUB)
+    nt = -(-k // kernels.NI_TILE)
+    assert part.shape == (2, nt * (nt + 1) // 2, fn.NSF_SUB)
     g = kernels.ni_g(*planes, table)
     assert torch.equal(g, fa.sum_tiles(part))
     assert rel_max(g, fn.ni_g_plain(*planes, table)) <= DECOMP_RTOL
@@ -149,6 +152,45 @@ def test_ni_cross_tiles_equal_whole_rows(k):
         assert u.shape == (2, k) and torch.equal(u, v)
         assert rel_max(u, w) <= DECOMP_RTOL
     assert bool((got[0][0, -40:] == 0).all())
+
+
+@pytest.mark.parametrize("k,tile", [(60, 16), (90, 32),
+                                    (200, kernels.NI_TILE)])
+def test_ni_force_tiles_two_kernels(k, tile):
+    """ni_force_tiles' two kernels, as their plain twins (at NI_TILE through
+    the wrappers, `units` and `ni_force_tiles_sum`, which take them on the
+    CPU): the unit partials part [P, T, T, 4, tile] hold a slot at its
+    place among its tile's slots inside the angular cutoff and 0 past them;
+    the sum reads those places alone (NaN past them changes no bit); the
+    two in turn give ni_force_tiles_plain's bits, within DECOMP_RTOL of
+    ni_force_plain."""
+    pot = _ni_potential()
+    table = fn.ni_table(pot.sym_coerad, pot.sym_coeang)
+    planes = _ball_planes(2, k, NI_RC * 1.05, seed=k)
+    dedg = t64(np.random.default_rng(3).normal(size=(2, fn.NSF_SUB)))
+    if tile == kernels.NI_TILE:
+        part = kernels.ni_force_tiles.units(*planes, dedg, table)
+        got = kernels.ni_force_tiles_sum(*planes, dedg, part, table)
+    else:
+        part = fn.ni_force_tiles_part_plain(*planes, dedg, table, tile)
+        got = fn.ni_force_tiles_sum_plain(*planes, dedg, part, table)
+    nt = -(-k // tile)
+    assert part.shape == (2, nt, nt, 4, tile)
+    in_a = torch.nn.functional.pad(
+        fn._ni_geometry(*planes, table.rc_a)[6], (0, nt * tile - k))
+    n_in = in_a.view(2, nt, tile).sum(2)                 # [P, T]
+    past = torch.arange(tile)[None, None, :] >= n_in[:, :, None]
+    assert bool((n_in < tile).any())
+    past = past[:, :, None, None, :].expand(part.shape)
+    assert bool((part[past] == 0).all())
+    poisoned = part.masked_fill(past, float("nan"))
+    for u, v, w, x in zip(got, fn.ni_force_tiles_plain(*planes, dedg, table,
+                                                       tile),
+                          fn.ni_force_plain(*planes, dedg, table),
+                          fn.ni_force_tiles_sum_plain(*planes, dedg,
+                                                      poisoned, table)):
+        assert u.shape == (2, k) and torch.equal(u, v) and torch.equal(u, x)
+        assert rel_max(u, w) <= DECOMP_RTOL
 
 
 # ------------------------------------------------------------------- fe
