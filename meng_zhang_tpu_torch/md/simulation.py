@@ -20,6 +20,7 @@ from typing import Any, Callable, NamedTuple, Optional
 
 import torch
 
+from .. import profiling
 from ..system.neighbors import (NeighborList, build_neighbors_cell,
                                 build_neighbors_cell_rowsweep,
                                 build_neighbors_images, build_neighbors_n2,
@@ -176,29 +177,34 @@ class Simulator:
     def build_nbrs(self, x, box):
         c = self.cfg
         rlist = c.cutoff + c.skin
-        if self.image_shifts is not None:
-            return build_neighbors_images(x, box, self.image_shifts, rlist,
-                                          c.capacity, pbc=c.pbc)
-        if c.nbr_method == "n2":
-            return build_neighbors_n2(x, box, rlist, c.capacity, pbc=c.pbc)
-        if c.cell_dims is None:
-            raise ValueError("cell_dims required for the cell neighbor "
-                             "method")
-        build = build_neighbors_cell_rowsweep if c.nbr_method == "rowsweep" \
-            else build_neighbors_cell
-        return build(x, box, rlist, c.capacity, c.cell_dims,
-                     c.cell_capacity, pbc=c.pbc)
+        with profiling.span("nbr.build"):
+            profiling.count("nbr.builds", 1)
+            if self.image_shifts is not None:
+                return build_neighbors_images(x, box, self.image_shifts,
+                                              rlist, c.capacity, pbc=c.pbc)
+            if c.nbr_method == "n2":
+                return build_neighbors_n2(x, box, rlist, c.capacity,
+                                          pbc=c.pbc)
+            if c.cell_dims is None:
+                raise ValueError("cell_dims required for the cell neighbor "
+                                 "method")
+            build = build_neighbors_cell_rowsweep \
+                if c.nbr_method == "rowsweep" else build_neighbors_cell
+            return build(x, box, rlist, c.capacity, c.cell_dims,
+                         c.cell_capacity, pbc=c.pbc)
 
     # ---------- single step ----------
     def _eval_force(self, x, box, nbrs, short=None, light=False):
         fn = self.force_fn_light if (light and self.force_fn_light
                                      is not None) else self.force_fn
-        if self.short_build is not None:
-            return fn(x, box, nbrs, short)
-        return fn(x, box, nbrs)
+        with profiling.span("eval"):
+            if self.short_build is not None:
+                return fn(x, box, nbrs, short)
+            return fn(x, box, nbrs)
 
     def _refresh_short(self, s: MDState) -> MDState:
-        return s._replace(short=self.short_build(s.x, s.box, s.nbrs))
+        with profiling.span("nbr.short"):
+            return s._replace(short=self.short_build(s.x, s.box, s.nbrs))
 
     def step(self, s: MDState, light: bool = False) -> MDState:
         """One velocity-Verlet step; light=True evaluates forces with
@@ -206,48 +212,56 @@ class Simulator:
         c = self.cfg
         dt = c.dt
         m = self.masses
-        if c.ensemble in ("nvt", "npt"):
-            v, nhc = I.nhc_step(s.v, m, s.nhc, self._q, c.t_target,
-                                self.ndof, dt)
-            s = s._replace(v=v, nhc=nhc)
-        if c.ensemble == "npt":
-            # LAMMPS fix_nh order: nhc_temp -> nhc_press -> omega_dot -> v
-            s = self._npt_baro_thermo(s, dt)
-            s = self._npt_baro_half(s)
+        with profiling.span("md.step"):
+            profiling.count("md.steps", 1)
+            with profiling.span("md.integrate"):
+                if c.ensemble in ("nvt", "npt"):
+                    v, nhc = I.nhc_step(s.v, m, s.nhc, self._q, c.t_target,
+                                        self.ndof, dt)
+                    s = s._replace(v=v, nhc=nhc)
+                if c.ensemble == "npt":
+                    # LAMMPS fix_nh order: nhc_temp -> nhc_press ->
+                    # omega_dot -> v
+                    s = self._npt_baro_thermo(s, dt)
+                    s = self._npt_baro_half(s)
 
-        v = I.vv_kick(s.v, s.f, m, 0.5 * dt)
-        if c.ensemble == "npt":
-            x, box = self._npt_drift(s.x, v, s.box, s.v_eps, dt)
-        else:
-            x, box = I.vv_drift(s.x, v, dt), s.box
-        if c.ensemble == "langevin":
-            v = I.langevin_ou(v, m, s.generator, c.t_target, c.damp, dt)
+                v = I.vv_kick(s.v, s.f, m, 0.5 * dt)
+                if c.ensemble == "npt":
+                    x, box = self._npt_drift(s.x, v, s.box, s.v_eps, dt)
+                else:
+                    x, box = I.vv_drift(s.x, v, dt), s.box
+                if c.ensemble == "langevin":
+                    v = I.langevin_ou(v, m, s.generator, c.t_target, c.damp,
+                                      dt)
 
-        # staleness is flagged at stale_factor * skin/2 so the drift until
-        # the next block-end rebuild stays inside skin/2; crossing skin/2
-        # (or short_skin/2 for the short list) latches `unsafe`
-        nbrs = s.nbrs
-        msq = max_displacement_sq(nbrs.ref_x, x, box, c.pbc)
-        stale = s.stale | (msq > (0.5 * c.stale_factor * c.skin) ** 2)
-        unsafe = s.unsafe | (msq > (0.5 * c.skin) ** 2)
-        if self.short_build is not None:
-            msq_s = max_displacement_sq(s.short.ref_x, x, box, c.pbc)
-            unsafe = unsafe | (msq_s > (0.5 * c.short_skin) ** 2)
-        pe, f, w = self._eval_force(x, box, nbrs, s.short, light)
-        v = I.vv_kick(v, f, m, 0.5 * dt)
+            # staleness is flagged at stale_factor * skin/2 so the drift
+            # until the next block-end rebuild stays inside skin/2; crossing
+            # skin/2 (or short_skin/2 for the short list) latches `unsafe`
+            nbrs = s.nbrs
+            with profiling.span("nbr.check"):
+                msq = max_displacement_sq(nbrs.ref_x, x, box, c.pbc)
+                stale = s.stale | (msq > (0.5 * c.stale_factor * c.skin) ** 2)
+                unsafe = s.unsafe | (msq > (0.5 * c.skin) ** 2)
+                if self.short_build is not None:
+                    msq_s = max_displacement_sq(s.short.ref_x, x, box, c.pbc)
+                    unsafe = unsafe | (msq_s > (0.5 * c.short_skin) ** 2)
+            pe, f, w = self._eval_force(x, box, nbrs, s.short, light)
 
-        s = MDState(x=x, v=v, f=f, box=box, pe=pe, virial=w, nbrs=nbrs,
-                    nhc=s.nhc, v_eps=s.v_eps, baro_nhc=s.baro_nhc,
-                    generator=s.generator, step=s.step + 1,
-                    overflow=s.overflow | nbrs.overflow, stale=stale,
-                    unsafe=unsafe, short=s.short)
-        if c.ensemble == "npt":
-            s = self._npt_baro_half(s)
-            s = self._npt_baro_thermo(s, dt)
-        if c.ensemble in ("nvt", "npt"):
-            v, nhc = I.nhc_step(s.v, m, s.nhc, self._q, c.t_target,
-                                self.ndof, dt)
-            s = s._replace(v=v, nhc=nhc)
+            with profiling.span("md.integrate"):
+                v = I.vv_kick(v, f, m, 0.5 * dt)
+                s = MDState(x=x, v=v, f=f, box=box, pe=pe, virial=w,
+                            nbrs=nbrs, nhc=s.nhc, v_eps=s.v_eps,
+                            baro_nhc=s.baro_nhc, generator=s.generator,
+                            step=s.step + 1,
+                            overflow=s.overflow | nbrs.overflow, stale=stale,
+                            unsafe=unsafe, short=s.short)
+                if c.ensemble == "npt":
+                    s = self._npt_baro_half(s)
+                    s = self._npt_baro_thermo(s, dt)
+                if c.ensemble in ("nvt", "npt"):
+                    v, nhc = I.nhc_step(s.v, m, s.nhc, self._q, c.t_target,
+                                        self.ndof, dt)
+                    s = s._replace(v=v, nhc=nhc)
         return s
 
     # ---------- NPT pieces (MTK, per-axis couple) ----------
@@ -363,7 +377,8 @@ class Simulator:
             if self.short_build is not None and i % se == 0:
                 s = self._refresh_short(s)
             s = self.step(s, light=light and i < every - 1)
-        return s, self.thermo(s)
+        with profiling.span("md.thermo"):
+            return s, self.thermo(s)
 
     def rebuild(self, s: MDState) -> MDState:
         """Skin-list rebuild (and short-list refresh from the new list);
@@ -384,7 +399,9 @@ class Simulator:
         for _ in range(n_blocks):
             state, th = self.run_block(state)
             thermos.append(th)
-            if bool(state.stale):
+            with profiling.span("md.stale_read"):
+                stale = bool(state.stale)
+            if stale:
                 state = self.rebuild(state)
                 self.rebuild_count += 1
         return state, Thermo(*(torch.stack(col) for col in zip(*thermos)))

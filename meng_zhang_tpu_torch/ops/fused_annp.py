@@ -45,6 +45,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from .. import profiling
 from ..io.potential import ActivationStyle
 from ..models.mlp import _FE_A, _FE_B, _FE_C
 from . import kernels
@@ -182,8 +183,12 @@ def compact_short(x, box, nbr_idx, rc_s, ks, pbc, row_chunk=16384,
     partner id, padded with the sentinel (n, or R*n for rows that index
     the image-extended table x_ext) to Ks columns (rev-free,
     `_compact_block_norev` semantics). The list stays valid while no atom
-    moves more than (rc_s - rc)/2 since this call."""
+    moves more than (rc_s - rc)/2 since this call. With tracing on, it
+    counts the compaction (nbr.shorts), its partners within rc_s
+    (nbr.short_lanes) and its slots, rows x Ks (nbr.short_slots)."""
     n = x.shape[0] if x_ext is None else x_ext.shape[0]
+    profiling.count("nbr.shorts", 1)
+    profiling.count("nbr.short_slots", x.shape[0] * ks)
     parts = []
     overflow = torch.zeros((), dtype=torch.bool, device=x.device)
     for i0 in range(0, x.shape[0], row_chunk):
@@ -193,7 +198,9 @@ def compact_short(x, box, nbr_idx, rc_s, ks, pbc, row_chunk=16384,
         rsq = dx * dx + dy * dy + dz * dz
         # filler lanes lie at 2*box + 10 per axis, beyond any rc_s
         mask = (rsq < rc_s * rc_s) & (rsq > 1.0e-12)
-        overflow = overflow | (mask.sum(dim=1) > ks).any()
+        lanes = mask.sum(dim=1)
+        profiling.count("nbr.short_lanes", lanes)
+        overflow = overflow | (lanes > ks).any()
         key = torch.where(mask, idx_c, torch.full_like(idx_c, n))
         # a copy of the first ks columns, so that the chunk's sorted
         # [row_chunk, K] keys are freed (_compact_rows, system/neighbors.py)
@@ -618,16 +625,19 @@ def evaluate_pairs(eval_fj, x, box, sidx, bad, pbc, e_shift, shift,
     (`energy_forces_short(per_atom=True)`,
     meng_zhang_tpu/ops/pallas_annp.py:1625-1638)."""
     n = x.shape[0]
-    dd = pair_dx_planes(x, box, sidx, pbc, x_ext=x_ext)
+    with profiling.span("eval.gather"):
+        dd = pair_dx_planes(x, box, sidx, pbc, x_ext=x_ext)
     eat, fj = eval_fj(*dd, el)
-    forces, target = deliver(fj, sidx, n, x_ext)
+    with profiling.span("eval.delivery"):
+        forces, target = deliver(fj, sidx, n, x_ext)
     e = eat.sum()
     if shift:
         e = e + n * e_shift
     nan = torch.full((), float("nan"), dtype=x.dtype, device=x.device)
     out = (torch.where(bad, nan, e), torch.where(bad, nan, forces))
     if want_virial:
-        out = out + (pair_virial(dd, fj),)
+        with profiling.span("eval.virial"):
+            out = out + (pair_virial(dd, fj),)
     if per_atom:
         t = torch.stack([-0.5 * dd[a] * fj[b] for a, b in VATOM_ORDER],
                         dim=-1)                            # [P, K, 6]
@@ -735,15 +745,22 @@ class FusedAnnp(FrameOps):
     def _eval_fj(self, dxx, dxy, dxz, el=None):
         c = self.cfg
         if self.angular != "harmonic":
-            g = self._g_cos()(dxx, dxy, dxz, c.npsf, c.ntsf, c.cut)
-            eat, dedg = self._mlp_eat_dedg(g, el)
             f_fn = force_cos_plain if self.plain else kernels.force_cos
-            return eat, f_fn(dxx, dxy, dxz, dedg, c.npsf, c.ntsf, c.cut)
+            with profiling.span("eval.descriptors"):
+                g = self._g_cos()(dxx, dxy, dxz, c.npsf, c.ntsf, c.cut)
+            with profiling.span("eval.network"):
+                eat, dedg = self._mlp_eat_dedg(g, el)
+            with profiling.span("eval.forces"):
+                return eat, f_fn(dxx, dxy, dxz, dedg, c.npsf, c.ntsf, c.cut)
         g_fn = g_harm_plain if self.plain else kernels.g_harm
         f_fn = force_harm_plain if self.plain else kernels.force_harm
-        g_raw, a = g_fn(dxx, dxy, dxz, c.npsf, c.ntsf, c.cut)
-        eat, dedg_rad, b = self._mlp_eat_dedg_harm(g_raw, a, el)
-        return eat, f_fn(dxx, dxy, dxz, dedg_rad, b, c.npsf, c.ntsf, c.cut)
+        with profiling.span("eval.descriptors"):
+            g_raw, a = g_fn(dxx, dxy, dxz, c.npsf, c.ntsf, c.cut)
+        with profiling.span("eval.network"):
+            eat, dedg_rad, b = self._mlp_eat_dedg_harm(g_raw, a, el)
+        with profiling.span("eval.forces"):
+            return eat, f_fn(dxx, dxy, dxz, dedg_rad, b, c.npsf, c.ntsf,
+                             c.cut)
 
     def _el(self, elems):
         return self.elems if elems is None else elems

@@ -36,6 +36,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from .. import profiling
 from ..units import CFLENGTH
 from . import fused_annp as fa
 from . import kernels
@@ -550,9 +551,12 @@ class FusedNi(FrameOps):
     def _eval_fj(self, dxx, dxy, dxz, el=None):
         g_fn = ni_g_plain if self.plain else kernels.ni_g
         f_fn = ni_force_plain if self.plain else kernels.ni_force
-        g = g_fn(dxx, dxy, dxz, self.table)
-        eat, dedg = self._mlp_eat_dedg(g, el)
-        return eat, f_fn(dxx, dxy, dxz, dedg, self.table)
+        with profiling.span("eval.descriptors"):
+            g = g_fn(dxx, dxy, dxz, self.table)
+        with profiling.span("eval.network"):
+            eat, dedg = self._mlp_eat_dedg(g, el)
+        with profiling.span("eval.forces"):
+            return eat, f_fn(dxx, dxy, dxz, dedg, self.table)
 
     def energy_forces_short(self, x, box, sl: fa.ShortList, want_virial=True,
                             shift=False, per_atom=False, elems=None,

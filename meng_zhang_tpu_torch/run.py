@@ -44,6 +44,7 @@ Example (the benchmark scene's workflow):
 from __future__ import annotations
 
 import argparse
+import contextlib
 import sys
 import time
 
@@ -119,7 +120,11 @@ def build_parser():
                           "(compute pe/atom + stress/atom)")
     out.add_argument("--checkpoint", help="write final state to .npz")
     out.add_argument("--restart", help="resume from a checkpoint .npz")
-    out.add_argument("--profile", action="store_true")
+    out.add_argument("--profile", nargs="?", const="", metavar="TRACE",
+                     help="print the program's spans and counters at the "
+                          "end; with a path, also write a Chrome trace of "
+                          "the MD loop there (torch.profiler: the spans "
+                          "over the kernels they launched)")
     return ap
 
 
@@ -151,7 +156,7 @@ def main(argv=None, device="cuda"):
     from .system.neighbors import cell_grid_dims
 
     dev = resolve_device(device)
-    if args.profile:
+    if args.profile is not None:
         profiling.enable()
 
     # ---- scene ----
@@ -344,24 +349,31 @@ def main(argv=None, device="cuda"):
           f"{'Press':>12} {'Volume':>14}")
     th0 = sim.thermo(st)
     _print_thermo(int(st.step), th0, pe_offset)
+    trace = profiling.torch_trace(args.profile) if args.profile \
+        else contextlib.nullcontext()
+    rebuilds = 0
     t0 = time.time()
-    for b in range(n_blocks):
-        with profiling.phase("md_block"):
-            st, th = sim.run(st, 1)
-        _print_thermo(int(st.step), _last(th), pe_offset)
-        if dump:
-            with profiling.phase("dump"):
-                extra = None
-                if peratom_fn is not None:
-                    extra = {k: v.cpu().numpy()
-                             for k, v in peratom_fn(st).items()}
-                dump.write(int(st.step), st.x.cpu().numpy(),
-                           st.box.cpu().numpy(), v=None, extra=extra)
+    with trace:
+        for b in range(n_blocks):
+            # each span ends in a host read (the block's stale flag, the
+            # dump's copies), so its host time covers its device work
+            with profiling.span("md_block"):
+                st, th = sim.run(st, 1)
+            rebuilds += sim.rebuild_count
+            _print_thermo(int(st.step), _last(th), pe_offset)
+            if dump:
+                with profiling.span("dump"):
+                    extra = None
+                    if peratom_fn is not None:
+                        extra = {k: v.cpu().numpy()
+                                 for k, v in peratom_fn(st).items()}
+                    dump.write(int(st.step), st.x.cpu().numpy(),
+                               st.box.cpu().numpy(), v=None, extra=extra)
     wall = time.time() - t0
     steps = n_blocks * args.thermo
     log(f"Loop time {wall:.2f} s for {steps} steps with {len(x_np)} atoms "
         f"({len(x_np) * steps / wall:,.0f} atom-steps/s, "
-        f"{sim.rebuild_count} neighbor rebuilds)")
+        f"{rebuilds} neighbor rebuilds)")
     if bool(st.overflow):
         log("WARNING: neighbor capacity overflow occurred (results unsafe); "
             "raise --capacity")
@@ -376,8 +388,10 @@ def main(argv=None, device="cuda"):
         from .md.checkpoint import save_checkpoint
         save_checkpoint(args.checkpoint, st)
         log(f"checkpoint written to {args.checkpoint}")
-    if args.profile:
+    if args.profile is not None:
         log(profiling.report())
+        if args.profile:
+            log(f"Chrome trace of the MD loop written to {args.profile}")
 
 
 def _last(th):
