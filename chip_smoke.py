@@ -33,12 +33,17 @@ Phases, each fatal on failure:
      gathered from the scene (filler lanes included), all four also on
      the [P, 192] skin planes (the cos pair's f64 comparison there on
      every fourth row) and, on the short planes, at ntsf 5;
+  3a. [short-list]: compact_short's kernel alone on skin lists of the
+      benchmark cells' shapes (SHORT_LIST_SHAPES) against
+      compact_short_plain, bit for bit, with its time and bytes bound;
   4. harmonic fe evaluator: energy_forces_short through the kernels in f32
      against the plain path in f64 on the full scene, and the f64 kernel
      path against the autograd model (models/annp.py) on a 250-atom box;
   5. harmonic fe main path: init_state + 20 blocks of 10 NPT steps through
      Simulator, one forced skin-list rebuild after the first block; checks
-     finite thermo, no overflow / unsafe, and the kernels' launch counts;
+     finite thermo, no overflow / unsafe, and the kernels' launch counts
+     (compact_short's once a short-list refresh, here and on every run
+     path below);
   6. cos-matrix evaluator in f32 through the kernels against its plain
      path in f64 on the full scene (the gates of phase 4);
   7. matrix vs harmonic: both paths through the kernels in f64 on the full
@@ -765,7 +770,19 @@ PLAIN_VERSIONS = (("fused_annp", "g_harm_plain"),
                   ("fused_ni", "ni_g_tiles_plain"),
                   ("fused_ni", "ni_force_tiles_plain"),
                   ("fused_ni", "ni_force_tiles_part_plain"),
-                  ("fused_ni", "ni_force_tiles_sum_plain"))
+                  ("fused_ni", "ni_force_tiles_sum_plain"),
+                  ("fused_annp", "compact_short_plain"))
+# the harmonic fe paths' kernels a run launches: the two evaluator kernels
+# and the short-list compaction
+FE_RUN_KERNELS = ("g_harm", "force_harm", "compact_short")
+# [short-list]: the benchmark cells' compactions, (tag, lattice, cells, skin
+# cutoff, capacity, cell capacity, dims share, rc_s, Ks); the 2M grain
+# boundary (1,964,085 atoms, capacity 168) as a bcc block of 1,960,200,
+# whose cells of 2.6 lattice constants hold up to 54 atoms (48 in the cell)
+SHORT_LIST_SHAPES = (
+    ("ni", "fcc", 40, 3.9 + 0.7, 64, 24, 1.0, 3.9 + 0.4, 64),
+    ("bulk-500k", "bcc", 63, 6.5 + 1.2, 192, 96, 0.95, 6.5 + 0.4, 160),
+    ("2m", "bcc", (99, 99, 100), 6.5 + 0.8, 168, 64, 1.0, 6.5 + 0.4, 160))
 
 
 class SmokeFailure(Exception):
@@ -795,6 +812,21 @@ def cuda_ms(fn, reps):
         torch.cuda.synchronize()
         times.append(t0.elapsed_time(t1))
     return float(np.median(times))
+
+
+def cuda_ms_calls(fn, calls):
+    """Milliseconds a call of fn() over `calls` calls queued back to back
+    between two CUDA events, after one warm-up call: the device's time
+    when the host queues faster than the device runs."""
+    fn()
+    t0 = torch.cuda.Event(enable_timing=True)
+    t1 = torch.cuda.Event(enable_timing=True)
+    t0.record()
+    for _ in range(calls):
+        fn()
+    t1.record()
+    torch.cuda.synchronize()
+    return t0.elapsed_time(t1) / calls
 
 
 def timed(fn):
@@ -1097,6 +1129,56 @@ def phase_kernels(x, box, cfg32, p32):
     return list(records.values()), sl
 
 
+def phase_short_list(dev, card):
+    """compact_short's kernel alone at the benchmark cells' shapes
+    (SHORT_LIST_SHAPES: thermal lattices, skin lists from the cell build,
+    float32), against its plain twin on the same rows: equal bit for bit,
+    its time (CUDA events) beside its bound (the skin ids read and the
+    short ids written, by bytes) and the plain version's. Returns the 2M
+    shape's record."""
+    from meng_zhang_tpu_torch.ops import fused_annp as fa
+    from meng_zhang_tpu_torch.system.neighbors import (build_neighbors_cell,
+                                                       cell_grid_dims)
+    from meng_zhang_tpu_torch.testing import thermal_bcc, thermal_fcc
+    pbc = (True, True, True)
+    rec = None
+    for tag, lat, cells, cut, cap, ccap, share, rc_s, ks in \
+            SHORT_LIST_SHAPES:
+        xn, boxn = (thermal_fcc if lat == "fcc" else thermal_bcc)(cells,
+                                                                 seed=SEED)
+        x = torch.as_tensor(xn, dtype=torch.float32, device=dev)
+        box = torch.as_tensor(boxn, dtype=torch.float32, device=dev)
+        nb = build_neighbors_cell(x, box, cut, cap,
+                                  cell_grid_dims(boxn * share, cut), ccap)
+        check(not bool(nb.overflow), f"short-list {tag}: skin overflow")
+        n, k = nb.idx.shape
+
+        def kernel():
+            return fa.compact_short(x, box, nb.idx, rc_s, ks, pbc)
+
+        def plain():
+            return fa.compact_short_plain(x, box, nb.idx, rc_s, ks, pbc)
+        got, want = kernel(), plain()
+        check(torch.equal(got.sidx, want.sidx)
+              and bool(got.overflow) == bool(want.overflow),
+              f"short-list {tag}: rows differ from compact_short_plain's")
+        ms, plain_ms = cuda_ms_calls(kernel, 50), cuda_ms(plain, 3)
+        nbytes = 8 * n * (k + ks)
+        fill = float((got.sidx < n).sum()) / (n * ks)
+        rec = record("compact_short", "ops/csrc/short_list.cu",
+                     "none (the JAX package sorts through XLA)", 0.0, ms,
+                     plain_ms, 0, nbytes)
+        log(f"[short-list] {tag}: [{n}, {k}] -> Ks {ks} at rc_s {rc_s:.2f} "
+            f"(fill {fill:.3f}, overflow {bool(got.overflow)}), rows equal "
+            f"to the plain version's; kernel {ms:.4f} ms, bound "
+            f"{rec['bound_ms']:.4f} ms by bytes ({nbytes / 1e6:.0f} MB, "
+            f"{ms / rec['bound_ms']:.2f}x), plain {plain_ms:.3f} ms on "
+            f"{card}")
+        del x, box, nb, got, want
+        torch.cuda.empty_cache()
+    return rec
+
+
 def phase_evaluator(x, box, cfg32, p32, cfg64, p64, sl, angular="harmonic",
                     elems=None, pot=None, tag=None, ref_out=None):
     """Kernel path in f32 against the plain path in f64, same short list;
@@ -1265,9 +1347,10 @@ def phase_main_path(x, box, cfg32, p32, mass, card, angular="harmonic",
     """init_state + blocks of the NPT main path through one angular path's
     kernels (elems: the atoms' elements, with `mass` their masses); the
     other path's kernels and the plain versions must not run. Returns the
-    path's launches, its atom-steps/s over the rate window and its median
-    block's ms (a block without a skin rebuild). wide: [fe-wide-main], the
-    harmonic path at the sizes of the rc FE_WIDE_RC potential."""
+    path's launches (compact_short's, one a short-list refresh, among
+    them), its atom-steps/s over the rate window and its median block's ms
+    (a block without a skin rebuild). wide: [fe-wide-main], the harmonic
+    path at the sizes of the rc FE_WIDE_RC potential."""
     from meng_zhang_tpu_torch.ops import kernels
     if angular == "harmonic":
         tag0, nb0, rb0 = "main", N_BLOCKS, RATE_BLOCKS
@@ -1313,7 +1396,7 @@ def phase_main_path(x, box, cfg32, p32, mass, card, angular="harmonic",
                 f"{row[6]:.6e}  short row max {srow}/{ks}  "
                 f"{block_s[-1] * 1e3:.1f} ms")
     launches = {name: getattr(kernels, name).launches
-                for name in names + others}
+                for name in names + others + ("compact_short",)}
     steps = n_blocks * THERMO_EVERY
     check(not plain, f"{tag}: plain versions ran on the card: {plain}")
     check(all(np.isfinite(r).all() for r in rows), f"{tag}: non-finite thermo")
@@ -1327,6 +1410,7 @@ def phase_main_path(x, box, cfg32, p32, mass, card, angular="harmonic",
     for name in others:
         check(launches[name] == 0, f"{name} launched {launches[name]} times "
               f"on the {angular} path")
+    short_launches(tag, launches, sim_refreshes(sim, n_blocks, rebuilds))
     window = sum(block_s[-rate_blocks:])
     aps = n * rate_blocks * THERMO_EVERY / window
     log(f"[{tag}] {steps} NPT steps, {rebuilds} rebuilds, launches "
@@ -1336,8 +1420,8 @@ def phase_main_path(x, box, cfg32, p32, mass, card, angular="harmonic",
     log(f"[{tag}] {aps:.1f} atom-steps/s over the last {rate_blocks} blocks "
         f"({window:.3f} s) on {card}; peak device memory "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
-    return ({name: launches[name] for name in names}, aps,
-            float(np.median(block_s)) * 1e3)
+    return ({name: launches[name] for name in names + ("compact_short",)},
+            aps, float(np.median(block_s)) * 1e3)
 
 
 def profile_block(tag, what, sim, st, steps, card, tries=3):
@@ -1853,7 +1937,8 @@ def phase_ni_main_path(dev, cfg32, p32, mass, card, wide=False):
     up to NI_WIDE_KS partners on the potential at Rc NI_WIDE_RC; "wider":
     NI_WIDER_BLOCKS blocks on NI_WIDER_CELLS^3 cells at Ks NI_WIDER_KS on
     the potential at Rc NI_WIDER_RC ([ni-wider-main]). Returns the
-    launches and the rate."""
+    launches (compact_short's, one a short-list refresh, among them) and
+    the rate."""
     from meng_zhang_tpu_torch.ops import kernels
     tag, n_blocks, rate_blocks = {
         False: ("ni-main", NI_BLOCKS, RATE_BLOCKS),
@@ -1887,18 +1972,19 @@ def phase_ni_main_path(dev, cfg32, p32, mass, card, wide=False):
             f"{row[2]:.6f} eV  P {row[4]:10.2f} bar  conserved "
             f"{row[6]:.6e}  short row max {srow}/{ks}  "
             f"{block_s[-1] * 1e3:.1f} ms")
-    launches = {"ni_g": kernels.ni_g.launches,
-                "ni_force": kernels.ni_force.launches}
+    launches = {k: getattr(kernels, k).launches
+                for k in ("ni_g", "ni_force", "compact_short")}
     steps = n_blocks * NI_THERMO_EVERY
     check(all(np.isfinite(r).all() for r in rows),
           f"{tag}: non-finite thermo")
     check(not bool(st.overflow), f"{tag}: neighbor overflow in the main path")
     check(not bool(st.unsafe), f"{tag}: unsafe (dangerous-build) latch set")
     check(rebuilds >= 1, f"{tag}: no skin-list rebuild ran")
-    for name, cnt in launches.items():
-        check(cnt == steps + 1, f"{tag}: {name} launched {cnt} times, "
-              f"expected {steps + 1} (init + one per step, light steps "
-              "included)")
+    for name in ("ni_g", "ni_force"):
+        check(launches[name] == steps + 1, f"{tag}: {name} launched "
+              f"{launches[name]} times, expected {steps + 1} (init + one per "
+              "step, light steps included)")
+    short_launches(tag, launches, sim_refreshes(sim, n_blocks, rebuilds))
     window = sum(block_s[-rate_blocks:])
     aps = n * rate_blocks * NI_THERMO_EVERY / window
     log(f"[{tag}] {steps} NVT steps, {rebuilds} rebuilds, widest short row "
@@ -2383,6 +2469,39 @@ def phase_anna_profile(dev, cfg32, p32, mass, card):
 
 
 # ------------------------------------------------------------ run path
+def sim_refreshes(sim, blocks, rebuilds):
+    """Short-list refreshes of a Simulator's `blocks` blocks with
+    `rebuilds` skin rebuilds: init_state's, one each short_every steps of
+    a block, one each rebuild."""
+    return 1 + blocks * (sim.cfg.thermo_every // sim.cfg.short_every) + \
+        rebuilds
+
+
+def short_launches(tag, launches, want):
+    """compact_short launched `want` times: once a short-list refresh."""
+    check(launches["compact_short"] == want, f"{tag}: compact_short "
+          f"launched {launches['compact_short']} times, expected {want} (one "
+          "a short-list refresh)")
+
+
+@contextlib.contextmanager
+def refresh_calls():
+    """Count the short-list refreshes made inside the block, the calls of
+    fused_annp.compact_short (which every evaluator, the wide-row models
+    and run.py refresh through): {"compact_short": calls}."""
+    from meng_zhang_tpu_torch.ops import fused_annp
+    counts, fn = {"compact_short": 0}, fused_annp.compact_short
+
+    def counted(*a, **kw):
+        counts["compact_short"] += 1
+        return fn(*a, **kw)
+    fused_annp.compact_short = counted
+    try:
+        yield counts
+    finally:
+        fused_annp.compact_short = fn
+
+
 @contextlib.contextmanager
 def plain_calls():
     """Count the calls of the kernels' plain versions made inside the
@@ -2506,7 +2625,8 @@ def phase_cli_fe(card, tmp, paths, dev):
         "--checkpoint", ck, "--profile"])
     n_dumps = CLI_FE_STEPS // CLI_THERMO
     want = CLI_FE_STEPS + 1 + n_dumps       # init, steps, per-atom dumps
-    for name in ("g_harm", "force_harm"):
+    # FusedAnnp.energy_forces refreshes the short list once an evaluation
+    for name in FE_RUN_KERNELS:
         check(launches[name] == want, f"cli-fe: {name} launched "
               f"{launches[name]} times, expected {want} (init + one per "
               f"step + one per per-atom dump)")
@@ -2543,10 +2663,10 @@ def phase_cli_fe(card, tmp, paths, dev):
           f"from the checkpoint's last: {rows2[0]!r} vs {rows[-1]!r}")
     check(int(rows2[-1].split()[0]) == CLI_FE_STEPS + CLI_FE_RESTART_STEPS,
           "cli-fe: the restart did not continue the step count")
-    for name in ("g_harm", "force_harm"):
+    for name in FE_RUN_KERNELS:
         check(launches2[name] == CLI_FE_RESTART_STEPS + 1,
               f"cli-fe restart: {name} launched {launches2[name]} times")
-    return {k: launches[k] + launches2[k] for k in ("g_harm", "force_harm")}
+    return {k: launches[k] + launches2[k] for k in FE_RUN_KERNELS}
 
 
 def step_costs(tag, card, fns):
@@ -2652,6 +2772,8 @@ def phase_cli_ni(card, paths, dev):
         check(launches[name] == CLI_NI_STEPS + 1, f"cli-ni: {name} "
               f"launched {launches[name]} times, expected "
               f"{CLI_NI_STEPS + 1} (init + one per step)")
+    # the chunked route compacts through compact_neighbor_rows
+    short_launches("cli-ni", launches, 0)
     log(f"[cli-ni] Loop time rate {_loop_rate(err):.1f} atom-steps/s on "
         f"{card}")
     ni_step_costs(card, dev)
@@ -2748,11 +2870,14 @@ def phase_minimize(card, tmp, paths, dev):
     check(fmax <= FIRE_FTOL, f"minimize: FIRE stopped at fmax {fmax}")
     check(launches["force_harm"] == launches["g_harm"] and evals > 0,
           "minimize: FIRE ran no kernel evaluation")
+    # FIRE's energy_forces_chunked compacts through compact_neighbor_rows,
+    # the run's FusedAnnp.energy_forces once an evaluation
+    short_launches("minimize", launches, CLI_THERMO + 1)
     log(f"[minimize] FIRE (--minimize --min-ftol {FIRE_FTOL}) on the "
         f"screw-dislocation scene: fmax {fmax:.4e} eV/A after {evals} force "
         f"evaluations (kernel launches less the run's {CLI_THERMO + 1}); "
         f"run.main {wall:.2f} s on {card}")
-    return {k: launches[k] for k in ("g_harm", "force_harm")}
+    return {k: launches[k] for k in FE_RUN_KERNELS}
 
 
 # ------------------------------------------ multi-element and thin box
@@ -2832,22 +2957,25 @@ def phase_rowsweep(x, box, cfg32, p32, mass, card):
     with plain_calls() as plain:
         st = sim.init_state(x, box, seed=SEED, t_init=300.0)
         st, th0 = sim.run(st, 1)
+        rebuilds = sim.rebuild_count + 1
         st = sim.rebuild(st)
         fresh = build_neighbors_cell(st.x, st.box, *args[2:], pbc=PBC)
         check(torch.equal(st.nbrs.idx, fresh.idx),
               "rowsweep: the Simulator's rebuilt list differs from a fresh "
               "build")
         st, th1 = sim.run(st, 1)
-    launches = {k: getattr(kernels, k).launches
-                for k in ("g_harm", "force_harm")}
+        rebuilds += sim.rebuild_count
+    launches = {k: getattr(kernels, k).launches for k in FE_RUN_KERNELS}
     rows = [[float(v[-1]) for v in th] for th in (th0, th1)]
     check(not plain and all(np.isfinite(r).all() for r in rows)
           and not bool(st.overflow) and not bool(st.unsafe),
           f"rowsweep: plain {plain}, rows {rows}, overflow "
           f"{bool(st.overflow)}, unsafe {bool(st.unsafe)}")
     want = 2 * THERMO_EVERY + 1
-    check(all(v == want for v in launches.values()),
-          f"rowsweep: launches {launches}, expected {want} each")
+    check(launches["g_harm"] == launches["force_harm"] == want,
+          f"rowsweep: launches {launches}, expected {want} of each harmonic "
+          "kernel")
+    short_launches("rowsweep", launches, sim_refreshes(sim, 2, rebuilds))
     log(f"[rowsweep] {x.shape[0]} atoms: rows and flags equal to "
         f"build_neighbors_cell; Simulator(nbr_method='rowsweep') 2 blocks "
         f"around a forced rebuild, T {rows[-1][1]:.3f} K, launches "
@@ -3155,7 +3283,8 @@ def phase_cli_multi(card, tmp, types):
     check(launches["g_harm"] == launches["force_harm"] == want,
           f"cli-multi: launches {launches}, expected {want} of g_harm and "
           "force_harm (init + one per step + one per per-atom dump)")
-    check(sum(launches.values()) == 2 * want,
+    short_launches("cli-multi", launches, want)
+    check(sum(launches.values()) == 3 * want,
           f"cli-multi: other kernels launched: {launches}")
     step, cols, snap = _last_snapshot(dump)
     check(step == CLI_MULTI_STEPS and snap.shape == (n, 12)
@@ -3173,7 +3302,7 @@ def phase_cli_multi(card, tmp, types):
         f" atom-steps/s; run.main {wall:.2f} s on {card}")
     check(abs(pe_sum - pe_row) <= PE_SUM_ATOL,
           "cli-multi: the dump's c_pe does not sum to the thermo PotEng")
-    return {k: launches[k] for k in ("g_harm", "force_harm")}
+    return {k: launches[k] for k in FE_RUN_KERNELS}
 
 
 def shard_config(n, cut, skin, capacity, cell_capacity, mesh=None, **kw):
@@ -4081,13 +4210,15 @@ def scale_script(tag, module, argv, stdout=None, **kw):
     """module.main(argv, **kw) (meng_zhang_tpu_torch/scripts/) on the card
     in this process, its JSON line echoed (and kept in `stdout`, a
     StringIO, when given): (the run it returns, the kernels' launches
-    counted from 0, wall seconds). No plain version may run."""
+    counted from 0, wall seconds, its short-list refreshes as
+    refresh_calls counts them). No plain version may run."""
     from meng_zhang_tpu_torch.ops import kernels
     out = io.StringIO() if stdout is None else stdout
     kernels.reset_launch_counts()
     t0 = time.time()
     try:
-        with plain_calls() as plain, contextlib.redirect_stdout(out):
+        with plain_calls() as plain, refresh_calls() as refresh, \
+                contextlib.redirect_stdout(out):
             run = module.main(argv, **kw)
     except (SystemExit, RuntimeError) as e:
         raise SmokeFailure(f"{tag}: {module.__name__}.main failed: {e}")
@@ -4097,25 +4228,24 @@ def scale_script(tag, module, argv, stdout=None, **kw):
     check(not plain, f"{tag}: plain versions ran on the card: {plain}")
     launches = {k: getattr(kernels, k).launches for k in kernels.WRAPPERS}
     log(f"[{tag}] {wall:.2f} s in {module.__name__}.main; launches "
-        f"{launches}")
-    return run, launches, wall
+        f"{launches}, short-list refreshes {refresh['compact_short']}")
+    return run, launches, wall, refresh
 
 
-def scale_gates(tag, rec, launches, evaluations, wall, card):
+def scale_gates(tag, rec, launches, evaluations, refresh, wall, card):
     """A scale run's gates: no overflow, no `unsafe` latch in the timed
-    window, finite thermo, and g_harm / force_harm once an evaluation and
-    no other kernel; prints the phase's atoms, peak memory, wall and
-    rate."""
+    window, finite thermo, g_harm / force_harm once an evaluation,
+    compact_short once a short-list refresh (`refresh`, from
+    scale_script) and no other kernel; prints the phase's atoms, peak
+    memory, wall and rate."""
     check(not rec["overflow"], f"{tag}: neighbor overflow")
     check(not rec["unsafe"], f"{tag}: unsafe (dangerous-build) latch set in "
           "the timed window")
     check(all(math.isfinite(rec[k]) for k in (
         "temp_K", "press_bar", "pe_eV", "vol_A3", "drift_eV")),
         f"{tag}: non-finite thermo")
-    for name, count in launches.items():
-        want = evaluations if name in ("g_harm", "force_harm") else 0
-        check(count == want, f"{tag}: {name} launched {count} times, "
-              f"expected {want}")
+    script_launches(tag, launches, {"g_harm": evaluations,
+                                    "force_harm": evaluations, **refresh})
     log(f"[{tag}] {rec['atoms']} atoms: {rec['steps']} timed steps "
         f"{rec['atom_steps_per_s']:.1f} atom-steps/s ({rec['wall_s']:.3f} s"
         f" timed), T {rec['temp_K']:.2f} K, P {rec['press_bar']:.1f} bar, "
@@ -4174,13 +4304,13 @@ def phase_scale_500k(card):
     their times on the full scene."""
     from meng_zhang_tpu_torch.scripts import scale_demo
     tag = "scale-500k"
-    run, launches, wall = scale_script(
+    run, launches, wall, refresh = scale_script(
         tag, scale_demo, ["--config", "500k", "--steps",
                           str(SCALE_500K_STEPS)])
     rec, st = run.record, run.state
     c = scale_demo.CONFIGS["500k"]
     steps = run.sim.cfg.thermo_every * scale_demo.WARMUP_BLOCKS + rec["steps"]
-    scale_gates(tag, rec, launches, 1 + steps, wall, card)
+    scale_gates(tag, rec, launches, 1 + steps, refresh, wall, card)
     b0, b1 = run.box.tolist(), st.box.tolist()
     log(f"[{tag}] box {b0} -> {b1} (p_couple {c['couple']})")
     check(all(u != v for u, v in zip(b0, b1)),
@@ -4195,7 +4325,7 @@ def phase_scale_500k(card):
     planes = rows_planes(st.x, st.box, st.short.sidx,
                          torch.arange(rec["atoms"], device=st.x.device), pbc)
     times = scale_kernel_times(tag, planes, cfg)
-    return {k: launches[k] for k in ("g_harm", "force_harm")}, times
+    return {k: launches[k] for k in FE_RUN_KERNELS}, times
 
 
 class _Timed:
@@ -4235,7 +4365,7 @@ def phase_scale_2m(card):
     from meng_zhang_tpu_torch.scripts import scale_demo
     tag = "scale-2m"
     with _Timed(stgb, "_prune_overlaps") as prune:
-        run, launches, wall = scale_script(
+        run, launches, wall, refresh = scale_script(
             tag, scale_demo, ["--config", "2m", "--steps",
                               str(SCALE_2M_STEPS)], warmup=SCALE_2M_WARMUP)
     rec, st, sim, ev = run.record, run.state, run.sim, run.evaluator
@@ -4246,7 +4376,7 @@ def phase_scale_2m(card):
         f" {rec['init_s']:.2f} s; warm-up {rec['warmup_s']:.2f} s")
     evaluations = rec["fire_iters"] + 1 + 1 + \
         sim.cfg.thermo_every * SCALE_2M_WARMUP + rec["steps"]
-    scale_gates(tag, rec, launches, evaluations, wall, card)
+    scale_gates(tag, rec, launches, evaluations, refresh, wall, card)
     pbc, cfg, dev = tuple(ev.pbc), ev.cfg, st.x.device
     cases = fe_kernel_cases(cfg.npsf, cfg.ntsf, cfg.cut, SCALE_SLICE, dev)[0]
     near = torch.argsort((st.x[:, 0] - STGB_PLANE_X).abs())[:SCALE_SLICE]
@@ -4306,7 +4436,7 @@ def phase_scale_2m(card):
         f"{float(out64[0]) / n + cfg64.e_shift:.9f} eV, max|F| "
         f"{float(out64[1].abs().max()):.4e} eV/A")
     eval_gates(tag, EVAL_REL, out32, out64, w_abs)
-    return {k: launches[k] for k in ("g_harm", "force_harm")}, times, \
+    return {k: launches[k] for k in FE_RUN_KERNELS}, times, \
         (x, box)
 
 
@@ -4320,7 +4450,7 @@ def phase_disloc_core(card, tmp):
     evaluation."""
     from meng_zhang_tpu_torch.scripts import disloc_core
     tag = "disloc-core"
-    run, launches, wall = scale_script(
+    run, launches, wall, _ = scale_script(
         tag, disloc_core, ["--dump", os.path.join(tmp, "core.lammpstrj"),
                            "--out", os.path.join(tmp, "core.json")])
     rec = run.record
@@ -4345,14 +4475,12 @@ def phase_disloc_core(card, tmp):
     x0 = run.x0.astype(np.float32).astype(np.float64)    # the run's f32 start
     check(bool(np.array_equal(run.x[shell], x0[shell])),
           f"{tag}: frozen shell atoms moved")
-    for name, count in launches.items():
-        want = rec["fire_iters"] + rec["fire_passes"] + 1 \
-            if name in ("g_harm", "force_harm") else 0
-        check(count == want, f"{tag}: {name} launched {count} times, "
-              f"expected {want}")
+    # each evaluation refreshes the short list (FusedAnnp.energy_forces)
+    want = rec["fire_iters"] + rec["fire_passes"] + 1
     check(bool(np.isfinite(run.eatom).all() and np.isfinite(run.vatom).all()),
           f"{tag}: non-finite per-atom tallies")
-    return {k: launches[k] for k in ("g_harm", "force_harm")}
+    return script_launches(tag, launches,
+                           {k: want for k in FE_RUN_KERNELS})
 
 
 # ----------------------------------------------------- the run scripts
@@ -4412,7 +4540,7 @@ def phase_script_model(card, model):
     names = ("ni_g", "ni_force") if model == "ni" else ("g_harm",)
     total, rates = {}, {}
     for backend, steps in SCRIPT_MODEL_STEPS.items():
-        run, launches, wall = scale_script(
+        run, launches, wall, refresh = scale_script(
             tag, model_bench, ["--model", model, "--backend", backend,
                                "--steps", str(steps)])
         rec, st = run.record, run.state
@@ -4423,7 +4551,7 @@ def phase_script_model(card, model):
               f"{tag} {backend}: non-finite thermo")
         add_launches(total, script_launches(
             f"{tag} {backend}", launches,
-            {k: run.evaluations for k in names}))
+            {**{k: run.evaluations for k in names}, **refresh}))
         rates[backend] = rec["atom_steps_per_s"]
         log(f"[{tag}] {backend}: {rec['atoms']} atoms, {rec['steps']} timed "
             f"steps {rec['atom_steps_per_s']:.1f} atom-steps/s "
@@ -4499,10 +4627,10 @@ def phase_script_profile(card, which, scene=None):
     tag = f"script-profile-{which}"
     mod = {"fe": profile_bench, "ni": profile_ni, "2m": profile_2m}[which]
     kw = {} if scene is None else {"scene": scene}
-    run, launches, wall = scale_script(tag, mod, [], **kw)
+    run, launches, wall, refresh = scale_script(tag, mod, [], **kw)
     rec = run.record
-    got = script_launches(tag, launches, {k: run.kernel_calls
-                                          for k in PROFILE_KERNELS[which]})
+    got = script_launches(tag, launches, {
+        **{k: run.kernel_calls for k in PROFILE_KERNELS[which]}, **refresh})
     check(all(math.isfinite(t) and t > 0.0 for t in rec["times_s"].values()),
           f"{tag}: a phase without a positive time")
     peaks = rec.get("peak_mem_gib_by_phase") or {}
@@ -4569,7 +4697,7 @@ def phase_script_sharded(card, scene):
     argv = ["--scene", scene]
     if scene == "small":
         argv += ["--steps", str(SCRIPT_SHARDED_SMALL_STEPS)]
-    run, launches, wall = scale_script(tag, sharded_demo, argv)
+    run, launches, wall, refresh = scale_script(tag, sharded_demo, argv)
     rec, st, md, th = run.record, run.state, run.md, run.thermo
     check(not rec["overflow"], f"{tag}: overflow")
     check(not rec["unsafe"], f"{tag}: unsafe latch set")
@@ -4577,7 +4705,7 @@ def phase_script_sharded(card, scene):
           f"{tag}: non-finite thermo")
     evals = run.evaluations * (2 if scene == "small" else 1)
     got = script_launches(tag, launches, {"g_harm": evals,
-                                          "force_harm": evals})
+                                          "force_harm": evals, **refresh})
     log(f"[{tag}] {rec['atoms']} atoms on {rec['devices']} shards (halo_b "
         f"{rec['halo_b']}, capacity {rec['capacity']}): {rec['steps']} NPT "
         f"steps, {rec['atom_steps_per_s']:.1f} atom-steps/s over the timed "
@@ -4616,13 +4744,14 @@ def phase_script_sharded2d(card):
     kernels against their plain versions on the frame planes."""
     from meng_zhang_tpu_torch.scripts import sharded2d_demo
     tag = "script-sharded2d"
-    run, launches, wall = scale_script(tag, sharded2d_demo, [])
+    run, launches, wall, refresh = scale_script(tag, sharded2d_demo, [])
     rec, st, md = run.record, run.state, run.md
     check(not rec["overflow"], f"{tag}: overflow")
     check(all(bool(torch.isfinite(c).all()) for c in run.thermo),
           f"{tag}: non-finite thermo")
     got = script_launches(tag, launches, {
-        "g_harm": run.evaluations + 1, "force_harm": run.evaluations + 1})
+        "g_harm": run.evaluations + 1, "force_harm": run.evaluations + 1,
+        **refresh})
     p = rec["parity_t0"]
     log(f"[{tag}] {rec['atoms']} atoms on {rec['mesh']}: ghost fraction "
         f"{rec['ghost_fraction']:.3f} ({rec['ghost_rows_per_device']} rows "
@@ -4644,7 +4773,7 @@ def phase_script_halo(card):
     the CPU."""
     from meng_zhang_tpu_torch.scripts import halo_fraction
     tag = "script-halo"
-    run, launches, wall = scale_script(
+    run, launches, wall, _ = scale_script(
         tag, halo_fraction, ["--cells", str(SCRIPT_HALO_CELLS)])
     script_launches(tag, launches, {})
     rows = run.record["rows"]
@@ -4678,7 +4807,7 @@ def phase_script_bench(card, fe_rate):
     from meng_zhang_tpu_torch.scripts import bench
     tag = "script-bench"
     out = io.StringIO()
-    run, launches, wall = scale_script(
+    run, launches, wall, refresh = scale_script(
         tag, bench, ["--steps", str(SCRIPT_BENCH_STEPS)], stdout=out)
     lines = [line for line in out.getvalue().splitlines() if line.strip()]
     check(len(lines) == 1, f"{tag}: {len(lines)} stdout lines, expected 1")
@@ -4702,7 +4831,8 @@ def phase_script_bench(card, fe_rate):
     check(not bool(st.overflow), f"{tag}: neighbor overflow")
     check(not bool(st.unsafe), f"{tag}: unsafe (dangerous-build) latch set")
     got = script_launches(tag, launches, {"g_harm": run.evaluations,
-                                          "force_harm": run.evaluations})
+                                          "force_harm": run.evaluations,
+                                          **refresh})
     ev = run.evaluator
     planes = slice_planes(st.x, st.box, st.short.sidx, ev.pbc)
     shard_kernel_checks(tag, planes, path_cases("fe", ev.cfg,
@@ -4936,11 +5066,14 @@ def phase_fe_widest(x, box, card, tmp, paths, pot):
         check(launches[name] == FE_WIDEST_CLI_STEPS + 1,
               f"{tag}: {name} launched {launches[name]} times in the CLI "
               f"run, expected {FE_WIDEST_CLI_STEPS + 1} (init + one a step)")
-    check(sum(launches.values()) == 2 * launches["g_harm"],
+    # rows wider than kernels.MAX_K refresh their short list once an
+    # evaluation (models.annp's wide-row route)
+    short_launches(tag, launches, FE_WIDEST_CLI_STEPS + 1)
+    check(sum(launches.values()) == 3 * launches["g_harm"],
           f"{tag}: other kernels launched in the CLI run: {launches}")
     log(f"[{tag}] CLI Loop time rate {_loop_rate(err):.1f} atom-steps/s on "
         f"{card}; the phase took {time.time() - t_phase:.1f} s")
-    return figs, {k: launches[k] for k in ("g_harm", "force_harm")}
+    return figs, {k: launches[k] for k in FE_RUN_KERNELS}
 
 
 def phase_ni_widest(dev, card, tmp, pot):
@@ -5137,12 +5270,13 @@ def phase_ni_widest(dev, card, tmp, pot):
               f"{launches[name]} times in the CLI run, expected "
               f"{want * each} (init + one a step, {each} a call: rows of K "
               f"{ks} in chunks of <= {chunk})")
-    check(sum(launches.values()) == want * (1 + 2 * chunks),
+    short_launches(tag, launches, want)     # the wide-row route's refresh
+    check(sum(launches.values()) == want * (2 + 2 * chunks),
           f"{tag}: other kernels launched in the CLI run: {launches}")
     log(f"[{tag}] CLI Loop time rate {_loop_rate(err):.1f} atom-steps/s on "
         f"{card}; the phase took {time.time() - t_phase:.1f} s")
     return records, {k: launches[k] for k in (
-        "ni_g_tiles", "ni_force_tiles", "ni_force_tiles_sum")}
+        "ni_g_tiles", "ni_force_tiles", "ni_force_tiles_sum", "compact_short")}
 
 
 def phase_anna_widest(dev, card):
@@ -5234,14 +5368,15 @@ def run_phases(pool):
         x, box = scene(dev)
         cfg32, p32, cfg64, p64, mass = model(dev)
         records, sl = phase_kernels(x, box, cfg32, p32)
+        records.append(phase_short_list(dev, card))
         fe_ref = []
         phase_evaluator(x, box, cfg32, p32, cfg64, p64, sl, ref_out=fe_ref)
         launches, *main_rate = phase_main_path(x, box, cfg32, p32, mass,
                                                card)
         phase_evaluator(x, box, cfg32, p32, cfg64, p64, sl, angular="matrix")
         phase_matrix_vs_harmonic(x, box, cfg64, p64, sl)
-        launches.update(phase_main_path(x, box, cfg32, p32, mass, card,
-                                        angular="matrix")[0])
+        add_launches(launches, phase_main_path(x, box, cfg32, p32, mass,
+                                               card, angular="matrix")[0])
         multi_launches, types = phase_multi_fe(x, box, sl, card, main_rate)
         # launches of the new paths' runs, added to the records' counts
         extra = {"multi-fe": multi_launches,
@@ -5278,7 +5413,7 @@ def run_phases(pool):
         phase_ni_evaluator(x, box, cfg32, p32, cfg64, p64, sl, ni_ref)
         ni_launches, ni_rate = phase_ni_main_path(dev, cfg32, p32, mass,
                                                   card)
-        launches.update(ni_launches)
+        add_launches(launches, ni_launches)
         extra["shard-ni"] = phase_shard_ni(dev, x, box, cfg32, p32, cfg64,
                                            p64, mass, card, ni_ref, ni_rate)
         extra["shard3d-ni"] = phase_shard_ni(dev, x, box, cfg32, p32, cfg64,

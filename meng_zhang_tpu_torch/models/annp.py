@@ -300,6 +300,9 @@ def _short_list(ev, cfg, params, x, box, nbr_idx, x_ext=None, rc_scale=1.0):
     ev.k_short columns where they fit and otherwise to the widest row's
     count rounded up to whole tiles, which the kernels take in tiles (the
     JAX CLI's route compacts rows the same way, `compact_neighbor_rows`).
+    On the card the compacted rows keep nbr_idx's order: ascending, as
+    the ShortList contract has it, for lists from system/neighbors.py;
+    the same partners in the caller's order otherwise.
     x_ext: the image-extended table the rows index."""
     if nbr_idx.shape[1] <= ev.k_short:
         return fa.ShortList(nbr_idx, x, torch.zeros(

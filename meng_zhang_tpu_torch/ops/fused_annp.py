@@ -5,9 +5,11 @@ of its angular paths:
   * tables `cheb_legendre`, `harm_tables`, `harm_layout` (:229-296), in
     numpy (the JAX module imports jax);
   * `pair_dx_planes` (:577) without the x8 packing and TILE padding;
-  * `compact_short` with the rev-free semantics of `_compact_block_norev`
-    (:698): rows keep the entries within rc + short_delta, ascending by
-    partner id, padded with n;
+  * `compact_short_plain` with the rev-free semantics of
+    `_compact_block_norev` (:698): rows keep the entries within
+    rc + short_delta, ascending by partner id, padded with n; the plain
+    twin of the CUDA kernel in csrc/short_list.cu, which `compact_short`
+    launches through ops/kernels.py;
   * `g_harm_plain` / `force_harm_plain`: plain PyTorch versions of the two
     harmonic-path TPU kernels `_g_kernel_harm` (:299) and
     `_force_kernel_harm` (:352); their CUDA kernels live in
@@ -172,13 +174,25 @@ def pair_dx_planes(x, box, sidx, pbc, row0=0, x_ext=None):
 
 class ShortList(NamedTuple):
     """Refresh-static short-neighbor list (see compact_short)."""
-    sidx: torch.Tensor       # [N, Ks] int64 ascending partner ids, n filler
+    sidx: torch.Tensor       # [N, Ks] int64 partner ids, n filler:
+                             # ascending from the port's list builds
     ref_x: torch.Tensor      # [N, 3] positions at compaction
     overflow: torch.Tensor   # bool: some row had > Ks entries within rc_s
 
 
-def compact_short(x, box, nbr_idx, rc_s, ks, pbc, row_chunk=16384,
-                  x_ext=None):
+def compact_short(x, box, nbr_idx, rc_s, ks, pbc, x_ext=None):
+    """The short list of compact_short_plain: one launch of the
+    hand-written kernel (kernels.compact_short, csrc/short_list.cu) for
+    CUDA tensors, which keeps each row's in-range partners in the skin
+    row's order and makes no host read; compact_short_plain itself for
+    CPU tensors. The two agree where the skin rows are ascending by
+    partner id, as every build in system/neighbors.py writes them; rows
+    in another order keep it on the card (the same partners, unsorted)."""
+    return kernels.compact_short(x, box, nbr_idx, rc_s, ks, pbc, x_ext=x_ext)
+
+
+def compact_short_plain(x, box, nbr_idx, rc_s, ks, pbc, row_chunk=16384,
+                        x_ext=None):
     """Compact each skin-list row to its entries within rc_s, ascending by
     partner id, padded with the sentinel (n, or R*n for rows that index
     the image-extended table x_ext) to Ks columns (rev-free,
@@ -657,14 +671,14 @@ class FusedAnnp(FrameOps):
     refresh-static short list. angular: "harmonic" (g_harm / force_harm)
     selects the harmonic path, any other value the cos-matrix path (g_cos /
     force_cos), as `PallasAnnp(angular=...)` does. plain=True runs the plain
-    PyTorch versions of the kernels on any device (the f64 reference on the
-    card); with plain=False the kernel wrappers run, which launch the CUDA
-    kernels for CUDA tensors and take the plain versions only for CPU
-    tensors. elems [N] (int): each atom's element, which selects its
-    network on a multi-element potential (`mlp_eat_dedg`), as
-    `PallasAnnp(elems=...)` does; the evaluation methods also take elems
-    per call, which overrides these. None evaluates every atom with the
-    first element's network.
+    PyTorch versions of the kernels (the compaction's too) on any device
+    (the f64 reference on the card); with plain=False the kernel wrappers
+    run, which launch the CUDA kernels for CUDA tensors and take the plain
+    versions only for CPU tensors. elems [N] (int): each atom's element,
+    which selects its network on a multi-element potential
+    (`mlp_eat_dedg`), as `PallasAnnp(elems=...)` does; the evaluation
+    methods also take elems per call, which overrides these. None
+    evaluates every atom with the first element's network.
 
     Built for a CUDA device, it turns TF32 off for matmuls and cuDNN
     (process-wide flags): the angular descriptors come out of S_l @ cmat
@@ -704,8 +718,9 @@ class FusedAnnp(FrameOps):
         return self.cfg.cut
 
     def compact_short(self, x, box, nbr_idx):
-        return compact_short(x, box, nbr_idx, self.cfg.cut + self.short_delta,
-                             self.k_short, self.pbc)
+        fn = compact_short_plain if self.plain else compact_short
+        return fn(x, box, nbr_idx, self.cfg.cut + self.short_delta,
+                  self.k_short, self.pbc)
 
     def _mlp_eat_dedg(self, g, el=None):
         """MLP + VJP from raw descriptors g [P, 128], each row through the
@@ -801,7 +816,7 @@ class FusedAnnp(FrameOps):
         """Full evaluation from a skin list: compact to Ks at rc, then the
         same per-step evaluation. Overflow of Ks NaN-poisons the
         outputs."""
-        sl = compact_short(x, box, nbr_idx, self.cfg.cut, self.k_short,
-                           self.pbc)
+        fn = compact_short_plain if self.plain else compact_short
+        sl = fn(x, box, nbr_idx, self.cfg.cut, self.k_short, self.pbc)
         return self.energy_forces_short(x, box, sl, want_virial, shift,
                                         per_atom, elems)

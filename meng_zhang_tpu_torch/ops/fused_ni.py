@@ -492,10 +492,10 @@ class FusedNi(FrameOps):
     = 512, the JAX fused evaluators' ceiling (the chunked functions of
     models/annp.py take wider rows). short_delta: the inner skin of the
     refresh-static short list. plain=True runs the plain PyTorch versions
-    of the two kernels on any device (the f64 reference on the card); with
-    plain=False the kernel wrappers run, which launch the CUDA kernels for
-    CUDA tensors and take the plain versions only for CPU tensors. elems:
-    each atom's element, as in FusedAnnp.
+    of its kernels (ni_g, ni_force, the compaction) on any device (the f64
+    reference on the card); with plain=False the kernel wrappers run, which
+    launch the CUDA kernels for CUDA tensors and take the plain versions
+    only for CPU tensors. elems: each atom's element, as in FusedAnnp.
 
     Built for a CUDA device, it turns TF32 off for matmuls and cuDNN
     (process-wide flags), as FusedAnnp does: min-max normalisation divides
@@ -533,9 +533,9 @@ class FusedNi(FrameOps):
         return self.rc
 
     def compact_short(self, x, box, nbr_idx):
-        return fa.compact_short(x, box, nbr_idx,
-                                self.short_rc + self.short_delta,
-                                self.k_short, self.pbc)
+        fn = fa.compact_short_plain if self.plain else fa.compact_short
+        return fn(x, box, nbr_idx, self.short_rc + self.short_delta,
+                  self.k_short, self.pbc)
 
     def _mlp_eat_dedg(self, g, el=None):
         """MLP + VJP from raw descriptors g [P, 32], each row through the

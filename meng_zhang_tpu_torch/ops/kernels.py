@@ -8,8 +8,11 @@
 meng_zhang_tpu/ops/pallas_ni.py:126) and `ni_force` (replaces
 `_ni_force_kernel`, :170), and for rows wider than NI_MAX_K their
 cross-tile instances `ni_g_tiles` and `ni_force_tiles` (the same TPU
-kernels), the latter with its second kernel `ni_force_tiles_sum`. Every `.cu` under `csrc/` is compiled at first
-use by `nvcc` for `sm_90a` into its own plain-C shared library under
+kernels), the latter with its second kernel `ni_force_tiles_sum`;
+`csrc/short_list.cu` holds `compact_short`, the short-list compaction,
+which replaces no TPU kernel (the JAX package leaves it to XLA). Every
+`.cu` under `csrc/` is compiled at first use by `nvcc` for `sm_90a` into
+its own plain-C shared library under
 `meng_zhang_tpu_torch/_build/<hash of the sources, headers and flags>/`
 (one nvcc per source, all started together), and bound with ctypes;
 kernels run on PyTorch's current stream.
@@ -34,6 +37,7 @@ import time
 import numpy as np
 import torch
 
+from .. import profiling
 from . import fused_annp, fused_ni
 
 _CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
@@ -135,9 +139,12 @@ def _libs():
     vp, ll, ci, cd = (ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
                       ctypes.c_double)
     libs = {stem: ctypes.CDLL(path) for stem, path in build()[0].items()}
-    harm, gcos, cos, ni = (libs[stem] for stem in (
-        "annp_harm", "annp_gcos", "annp_cos", "ni_bp"))
+    harm, gcos, cos, ni, short = (libs[stem] for stem in (
+        "annp_harm", "annp_gcos", "annp_cos", "ni_bp", "short_list"))
     for suffix in ("f32", "f64"):
+        fn = getattr(short, f"compact_short_{suffix}")
+        fn.argtypes = [vp] * 5 + [ci, cd, ll, ci, ci, ll] + [vp] * 4
+        fn.restype = ci
         g = getattr(harm, f"annp_g_harm_{suffix}")
         g.argtypes = [vp] * 6 + [ll, ci, ci, ci, cd, vp]
         g.restype = ci
@@ -670,6 +677,78 @@ def _check_part(part, planes, nt):
                          "planes")
 
 
+# ------------------------------------------------------- short list
+class CompactShort:
+    """compact_short(x, box, nbr_idx, rc_s, ks, pbc, x_ext=None) ->
+    fused_annp.ShortList: each skin-list row's partners within rc_s, in the
+    row's order, padded with the sentinel to Ks columns; see
+    fused_annp.compact_short_plain, its plain twin, which the CPU takes.
+    The kernel does not sort: it equals the twin, which does, on rows
+    ascending by partner id, as the builds of system/neighbors.py write
+    them; other rows keep their own order.
+    On the card one launch and no host read: the kernel also writes each
+    row's count of partners within rc_s (the `nbr.short_lanes` counter
+    with tracing on) and raises the overflow flag. The box may lie on the
+    card (read there) or on the host (passed by value, and divided by as
+    torch divides a CUDA tensor by a CPU scalar)."""
+
+    def __init__(self):
+        self.launches = 0
+
+    def __call__(self, x, box, nbr_idx, rc_s, ks, pbc, x_ext=None):
+        if x.device.type == "cpu":
+            return fused_annp.compact_short_plain(x, box, nbr_idx, rc_s, ks,
+                                                  pbc, x_ext=x_ext)
+        rows = x.shape[0]
+        if x.device.type != "cuda" or x.dtype not in _SUFFIX:
+            raise ValueError(f"x: float32 or float64 on the card or the CPU, "
+                             f"got {x.dtype} on {x.device}")
+        for name, t in (("x", x), ("x_ext", x if x_ext is None else x_ext)):
+            if t.device != x.device or t.dtype != x.dtype or t.dim() != 2 \
+                    or t.shape[1] != 3:
+                raise ValueError(f"{name} must be an [M, 3] tensor of x's "
+                                 "dtype and device")
+        if nbr_idx.device != x.device or nbr_idx.dtype != torch.int64 \
+                or nbr_idx.dim() != 2 or nbr_idx.shape[0] != rows:
+            raise ValueError(f"nbr_idx must be a [{rows}, K] int64 tensor on "
+                             "x's device")
+        if ks < 0:
+            raise ValueError(f"Ks = {ks} < 0")
+        # copies only where the caller's layout is not row-major
+        xc, idx = x.contiguous(), nbr_idx.contiguous()
+        src = xc if x_ext is None else x_ext.contiguous()
+        if isinstance(box, torch.Tensor) and box.device == x.device:
+            box_dev = box.to(x.dtype).contiguous()
+            if box_dev.shape != (3,):
+                raise ValueError("box must hold 3 edges")
+            box_host = np.zeros(3)
+        else:
+            box_dev = None
+            box_host = np.ascontiguousarray(
+                torch.as_tensor(box, dtype=torch.float64).cpu(),
+                dtype=np.float64).reshape(3)
+        profiling.count("nbr.shorts", 1)
+        profiling.count("nbr.short_slots", rows * ks)
+        sidx = torch.empty((rows, ks), dtype=torch.int64, device=x.device)
+        lanes = torch.empty((rows,), dtype=torch.int32, device=x.device)
+        overflow = torch.empty((), dtype=torch.bool, device=x.device)
+        fn = getattr(_libs()["short_list"],
+                     f"compact_short_{_SUFFIX[x.dtype]}")
+        with torch.cuda.device(x.device):
+            stream = torch.cuda.current_stream().cuda_stream
+            rc_ = fn(xc.data_ptr(), src.data_ptr(), idx.data_ptr(),
+                     None if box_dev is None else box_dev.data_ptr(),
+                     box_host.ctypes.data,
+                     sum(1 << a for a in range(3) if pbc[a]), float(rc_s),
+                     rows, idx.shape[1], ks, src.shape[0],
+                     sidx.data_ptr(), lanes.data_ptr(), overflow.data_ptr(),
+                     stream)
+        _raise_on(rc_, "compact_short")
+        self.launches += 1
+        profiling.count("nbr.short_lanes", lanes)
+        return fused_annp.ShortList(sidx, x, overflow)
+
+
 g_harm = GHarm()
 force_harm = ForceHarm()
 g_cos = GCos()
@@ -679,11 +758,13 @@ ni_force = NiForce()
 ni_g_tiles = NiGTiles()
 ni_force_tiles = NiForceTiles()
 ni_force_tiles_sum = NiForceTilesSum()
+compact_short = CompactShort()
 
 
 # every kernel wrapper of this module, by name
 WRAPPERS = ("g_harm", "force_harm", "g_cos", "force_cos", "ni_g", "ni_force",
-            "ni_g_tiles", "ni_force_tiles", "ni_force_tiles_sum")
+            "ni_g_tiles", "ni_force_tiles", "ni_force_tiles_sum",
+            "compact_short")
 
 
 def reset_launch_counts():

@@ -29,7 +29,8 @@ mdbench/stages.py):
                                FusedAnnp._eval_fj, FusedNi._eval_fj
   counters: md.steps, nbr.builds (md/simulation.py); nbr.shorts,
   nbr.short_lanes (partners within the short list's radius), nbr.short_slots
-  (rows x Ks) (ops/fused_annp.compact_short)
+  (rows x Ks) (ops/kernels.compact_short on the card,
+  ops/fused_annp.compact_short_plain)
 """
 from __future__ import annotations
 
