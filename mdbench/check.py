@@ -35,16 +35,22 @@ they were built at, and the program's flags. The numbers compared:
 The control (`control=True`) puts the reference, computed in TF32, in the
 program's place for every number it can produce: the forces, the energy,
 the virial and the sample's step.
+
+The reference of a configuration is what `reference(pot)` returns (its
+docstring gives the contract): a configuration's reference module may
+bring its own model; one that brings none is judged by the ANNP's
+(`reference/model.py`).
 """
 from __future__ import annotations
 
 import math
+from typing import Callable, NamedTuple
 
 import torch
 
+from mdbench import found
 from mdbench.reference import neighbors as nb
 from mdbench.reference.integrate import BOLTZ, MVV2E, NKTV2P, Step
-from mdbench.reference.model import Model, evaluate
 
 BAND = 1.0e-3                # A, either side of a list's cutoff
 # float32 tolerances of the step's other outputs: x within 2^-20 (|x| + 1)
@@ -86,15 +92,51 @@ def list_misses(x_ref, box, pbc, idx, cutoff, rows):
     return missing + wrong + twice
 
 
-def sample_forces(model, x, box, pbc, atoms):
-    """The model's forces on `atoms`, from every row they reach."""
-    x = x.to(model.prec.dtype)
-    box = box.to(model.prec.dtype)
-    grid = nb.Grid(x, box, pbc, model.cut)
-    idx, _, valid = nb.partners(grid, atoms)
-    rows = torch.unique(torch.cat([atoms, idx[valid]]))
-    _, f, _ = evaluate(model, x, box, pbc, rows=rows, grid=grid)
-    return f[atoms].double()
+class Reference(NamedTuple):
+    """A configuration's reference: the hooks of `reference(pot)`."""
+    Model: type
+    evaluate: Callable
+    forces_on: Callable
+
+
+HOOKS = Reference._fields
+
+
+def reference(pot):
+    """The reference that judges a configuration, from its reference
+    module (`reference/<pot["reference"]>.py`), which may define
+
+      Model(pot, device, control=False)
+            the potential in float64; with control=True the control, the
+            same computed in the next precision below the configuration's
+            (TF32 for float32);
+      evaluate(model, x, box, pbc, grad=True)
+            -> (E, F [N, 3], W [3, 3]) over every atom: E summed in
+            float64; F the forces the program must match; W the virial,
+            symmetrised: W_ab = sum of dx_a f_b over each term of a pair,
+            dx = x_i - x_j and f the term's force on i; F and W None
+            with grad=False;
+      forces_on(model, x, box, pbc, atoms)
+            -> the exact forces [len(atoms), 3] (float64) on `atoms`,
+            taking whatever rows they need (one shell of partners where
+            an atom's force reads its partners' energies, two where it
+            reads fields that read theirs).
+
+    F is whatever the published potential defines as the force: -dE/dx
+    for the ANNPs; for a potential whose forces are not -dE/dx the
+    reference computes the published force formula itself. A module
+    defines all three or none; with none, `reference/model.py`'s (the
+    ANNP: E_i = e_scale * nn(G_i) from the module's `descriptors`, forces
+    by autograd, a sample's forces from one shell of rows) judge it."""
+    mod = found.load("reference", pot["reference"])
+    own = [k for k in HOOKS if hasattr(mod, k)]
+    if own and len(own) < len(HOOKS):
+        raise ValueError(f"reference/{pot['reference']}.py defines "
+                         f"{', '.join(own)} but not all of "
+                         f"{', '.join(HOOKS)}")
+    if not own:
+        from mdbench.reference import model as mod
+    return Reference(*(getattr(mod, k) for k in HOOKS))
 
 
 def _press(v, mass, w, box):
@@ -115,10 +157,13 @@ def _state(s, dev):
 
 def numbers(cap, pot, wl, seed, device, control=False, ref=None):
     """{name: value} of the comparison (module docstring); `ref`, a float64
-    Model to reuse. With control=True, the control's numbers."""
+    model of `reference(pot)` to reuse. With control=True, the control's
+    numbers."""
     ck, md = wl["check"], wl["md"]
     pbc = tuple(wl["scene"]["pbc"])
-    ref = ref or Model(pot, device)
+    hooks = reference(pot)
+    evaluate, forces_on = hooks.evaluate, hooks.forces_on
+    ref = ref or hooks.Model(pot, device)
     s0, s1 = cap.s0, cap.s1
     n = s1["x"].shape[0]
     atoms = seeded(n, ck["atoms"], seed, 1).to(device)
@@ -134,25 +179,25 @@ def numbers(cap, pot, wl, seed, device, control=False, ref=None):
                         rc + md["skin"], rows)
             + list_misses(s1["short_x"], s1["short_box"], pbc,
                           s1["short_idx"], rc + wl["short_delta"], rows))
-    fr0 = sample_forces(ref, x0, b0, pbc, atoms)
+    fr0 = forces_on(ref, x0, b0, pbc, atoms)
     if virial:
         e1, f_all, w1 = evaluate(ref, x1, b1, pbc)
         fr1 = f_all[atoms]
         del f_all
     else:
-        fr1 = sample_forces(ref, x1, b1, pbc, atoms)
+        fr1 = forces_on(ref, x1, b1, pbc, atoms)
         e1, _, _ = evaluate(ref, x1, b1, pbc, grad=False)
         w1 = None
     if control:
-        ctl = Model(pot, device, control=True)
-        fp0 = sample_forces(ctl, x0, b0, pbc, atoms)
+        ctl = hooks.Model(pot, device, control=True)
+        fp0 = forces_on(ctl, x0, b0, pbc, atoms)
         if virial:
             ep1, f_all, wp1 = evaluate(ctl, x1, b1, pbc)
             fp1 = f_all[atoms].double()
             wp1 = wp1.double()
             del f_all
         else:
-            fp1 = sample_forces(ctl, x1, b1, pbc, atoms)
+            fp1 = forces_on(ctl, x1, b1, pbc, atoms)
             ep1, _, _ = evaluate(ctl, x1, b1, pbc, grad=False)
     else:
         fp0 = s0["f"][atoms].double()

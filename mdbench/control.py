@@ -39,7 +39,7 @@ def main(argv=None):
         t0 = time.monotonic()
         r = harness.simulate(root, args.workload, seed, args.seconds, False,
                              dev, t0)
-        ref = check.Model(r.pot, dev)
+        ref = check.reference(r.pot).Model(r.pot, dev)
         row = {"seed": seed, "steps": r.steps, "wall": r.wall,
                "setup_s": r.setup_s, "rebuilds": r.rebuilds,
                "program": check.numbers(r.cap, r.pot, r.wl, seed, dev,

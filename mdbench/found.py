@@ -2,8 +2,30 @@
 a scene builder (`scenes/<name>.py`), a program path (`paths/<name>.py`), a
 per-layer metric's reader (`metrics/<name>.py`) and the data files of
 configurations and cells (`configs/<name>.json`, `workloads/<name>.json`).
-Later cells and metrics add files; nothing here lists them. Python files
-found so import the rest of the benchmark absolutely (`mdbench.<module>`).
+Python files found so import the rest of the benchmark absolutely
+(`mdbench.<module>`).
+
+A later configuration, cell or metric adds files and manifest entries,
+and nothing here lists them:
+
+  configs/<config>.json      its sizes; `reference` names its module
+  workloads/<cell>.json      scene, `path`, md settings, check sizes and
+                             limits
+  reference/<name>.py        `make_potential(config, device)` (the
+                             potential dict both sides are handed) and
+                             `work(pot, census)` (FLOPs and bytes a
+                             kernel, `CENSUS_LEGS` for leg pairs); for a
+                             model of another shape than the ANNP, its own
+                             `Model`, `evaluate` and `forces_on`
+                             (check.reference), else the ANNP's judge it
+                             (with its `descriptors`)
+  paths/<name>.py            `build(pot, wl, device)`: the program side
+                             (program.py: cutoff, energy_forces,
+                             short_build, short_list)
+  scenes/<name>.py           `build(spec, config, device)` -> (x, box)
+  metrics/<metric>.py        `read(ctx)`, None where nothing is to read;
+                             a span a path opens under `eval.`, `nbr.` or
+                             `md.` is read through stages.per_step_ms
 """
 from __future__ import annotations
 

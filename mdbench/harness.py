@@ -10,6 +10,15 @@ blocks, which run every shape the window uses. The window runs whole thermo bloc
 short-list refreshes fall inside it. With trace, two stretches follow it:
 `span_blocks` blocks under the harness's synchronised spans, and
 `profile_blocks` blocks under torch.profiler.
+
+What belongs to a model comes through hooks found by name, with no
+branch here: the program side from the cell's path (`program.py`:
+`paths/<name>.py` `build`; the short list's ids, build positions and
+overflow through its `short_list`), the reference from the
+configuration's reference module (`check.reference`: its own `Model`,
+`evaluate` and `forces_on`, or by default the ANNP's in
+`reference/model.py`), its census legs and work (`CENSUS_LEGS`, `work`),
+and each per-layer metric's reader (`metrics/<name>.py`).
 """
 from __future__ import annotations
 
@@ -86,16 +95,13 @@ class Recorder:
             rec_step
 
 
-def _state_dict(s, box_nbrs=None, box_short=None):
-    """A state's tensors the check reads; with the boxes the skin list and
-    the short list were built in, also the lists."""
+def _state_dict(s, lists=None):
+    """A state's tensors the check reads, and `lists` (the skin list's and
+    the short list's ids, build positions and boxes) where given."""
     d = {"x": s.x, "v": s.v, "f": s.f, "box": s.box, "pe": s.pe,
          "virial": s.virial, "nhc": (s.nhc.xi, s.nhc.v_xi),
          "v_eps": s.v_eps, "baro": (s.baro_nhc.xi, s.baro_nhc.v_xi)}
-    if box_nbrs is not None:
-        d.update(nbrs_idx=s.nbrs.idx, nbrs_x=s.nbrs.ref_x, nbrs_box=box_nbrs,
-                 short_idx=s.short.sidx, short_x=s.short.ref_x,
-                 short_box=box_short)
+    d.update(lists or {})
     return d
 
 
@@ -206,12 +212,15 @@ def simulate(root, name, seed, seconds, trace, dev, t_start):
 
     # ---- what the timed path produced ----
     th = sim.thermo(st)
+    short_idx, short_x, short_overflow = prog.side.short_list(st.short)
     s0 = _state_dict(rec.inputs[1])
-    s1 = _state_dict(st, rec.nbrs_box, rec.short_box)
+    s1 = _state_dict(st, dict(
+        nbrs_idx=st.nbrs.idx, nbrs_x=st.nbrs.ref_x, nbrs_box=rec.nbrs_box,
+        short_idx=short_idx, short_x=short_x, short_box=rec.short_box))
     nonfinite = not all(bool(torch.isfinite(t).all()) for t in
                         (st.x, st.v, st.f, st.pe, st.virial))
     flags = {"overflow": bool(st.overflow), "unsafe": bool(st.unsafe),
-             "short_overflow": bool(st.short.overflow),
+             "short_overflow": bool(short_overflow),
              "nonfinite": nonfinite}
     cap = check.Capture(s0, s1, float(th.press), flags)
     del st, sim, prog, rec, th
@@ -229,8 +238,7 @@ def report(r):
     steps, wall, peak, trace, tr, cap = (r.steps, r.wall, r.peak, r.traced,
                                          r.trace, r.cap)
     flags = cap.flags
-    ref = check.Model(pot, dev)
-    values = check.numbers(cap, pot, wl, r.seed, dev, ref=ref)
+    values = check.numbers(cap, pot, wl, r.seed, dev)
     correct, table, failed = check.verdict(values, wl["limits"])
     for k, val in flags.items():
         if val:

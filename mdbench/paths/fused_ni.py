@@ -6,3 +6,8 @@ def evaluator(mcfg, params, wl):
     from meng_zhang_tpu_torch.ops.fused_ni import FusedNi
     return FusedNi(mcfg, params, k_short=wl["k_short"],
                    short_delta=wl["short_delta"])
+
+
+def build(pot, wl, device):
+    from mdbench import annp
+    return annp.Side(pot, wl, device, evaluator)

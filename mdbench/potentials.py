@@ -36,7 +36,9 @@ def paired_wells(rng, g0n, nnod, v_scale):
 
 def permuted(pot, seed):
     """pot with its hidden units in an order drawn from seed (the same
-    function)."""
+    function); a potential with no network (no `weights`) as it is."""
+    if "weights" not in pot:
+        return dict(pot)
     rng = np.random.default_rng(seed)
     (w1, w2, w3), (b1, b2, b3) = pot["weights"], pot["biases"]
     p1, p2 = rng.permutation(len(b1)), rng.permutation(len(b2))

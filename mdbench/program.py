@@ -1,61 +1,51 @@
 """The system under test, driven as its users drive it: the
-meng_zhang_tpu_torch Simulator over an evaluator of the port (the path a
-cell names, `paths/<name>.py`), in float32. This module and the paths are
-the only ones of the benchmark that import the program, and only when a
-run calls them."""
+meng_zhang_tpu_torch Simulator over the program side of the path a cell
+names, in float32. This module and the paths (and the helpers they call,
+such as `annp.py`) are the only ones of the benchmark that build the
+program (stages.py reads its spans), and only when a run calls them.
+
+A path, `paths/<name>.py`, has `build(pot, wl, device)`: from the
+potential dict and the cell's workload, an object with
+
+  cutoff                 the model's cutoff (A); the skin list's is cutoff
+                         + md.skin, the short list's cutoff + short_delta
+  energy_forces(x, box, nbrs, short, want_virial)
+                         -> (E, F [N, 3], W [3, 3] or None without
+                         want_virial), against the skin list nbrs (the
+                         port's NeighborList) and the short list
+  short_build(x, box, nbrs)
+                         -> the short list, of any type with .ref_x (what
+                         the Simulator keeps and hands back)
+  short_list(short)      -> (partner ids [N, Ks], sentinel N; the
+                         positions it was built at; its overflow flag),
+                         what the check and the flags read
+
+`Program.relax` (a relaxed scene's FIRE) needs energy_forces and
+short_build alone. Program keeps only what every model shares: the
+MDConfig of the workload, the masses, the Simulator and the virial policy
+(`md.virial`: `every` step, `block_end` through a light force callable,
+or `never`).
+"""
 from __future__ import annotations
 
 import numpy as np
 import torch
 
 
-def annp_potential(pot):
-    """The benchmark's potential dict as the program's parsed .ann."""
-    from meng_zhang_tpu_torch.io.potential import (AnnpPotential,
-                                                   NetworkParams,
-                                                   SYM_BEHLER, SYM_CHEBYSHEV)
-    bp = "coerad" in pot
-    net = NetworkParams(weights=tuple(np.asarray(w) for w in pot["weights"]),
-                        biases=tuple(np.asarray(b) for b in pot["biases"]),
-                        flagact=tuple(pot["flagact"]), act_style=pot["style"])
-    nsf = pot["npsf"] + pot["ntsf"]
-    return AnnpPotential(
-        elements=(pot.get("element", "X"),),
-        masses=np.asarray([pot["mass"]]), ntl=len(pot["weights"]) + 1,
-        nhl=len(pot["weights"]) - 1, nnod=len(pot["biases"][0]), nsf=nsf,
-        npsf=pot["npsf"], ntsf=pot["ntsf"],
-        # a BP file's header cutoff is the LAMMPS list's (6.5 A in the
-        # shipped ni file); the program reads the tables' Rc for its rows
-        cut=max(6.5, pot["cutoff"]) if bp else pot["cutoff"],
-        flagsym=SYM_BEHLER if bp else SYM_CHEBYSHEV,
-        norm_row0=np.asarray(pot["norm_row0"]),
-        norm_row1=np.asarray(pot["norm_row1"]),
-        norm_style=pot["norm_style"],
-        # BP: the program converts the network's Hartree itself
-        e_scale=1.0 if bp else pot["e_scale"], e_shift=pot["e_shift"],
-        e_atom=0.0, networks=(net,),
-        sym_coerad=np.asarray(pot["coerad"]) if bp else None,
-        sym_coeang=np.asarray(pot["coeang"]) if bp else None)
-
-
 class Program:
-    """The Simulator of a cell and its evaluator. sim.force_fn,
-    sim.force_fn_light, sim.short_build and sim.rebuild are what the
-    harness's spans wrap."""
+    """The Simulator of a cell over its path's program side (`side`).
+    sim.force_fn, sim.force_fn_light, sim.short_build and sim.rebuild are
+    what the harness's spans wrap."""
 
     def __init__(self, pot, wl, n, box, device):
         from mdbench import found
         from meng_zhang_tpu_torch.md.simulation import MDConfig, Simulator
-        from meng_zhang_tpu_torch.models.annp import (effective_cutoff,
-                                                      make_annp)
         from meng_zhang_tpu_torch.system.neighbors import cell_grid_dims
         md = wl["md"]
         pbc = tuple(wl["scene"]["pbc"])
-        ppot = annp_potential(pot)
-        mcfg, params = make_annp(ppot, torch.float32, device, pbc=pbc)
-        self.rc = effective_cutoff(ppot)
-        ev = found.load("paths", wl["path"]).evaluator(mcfg, params, wl)
-        self.evaluator = ev
+        side = found.load("paths", wl["path"]).build(pot, wl, device)
+        self.side = side
+        self.rc = side.cutoff
         dims = cell_grid_dims(np.asarray(box) * md.get("dims_share", 1.0),
                               self.rc + md["skin"])
         cell = min(dims) >= 3
@@ -74,33 +64,32 @@ class Program:
         virial = md.get("virial", "every")
 
         def force_fn(x, b, nbrs, short):
-            if virial == "never":
-                e, f = ev.energy_forces_short(x, b, short, want_virial=False)
-                return e, f, x.new_zeros(3, 3)
-            return ev.energy_forces_short(x, b, short)
+            e, f, w = side.energy_forces(x, b, nbrs, short,
+                                         virial != "never")
+            return e, f, x.new_zeros(3, 3) if w is None else w
 
         def force_fn_light(x, b, nbrs, short):
-            e, f = ev.energy_forces_short(x, b, short, want_virial=False)
+            e, f, _ = side.energy_forces(x, b, nbrs, short, False)
             return e, f, x.new_zeros(3, 3)
 
         masses = torch.full((n,), float(pot["mass"]), dtype=torch.float32,
                             device=device)
         self.sim = Simulator(
-            force_fn, masses, self.cfg,
-            short_build=lambda x, b, nbrs: ev.compact_short(x, b, nbrs.idx),
+            force_fn, masses, self.cfg, short_build=side.short_build,
             force_fn_light=force_fn_light if virial == "block_end" else None)
 
     def relax(self, x, box, opts):
-        """FIRE on one skin list, each evaluation on a fresh compaction, as
+        """FIRE on one skin list, each evaluation on a fresh short list, as
         the program's scale_demo relaxes the 2M scene: the relaxed
         positions and the iterations."""
         from meng_zhang_tpu_torch.md.minimize import fire_minimize
-        ev = self.evaluator
+        side = self.side
 
-        def ef(xx, bb, idx):
-            return ev.energy_forces_short(xx, bb, ev.compact_short(xx, bb, idx),
-                                          want_virial=False)
+        def ef(xx, bb, nbrs):
+            e, f, _ = side.energy_forces(xx, bb, nbrs,
+                                         side.short_build(xx, bb, nbrs),
+                                         False)
+            return e, f
 
-        st = fire_minimize(ef, x, box, self.sim.build_nbrs(x, box).idx,
-                           **opts)
+        st = fire_minimize(ef, x, box, self.sim.build_nbrs(x, box), **opts)
         return st.x, int(st.n_iter)

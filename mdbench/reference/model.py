@@ -1,6 +1,9 @@
-"""The reference's energy, forces and virial: per-atom descriptors from a
-config's reference module (`reference/<name>.py`, function `descriptors`),
-the normalised network, E_i = e_scale * nn(G_i), forces by autograd.
+"""The default reference (check.reference): the ANNP's energy, forces and
+virial from per-atom descriptors of a config's reference module
+(`reference/<name>.py`, function `descriptors`), the normalised network,
+E_i = e_scale * nn(G_i), forces by autograd; `Model`, `evaluate` and
+`forces_on` are the hooks a reference module that brings its own model
+defines alike.
 
 Runs in float64. The control runs the same code in float32 with every
 matrix product's inputs rounded to TF32 (10 mantissa bits) and the sums
@@ -148,6 +151,17 @@ def evaluate(model, x, box, pbc, rows=None, grad=True, grid=None):
     if grad:
         w = 0.5 * (w + w.T)
     return e_tot, f, w
+
+
+def forces_on(model, x, box, pbc, atoms):
+    """The model's forces on `atoms`, from every row they reach."""
+    x = x.to(model.prec.dtype)
+    box = box.to(model.prec.dtype)
+    grid = nb.Grid(x, box, pbc, model.cut)
+    idx, _, valid = nb.partners(grid, atoms)
+    rows = torch.unique(torch.cat([atoms, idx[valid]]))
+    _, f, _ = evaluate(model, x, box, pbc, rows=rows, grid=grid)
+    return f[atoms].double()
 
 
 def descriptors_of(pot, x, box, device, rows=None):

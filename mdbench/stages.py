@@ -21,12 +21,17 @@ program's tracing off, and no reading of theirs comes from here.
     event (the profiler dropped records) is run again, twice at most.
 
 The state the stretches start from is the window's end (positions,
-velocities, box), given to init_state, then one untraced block. Only the
-spans of SPANS count; the device-side copies of the spans (user
-annotations) are not device work. A metric's reader calls
-`readings(ctx)`: the stretches run once a run, on its first call. A
-program without spans, and a run with no Simulator left to drive, give
-None; stretch (b) runs only on a CUDA device.
+velocities, box), given to init_state, then one untraced block. The spans
+that count are the program's by namespace (`is_span`): `eval` and every
+span named `eval.*`, `nbr.*` or `md.*`, so a span that a path or the
+program adds there (`eval.fields`) takes its own device time and idle
+gaps from the span that encloses it, with no edit here; the device-side
+copies of the spans (user annotations) are not device work. A metric's
+reader calls `readings(ctx)`: the stretches run once a run, on its first
+call, and `per_step_ms(ctx, table, names)` reads spans by whole name or
+by namespace (`"eval.*"`). A program without spans, and a run with no
+Simulator left to drive, give None; stretch (b) runs only on a CUDA
+device.
 """
 from __future__ import annotations
 
@@ -38,10 +43,7 @@ from typing import NamedTuple, Optional
 
 import torch
 
-SPANS = ("md.step", "md.integrate", "md.thermo", "md.stale_read",
-         "nbr.check", "nbr.build", "nbr.short", "eval", "eval.gather",
-         "eval.delivery", "eval.virial", "eval.descriptors", "eval.network",
-         "eval.forces")
+NAMESPACES = ("eval.", "nbr.", "md.")     # and `eval` itself
 OUTSIDE, UNLINKED, PROFILER = "outside", "(unlinked)", "profiler"
 WINDOW = "mdbench.stretch"
 # host events of the profiler itself (CUPTI's activity buffers)
@@ -88,6 +90,18 @@ class Readings(NamedTuple):
     charges: Optional[Charges]
 
 
+def is_span(name):
+    """Whether a host event is one of the program's spans that count."""
+    return name == "eval" or name.startswith(NAMESPACES)
+
+
+def selects(names, span):
+    """Whether `names` (whole span names, or `<namespace>.*` for every
+    span under it) take `span`."""
+    return any(span == k or (k.endswith(".*") and span.startswith(k[:-1]))
+               for k in names)
+
+
 def innermost(intervals, points):
     """For each point, the label of the shortest interval (start, end,
     label) holding it (start <= t <= end), or None."""
@@ -125,8 +139,8 @@ def charge(events, window):
     lo, hi = window
     host = [e for e in events if not e.device]
     work = [e for e in events if e.device and not e.annotation
-            and e.name not in SPANS]
-    spans = [(e.start, e.end, e.name) for e in host if e.name in SPANS]
+            and not is_span(e.name)]
+    spans = [(e.start, e.end, e.name) for e in host if is_span(e.name)]
     runtime = {}
     for e in host:
         if RUNTIME.match(e.name):
@@ -267,15 +281,20 @@ def _profiled(sim, st, blocks, dev):
 
 
 def per_step_ms(ctx, table, names):
-    """ms a step of stretch (b) charged to `names` in the Charges' `table`
-    ("device" or "idle"); None without stretch (b)."""
+    """ms a step of stretch (b) charged to the spans `names` select
+    (`selects`) in the Charges' `table` ("device" or "idle"); None
+    without stretch (b)."""
     r = readings(ctx)
     if r is None or r.charges is None or not r.profile_steps:
         return None
     got = getattr(r.charges, table)
-    return sum(got.get(k, 0) for k in names) / 1e6 / r.profile_steps
+    return sum(v for k, v in got.items() if selects(names, k)) / 1e6 \
+        / r.profile_steps
 
 
+# the spans each device_ms.* and idle_ms.* metric reads; a span added
+# under eval.* takes its device time out of `eval`'s self time (driver)
+# for a metric of its own, and its idle gaps stay in the evaluator's
 DEVICE_LAYERS = {
     "gather": ("eval.gather",), "network": ("eval.network",),
     "delivery": ("eval.delivery",), "virial": ("eval.virial",),
@@ -283,10 +302,8 @@ DEVICE_LAYERS = {
     "neighbor": ("nbr.check", "nbr.build", "nbr.short"),
     "driver": ("md.step", "md.integrate", "md.thermo", "md.stale_read",
                "eval")}
-IDLE_LAYERS = {
-    "evaluate": tuple(s for s in SPANS if s.split(".")[0] == "eval"),
-    "neighbor": tuple(s for s in SPANS if s.startswith("nbr.")),
-    "driver": tuple(s for s in SPANS if s.startswith("md."))}
+IDLE_LAYERS = {"evaluate": ("eval", "eval.*"), "neighbor": ("nbr.*",),
+               "driver": ("md.*",)}
 
 
 def _report(ctx, r):

@@ -63,7 +63,7 @@ t0 = time.monotonic()
 if a.get("control"):
     r = harness.simulate(os.getcwd(), a["cell"], a["seed"], a["seconds"],
                          False, dev, t0)
-    ref = check.Model(r.pot, dev)
+    ref = check.reference(r.pot).Model(r.pot, dev)
     out = {k: check.numbers(r.cap, r.pot, r.wl, a["seed"], dev,
                             control=c, ref=ref)
            for k, c in (("program", False), ("control", True))}

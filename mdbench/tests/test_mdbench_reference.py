@@ -9,8 +9,9 @@ import pytest
 import torch
 
 from mdbench import found, potentials
+from mdbench.annp import annp_potential
 from mdbench.lattice import lattice
-from mdbench.program import Program, annp_potential
+from mdbench.program import Program
 from mdbench.reference.integrate import Step
 from mdbench.reference.model import Model, evaluate
 
@@ -86,7 +87,7 @@ def test_step_matches_the_simulator(ensemble):
     masses = torch.full((len(x),), float(pot["mass"]), dtype=torch.float64)
     sim2 = type(sim)(sim.force_fn, masses, sim.cfg,
                      short_build=sim.short_build)
-    ev = prog.evaluator
+    ev = prog.side.evaluator
     from meng_zhang_tpu_torch.models.annp import make_annp
     mcfg, params = make_annp(annp_potential(pot), torch.float64, CPU)
     ev64 = type(ev)(mcfg, params, k_short=160, short_delta=0.4)

@@ -123,6 +123,36 @@ def test_readers_partition_per_step():
         pytest.approx(75.0)
 
 
+def test_a_span_under_eval_takes_its_own_time():
+    """A span that a later path opens inside `eval` (eval.fields, which no
+    list in stages.py names) is charged by its namespace: the launch made
+    inside it goes to it and not to `eval`'s self time, and the idle gap
+    inside it to the evaluator's idle layer."""
+    ev = [host(stages.WINDOW, 0, 1000, 1, annotation=True),
+          host("md.step", 0, 1000, 2, annotation=True),
+          host("eval", 100, 900, 3, annotation=True),
+          host("eval.fields", 200, 600, 4, annotation=True),
+          host("cudaLaunchKernel", 110, 115, 101),
+          host("cudaLaunchKernel", 210, 215, 102),
+          dev("phase1_kernel", 120, 200, 101),
+          dev("eval.fields", 250, 300, 4, annotation=True),
+          dev("fields_kernel", 250, 300, 102)]
+    c = stages.charge(ev, (0, 1000))
+    assert c.device == {"eval": 80, "eval.fields": 50}
+    assert c.idle == {"md.step": 120, "eval.fields": 50, "eval": 700}
+    ctx = _ctx(c)
+    assert stages.per_step_ms(ctx, "device", ("eval.fields",)) == \
+        pytest.approx(50 / 1e7)
+    assert found.load("metrics", "device_ms.driver").read(ctx) == \
+        pytest.approx(80 / 1e7)
+    assert found.load("metrics", "idle_ms.evaluate").read(ctx) == \
+        pytest.approx(750 / 1e7)
+    assert found.load("metrics", "idle_ms.driver").read(ctx) == \
+        pytest.approx(120 / 1e7)
+    assert stages.selects(stages.IDLE_LAYERS["evaluate"], "eval.fields")
+    assert not stages.is_span("mdbench.stretch")
+
+
 def test_readers_report_nothing_without_a_profiled_stretch(monkeypatch):
     """No stretch (b) (a CPU run): no device or idle reading; a program
     without spans: no reading at all, and nothing raised."""
